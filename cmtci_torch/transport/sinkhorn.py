@@ -1,0 +1,95 @@
+"""Kernel-argmax matcher (the tracker's "fixed" entropic OT alignment).
+
+Port of ``entropic_argmax_match`` from ``cmtci/transport/sinkhorn.py``
+(tci_construct_mandelbrot_v002_fixed.py:62-71 semantics): subsample the
+larger cloud to the smaller's size with the caller's numpy RNG, scale the
+distance matrix by its mean, K = exp(-M/eps), match = argmax over rows.
+
+backend="numpy" is the reference's exact op order (scipy cdist, full K);
+backend="torch" computes the same match blocked over rows on a device,
+without materializing K. Distances are sqrt(dx*dx + dy*dy), as the
+reference's ``_pairwise_dist`` writes them — not ``torch.cdist``, which
+switches to a matrix-product formula with other rounding on large inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cmtci_torch.utils.arrays import as_xy as _xy
+from cmtci_torch.utils.device import resolve_device
+
+MATCH_BACKENDS = ("numpy", "torch")
+
+
+def _pairwise_dist(a, b):
+    """Euclidean distances computed like cdist: sqrt of coordinate sums."""
+    dx = a[:, 0][:, None] - b[:, 0][None, :]
+    dy = a[:, 1][:, None] - b[:, 1][None, :]
+    return torch.sqrt(dx * dx + dy * dy)
+
+
+def _blocked_mean_dist(a, b, chunk: int = 2048):
+    """Mean pairwise distance accumulated per block of rows (0-dim tensor)."""
+    acc = torch.zeros((), dtype=a.dtype, device=a.device)
+    for i in range(0, a.shape[0], chunk):
+        acc = acc + torch.sum(_pairwise_dist(a[i : i + chunk], b))
+    return acc / (a.shape[0] * b.shape[0])
+
+
+def _argmax_kernel_rows(a, b, mean, eps: float, chunk: int = 2048):
+    """argmax_j exp(-(d_ij/mean)/eps) blocked over rows of a (int64 tensor).
+
+    Op order matches the reference (scale by mean, then by eps, then exp);
+    torch.argmax returns the first maximal index, as numpy does."""
+    out = torch.empty(a.shape[0], dtype=torch.int64, device=a.device)
+    for i in range(0, a.shape[0], chunk):
+        d = _pairwise_dist(a[i : i + chunk], b) / mean
+        k = torch.nan_to_num(torch.exp(-d / eps))
+        out[i : i + chunk] = torch.argmax(k, dim=1)
+    return out
+
+
+def _match_fused(a, b, eps: float, chunk: int = 2048):
+    """Mean pairwise distance, then the kernel-argmax rows."""
+    mean = _blocked_mean_dist(a, b, chunk=chunk)
+    return _argmax_kernel_rows(a, b, mean, eps, chunk=chunk)
+
+
+def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torch",
+                          dtype=None, device="cuda"):
+    """Match each x to argmax_j exp(-d/eps). Returns (y[match], x) like the
+    reference.
+
+    The larger cloud is first subsampled to the smaller's size with `rng`
+    (np.random or a RandomState, shared with the caller's stream). `dtype`
+    (torch dtype, default float64) is the torch backend's coordinate type on
+    `device`; the numpy backend ignores both.
+    """
+    if backend not in MATCH_BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {MATCH_BACKENDS}")
+    x = np.asarray(x)
+    y = np.asarray(y)
+    r = rng if rng is not None else np.random
+    n, m = len(x), len(y)
+    # complex 1-D inputs go through r.choice directly (the reference's exact
+    # RNG stream); (N,2) arrays are subsampled by index (choice needs 1-D)
+    if n > m:
+        x = r.choice(x, m, replace=False) if x.ndim == 1 else x[r.choice(n, m, replace=False)]
+    if m > n:
+        y = r.choice(y, n, replace=False) if y.ndim == 1 else y[r.choice(m, n, replace=False)]
+    ax, by = _xy(x), _xy(y)
+    if backend == "numpy":
+        from scipy.spatial.distance import cdist
+
+        d = cdist(ax, by)
+        d = d / d.mean()
+        k = np.nan_to_num(np.exp(-d / eps))
+        match = np.argmax(k, axis=1)
+    else:
+        dev = resolve_device(device)
+        dt = torch.float64 if dtype is None else dtype
+        match = _match_fused(torch.as_tensor(ax, dtype=dt, device=dev),
+                             torch.as_tensor(by, dtype=dt, device=dev), eps).cpu().numpy()
+    return y[match], x
