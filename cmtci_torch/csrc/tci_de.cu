@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "escape.cuh"
+
 namespace {
 
 // max that propagates NaN like jnp.maximum / torch.maximum (fmaxf(NaN, x)
@@ -53,17 +55,9 @@ __global__ void tci_de_kernel(float* __restrict__ out, int n, float xmin, float 
     const float cr = xmin + (float)col * dx;
     const float ci = ymin + (float)row * dy;
 
-    // _interior_mask: every literal is f32. 0.06249f is the f32 value of the
-    // reference's constant 0.0625 - 1e-5 (folded in double, then cast).
-    const float xm = cr - 0.25f;
-    const float q = xm * xm + ci * ci;
-    const bool in_cardioid = q * (q + xm) <= 0.25f * ci * ci - 1e-5f;
-    const float xp = cr + 1.0f;
-    const bool in_bulb = xp * xp + ci * ci <= 0.06249f;
-
     float zr = 0.0f, zi = 0.0f, dzr = 1.0f, dzi = 0.0f, lzr = 0.0f, lzi = 0.0f;
     bool esc = false;
-    if (!(in_cardioid || in_bulb)) {
+    if (!interior_mask(cr, ci)) {
         for (int it = 0; it < max_iter; ++it) {
             const float tr = 2.0f * zr;
             const float ti = 2.0f * zi;

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled at first use into a shared library with
 a plain C entry point, under ``build/cmtci_torch/<name>-<hash>/`` at the root
-of the checkout, keyed by a hash of the source and the flags, then loaded
+of the checkout, keyed by a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, then loaded
 with ctypes. A source with no PyTorch headers compiles in seconds (the
 ``torch.utils.cpp_extension`` route takes minutes per build). Nothing is
 compiled or loaded at import time: this module is imported on machines
@@ -48,14 +49,21 @@ def nvcc_path() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """Build key of csrc/<name>.cu: a hash of its bytes, of every
+    csrc/*.cuh (so that a header edit rebuilds) and of the flags."""
+    headers = b"".join(h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    blob = (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
 def library(name: str) -> ctypes.CDLL:
     """ctypes handle of csrc/<name>.cu, built on first use. Raises on a
     failed build (the compiler's output is in the exception)."""
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / f"{name}-{digest}"
+    out_dir = BUILD_DIR / f"{name}-{source_digest(name)}"
     so = out_dir / f"lib{name}.so"
     t0 = time.perf_counter()
     if not so.exists():

@@ -1,10 +1,11 @@
-"""Mandelbrot TCI distance-estimator field and the boundary-band sampler.
+"""Mandelbrot dwell grid, Green potential, TCI distance-estimator field and
+the boundary-band sampler.
 
-Port of the tracker subset of ``cmtci/kernels/mandelbrot.py``. Complex
-values are (re, im) tensor pairs, and the op order is the reference's
-(``de_field_tci``: dz is updated BEFORE z each step, z is latched at the
-first |z| > escape_r, dz is not latched and overflows to inf for early
-escapers, so d == 0 there).
+Port of the tracker, boundary and equipotential subset of
+``cmtci/kernels/mandelbrot.py``. Complex values are (re, im) tensor pairs,
+and the op order is the reference's (``de_field_tci``: dz is updated BEFORE
+z each step, z is latched at the first |z| > escape_r, dz is not latched and
+overflows to inf for early escapers, so d == 0 there).
 
 Grids are built from ``np.linspace`` — the oracle's grid. ``jnp.linspace``
 and ``torch.linspace`` each differ from it in the last ulp, and a grid node
@@ -34,6 +35,108 @@ def complex_grid(domain, nx: int, ny: int, dtype=torch.float64, device="cuda"):
 def _zsq_add_c(zr, zi, cr, ci):
     """z <- z*z + c, componentwise like numpy's complex multiply."""
     return zr * zr - zi * zi + cr, zr * zi + zi * zr + ci
+
+
+def dwell_grid(cr, ci, max_iter: int = 500) -> torch.Tensor:
+    """Escape-time dwell counts (mandelbrot_boundary_sample.py:22-30) on the
+    tensors' device and dtype: int32, the first n (0-based) with
+    |z_{n+1}|^2 > 4, else max_iter. Escaped orbits are frozen, as in the
+    reference."""
+    zr = torch.zeros_like(cr)
+    zi = torch.zeros_like(ci)
+    dwell = torch.full(cr.shape, max_iter, dtype=torch.int32, device=cr.device)
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    for n in range(max_iter):
+        zr, zi = _zsq_add_c(zr, zi, cr, ci)
+        hit = (zr * zr + zi * zi > 4.0) & ~esc
+        dwell.masked_fill_(hit, n)
+        esc = esc | hit
+        # where(esc, where(hit, z, 0), z): escaped before this step -> 0
+        old = esc & ~hit
+        zr = torch.where(old, 0.0, zr)
+        zi = torch.where(old, 0.0, zi)
+    return dwell
+
+
+def _green_stage(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter: int):
+    """Run `iters` Green iterations from state (zr, zi) with k offset k0, on
+    the tensors' device and dtype (the reference's ``_green_stage``).
+
+    Returns (zr, zi, esc, g, k, lpr, lpi); points that do not escape in this
+    stage carry k = dtype_max_iter and g = lpr = lpi = 0. The loop latches z
+    at the first |z|^2 > r2; g = max(log|z_k| 2^-k, 0) and log phi =
+    (log|z_k|, arg z_k)·2^-k are then evaluated once per point from the
+    latched z, with the same elementwise ops the reference runs at the hit.
+    """
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    kk = torch.full(cr.shape, dtype_max_iter, dtype=torch.int32, device=cr.device)
+    lzr = torch.zeros_like(cr)
+    lzi = torch.zeros_like(ci)
+    for i in range(iters):
+        zr, zi = _zsq_add_c(zr, zi, cr, ci)
+        hit = ~esc & (zr * zr + zi * zi > r2)
+        kk.masked_fill_(hit, k0 + i + 1)
+        lzr = torch.where(hit, zr, lzr)
+        lzi = torch.where(hit, zi, lzi)
+        esc = esc | hit
+        zr = torch.where(esc, 0.0, zr)
+        zi = torch.where(esc, 0.0, zi)
+    scale = torch.exp2(-kk.to(cr.dtype))
+    logr = 0.5 * torch.log(torch.clamp(lzr * lzr + lzi * lzi, min=1e-300))
+    gg = logr * scale
+    gg = torch.where(torch.isfinite(gg) & (gg >= 0.0), gg, 0.0)
+    g = torch.where(esc, gg, 0.0)
+    lpr = torch.where(esc, logr * scale, 0.0)
+    lpi = torch.where(esc, torch.atan2(lzi, lzr) * scale, 0.0)
+    return zr, zi, esc, g, kk, lpr, lpi
+
+
+def green_potential_compacted(points, max_iter: int = 20000, escape_r: float = 2.0,
+                              stage_iters: int = 512, device="cuda"):
+    """Parameter-plane Green function g_M(c) and Phi(c)
+    (lucas_equipotential_test_v3.py:124-162) for a complex cloud in f64 on
+    `device`, with compaction of the survivors between stages (the
+    reference's ``green_potential_compacted``): at first escape k (1-based),
+    log_phi = log(z)·2^-k, g = Re log_phi clamped to >= 0, phi =
+    exp(log_phi); else (0, max_iter, nan).
+
+    After each `stage_iters` chunk the escaped points' records go to the
+    host and the rest are compacted, so the deep interior no longer drags
+    every escaped point along. No power-of-two padding: that only let the
+    reference's stages share XLA compiles. Returns (g, k, phi) numpy arrays.
+    """
+    dev = resolve_device(device)
+    if stage_iters < 1:
+        raise ValueError(f"stage_iters must be >= 1, got {stage_iters}")
+    f64 = torch.float64
+    pts = np.asarray(points, dtype=complex).ravel()
+    n = len(pts)
+    g = np.zeros(n)
+    kk = np.full(n, max_iter, dtype=np.int32)
+    phi = np.full(n, np.nan + 1j * np.nan, dtype=complex)
+    idx = np.arange(n)
+    cr = torch.as_tensor(pts.real.copy(), dtype=f64, device=dev)
+    ci = torch.as_tensor(pts.imag.copy(), dtype=f64, device=dev)
+    zr = torch.zeros_like(cr)
+    zi = torch.zeros_like(ci)
+    r2 = escape_r * escape_r
+    k0 = 0
+    while k0 < max_iter and len(idx):
+        iters = min(stage_iters, max_iter - k0)
+        zr, zi, esc, gs, ks, lpr, lpi = _green_stage(zr, zi, cr, ci, k0, iters, r2,
+                                                     max_iter)
+        esc_h = esc.cpu().numpy()
+        if esc_h.any():
+            rec = torch.stack([gs[esc], ks[esc].to(f64), lpr[esc], lpi[esc]]).cpu().numpy()
+            hit_idx = idx[esc_h]
+            g[hit_idx] = rec[0]
+            kk[hit_idx] = rec[1].astype(np.int32)
+            phi[hit_idx] = np.exp(rec[2]) * np.exp(1j * rec[3])
+            keep = ~esc
+            idx = idx[~esc_h]
+            zr, zi, cr, ci = zr[keep], zi[keep], cr[keep], ci[keep]
+        k0 += iters
+    return g, kk, phi
 
 
 def de_field_tci(cr, ci, max_iter: int = 250, escape_r: float = 250.0,

@@ -26,6 +26,17 @@ def config_key(config: dict) -> str:
     return hashlib.sha256(blob).hexdigest()[:16]
 
 
+def array_digest(arr) -> str:
+    """Short content hash of an array, for keying caches on array inputs
+    (the reference's digest)."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    h = hashlib.sha256()
+    h.update(str(a.dtype).encode())
+    h.update(str(a.shape).encode())
+    h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
 def rng_state_arrays(rng: "np.random.RandomState") -> dict:
     """MT19937 state of a RandomState as npz-storable arrays."""
     name, keys, pos, has_gauss, cached_gauss = rng.get_state()

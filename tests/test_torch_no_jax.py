@@ -1,5 +1,6 @@
 """cmtci_torch imports neither jax nor cmtci (cmtci/__init__.py turns on
-x64 for the whole process)."""
+x64 for the whole process), and imports matplotlib only to draw a figure
+(the machine with the card has none)."""
 
 import os
 import subprocess
@@ -10,11 +11,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import cmtci_torch.pipelines.tracker
+import cmtci_torch.pipelines.boundary
+import cmtci_torch.pipelines.equipotential
+import cmtci_torch.io.plots
 import cmtci_torch.kernels.mandelbrot_cuda
 import cmtci_torch.kernels._build
 import cmtci_torch.cli
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "cmtci" or m.startswith("cmtci."))
+             if m == "jax" or m.startswith("jax.") or m == "cmtci" or m.startswith("cmtci.")
+             or m == "matplotlib" or m.startswith("matplotlib."))
 print("BAD", bad)
 assert not bad, bad
 """

@@ -71,6 +71,34 @@ def test_parity_adaptive_stage1_vs_oracle():
         assert float(getattr(r, k)) == pytest.approx(float(ref[k]), rel=1e-9), k
 
 
+@pytest.mark.slow
+def test_parity_dense_stage2_vs_oracle():
+    """Row 2 of v3_T25_sigma3_dense.csv (bins 128, cloud 6000, grid 690²,
+    T 25) in parity mode, to rel 1e-9 (tests/test_tracker_regression.py's
+    test_dense_stage2_parity_vs_oracle)."""
+    ref = _ref_rows("v3_T25_sigma3_dense.csv")[1]
+    rows, _ = run_tracker(TrackerConfig(**DENSE, parity=True), max_stages=2, device="cpu")
+    r = rows[1]
+    for k in CHECK_KEYS:
+        assert float(getattr(r, k)) == pytest.approx(float(ref[k]), rel=1e-9), k
+    _check_exact(r, ref)
+
+
+@pytest.mark.slow
+def test_parity_adaptive_all_rows_vs_oracle():
+    """All four rows of v3_adaptive.csv, T_n = 87/103/106/109, in parity mode
+    (tests/test_tracker_regression.py's test_adaptive_all_rows_vs_oracle)."""
+    refs = _ref_rows("v3_adaptive.csv")
+    cfg = TrackerConfig(sigma_bins=1.0, t_fixed=-1, bins_start=64, bins_max=512,
+                        parity=True)
+    rows, _ = run_tracker(cfg, device="cpu")
+    assert [r.T_n for r in rows] == [int(x["T_n"]) for x in refs] == [87, 103, 106, 109]
+    for r, ref in zip(rows, refs):
+        assert r.stop_reason == "kl_threshold_met"
+        for k in CHECK_KEYS:
+            assert float(getattr(r, k)) == pytest.approx(float(ref[k]), rel=1e-9), (r.bins, k)
+
+
 @pytest.fixture(scope="module")
 def f64_torch_rows():
     rows, meta = run_tracker(TrackerConfig(**DENSE), max_stages=2, device="cpu")
