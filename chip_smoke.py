@@ -9,9 +9,10 @@ prints no result line):
   2. build every kernel from csrc/ (one nvcc per source, all started
      together; ctypes), with each build's seconds and ptxas report;
   3. K1 (csrc/tci_de.cu) against its plain-torch twin on the card at the
-     four dense-tracker grids: identical escape and q25 band masks, d bitwise
-     equal (or within rtol 1e-6, with the differing pixels counted), and the
-     median time of each;
+     four dense-tracker grids on the tracker's domain, and at run_tci's 600 x
+     600 and 2400 x 2400 grids on its own domain: identical escape and q25
+     band masks, d bitwise equal (or within rtol 1e-6, with the differing
+     pixels counted), and the median time, orbit steps and bound of each;
   4. the dense Appendix-A tracker (bench.py's config) on the kernel path,
      twice: 4 rows of the oracle's sizes, finite metrics, one kernel launch
      per stage, rows within the statistical bounds of the oracle
@@ -31,9 +32,35 @@ prints no result line):
      launch of 20000 iterations: every output row bitwise equal;
   9. run_equipotential at the CLI defaults with float32 (K3, one launch) and
      float64 (no launch): f32 against f64 on the card, and f64 against the
-     reference's numbers in tests/data/equipotential_default_f64.json.
-The last three lines are the card, a JSON line per kernel, and
-{"ok": true, "device": {...}}.
+     reference's numbers in tests/data/equipotential_default_f64.json;
+ 10. K4 (csrc/de_std.cu) and K5 (csrc/green_grid.cu) through
+     mandelbrot_field(kind="de" | "green") at 2048 x 2048 (bench's de_mfu
+     shape) and 1001 x 1999, max_iter 500, R 4: bitwise equal to their twins
+     (or within rtol 1e-6, the differing pixels counted), the reference's
+     contracts against the f64 de_field_std / escape_potential_grid on the
+     card, one launch each, times, iterated orbit steps and bounds;
+ 11. K6 (csrc/dwell_ms.cu) through dwell_field_ms at 2048 x 2048, max_iter
+     500, stride 8, tile (32, 256): one K2 (coarse) and one K6 launch, the
+     output bitwise equal to K2's with tiles filled, the fine pass bitwise
+     equal to its twin; coarse, fill, fine and two-pass times against K2,
+     timed in turns (K2, K6, K6, K2);
+ 12. run_tci on the kernel path (de_impl "cuda", one K1 launch a run) at the
+     default 600 x 600 grid and at 2400 x 2400 (BASELINE configs[4]), twice
+     each: KL non-increasing, KL_final < 1e-5, Spectral_L2 NaN, and at 2400
+     KL_initial within 2% of 17.933 and Hausdorff_before within 10% of 1.725
+     (cmtci's f64 values there); layer times of the second run;
+ 13. run_tci's f64 parity path (de_impl "numpy") at the default config
+     against tests/data/tci_default_numpy.json.
+The kernels line gives, per kernel, its launches on its path, max |kernel -
+twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
+(the orbit steps these inputs need times the operations per step of the .cu
+body) over 67 TFLOP/s and the bytes (inputs read once, outputs written once)
+over 3.35 TB/s, the H100 SXM's published peaks at 700 W. No single PyTorch
+call computes an escape-time field, so library_ms is null.
+
+The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
+other grids' times are printed in phase 3. The last three lines are the
+card, a JSON line of the kernels, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -52,7 +79,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(ROOT, "tests", "data", "v3_T25_sigma3_dense.csv")
 GOLDEN = os.path.join(ROOT, "artifacts", "mandel_boundary.csv.gz")
 EQUIP_REF = os.path.join(ROOT, "tests", "data", "equipotential_default_f64.json")
-KERNELS = ("tci_de", "dwell", "cloud_green")
+TCI_REF = os.path.join(ROOT, "tests", "data", "tci_default_numpy.json")
+KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms")
+#: the TPU kernel each library replaces
+REPLACES = {
+    "tci_de": "cmtci/kernels/mandelbrot_pallas.py:276",
+    "dwell": "cmtci/kernels/mandelbrot_pallas.py:59",
+    "cloud_green": "cmtci/kernels/mandelbrot_pallas.py:613",
+    "de_std": "cmtci/kernels/mandelbrot_pallas.py:198",
+    "green_grid": "cmtci/kernels/mandelbrot_pallas.py:156",
+    "dwell_ms": "cmtci/kernels/mandelbrot_pallas.py:816",
+}
+#: FP32 operations per orbit step, each mul, add, sub and compare counted once,
+#: from the loop bodies (tci_de.cu 12 mul 7 add/sub 3 compares; the others
+#: 6 mul 4 add/sub 1 compare; de_std.cu 12 mul 7 add/sub 1 compare)
+OPS_PER_STEP = {"tci_de": 22, "dwell": 11, "cloud_green": 11, "de_std": 20,
+                "green_grid": 11, "dwell_ms": 11}
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
+FIELD_SHAPES = ((2048, 2048), (1001, 1999))  # (ny, nx)
+MS_SHAPE, MS_STRIDE, MS_TILE = (2048, 2048), 8, (32, 256)
+TCI_GRIDS = (600, 2400)
+TCI_4X = {"KL_initial": (17.933, 0.02), "Hausdorff_before": (1.725, 0.10)}
 DOMAIN = (-2.2, 1.2, -1.6, 1.6)
 GRIDS = (600, 690, 793, 912)
 MAX_ITER, ESCAPE_R = 250, 250.0
@@ -116,6 +163,54 @@ def reset_launches():
         mc.launches[name] = 0
 
 
+def bound_ms(name: str, steps: int, nbytes: int):
+    """(ms, "operations" | "bytes"): the least time the card could take."""
+    t_ops = steps * OPS_PER_STEP[name] / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def orbit_steps(cr, ci, max_iter: int, r2: float, tci: bool = False) -> int:
+    """Loop trips the escape kernels run on these f32 coordinates: none for
+    an analytically interior pixel; otherwise up to the first |z|^2 > r2
+    (tci=False: K4, K5) or, for K1, until the pixel has escaped and its dz
+    is non-finite."""
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    active = ~mc._interior_mask_torch(cr, ci)
+    zr = torch.zeros_like(cr)
+    zi = torch.zeros_like(cr)
+    dzr, dzi = torch.ones_like(cr), torch.zeros_like(cr)
+    esc = torch.zeros_like(active)
+    steps = torch.zeros((), dtype=torch.int64, device=cr.device)
+    for _ in range(max_iter):
+        steps += active.sum()
+        if tci:
+            tr, ti = 2.0 * zr, 2.0 * zi
+            dzr, dzi = (torch.where(active, tr * dzr - ti * dzi + 1.0, dzr),
+                        torch.where(active, tr * dzi + ti * dzr, dzi))
+        zr, zi = (torch.where(active, zr * zr - zi * zi + cr, zr),
+                  torch.where(active, 2.0 * zr * zi + ci, zi))
+        a2 = zr * zr + zi * zi
+        if tci:
+            esc = esc | (active & (a2 > r2))
+            active = active & ~(esc & ~(torch.isfinite(dzr) & torch.isfinite(dzi)))
+        else:
+            active = active & (a2 <= r2)
+    return int(steps)
+
+
+def dwell_steps(dwell, interior, max_iter: int) -> int:
+    """K2's loop trips from its output: dwell + 1 for an escaping pixel,
+    max_iter for a bounded one, none for an interior one."""
+    import torch
+
+    return int(torch.where(interior, 0.0, (dwell + 1.0).clamp(max=max_iter))
+               .sum(dtype=torch.float64))
+
+
 def hausdorff(a, b) -> float:
     from scipy.spatial.distance import directed_hausdorff
 
@@ -140,40 +235,49 @@ def phase_build():
 
 
 def phase_kernels(dev):
-    """Phase 3: K1 against its twin on the card at the stage grids."""
+    """Phase 3: K1 against its twin on the card at the tracker's stage grids
+    and at run_tci's grids, each on its pipeline's domain."""
     import torch
 
     from cmtci_torch.kernels import mandelbrot_cuda as mc
+    from cmtci_torch.pipelines.analysis import TCIConfig
 
+    tci = TCIConfig()
+    cases = ([("tracker", DOMAIN, g, MAX_ITER, ESCAPE_R) for g in GRIDS]
+             + [("tci", tci.domain, g, tci.max_iter, tci.escape_r) for g in TCI_GRIDS])
     max_err = 0.0
     timing = {}
-    for g in GRIDS:
-        out_k = mc._tci_field(DOMAIN, g, MAX_ITER, ESCAPE_R, dev)
-        out_t = mc.tci_de_field_torch(DOMAIN, g, MAX_ITER, ESCAPE_R, device=dev)
+    for path, dom, g, max_iter, escape_r in cases:
+        out_k = mc._tci_field(dom, g, max_iter, escape_r, dev)
+        out_t = mc.tci_de_field_torch(dom, g, max_iter, escape_r, device=dev)
         torch.cuda.synchronize()
-        check(out_k.shape == out_t.shape == (g, g), f"grid {g}: shape {tuple(out_k.shape)}")
-        check(bool(torch.isfinite(out_k).all()), f"grid {g}: non-finite kernel output")
+        check(out_k.shape == out_t.shape == (g, g),
+              f"{path} grid {g}: shape {tuple(out_k.shape)}")
+        check(bool(torch.isfinite(out_k).all()), f"{path} grid {g}: non-finite kernel output")
         esc_k, esc_t = out_k >= 0, out_t >= 0
         check(bool(torch.equal(esc_k, esc_t)),
-              f"grid {g}: escape masks differ at {int((esc_k != esc_t).sum())} pixels")
+              f"{path} grid {g}: escape masks differ at {int((esc_k != esc_t).sum())} pixels")
         n_diff = int((out_k != out_t).sum())
         if n_diff:
             close = torch.isclose(out_k, out_t, rtol=1e-6, atol=0.0)
-            check(bool(close.all()), f"grid {g}: d differs beyond rtol 1e-6 at "
+            check(bool(close.all()), f"{path} grid {g}: d differs beyond rtol 1e-6 at "
                                      f"{int((~close).sum())} pixels")
         err = float((out_k - out_t).abs().max())
         max_err = max(max_err, err)
         sel_k, cnt_k, q_k = mc.band_selection(esc_k, out_k.clamp(min=0.0))
         sel_t, cnt_t, q_t = mc.band_selection(esc_t, out_t.clamp(min=0.0))
-        check(bool(torch.equal(sel_k, sel_t)), f"grid {g}: band masks differ")
-        ms = cuda_ms(lambda: mc._tci_field(DOMAIN, g, MAX_ITER, ESCAPE_R, dev), 3, 20)
-        plain_ms = cuda_ms(lambda: mc.tci_de_field_torch(DOMAIN, g, MAX_ITER, ESCAPE_R,
-                                                         device=dev), 1, 5)
-        timing[g] = (ms, plain_ms)
-        print(f"K1 grid {g}: escaped {int(cnt_k)}/{g * g}, band {int(sel_k.sum())}, "
+        check(bool(torch.equal(sel_k, sel_t)), f"{path} grid {g}: band masks differ")
+        ms = cuda_ms(lambda: mc._tci_field(dom, g, max_iter, escape_r, dev), 3, 20)
+        plain_ms = cuda_ms(lambda: mc.tci_de_field_torch(dom, g, max_iter, escape_r,
+                                                         device=dev), 1, 3)
+        steps = orbit_steps(*mc._grid_coords(dom, g, g, dev), max_iter,
+                            float(escape_r * escape_r), tci=True)
+        bound, by = bound_ms("tci_de", steps, 4 * g * g)
+        timing[(path, g)] = (ms, plain_ms, bound, by)
+        print(f"K1 {path} grid {g}: escaped {int(cnt_k)}/{g * g}, band {int(sel_k.sum())}, "
               f"q25 {float(q_k)!r}, d bitwise-differing pixels {n_diff}, "
               f"max|kernel-twin| {err!r}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
-              f"(median, CUDA events)")
+              f"(median, CUDA events); {steps} orbit steps, bound {bound:.5f} ms ({by})")
     return max_err, timing
 
 
@@ -192,7 +296,7 @@ def run_kernel_tracker(dev, label, config):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(mc.launches)
-    check(launches["dwell"] == launches["cloud_green"] == 0,
+    check(sum(launches.values()) == launches["tci_de"],
           f"the tracker launched another kernel than K1: {launches}")
     print(f"tracker ({label}): {len(rows)} rows in {wall:.3f} s wall, "
           f"{launches['tci_de']} K1 launches")
@@ -293,8 +397,7 @@ def phase_dwell(dev):
         # loop trips: an escaping pixel runs dwell + 1 steps, a bounded one
         # max_iter, an analytically interior one none
         interior = mc._interior_mask_torch(*mc._grid_coords(BOUNDARY_DOMAIN, nx, ny, dev))
-        steps = int(torch.where(interior, 0.0, (out_k + 1.0).clamp(max=max_iter))
-                    .sum(dtype=torch.float64))
+        steps = dwell_steps(out_k, interior, max_iter)
         print(f"K2 {ny}x{nx}: kernel vs twin differing pixels {n_diff}, mean dwell "
               f"{float(out_k.mean())!r}, interior pixels {int(interior.sum())}, iterated "
               f"orbit steps {steps}")
@@ -303,9 +406,10 @@ def phase_dwell(dev):
                                                  device=dev), 3, 20)
         plain_ms = cuda_ms(lambda: mc.dwell_field_torch(BOUNDARY_DOMAIN, nx, ny, max_iter,
                                                         device=dev), 1, 3)
-        timing[(ny, nx)] = (ms, plain_ms)
+        bound, by = bound_ms("dwell", steps, 4 * nx * ny)
+        timing[(ny, nx)] = (ms, plain_ms, bound, by)
         print(f"  kernel {ms:.4f} ms ({steps / ms / 1e9:.4f} G orbit steps per ms), "
-              f"twin {plain_ms:.4f} ms (median, CUDA events)")
+              f"twin {plain_ms:.4f} ms (median, CUDA events); bound {bound:.5f} ms ({by})")
     return max_err, timing
 
 
@@ -331,7 +435,7 @@ def phase_boundary(dev):
             wall = time.perf_counter() - t0
             launches = dict(mc.launches)
             want = 1 if backend == "cuda" else 0
-            check(launches == {"tci_de": 0, "dwell": want, "cloud_green": 0},
+            check(launches["dwell"] == want and sum(launches.values()) == want,
                   f"boundary {backend}: launches {launches}")
             with open(os.path.join(tmp, f"{backend}_boundary.csv")) as f:
                 check(f.readline().strip() == "x,y", f"boundary {backend}: CSV header")
@@ -399,9 +503,22 @@ def phase_cloud_green(dev):
     ms = cuda_ms(lambda: mc.cloud_green(cr, ci, z0, z0, iters, 2.0, device=dev), 2, 10)
     plain_ms = cuda_ms(lambda: mc.cloud_green_torch(cr, ci, z0, z0, iters, 2.0,
                                                     device=dev), 0, 1)
+    # loop trips: k for a point that escapes at step k, iters for a bounded
+    # one, none for an analytically interior one
+    interior = mc._interior_mask_torch(*(torch.as_tensor(a, device=dev) for a in (cr, ci)))
+    steps = int(torch.where(out_k[0] > 0, out_k[0], torch.where(interior, 0.0, float(iters)))
+                .sum(dtype=torch.float64))
+    longest = int(torch.where(interior, 0.0, torch.where(out_k[0] > 0, out_k[0],
+                                                         float(iters))).max())
+    bound, by = bound_ms("cloud_green", steps, 4 * 4 * cr.size + 6 * 4 * cr.size)
+    # one lane's chain: each step's z update is 3 dependent FP32 ops (mul,
+    # sub, add) of about 4 cycles at the 1.98 GHz boost clock
+    chain = longest * 3 * 4 / 1.98e9 * 1e3
     print(f"  kernel {ms:.4f} ms (median, CUDA events), twin {plain_ms:.4f} ms (one rep, "
-          f"CUDA events; first twin call {twin_s:.3f} s wall)")
-    return max_err, ms, plain_ms
+          f"CUDA events; first twin call {twin_s:.3f} s wall); {steps} orbit steps, "
+          f"bound {bound:.5f} ms ({by}); the longest lane's {longest} dependent steps "
+          f"take at least about {chain:.4f} ms")
+    return max_err, ms, plain_ms, bound, by
 
 
 def run_equip(dev, dtype, tmp):
@@ -426,7 +543,7 @@ def run_equip(dev, dtype, tmp):
     wall = time.perf_counter() - t0
     launches = dict(mc.launches)
     want = 1 if dtype == "float32" else 0
-    check(launches == {"tci_de": 0, "dwell": 0, "cloud_green": want},
+    check(launches["cloud_green"] == want and sum(launches.values()) == want,
           f"equipotential {dtype}: launches {launches}")
     s = out["summary"]
     print(f"equipotential ({dtype}): {wall:.3f} s wall, {launches['cloud_green']} K3 "
@@ -512,6 +629,223 @@ def phase_equipotential(dev):
     return launches
 
 
+def compare_twin(out_k, out_t, label):
+    """Kernel against twin: bitwise (NaN equal to NaN), or within rtol 1e-6
+    with the differing pixels counted. Returns (differing pixels, max err)."""
+    import torch
+
+    nan_k, nan_t = torch.isnan(out_k), torch.isnan(out_t)
+    check(bool(torch.equal(nan_k, nan_t)), f"{label}: NaN pixels differ "
+                                           f"({int(nan_k.sum())} vs {int(nan_t.sum())})")
+    same = (out_k == out_t) | nan_k
+    n_diff = int((~same).sum())
+    if n_diff:
+        close = torch.isclose(out_k, out_t, rtol=1e-6, atol=0.0) | nan_k
+        check(bool(close.all()), f"{label}: {int((~close).sum())} pixels beyond rtol 1e-6")
+    err = float(torch.where(nan_k, 0.0, (out_k - out_t).abs()).max())
+    return n_diff, err
+
+
+def phase_fields(dev):
+    """Phase 10: K4 and K5 through mandelbrot_field against their twins and
+    the f64 contracts."""
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot as mb
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    max_iter, escape_r = 500, 4.0
+    twins = {"de": mc.de_field_std_torch, "green": mc.green_field_torch}
+    libs = {"de": "de_std", "green": "green_grid"}
+    contract = {"de": (dict(rtol=1e-3, atol=1e-9), 0.98),
+                "green": (dict(rtol=1e-4, atol=1e-7), 0.99)}
+    result = {}
+    for kind in ("de", "green"):
+        lib = libs[kind]
+        for ny, nx in FIELD_SHAPES:
+            label = f"K{4 if kind == 'de' else 5} {ny}x{nx}"
+            torch.cuda.synchronize()
+            reset_launches()
+            out_k = mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, max_iter, kind, escape_r, dev)
+            torch.cuda.synchronize()
+            launches = dict(mc.launches)
+            check(launches[lib] == 1 and sum(launches.values()) == 1,
+                  f"{label}: launches {launches}")
+            out_t = twins[kind](BOUNDARY_DOMAIN, nx, ny, max_iter, escape_r, device=dev)
+            check(out_k.shape == out_t.shape == (ny, nx), f"{label}: shape")
+            n_diff, err = compare_twin(out_k, out_t, label)
+            cr, ci = mb.complex_grid(BOUNDARY_DOMAIN, nx, ny, dtype=torch.float64, device=dev)
+            if kind == "de":
+                f64 = mb.de_field_std(cr, ci, max_iter, escape_r)[1]
+            else:
+                f64 = mb.escape_potential_grid(cr, ci, max_iter, escape_r)
+            tol, share = contract[kind]
+            close = float(torch.isclose(out_k.double(), f64, **tol).double().mean())
+            check(close > share, f"{label}: {close!r} of pixels within {tol} of f64, "
+                                 f"not > {share}")
+            steps = orbit_steps(*mc._grid_coords(BOUNDARY_DOMAIN, nx, ny, dev), max_iter,
+                                float(escape_r * escape_r))
+            ms = cuda_ms(lambda: mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, max_iter, kind,
+                                                     escape_r, dev), 3, 20)
+            plain_ms = cuda_ms(lambda: twins[kind](BOUNDARY_DOMAIN, nx, ny, max_iter,
+                                                   escape_r, device=dev), 1, 3)
+            bound, by = bound_ms(lib, steps, 4 * nx * ny)
+            print(f"{label}: kernel vs twin differing pixels {n_diff}, max|kernel-twin| "
+                  f"{err!r}, NaN pixels {int(torch.isnan(out_k).sum())}; within {tol} of "
+                  f"the f64 counterpart on {close!r} (contract > {share}); kernel {ms:.4f} ms, "
+                  f"twin {plain_ms:.4f} ms (median, CUDA events); {steps} orbit steps, "
+                  f"bound {bound:.5f} ms ({by})")
+            if (ny, nx) == FIELD_SHAPES[0]:
+                result[lib] = dict(launches=launches[lib], max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            else:
+                result[lib]["max_abs_err"] = max(result[lib]["max_abs_err"], err)
+    return result
+
+
+def phase_dwell_ms(dev):
+    """Phase 11: K6 through dwell_field_ms against K2 and its twin, and the
+    two-pass time against K2's in turns."""
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    ny, nx = MS_SHAPE
+    max_iter, stride, (th, tw) = 500, MS_STRIDE, MS_TILE
+    dom = BOUNDARY_DOMAIN
+    torch.cuda.synchronize()
+    reset_launches()
+    out, stats = mc.dwell_field_ms(dom, nx, ny, max_iter, stride, MS_TILE, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(mc.launches)
+    check(launches["dwell"] == 1 and launches["dwell_ms"] == 1
+          and sum(launches.values()) == 2, f"dwell_field_ms: launches {launches}")
+    plain = mc.mandelbrot_field(dom, nx, ny, max_iter, device=dev)
+    n_diff = int((out != plain).sum())
+    print(f"K6 {ny}x{nx}, stride {stride}, tile {MS_TILE}: {stats}; pixels differing from "
+          f"K2 {n_diff}")
+    check(n_diff == 0, f"K6 differs from K2 at {n_diff} pixels")
+    check(stats["filled"] > 0, f"K6: no tile filled ({stats})")
+
+    cparams = mc._coarse_params(dom, nx, ny, stride)
+    coarse = mc._dwell(cparams, nx // stride, ny // stride, max_iter, dev)
+    fill = mc.fill_flags(coarse, th // stride, tw // stride)
+    fine_k = mc.dwell_fill(dom, nx, ny, fill, MS_TILE, max_iter, device=dev)
+    fine_t = mc.dwell_fill_torch(dom, nx, ny, fill, MS_TILE, max_iter, device=dev)
+    n_twin, err = compare_twin(fine_k, fine_t, "K6 fine pass")
+    check(n_twin == 0, f"K6 fine pass differs from its twin at {n_twin} pixels")
+
+    interior = mc._interior_mask_torch(*mc._grid_coords(dom, nx, ny, dev))
+    filled_px = mc._fill_pixels(fill, MS_TILE) >= 0
+    fine_steps = dwell_steps(torch.where(filled_px, -1.0, fine_k), interior | filled_px,
+                             max_iter)
+    c_interior = mc._interior_mask_torch(*mc._coords(cparams, nx // stride, ny // stride, dev))
+    coarse_steps = dwell_steps(coarse, c_interior, max_iter)
+    k2_steps = dwell_steps(plain, interior, max_iter)
+    bound, by = bound_ms("dwell_ms", fine_steps, 4 * nx * ny + 4 * fill.numel())
+
+    def k2():
+        mc.mandelbrot_field(dom, nx, ny, max_iter, device=dev)
+
+    def two_pass():
+        mc.dwell_field_ms(dom, nx, ny, max_iter, stride, MS_TILE, device=dev)
+
+    turns = []
+    for label, fn in (("K2", k2), ("K6 two-pass", two_pass), ("K6 two-pass", two_pass),
+                      ("K2", k2)):
+        turns.append((label, cuda_ms(fn, 3, 20)))
+    coarse_ms = cuda_ms(lambda: mc._dwell(cparams, nx // stride, ny // stride, max_iter, dev),
+                        3, 20)
+    fill_ms = cuda_ms(lambda: mc.fill_flags(coarse, th // stride, tw // stride), 3, 20)
+    fine_ms = cuda_ms(lambda: mc.dwell_fill(dom, nx, ny, fill, MS_TILE, max_iter, device=dev),
+                      3, 20)
+    plain_ms = cuda_ms(lambda: mc.dwell_fill_torch(dom, nx, ny, fill, MS_TILE, max_iter,
+                                                   device=dev), 1, 3)
+    k2_ms = statistics.median(t for lab, t in turns if lab == "K2")
+    two_ms = statistics.median(t for lab, t in turns if lab != "K2")
+    print("  in turns (median ms, CUDA events): "
+          + ", ".join(f"{lab} {t:.4f}" for lab, t in turns))
+    print(f"  coarse pass (K2 at {ny // stride}x{nx // stride}) {coarse_ms:.4f} ms, "
+          f"{coarse_steps} steps; fill decision {fill_ms:.4f} ms; fine pass (K6) "
+          f"{fine_ms:.4f} ms, {fine_steps} steps, twin {plain_ms:.4f} ms; K2 alone "
+          f"{k2_steps} steps. Two-pass {two_ms:.4f} ms against K2 {k2_ms:.4f} ms: "
+          f"{'faster' if two_ms < k2_ms else 'slower'} by "
+          f"{abs(two_ms - k2_ms) / k2_ms * 100:.1f}%; fine pass bound {bound:.5f} ms ({by})")
+    return dict(launches=launches["dwell_ms"], max_abs_err=err, ms=fine_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def phase_tci(dev):
+    """Phase 12: run_tci on the kernel path at 600² and 2400², twice each."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+    from cmtci_torch.pipelines.analysis import TCIConfig, run_tci
+    from cmtci_torch.utils.artifacts import StageTimer
+
+    launches_k1 = None
+    for grid in TCI_GRIDS:
+        for run in ("first", "second"):
+            timer = StageTimer(dev)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out, kls, _ = run_tci(TCIConfig(mandelbrot_grid=grid, de_impl="cuda"),
+                                  plots=False, timer=timer, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(mc.launches)
+            check(launches["tci_de"] == 1 and sum(launches.values()) == 1,
+                  f"run_tci {grid}: launches {launches}")
+            launches_k1 = launches["tci_de"]
+            label = f"run_tci {grid}x{grid} ({run} run)"
+            check(bool(np.all(np.diff(kls) <= 1e-12)), f"{label}: KL not monotone")
+            check(out["KL_final"] < 1e-5, f"{label}: KL_final {out['KL_final']!r} >= 1e-5")
+            check(math.isnan(out["Spectral_L2"]), f"{label}: Spectral_L2 not NaN")
+            for key in ("Hausdorff_before", "Curvature_corr", "KL_initial"):
+                check(math.isfinite(out[key]), f"{label}: {key} not finite")
+            if grid == 2400:
+                for key, (want, rel) in TCI_4X.items():
+                    check(abs(out[key] - want) <= rel * want,
+                          f"{label}: {key} {out[key]!r} not within {rel:.0%} of {want}")
+            print(f"{label}: {wall:.3f} s wall, {launches['tci_de']} K1 launch; "
+                  f"KL {out['KL_initial']!r} -> {out['KL_final']!r}, Hausdorff "
+                  f"{out['Hausdorff_before']!r}, curvature corr {out['Curvature_corr']!r}; "
+                  "layers (s): " + ", ".join(f"{k} {v:.4f}" for k, v in timer.times.items()))
+    return launches_k1
+
+
+def phase_tci_f64(dev):
+    """Phase 13: the f64 parity path against the frozen reference numbers."""
+    import numpy as np
+
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+    from cmtci_torch.pipelines.analysis import run_tci, tci_config_from_reference
+
+    with open(TCI_REF) as f:
+        ref = json.load(f)
+    cfg = tci_config_from_reference(ref["config"])
+    reset_launches()
+    t0 = time.perf_counter()
+    out, kls, _ = run_tci(cfg, plots=False, device=dev)
+    wall = time.perf_counter() - t0
+    check(sum(mc.launches.values()) == 0, f"the numpy path launched {mc.launches}")
+    want = np.asarray(ref["kls"])
+    rel = np.abs(kls - want) / np.abs(want)
+    check(rel[0] <= 1e-9, f"KL_initial {kls[0]!r} vs {want[0]!r}")
+    check(rel[-1] <= 1e-6 and rel.max() <= 1e-6, f"KL trajectory off by rel {rel.max()!r}")
+    devs = {}
+    for key in ("Hausdorff_before", "Curvature_corr"):
+        devs[key] = abs(out[key] - ref["out"][key]) / abs(ref["out"][key])
+        check(devs[key] <= 1e-9, f"{key} {out[key]!r} vs {ref['out'][key]!r}")
+    check(math.isnan(out["Spectral_L2"]), "f64 run_tci: Spectral_L2 not NaN")
+    print(f"run_tci f64 (numpy sampler, 600x600): {wall:.3f} s wall; relative deviation "
+          f"from tests/data/tci_default_numpy.json: KL start {float(rel[0])!r}, end "
+          f"{float(rel[-1])!r}, "
+          f"Hausdorff {devs['Hausdorff_before']!r}, curvature corr {devs['Curvature_corr']!r}")
+
+
 def main() -> int:
     card = card_line()
     print(card)
@@ -530,24 +864,30 @@ def main() -> int:
     phase_f64(dev, oracle)
     k2_err, k2_timing = phase_dwell(dev)
     k2_launches = phase_boundary(dev)
-    k3_err, k3_ms, k3_plain_ms = phase_cloud_green(dev)
+    k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by = phase_cloud_green(dev)
     k3_launches = phase_equipotential(dev)
+    fields = phase_fields(dev)
+    k6 = phase_dwell_ms(dev)
+    tci_launches = phase_tci(dev)
+    phase_tci_f64(dev)
 
-    k1_ms, k1_plain = k1_timing[GRIDS[-1]]
-    k2_ms, k2_plain = k2_timing[DWELL_SHAPES[0]]
-    kernels = [
-        ("tci_de", "cmtci/kernels/mandelbrot_pallas.py:276", results[1][3], k1_err,
-         k1_ms, k1_plain),
-        ("dwell", "cmtci/kernels/mandelbrot_pallas.py:59", k2_launches, k2_err, k2_ms,
-         k2_plain),
-        ("cloud_green", "cmtci/kernels/mandelbrot_pallas.py:613", k3_launches, k3_err,
-         k3_ms, k3_plain_ms),
-    ]
+    k1_ms, k1_plain, k1_bound, k1_by = k1_timing[("tracker", GRIDS[-1])]
+    k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
+    print(f"K1 launches: {results[1][3]} per dense tracker run, {tci_launches} per run_tci")
+    kernels = {
+        "tci_de": dict(launches=results[1][3], max_abs_err=k1_err, ms=k1_ms,
+                       plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by),
+        "dwell": dict(launches=k2_launches, max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+                      bound_ms=k2_bound, bound_by=k2_by),
+        "cloud_green": dict(launches=k3_launches, max_abs_err=k3_err, ms=k3_ms,
+                            plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by=k3_by),
+        **fields,
+        "dwell_ms": k6,
+    }
     print(card)
     print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": f"cmtci_torch/csrc/{n}.cu", "replaces": r,
-         "launches": la, "max_abs_err": e, "ms": ms, "plain_ms": pm}
-        for n, r, la, e, ms, pm in kernels]}))
+        {"name": n, "route": "cuda", "source": f"cmtci_torch/csrc/{n}.cu",
+         "replaces": REPLACES[n], **kernels[n], "library_ms": None} for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

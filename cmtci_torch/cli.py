@@ -1,11 +1,12 @@
 """cmtci-torch command-line driver (the ported subcommands of ``cmtci``).
 
-Ported so far: tracker, boundary, equipotential. On a CUDA session
+Ported so far: tracker, boundary, equipotential, tci. On a CUDA session
 (``--device cuda``, the default) the dtype/backend knobs default to the
 card's hand-written kernels: tracker field_dtype=float32 and de_impl=cuda
-(K1), boundary backend=cuda (K2), equipotential green_dtype=float32 (K3).
-``--parity`` opts out to the host/f64 paths, ``--device cpu`` to the f64
-plain-torch paths, and an explicit per-flag value always wins.
+(K1), boundary backend=cuda (K2), equipotential green_dtype=float32 (K3),
+tci de_impl=cuda (K1). ``--parity`` opts out to the host/f64 paths (for tci,
+the numpy DE), ``--device cpu`` to the f64 plain-torch paths, and an
+explicit per-flag value always wins.
 ``--device cuda`` without a card raises; nothing falls back to the CPU.
 ``--no-plots`` skips the figures (matplotlib is then not needed).
 """
@@ -21,12 +22,22 @@ _PLATFORM_FLAGS = {
                 ("de_impl", "cuda", "torch")),
     "boundary": (("backend", "cuda", "torch"),),
     "equipotential": (("green_dtype", "float32", "float64"),),
+    "tci": (("de_impl", "cuda", "torch"),),
 }
+
+#: per-subcommand (flag, --parity default) pairs, where parity is not the
+#: host default
+_PARITY_FLAGS = {"tci": (("de_impl", "numpy"),)}
 
 
 def _resolve_platform_defaults(args) -> None:
     """Fill every None dtype/backend flag with its session default."""
-    cuda_session = args.device.startswith("cuda") and not getattr(args, "parity", False)
+    parity = getattr(args, "parity", False)
+    if parity:
+        for name, value in _PARITY_FLAGS.get(args.cmd, ()):
+            if getattr(args, name, None) is None:
+                setattr(args, name, value)
+    cuda_session = args.device.startswith("cuda") and not parity
     for name, accel, host in _PLATFORM_FLAGS.get(args.cmd, ()):
         if getattr(args, name, None) is None:
             setattr(args, name, accel if cuda_session else host)
@@ -88,6 +99,17 @@ def _parser():
     p.add_argument("--cache-dir", default=None,
                    help="stage artifact cache dir (resume; keyed by config hash)")
     _add_common(p, "the f64 potential whatever the device", plots=True)
+
+    p = sub.add_parser("tci", help="TCI flow pipeline (v002_fixed main)")
+    p.add_argument("--grid", type=int, default=600,
+                   help="DE grid resolution (BASELINE configs[4]: 2400 = 4x)")
+    p.add_argument("--samples", type=int, default=25000)
+    p.add_argument("--t-steps", type=int, default=60)
+    p.add_argument("--de-impl", choices=["torch", "numpy", "cuda"], default=None,
+                   help="cuda = the hand-written K1 kernel with the band and subsample on "
+                        "the device (CUDA-session default); torch = the f64 DE field; "
+                        "numpy = the host numpy DE (--parity)")
+    _add_common(p, "the host numpy DE (bitwise the reference's numpy path)", plots=True)
     return ap
 
 
@@ -128,6 +150,14 @@ def main(argv=None):
                                 cache_dir=args.cache_dir, plots=not args.no_plots,
                                 device=args.device)
         print(json.dumps(out["summary"]))
+    elif args.cmd == "tci":
+        from cmtci_torch.pipelines.analysis import TCIConfig, run_tci
+
+        cfg = TCIConfig(mandelbrot_grid=args.grid, mandelbrot_samples=args.samples,
+                        t_steps=args.t_steps, de_impl=args.de_impl)
+        out, _, _ = run_tci(cfg, f"{args.out}_tci_results.json", plots=not args.no_plots,
+                            device=args.device)
+        print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -7,17 +7,18 @@
 // the kernel and the twin agree bitwise on the card.
 //
 // What it computes, per pixel c = (xmin + col*dx, ymin + row*dy) in f32:
-//   * an analytically interior pixel (escape.cuh:interior_mask) outputs
-//     max_iter and skips the loop;
-//   * otherwise, for n = 0..max_iter-1: z <- (zr*zr - zi*zi + cr,
+//   * escape.cuh:dwell_count, shared with K6's fine pass (dwell_ms.cu): an
+//     analytically interior pixel outputs max_iter and skips the loop;
+//     otherwise, for n = 0..max_iter-1: z <- (zr*zr - zi*zi + cr,
 //     2*zr*zi + ci); stop if !(|z|^2 <= 4) (so NaN counts as an escape);
 //     else dwell += 1. The output is (float)dwell: the first n with
 //     |z_{n+1}|^2 > 4, else max_iter.
 //   * the Pallas kernel's optional Brent periodicity check is not here: no
 //     caller of the port asks for it (ROADMAP Queue 2, K2).
 //
-// What bounds it on this card: FP32 issue (about 10 flops per step, no
-// memory traffic but one 4-byte store a pixel), and warp divergence between
+// What bounds it on this card: FP32 issue (11 FP32 operations per step:
+// 6 mul, 4 add/sub, 1 compare; no memory traffic but one 4-byte store a
+// pixel), and warp divergence between
 // far-field pixels (a few steps) and boundary and filament pixels (up to
 // max_iter): a warp runs as long as its slowest lane. Design: the TPU
 // kernel's per-tile while_loop exit became a per-thread break, which is
@@ -42,20 +43,7 @@ __global__ void dwell_kernel(float* __restrict__ out, int nx, int ny, float xmin
 
     const float cr = xmin + (float)col * dx;
     const float ci = ymin + (float)row * dy;
-
-    int dwell = max_iter;
-    if (!interior_mask(cr, ci)) {
-        float zr = 0.0f, zi = 0.0f;
-        dwell = 0;
-        for (int n = 0; n < max_iter; ++n) {
-            const float nzr = zr * zr - zi * zi + cr;
-            const float nzi = 2.0f * zr * zi + ci;
-            zr = nzr;
-            zi = nzi;
-            if (!(zr * zr + zi * zi <= 4.0f)) break;
-            ++dwell;
-        }
-    }
+    const int dwell = dwell_count(cr, ci, max_iter);
     out[(size_t)row * (size_t)nx + (size_t)col] = (float)dwell;
 }
 

@@ -1,6 +1,8 @@
 // Shared device helpers of the escape-time kernels (tci_de.cu, dwell.cu,
-// cloud_green.cu).
+// dwell_ms.cu, de_std.cu, green_grid.cu, cloud_green.cu).
 #pragma once
+
+#include <math.h>
 
 // _interior_mask of cmtci/kernels/mandelbrot_pallas.py:148: c in the main
 // cardioid or the period-2 bulb, each with a 1e-5 margin, evaluated in f32 in
@@ -14,4 +16,32 @@ __device__ __forceinline__ bool interior_mask(float cr, float ci) {
     const float xp = cr + 1.0f;
     const bool in_bulb = xp * xp + ci * ci <= 0.06249f;
     return in_cardioid || in_bulb;
+}
+
+// max that propagates NaN like jnp.maximum / torch.maximum (fmaxf(NaN, x)
+// returns x, which would turn a NaN lane into a finite value).
+__device__ __forceinline__ float max_nan(float a, float b) {
+    return (a != a) ? a : fmaxf(a, b);
+}
+
+// The dwell loop of K2 (dwell.cu) and of K6's fine pass (dwell_ms.cu), kept
+// here so the two cannot drift: max_iter for an analytically interior c
+// (the loop is skipped); otherwise, for n = 0..max_iter-1,
+// z <- (zr*zr - zi*zi + cr, 2*zr*zi + ci), stop if !(|z|^2 <= 4) (NaN counts
+// as an escape), else dwell += 1. The twin is mandelbrot_cuda._dwell_torch.
+__device__ __forceinline__ int dwell_count(float cr, float ci, int max_iter) {
+    int dwell = max_iter;
+    if (!interior_mask(cr, ci)) {
+        float zr = 0.0f, zi = 0.0f;
+        dwell = 0;
+        for (int n = 0; n < max_iter; ++n) {
+            const float nzr = zr * zr - zi * zi + cr;
+            const float nzi = 2.0f * zr * zi + ci;
+            zr = nzr;
+            zi = nzi;
+            if (!(zr * zr + zi * zi <= 4.0f)) break;
+            ++dwell;
+        }
+    }
+    return dwell;
 }

@@ -40,11 +40,8 @@
 
 namespace {
 
-// max that propagates NaN like jnp.maximum / torch.maximum (fmaxf(NaN, x)
-// returns x, which would turn a NaN dz lane into a huge finite d).
-__device__ __forceinline__ float max_nan(float a, float b) {
-    return (a != a) ? a : fmaxf(a, b);
-}
+// max_nan (escape.cuh) propagates NaN: fmaxf(NaN, x) would turn a NaN dz
+// lane into a huge finite d.
 
 __global__ void tci_de_kernel(float* __restrict__ out, int n, float xmin, float ymin,
                               float dx, float dy, int max_iter, float r2) {

@@ -1,5 +1,5 @@
-"""Figure writers of the boundary and equipotential pipelines (subset of
-``cmtci/io/plots.py``, copied unchanged apart from the import).
+"""Figure writers of the boundary, equipotential and TCI pipelines (subset
+of ``cmtci/io/plots.py``, copied unchanged apart from the import).
 
 matplotlib is imported inside each function, never at module import: a
 machine without it still runs every pipeline with ``plots=False``
@@ -124,5 +124,31 @@ def plot_family_kde_overlay(family_g: dict, path, kde_grid_n: int = 800,
     plt.legend()
     plt.tight_layout()
     fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_kl_descent(kls, path, title="KL descent (TCI flow)"):
+    plt = pyplot()
+    fig = plt.figure()
+    plt.plot(np.asarray(kls))
+    plt.xlabel("t")
+    plt.ylabel("D_KL")
+    plt.title(title)
+    plt.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=150, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_field(field, domain, path, title="", cmap="viridis"):
+    plt = pyplot()
+    fig = plt.figure()
+    plt.imshow(np.asarray(field), origin="lower",
+               extent=[domain[0], domain[1], domain[2], domain[3]], cmap=cmap)
+    plt.colorbar()
+    plt.title(title)
+    plt.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=150, pil_kwargs=_PNG_FAST)
     plt.close(fig)
     return path

@@ -1,10 +1,12 @@
 """File-bus writers, schema-compatible with the reference outputs (subset of
-``cmtci/io/writers.py`` used by the tracker, boundary and equipotential)."""
+``cmtci/io/writers.py`` used by the tracker, boundary, equipotential and
+TCI pipelines)."""
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -54,4 +56,29 @@ def write_dict_rows_csv(path: str, rows: list):
         w.writeheader()
         for r in rows:
             w.writerow(r)
+    return path
+
+
+def to_jsonable(x):
+    """numpy/complex containers -> JSON-safe (v18:977-995 semantics)."""
+    if isinstance(x, dict):
+        return {k: to_jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [to_jsonable(v) for v in x]
+    if isinstance(x, (float, np.floating)) and not np.isfinite(x):
+        return str(float(x))  # before .item(): json.dump would emit a bare
+        # NaN/Infinity token (invalid JSON) for a non-finite np scalar
+    if isinstance(x, (np.floating, np.integer)):
+        return x.item()
+    if isinstance(x, (complex, np.complexfloating)):
+        return {"re": float(np.real(x)), "im": float(np.imag(x))}
+    if isinstance(x, np.ndarray):
+        return to_jsonable(x.tolist())
+    return x
+
+
+def write_json(path: str, obj):
+    ensure_dir(path)
+    with open(path, "w") as f:
+        json.dump(to_jsonable(obj), f, indent=2)
     return path

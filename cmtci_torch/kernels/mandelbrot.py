@@ -1,8 +1,10 @@
-"""Mandelbrot dwell grid, Green potential, TCI distance-estimator field and
-the boundary-band sampler.
+"""Mandelbrot dwell grid, Green potential, the TCI and standard
+distance-estimator fields, the grid escape potentials and the boundary-band
+sampler.
 
-Port of the tracker, boundary and equipotential subset of
-``cmtci/kernels/mandelbrot.py``. Complex values are (re, im) tensor pairs,
+Port of the tracker, boundary, equipotential and TCI subset of
+``cmtci/kernels/mandelbrot.py``; ``de_field_std`` and
+``escape_potential_grid`` are the f64 contracts of the K4 and K5 kernels. Complex values are (re, im) tensor pairs,
 and the op order is the reference's (``de_field_tci``: dz is updated BEFORE
 z each step, z is latched at the first |z| > escape_r, dz is not latched and
 overflows to inf for early escapers, so d == 0 there).
@@ -169,6 +171,97 @@ def de_field_tci(cr, ci, max_iter: int = 250, escape_r: float = 250.0,
                     torch.zeros_like(az))
     d = torch.nan_to_num(d, nan=0.0, posinf=0.0, neginf=0.0)
     return esc, d, lr, li
+
+
+def de_field_std(cr, ci, max_iter: int = 500, escape_r: float = 4.0, eps: float = 1e-14):
+    """Standard distance estimator (variograms_construct_mandelbrot.py:61-88)
+    on the tensors' device and dtype: z and dz are latched at the first
+    |z| > escape_r, then the orbit is frozen; num = log(max(|z|, 1))·|z|,
+    den = max(|2 z dz|, eps), non-finite d -> 0. Returns (esc, dist,
+    (lzr, lzi), (ldr, ldi)) like the reference."""
+    zr = torch.zeros_like(cr)
+    zi = torch.zeros_like(ci)
+    dzr = torch.ones_like(cr)
+    dzi = torch.zeros_like(ci)
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    lzr, lzi = torch.zeros_like(cr), torch.zeros_like(ci)
+    ldr, ldi = torch.ones_like(cr), torch.zeros_like(ci)
+    for _ in range(max_iter):
+        tr, ti = 2.0 * zr, 2.0 * zi
+        dzr, dzi = tr * dzr - ti * dzi + 1.0, tr * dzi + ti * dzr
+        zr, zi = _zsq_add_c(zr, zi, cr, ci)
+        hit = ~esc & (torch.sqrt(zr * zr + zi * zi) > escape_r)
+        lzr = torch.where(hit, zr, lzr)
+        lzi = torch.where(hit, zi, lzi)
+        ldr = torch.where(hit, dzr, ldr)
+        ldi = torch.where(hit, dzi, ldi)
+        esc = esc | hit
+        zr = torch.where(esc, 0.0, zr)
+        zi = torch.where(esc, 0.0, zi)
+        dzr = torch.where(esc, 1.0, dzr)
+        dzi = torch.where(esc, 0.0, dzi)
+    az = torch.hypot(lzr, lzi)
+    pr, pi = 2.0 * (lzr * ldr - lzi * ldi), 2.0 * (lzr * ldi + lzi * ldr)
+    num = torch.log(torch.maximum(az, az.new_tensor(1.0))) * az
+    den = torch.maximum(torch.hypot(pr, pi), pr.new_tensor(eps))
+    dist = torch.where(esc, torch.nan_to_num(num / den, nan=0.0, posinf=0.0, neginf=0.0),
+                       torch.zeros_like(az))
+    return esc, dist, (lzr, lzi), (ldr, ldi)
+
+
+#: escape_potential_grid's normalizations
+POTENTIAL_NORMALIZATIONS = ("two_pow_n", "two_pow_k_break", "k_plus_1")
+
+
+def escape_potential_grid(cr, ci, max_iter: int = 500, escape_r: float = 4.0,
+                          normalization: str = "two_pow_n"):
+    """Grid escape potential with the reference's three normalizations, on
+    the tensors' device and dtype:
+      * "two_pow_n": g = log|z_n| / 2^n at first escape, n 1-based, else 0
+        (variograms_construct_mandelbrot.py:148-166);
+      * "two_pow_k_break": Potentials.py:32-47 — k is the 0-based loop index
+        at break (or max_iter-1 without escape); U = log|z_end| / 2^k, 0
+        where |z_end| == 0;
+      * "k_plus_1": U = log|z_k| / (k+1) at first escape (0-based k), else 0
+        (Laplacian_C-M.py:27-43).
+    The powers of two are exact (np.ldexp; inf past the dtype's range, as
+    2^n overflows in the reference)."""
+    if normalization not in POTENTIAL_NORMALIZATIONS:
+        raise ValueError(f"unknown normalization {normalization!r}; expected one of "
+                         f"{POTENTIAL_NORMALIZATIONS}")
+    zr = torch.zeros_like(cr)
+    zi = torch.zeros_like(ci)
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    g = torch.zeros_like(cr)
+    lzr, lzi = torch.zeros_like(cr), torch.zeros_like(ci)
+    r2 = escape_r * escape_r
+    with np.errstate(over="ignore"):
+        pow2 = np.ldexp(1.0, np.arange(max_iter + 1))
+    for i in range(max_iter):
+        zr, zi = _zsq_add_c(zr, zi, cr, ci)
+        a2 = zr * zr + zi * zi
+        hit = ~esc & (a2 > r2)
+        logr = 0.5 * torch.log(torch.clamp(a2, min=1e-300))
+        if normalization == "two_pow_n":
+            val = logr / float(pow2[i + 1])
+        elif normalization == "k_plus_1":
+            val = logr / float(i + 1)
+        else:
+            val = logr / float(pow2[i])
+        g = torch.where(hit, val, g)
+        # the last unescaped z, then the z at the hit
+        lzr = torch.where(hit | esc, lzr, zr)
+        lzi = torch.where(hit | esc, lzi, zi)
+        lzr = torch.where(hit, zr, lzr)
+        lzi = torch.where(hit, zi, lzi)
+        esc = esc | hit
+        zr = torch.where(esc, 0.0, zr)
+        zi = torch.where(esc, 0.0, zi)
+    if normalization == "two_pow_k_break":
+        a2 = lzr * lzr + lzi * lzi
+        tail = 0.5 * torch.log(torch.clamp(a2, min=1e-300)) / float(pow2[max_iter - 1])
+        g = torch.where(esc, g, torch.where(a2 > 0.0, tail, torch.zeros_like(g)))
+    return g
 
 
 def de_field_tci_numpy(c: np.ndarray, max_iter: int = 250, escape_r: float = 250.0,

@@ -1,13 +1,16 @@
-"""The escape-time kernels K1 (TCI distance estimator), K2 (dwell) and K3
-(cloud Green records), with their plain twins and wrappers.
+"""The escape-time kernels K1 (TCI distance estimator), K2 (dwell), K3
+(cloud Green records), K4 (standard distance estimator), K5 (grid Green
+potential) and K6 (the Mariani-Silver dwell's fine pass), with their plain
+twins and wrappers.
 
 Port of ``cmtci/kernels/mandelbrot_pallas.py``: ``_tci_kernel`` with its
 hosts (``tci_de_field_pallas``, ``_tci_selection_core``,
 ``_tci_sample_padded``, ``tci_boundary_sample``, ``tci_boundary_selection``),
-``_dwell_kernel`` with ``mandelbrot_field_pallas``, and
-``_cloud_green_kernel`` with ``green_cloud_f32``. The kernels are
-``csrc/tci_de.cu``, ``csrc/dwell.cu`` and ``csrc/cloud_green.cu``, built with
-nvcc and called through ctypes (``_build.py``).
+``_dwell_kernel``, ``_de_kernel`` and ``_green_kernel`` with
+``mandelbrot_field_pallas``, ``_dwell_kernel(ms=True)`` with
+``dwell_field_ms``, and ``_cloud_green_kernel`` with ``green_cloud_f32``. The
+kernels are ``csrc/{tci_de,dwell,cloud_green,de_std,green_grid,dwell_ms}.cu``,
+built with nvcc and called through ctypes (``_build.py``).
 
 A wrapper given a CPU device runs the kernel's plain twin; given a CUDA
 device it launches the kernel or raises. Nothing falls back. The q25 band and
@@ -27,13 +30,17 @@ from cmtci_torch.utils.device import resolve_device
 
 #: kernel launches per library, counted where the wrapper launches; read and
 #: reset by callers that need to show a run went through the kernels
-launches = {"tci_de": 0, "dwell": 0, "cloud_green": 0}
+launches = {"tci_de": 0, "dwell": 0, "cloud_green": 0, "de_std": 0, "green_grid": 0,
+            "dwell_ms": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "tci_de": [_P, _I, _F, _F, _F, _F, _I, _F, _P],
     "dwell": [_P, _I, _I, _F, _F, _F, _F, _I, _P],
     "cloud_green": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "de_std": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _P],
+    "green_grid": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _P],
+    "dwell_ms": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P],
 }
 
 
@@ -67,8 +74,13 @@ def _params(domain, nx: int, ny: int | None = None) -> np.ndarray:
 def _grid_coords(domain, nx: int, ny: int, dev: torch.device):
     """f32 (cr, ci) of shape (ny, nx), built as the kernels build them:
     xmin + (float)col*dx and ymin + (float)row*dy (``_tile_coords``)."""
+    return _coords(_params(domain, nx, ny), nx, ny, dev)
+
+
+def _coords(params: np.ndarray, nx: int, ny: int, dev: torch.device):
+    """_grid_coords from f32 (xmin, ymin, dx, dy) params."""
     f32 = torch.float32
-    p = torch.as_tensor(_params(domain, nx, ny), device=dev)
+    p = torch.as_tensor(params, device=dev)
     xmin, ymin, dx, dy = p[0], p[1], p[2], p[3]
     cr = (xmin + torch.arange(nx, dtype=f32, device=dev) * dx)[None, :].expand(ny, nx)
     ci = (ymin + torch.arange(ny, dtype=f32, device=dev) * dy)[:, None].expand(ny, nx)
@@ -220,23 +232,32 @@ def tci_boundary_sample(domain, grid_n: int, n_samples: int, seed: int,
 
 
 # ---------------------------------------------------------------------------
-# K2: dwell field (the boundary pipeline's grid)
+# K2: dwell field (the boundary pipeline's grid); K4/K5: the "de" and "green"
+# fields of mandelbrot_field
 # ---------------------------------------------------------------------------
 
+#: mandelbrot_field's kinds and the kernel library each launches
+FIELD_KINDS = {"dwell": "dwell", "de": "de_std", "green": "green_grid"}
 
-def dwell_field_torch(domain, nx: int, ny: int, max_iter: int = 500,
-                      device="cpu") -> torch.Tensor:
-    """Plain-torch twin of the K2 kernel: f32 (ny, nx) dwell, the first n
-    (0-based) with |z_{n+1}|^2 > 4, else max_iter, in K2's f32 op order.
+
+def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.device,
+                 fill_px: torch.Tensor | None = None) -> torch.Tensor:
+    """Twin of escape.cuh:dwell_count over the grid of f32 `params`, the
+    loop K2 and K6's fine pass share. fill_px (f32 (ny, nx), optional) is K6's
+    per-pixel fill flag: where it is >= 0 the pixel takes it and skips the
+    loop, as K6's thread does.
 
     A lane's z is frozen where the kernel's thread breaks (escaped), so
     every lane ends with the kernel's state and count.
     """
-    dev = resolve_device(device)
-    cr, ci = _grid_coords(domain, nx, ny, dev)
+    cr, ci = _coords(params, nx, ny, dev)
     interior = _interior_mask_torch(cr, ci)
     act = ~interior
     dwell = torch.where(interior, float(max_iter), 0.0).to(torch.float32)
+    if fill_px is not None:
+        filled = fill_px >= 0.0
+        act = act & ~filled
+        dwell = torch.where(filled, fill_px, dwell)
     zr = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
     zi = torch.zeros_like(zr)
     for n in range(max_iter):
@@ -251,24 +272,227 @@ def dwell_field_torch(domain, nx: int, ny: int, max_iter: int = 500,
     return dwell
 
 
-def mandelbrot_field(domain, nx: int, ny: int, max_iter: int = 500,
-                     device="cuda") -> torch.Tensor:
-    """f32 (ny, nx) dwell over an np.linspace-style grid on `device`
-    (``mandelbrot_field_pallas(kind="dwell")``): iteration counts, max_iter
-    where not escaped. domain = (xmin, xmax, ymin, ymax), layout (ny, nx)
-    like complex_grid(); the kernel covers exactly ny x nx, with no
-    tile-multiple restriction. A CUDA device launches K2, a CPU device runs
-    its twin. The reference's other kinds come with their kernels (ROADMAP
-    Queue 2, K4/K5).
-    """
-    dev = resolve_device(device)
+def dwell_field_torch(domain, nx: int, ny: int, max_iter: int = 500,
+                      device="cpu") -> torch.Tensor:
+    """Plain-torch twin of the K2 kernel: f32 (ny, nx) dwell, the first n
+    (0-based) with |z_{n+1}|^2 > 4, else max_iter, in K2's f32 op order."""
+    return _dwell_torch(_params(domain, nx, ny), nx, ny, max_iter, resolve_device(device))
+
+
+def _dwell(params: np.ndarray, nx: int, ny: int, max_iter: int,
+           dev: torch.device) -> torch.Tensor:
+    """K2 over the grid of f32 `params` on `dev` (its twin on the CPU)."""
     if dev.type == "cpu":
-        return dwell_field_torch(domain, nx, ny, max_iter, device=dev)
-    xmin, ymin, dx, dy = (float(v) for v in _params(domain, nx, ny))
+        return _dwell_torch(params, nx, ny, max_iter, dev)
+    xmin, ymin, dx, dy = (float(v) for v in params)
     out = torch.empty((ny, nx), dtype=torch.float32, device=dev)
     _launch("dwell", dev, out.data_ptr(), int(nx), int(ny), xmin, ymin, dx, dy,
             int(max_iter))
     return out
+
+
+def de_field_std_torch(domain, nx: int, ny: int, max_iter: int = 500,
+                       escape_r: float = 4.0, device="cpu") -> torch.Tensor:
+    """Plain-torch twin of the K4 kernel: the f32 (ny, nx) standard
+    distance estimator in K4's op order (``_de_kernel``).
+
+    z and dz are latched at the first |z|^2 > R^2 and the lane stops there,
+    as the kernel's thread breaks; an analytically interior lane counts as
+    escaped with zero latches (d = 0); a lane that never escapes gives 0.
+    """
+    dev = resolve_device(device)
+    cr, ci = _grid_coords(domain, nx, ny, dev)
+    esc = _interior_mask_torch(cr, ci)
+    active = ~esc
+    zero = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
+    zr, zi, dzr, dzi = zero, zero, zero + 1.0, zero
+    lzr, lzi, ldr, ldi = zero, zero, zero + 1.0, zero
+    r2 = float(np.float32(escape_r * escape_r))
+    for n in range(max_iter):
+        if n % 32 == 0 and not bool(active.any()):
+            break
+        tr, ti = 2.0 * zr, 2.0 * zi
+        ndzr = tr * dzr - ti * dzi + 1.0
+        ndzi = tr * dzi + ti * dzr
+        nzr = zr * zr - zi * zi + cr
+        nzi = 2.0 * zr * zi + ci
+        dzr = torch.where(active, ndzr, dzr)
+        dzi = torch.where(active, ndzi, dzi)
+        zr = torch.where(active, nzr, zr)
+        zi = torch.where(active, nzi, zi)
+        hit = active & (zr * zr + zi * zi > r2)
+        lzr = torch.where(hit, zr, lzr)
+        lzi = torch.where(hit, zi, lzi)
+        ldr = torch.where(hit, dzr, ldr)
+        ldi = torch.where(hit, dzi, ldi)
+        esc = esc | hit
+        active = active & ~hit
+    az = torch.sqrt(lzr * lzr + lzi * lzi)
+    pr = 2.0 * (lzr * ldr - lzi * ldi)
+    pi = 2.0 * (lzr * ldi + lzi * ldr)
+    # torch.maximum propagates NaN like jnp.maximum (an overflowed dz keeps
+    # its NaN d, as in the reference)
+    num = torch.log(torch.maximum(az, zero.new_tensor(1.0))) * az
+    den = torch.maximum(torch.sqrt(pr * pr + pi * pi), zero.new_tensor(1e-14))
+    return torch.where(esc, num / den, zero)
+
+
+def _pow2_f32(k: int) -> float:
+    """2^-k as the f32 value K5 computes (ldexpf(1, -k)): exact, subnormal
+    for k > 126, 0 for k > 149."""
+    return float(np.ldexp(np.float32(1.0), -k))
+
+
+def green_field_torch(domain, nx: int, ny: int, max_iter: int = 500,
+                      escape_r: float = 4.0, device="cpu") -> torch.Tensor:
+    """Plain-torch twin of the K5 kernel: f32 (ny, nx) g = max(0.5
+    log(max(|z|^2, 1e-30)) 2^-(n+1), 0) at the first |z|^2 > R^2 (0-based
+    step n), else 0, in K5's op order (``_green_kernel``). An escaped lane
+    stops, as the kernel's thread breaks; interior lanes skip."""
+    dev = resolve_device(device)
+    cr, ci = _grid_coords(domain, nx, ny, dev)
+    active = ~_interior_mask_torch(cr, ci)
+    g = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
+    zr, zi = torch.zeros_like(g), torch.zeros_like(g)
+    r2 = float(np.float32(escape_r * escape_r))
+    floor = g.new_tensor(1e-30)
+    for n in range(max_iter):
+        if n % 32 == 0 and not bool(active.any()):
+            break
+        nzr = zr * zr - zi * zi + cr
+        nzi = 2.0 * zr * zi + ci
+        zr = torch.where(active, nzr, zr)
+        zi = torch.where(active, nzi, zi)
+        a2 = zr * zr + zi * zi
+        hit = active & (a2 > r2)
+        val = 0.5 * torch.log(torch.maximum(a2, floor)) * _pow2_f32(n + 1)
+        g = torch.where(hit, torch.maximum(val, g.new_tensor(0.0)), g)
+        active = active & ~hit
+    return g
+
+
+def mandelbrot_field(domain, nx: int, ny: int, max_iter: int = 500, kind: str = "dwell",
+                     escape_r: float = 4.0, device="cuda") -> torch.Tensor:
+    """f32 (ny, nx) escape-time field over an np.linspace-style grid on
+    `device` (``mandelbrot_field_pallas``). domain = (xmin, xmax, ymin,
+    ymax), layout (ny, nx) like complex_grid(); the kernel covers exactly
+    ny x nx, with no tile-multiple restriction. kind:
+      * "dwell": iteration counts, max_iter where not escaped (K2; escape_r
+        is not read, the radius is 2 as in the reference);
+      * "de": the standard distance estimator, radius escape_r (K4);
+      * "green": g = log|z_k| 2^-k at the first |z| > escape_r, else 0 (K5).
+    A CUDA device launches the kind's kernel, a CPU device runs its twin.
+    """
+    if kind not in FIELD_KINDS:
+        raise ValueError(f"unknown kind {kind!r}; expected one of {tuple(FIELD_KINDS)}")
+    dev = resolve_device(device)
+    params = _params(domain, nx, ny)
+    if kind == "dwell":
+        return _dwell(params, nx, ny, max_iter, dev)
+    if dev.type == "cpu":
+        twin = de_field_std_torch if kind == "de" else green_field_torch
+        return twin(domain, nx, ny, max_iter, escape_r, device=dev)
+    xmin, ymin, dx, dy = (float(v) for v in params)
+    r2 = float(np.float32(escape_r * escape_r))
+    out = torch.empty((ny, nx), dtype=torch.float32, device=dev)
+    _launch(FIELD_KINDS[kind], dev, out.data_ptr(), int(nx), int(ny), xmin, ymin, dx, dy,
+            int(max_iter), r2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: Mariani-Silver dwell (coarse pass on K2, fill flags, fine pass on K6)
+# ---------------------------------------------------------------------------
+
+
+def _coarse_params(domain, nx: int, ny: int, stride: int) -> np.ndarray:
+    """f32 (xmin, ymin, dx*stride, dy*stride) with the products taken in f64
+    before the cast, as the reference's coarse pass does: f32(dx*stride)*col
+    and f32(dx)*(col*stride) can differ by an ulp, and with them a flag."""
+    xmin, xmax, ymin, ymax = domain
+    dx = (xmax - xmin) / (nx - 1)
+    dy = (ymax - ymin) / (ny - 1)
+    return np.asarray([xmin, ymin, dx * stride, dy * stride], dtype=np.float32)
+
+
+def fill_flags(coarse: torch.Tensor, rs: int, cs: int) -> torch.Tensor:
+    """Per-tile fill flags from the coarse dwell (the reference's host loop,
+    vectorized on the coarse tensor's device): f32 (cyn // rs, cxn // cs),
+    the tile's common value where every coarse sample on the tile
+    (rs x cs of them) and a one-sample halo around it are equal, else -1.
+    Tiles on the grid's edge have no halo and are never filled."""
+    cyn, cxn = coarse.shape
+    n_ty, n_tx = cyn // rs, cxn // cs
+    fill = torch.full((n_ty, n_tx), -1.0, dtype=torch.float32, device=coarse.device)
+    if n_ty >= 3 and n_tx >= 3:
+        # window k along an axis starts at (k+1)*rs - 1: tile k+1 and its halo
+        w = coarse[rs - 1 :, cs - 1 :].unfold(0, rs + 2, rs).unfold(1, cs + 2, cs)
+        v = w[..., 0, 0]
+        uniform = (w == v[..., None, None]).flatten(2).all(dim=2)
+        fill[1:-1, 1:-1] = torch.where(uniform, v, fill[1:-1, 1:-1])
+    return fill
+
+
+def _fill_pixels(fill: torch.Tensor, tile) -> torch.Tensor:
+    th, tw = tile
+    return fill.repeat_interleave(th, dim=0).repeat_interleave(tw, dim=1)
+
+
+def dwell_fill_torch(domain, nx: int, ny: int, fill: torch.Tensor, tile,
+                     max_iter: int = 500, device="cpu") -> torch.Tensor:
+    """Plain-torch twin of the K6 kernel (the fine pass): a pixel of a
+    filled tile (flag >= 0) takes the flag, the others run K2's loop."""
+    dev = resolve_device(device)
+    return _dwell_torch(_params(domain, nx, ny), nx, ny, max_iter, dev,
+                        _fill_pixels(fill.to(dev), tile))
+
+
+def dwell_fill(domain, nx: int, ny: int, fill: torch.Tensor, tile, max_iter: int = 500,
+               device="cuda") -> torch.Tensor:
+    """K6 on `device` (CUDA: the kernel; CPU: its twin). fill is the f32
+    (ny // th, nx // tw) flag array of fill_flags; ny and nx must be
+    multiples of the tile (th, tw)."""
+    dev = resolve_device(device)
+    th, tw = tile
+    if ny % th or nx % tw or tuple(fill.shape) != (ny // th, nx // tw):
+        raise ValueError(f"fill {tuple(fill.shape)} does not tile ({ny}, {nx}) by {tile}")
+    if dev.type == "cpu":
+        return dwell_fill_torch(domain, nx, ny, fill, tile, max_iter, device=dev)
+    fill = fill.to(device=dev, dtype=torch.float32).contiguous()
+    xmin, ymin, dx, dy = (float(v) for v in _params(domain, nx, ny))
+    out = torch.empty((ny, nx), dtype=torch.float32, device=dev)
+    _launch("dwell_ms", dev, fill.data_ptr(), out.data_ptr(), int(nx), int(ny), xmin, ymin,
+            dx, dy, int(max_iter), int(th), int(tw))
+    return out
+
+
+def dwell_field_ms(domain, nx: int, ny: int, max_iter: int = 500, stride: int = 8,
+                   tile: tuple = (32, 256), device="cuda"):
+    """Dwell field with Mariani-Silver tile fills (the reference's opt-in
+    ``dwell_field_ms``). Returns (out, stats).
+
+    Pass 1 is K2 at every `stride`-th pixel (the coarse samples ARE fine
+    pixels, at the reference's coarse spacing f32(dx*stride)). A fine
+    (th, tw) tile is filled with v iff every coarse sample on the tile plus a
+    one-sample halo equals v (fill_flags, on the device); grid-edge tiles
+    always compute. The fine pass is K6. stats = {"filled": tiles filled,
+    "tiles": total, "coarse_px": coarse pass pixels}. The fill criterion is
+    a heuristic at pixel resolution, as in the reference: equal to K2 where
+    no sub-stride sliver threads between the samples.
+    """
+    th, tw = tile
+    if th % stride or tw % stride:
+        raise ValueError(f"stride {stride} must divide the tile {tile}")
+    if ny % (th * stride) or nx % (tw * stride):
+        raise ValueError(f"(ny, nx) = {(ny, nx)} must be a multiple of "
+                         f"tile*stride = {(th * stride, tw * stride)}")
+    dev = resolve_device(device)
+    cyn, cxn = ny // stride, nx // stride
+    coarse = _dwell(_coarse_params(domain, nx, ny, stride), cxn, cyn, max_iter, dev)
+    fill = fill_flags(coarse, th // stride, tw // stride)
+    out = dwell_fill(domain, nx, ny, fill, tile, max_iter, device=dev)
+    stats = {"filled": int((fill >= 0).sum()), "tiles": fill.numel(), "coarse_px": cyn * cxn}
+    return out, stats
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 tracking (S8). Port of ``cmtci/transport/giflow.py``:
   * fixed-T with kl0/klT — gi_assumption_tracker_v3.py:128-134
   * adaptive-to-threshold with min_steps — :137-148
+  * the TCI flow's KL trajectory — tci_construct_mandelbrot_v002_fixed.py:
+    90-95 (numpy on the host: T steps over one bins² grid)
 
 device=None runs the numpy loop on the host; a torch device runs the same
 loop in f64 tensors there (the tracker's choice for grids above 128 bins,
@@ -70,3 +72,18 @@ def gi_flow_to_threshold(p, x0, alpha: float, kl_threshold: float, max_steps: in
         t += 1
         klv = float(_kl_torch(pt, x, eps))
     return x.cpu().numpy(), int(t), float(kl0), float(klv)
+
+
+def tci_flow(p, x0, alpha: float, t_steps: int, eps: float = 1e-12):
+    """KL trajectory variant (tci_construct_mandelbrot_v002_fixed.py:90-95),
+    f64 on the host. Returns (kls array of length T+1, trajectory list of
+    T+1 arrays, X_0 included)."""
+    p = np.asarray(p, dtype=np.float64)
+    x = np.asarray(x0, dtype=np.float64)
+    kls = [kl(p, x, eps)]
+    traj = [x]
+    for _ in range(int(t_steps)):
+        x = (1.0 - alpha) * x + alpha * p
+        kls.append(kl(p, x, eps))
+        traj.append(x)
+    return np.asarray(kls), traj

@@ -8,6 +8,8 @@ reference's numpy/scipy expressions:
     gi_assumption_tracker_v3.py:109-125
   * KL with clip, TV = 0.5*sum|p-q|, overlap = sum min(p,q), fraction
     outside the domain — gi_assumption_tracker_v3.py:93-106
+  * to_prob: the unmollified probability histogram of the TCI flow —
+    tci_construct_mandelbrot_v002_fixed.py:80-84
 
 The histograms are O(bins²) host work between device stages; they stay in
 numpy, so the parity rows depend on no device reduction order.
@@ -51,6 +53,15 @@ def mollified_histogram(cloud, bins: int, domain, sigma_bins: float, eps: float 
     if sigma_bins and sigma_bins > 0:
         h = gaussian_filter(h, float(sigma_bins), mode="nearest")
         h = np.maximum(h, eps)
+    return h / h.sum()
+
+
+def to_prob(cloud, bins: int, domain, eps: float = 1e-12):
+    """Probability histogram of a complex cloud (tci_..._v002_fixed.py:80-84):
+    histogram2d counts over the fixed domain, floor at eps, normalize."""
+    cloud = np.asarray(cloud)
+    h = _histogram2d_np(cloud.real.ravel(), cloud.imag.ravel(), bins, domain)
+    h = np.maximum(h, eps)
     return h / h.sum()
 
 

@@ -85,7 +85,8 @@ def test_mandelbrot_field_routes_on_cpu(twin):
         mc.mandelbrot_field(DOM, NX, NY, max_iter=ITERS, device="cpu").numpy(), twin)
     with pytest.raises(ValueError, match="2 x 2"):
         mc.mandelbrot_field(DOM, 1, 32, device="cpu")
-    assert mc.launches == {"tci_de": 0, "dwell": 0, "cloud_green": 0}
+    # no launch on the CPU, whatever kernel libraries the port has
+    assert mc.launches and all(v == 0 for v in mc.launches.values()), mc.launches
 
 
 def test_mandelbrot_field_cuda_without_card_raises():

@@ -13,6 +13,10 @@ import sys
 import cmtci_torch.pipelines.tracker
 import cmtci_torch.pipelines.boundary
 import cmtci_torch.pipelines.equipotential
+import cmtci_torch.pipelines.analysis
+import cmtci_torch.stats.pointstats
+import cmtci_torch.stats.curvature
+import cmtci_torch.stats.spectral
 import cmtci_torch.io.plots
 import cmtci_torch.kernels.mandelbrot_cuda
 import cmtci_torch.kernels._build
