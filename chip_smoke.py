@@ -20,9 +20,11 @@ prints no result line):
      the adaptive config (t_fixed -1, sigma_bins 1) once on the kernel path;
   5. the f64 plain-torch tracker path on the card for two stages, at the
      contracts of tests/test_tracker_regression.py (rel 2e-3 / 5%);
-  6. K2 (csrc/dwell.cu) against its twin at 2000 x 2000 and 1001 x 1999,
-     max_iter 500: bitwise equal; times, and the orbit steps the kernel
-     iterates (interior pixels skip the loop);
+  6. K2 (csrc/dwell.cu) against its twin at 2000 x 2000 and 1001 x 1999, and
+     at the other grids the bench launches it on (2048 x 2048 on the bench's
+     padded domain, 4096 x 4096 and 8192 x 8192), max_iter 500: bitwise
+     equal; times, and the orbit steps the kernel iterates (interior pixels
+     skip the loop);
   7. run_boundary at the default config (res 2000, max_iter 500) on both
      backends: one K2 launch on "cuda", none on "torch"; K2 equal to the f64
      dwell on >= 99% of pixels; both contours inside their bounds around the
@@ -34,8 +36,9 @@ prints no result line):
      float64 (no launch): f32 against f64 on the card, and f64 against the
      reference's numbers in tests/data/equipotential_default_f64.json;
  10. K4 (csrc/de_std.cu) and K5 (csrc/green_grid.cu) through
-     mandelbrot_field(kind="de" | "green") at 2048 x 2048 (bench's de_mfu
-     shape) and 1001 x 1999, max_iter 500, R 4: bitwise equal to their twins
+     mandelbrot_field(kind="de" | "green") at 2048 x 2048 and 1001 x 1999,
+     and K4 at 2048 x 2048 on the bench's padded domain (its de_mfu grid),
+     max_iter 500, R 4: bitwise equal to their twins
      (or within rtol 1e-6, the differing pixels counted), the reference's
      contracts against the f64 de_field_std / escape_potential_grid on the
      card, one launch each, times, iterated orbit steps and bounds;
@@ -50,17 +53,42 @@ prints no result line):
      KL_initial within 2% of 17.933 and Hausdorff_before within 10% of 1.725
      (cmtci's f64 values there); layer times of the second run;
  13. run_tci's f64 parity path (de_impl "numpy") at the default config
-     against tests/data/tci_default_numpy.json.
+     against tests/data/tci_default_numpy.json;
+ 14. K7 (csrc/fma_peak.cu) at the bench's full size, 16,777,216 elements x
+     8192 chained FMAs: every element 0x3F800001 and bitwise equal to the
+     plain twin at the same size (16,384 eager launches, timed once); its
+     time, the bound and the card's own ceiling from its SM count and maximum
+     clock;
+ 15. K2's periodicity entry (csrc/dwell.cu, dwell_periodic_launch) through
+     mandelbrot_field(periodicity=True) at 2000 x 2000 and 1001 x 1999,
+     max_iter 500: bitwise equal to plain K2 and to its twin; then plain and
+     periodic K2 timed in turns at 2000 x 2000 at max_iter 500 and 20,000,
+     with the orbit steps each iterates there;
+ 16. run_variograms at the defaults in f32 (twice) and f64: the same counts
+     both times, each self-variogram's total count equal to the number of
+     subsample pairs under rmax, f32 gamma within 1e-3 relative of f64;
+ 17. the 150,000-point statistics: f32 shell counts against f64 on a
+     20,000-point subset (per shell within the pairs that sit on an edge),
+     the f32 kNN kernel's neighbour sets against the f64 search on a
+     5,000-point subset, and the f32 Hausdorff at 150,000 x 150,000 with its
+     peak device memory;
+ 18. cmtci_torch.bench at full size, its JSON on a line of its own: no
+     `_error` key, every ported key present and finite, `not_ported` exactly
+     the three waiting keys, no ratio key, vpu_peak_tflops no higher than the
+     card's FP32 FMA ceiling, and K1, K2, K3, K4 and K7 each launched.
 The kernels line gives, per kernel, its launches on its path, max |kernel -
 twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
 (the orbit steps these inputs need times the operations per step of the .cu
-body) over 67 TFLOP/s and the bytes (inputs read once, outputs written once)
-over 3.35 TB/s, the H100 SXM's published peaks at 700 W. No single PyTorch
-call computes an escape-time field, so library_ms is null.
+body; for K7 two per FMA) over 67 TFLOP/s and the bytes (inputs read once,
+outputs written once) over 3.35 TB/s, the H100 SXM's published peaks at 700
+W. No single PyTorch call computes an escape-time field or a chain of
+dependent FMAs, so library_ms is null.
 
 The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
-other grids' times are printed in phase 3. The last three lines are the
-card, a JSON line of the kernels, and {"ok": true, "device": {...}}.
+other grids' times are printed in phase 3; K2's launches are those of the
+boundary run (phase 7) and K7's those of the bench run (phase 18). The last
+three lines are the card, a JSON line of the kernels, and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -80,8 +108,12 @@ ORACLE = os.path.join(ROOT, "tests", "data", "v3_T25_sigma3_dense.csv")
 GOLDEN = os.path.join(ROOT, "artifacts", "mandel_boundary.csv.gz")
 EQUIP_REF = os.path.join(ROOT, "tests", "data", "equipotential_default_f64.json")
 TCI_REF = os.path.join(ROOT, "tests", "data", "tci_default_numpy.json")
-KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms")
-#: the TPU kernel each library replaces
+#: the libraries to build, one csrc/<name>.cu each
+KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak")
+#: the entry points of the kernels line, and the source of one named otherwise
+ENTRIES = KERNELS + ("dwell_periodic",)
+SOURCE = {"dwell_periodic": "dwell"}
+#: the TPU kernel each entry point replaces
 REPLACES = {
     "tci_de": "cmtci/kernels/mandelbrot_pallas.py:276",
     "dwell": "cmtci/kernels/mandelbrot_pallas.py:59",
@@ -89,12 +121,9 @@ REPLACES = {
     "de_std": "cmtci/kernels/mandelbrot_pallas.py:198",
     "green_grid": "cmtci/kernels/mandelbrot_pallas.py:156",
     "dwell_ms": "cmtci/kernels/mandelbrot_pallas.py:816",
+    "fma_peak": "bench.py:238",
+    "dwell_periodic": "cmtci/kernels/mandelbrot_pallas.py:94",
 }
-#: FP32 operations per orbit step, each mul, add, sub and compare counted once,
-#: from the loop bodies (tci_de.cu 12 mul 7 add/sub 3 compares; the others
-#: 6 mul 4 add/sub 1 compare; de_std.cu 12 mul 7 add/sub 1 compare)
-OPS_PER_STEP = {"tci_de": 22, "dwell": 11, "cloud_green": 11, "de_std": 20,
-                "green_grid": 11, "dwell_ms": 11}
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
 FIELD_SHAPES = ((2048, 2048), (1001, 1999))  # (ny, nx)
 MS_SHAPE, MS_STRIDE, MS_TILE = (2048, 2048), 8, (32, 256)
@@ -157,15 +186,22 @@ def cuda_ms(fn, warmup: int, reps: int) -> float:
 
 
 def reset_launches():
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
+    from cmtci_torch.kernels import _launch
 
-    for name in mc.launches:
-        mc.launches[name] = 0
+    _launch.reset_launches()
 
 
 def bound_ms(name: str, steps: int, nbytes: int):
-    """(ms, "operations" | "bytes"): the least time the card could take."""
-    t_ops = steps * OPS_PER_STEP[name] / PEAK_FP32 * 1e3
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    `steps` orbit steps of kernel `name` (mandelbrot_cuda.OPS_PER_STEP FP32
+    operations each) and `nbytes` of traffic."""
+    from cmtci_torch.kernels.mandelbrot_cuda import OPS_PER_STEP
+
+    return least_ms(steps * OPS_PER_STEP[name], nbytes)
+
+
+def least_ms(ops: float, nbytes: int):
+    t_ops = ops / PEAK_FP32 * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -378,8 +414,22 @@ def phase_f64(dev, oracle):
           f"the oracle {worst!r}")
 
 
+def bench_grids():
+    """The (domain, ny, nx) grids that cmtci_torch.bench gives K2 beyond the
+    headline 2000 x 2000: the padded roofline grid (K4's too) and the two
+    scale grids."""
+    from cmtci_torch import bench
+
+    sizes = bench.BenchSizes()
+    check(bench.DOM == BOUNDARY_DOMAIN and (sizes.res, sizes.res) == DWELL_SHAPES[0],
+          "the bench's headline grid is not DWELL_SHAPES[0] on BOUNDARY_DOMAIN")
+    return ([(bench.padded_domain(sizes), sizes.mfu_res, sizes.mfu_res)]
+            + [(bench.DOM, res, res) for res, _ in sizes.scale_grids])
+
+
 def phase_dwell(dev):
-    """Phase 6: K2 against its twin on the card."""
+    """Phase 6: K2 against its twin on the card, at the boundary's shapes and
+    at every grid the bench launches it on."""
     import torch
 
     from cmtci_torch.kernels import mandelbrot_cuda as mc
@@ -387,27 +437,32 @@ def phase_dwell(dev):
     timing = {}
     max_err = 0.0
     max_iter = 500
-    for ny, nx in DWELL_SHAPES:
-        out_k = mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, max_iter=max_iter, device=dev)
-        out_t = mc.dwell_field_torch(BOUNDARY_DOMAIN, nx, ny, max_iter, device=dev)
+    cases = [(BOUNDARY_DOMAIN, ny, nx) for ny, nx in DWELL_SHAPES] + bench_grids()
+    for dom, ny, nx in cases:
+        label = f"K2 {ny}x{nx}" + ("" if dom == BOUNDARY_DOMAIN else " (padded domain)")
+        out_k = mc.mandelbrot_field(dom, nx, ny, max_iter=max_iter, device=dev)
+        out_t = mc.dwell_field_torch(dom, nx, ny, max_iter, device=dev)
         torch.cuda.synchronize()
-        check(out_k.shape == out_t.shape == (ny, nx), f"{ny}x{nx}: shape {tuple(out_k.shape)}")
+        check(out_k.shape == out_t.shape == (ny, nx), f"{label}: shape {tuple(out_k.shape)}")
         n_diff = int((out_k != out_t).sum())
         max_err = max(max_err, float((out_k - out_t).abs().max()))
         # loop trips: an escaping pixel runs dwell + 1 steps, a bounded one
         # max_iter, an analytically interior one none
-        interior = mc._interior_mask_torch(*mc._grid_coords(BOUNDARY_DOMAIN, nx, ny, dev))
+        interior = mc._interior_mask_torch(*mc._grid_coords(dom, nx, ny, dev))
         steps = dwell_steps(out_k, interior, max_iter)
-        print(f"K2 {ny}x{nx}: kernel vs twin differing pixels {n_diff}, mean dwell "
+        print(f"{label}: kernel vs twin differing pixels {n_diff}, mean dwell "
               f"{float(out_k.mean())!r}, interior pixels {int(interior.sum())}, iterated "
               f"orbit steps {steps}")
-        check(n_diff == 0, f"K2 {ny}x{nx}: {n_diff} pixels differ from the twin")
-        ms = cuda_ms(lambda: mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, max_iter=max_iter,
+        check(n_diff == 0, f"{label}: {n_diff} pixels differ from the twin")
+        del out_t
+        ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter=max_iter,
                                                  device=dev), 3, 20)
-        plain_ms = cuda_ms(lambda: mc.dwell_field_torch(BOUNDARY_DOMAIN, nx, ny, max_iter,
-                                                        device=dev), 1, 3)
+        # the twin takes seconds at the two scale grids: one timed run there
+        plain_ms = cuda_ms(lambda: mc.dwell_field_torch(dom, nx, ny, max_iter, device=dev),
+                           *((1, 3) if nx * ny <= 2048 * 2048 else (0, 1)))
         bound, by = bound_ms("dwell", steps, 4 * nx * ny)
-        timing[(ny, nx)] = (ms, plain_ms, bound, by)
+        if dom == BOUNDARY_DOMAIN:
+            timing[(ny, nx)] = (ms, plain_ms, bound, by)
         print(f"  kernel {ms:.4f} ms ({steps / ms / 1e9:.4f} G orbit steps per ms), "
               f"twin {plain_ms:.4f} ms (median, CUDA events); bound {bound:.5f} ms ({by})")
     return max_err, timing
@@ -662,19 +717,23 @@ def phase_fields(dev):
     result = {}
     for kind in ("de", "green"):
         lib = libs[kind]
-        for ny, nx in FIELD_SHAPES:
-            label = f"K{4 if kind == 'de' else 5} {ny}x{nx}"
+        cases = [(BOUNDARY_DOMAIN, ny, nx) for ny, nx in FIELD_SHAPES]
+        if kind == "de":
+            cases.append(bench_grids()[0])  # the bench's de_mfu grid
+        for dom, ny, nx in cases:
+            label = (f"K{4 if kind == 'de' else 5} {ny}x{nx}"
+                     + ("" if dom == BOUNDARY_DOMAIN else " (padded domain)"))
             torch.cuda.synchronize()
             reset_launches()
-            out_k = mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, max_iter, kind, escape_r, dev)
+            out_k = mc.mandelbrot_field(dom, nx, ny, max_iter, kind, escape_r, dev)
             torch.cuda.synchronize()
             launches = dict(mc.launches)
             check(launches[lib] == 1 and sum(launches.values()) == 1,
                   f"{label}: launches {launches}")
-            out_t = twins[kind](BOUNDARY_DOMAIN, nx, ny, max_iter, escape_r, device=dev)
+            out_t = twins[kind](dom, nx, ny, max_iter, escape_r, device=dev)
             check(out_k.shape == out_t.shape == (ny, nx), f"{label}: shape")
             n_diff, err = compare_twin(out_k, out_t, label)
-            cr, ci = mb.complex_grid(BOUNDARY_DOMAIN, nx, ny, dtype=torch.float64, device=dev)
+            cr, ci = mb.complex_grid(dom, nx, ny, dtype=torch.float64, device=dev)
             if kind == "de":
                 f64 = mb.de_field_std(cr, ci, max_iter, escape_r)[1]
             else:
@@ -683,11 +742,11 @@ def phase_fields(dev):
             close = float(torch.isclose(out_k.double(), f64, **tol).double().mean())
             check(close > share, f"{label}: {close!r} of pixels within {tol} of f64, "
                                  f"not > {share}")
-            steps = orbit_steps(*mc._grid_coords(BOUNDARY_DOMAIN, nx, ny, dev), max_iter,
+            steps = orbit_steps(*mc._grid_coords(dom, nx, ny, dev), max_iter,
                                 float(escape_r * escape_r))
-            ms = cuda_ms(lambda: mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, max_iter, kind,
+            ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter, kind,
                                                      escape_r, dev), 3, 20)
-            plain_ms = cuda_ms(lambda: twins[kind](BOUNDARY_DOMAIN, nx, ny, max_iter,
+            plain_ms = cuda_ms(lambda: twins[kind](dom, nx, ny, max_iter,
                                                    escape_r, device=dev), 1, 3)
             bound, by = bound_ms(lib, steps, 4 * nx * ny)
             print(f"{label}: kernel vs twin differing pixels {n_diff}, max|kernel-twin| "
@@ -695,7 +754,7 @@ def phase_fields(dev):
                   f"the f64 counterpart on {close!r} (contract > {share}); kernel {ms:.4f} ms, "
                   f"twin {plain_ms:.4f} ms (median, CUDA events); {steps} orbit steps, "
                   f"bound {bound:.5f} ms ({by})")
-            if (ny, nx) == FIELD_SHAPES[0]:
+            if (dom, ny, nx) == cases[0]:
                 result[lib] = dict(launches=launches[lib], max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             else:
@@ -846,6 +905,330 @@ def phase_tci_f64(dev):
           f"Hausdorff {devs['Hausdorff_before']!r}, curvature corr {devs['Curvature_corr']!r}")
 
 
+def phase_fma(dev):
+    """Phase 14: K7 against its twin and the expected constant at the
+    bench's full size, and its time."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import _launch
+    from cmtci_torch.kernels import fma_peak as fp
+
+    n, k = fp.N_ELEMS, fp.K_STEPS
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fp.fma_chain(device=dev)
+    torch.cuda.synchronize()
+    launches = dict(_launch.launches)
+    check(launches["fma_peak"] == 1 and sum(launches.values()) == 1,
+          f"fma_chain: launches {launches}")
+    check(out.shape == (n,) and out.dtype == torch.float32, f"K7 output {tuple(out.shape)}")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    twin = fp.fma_chain_torch(n, k, device=dev)
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    n_const = int((out.view(torch.int32) != fp.FIXED_POINT_BITS).sum())
+    n_twin = int((out != twin).sum())
+    err = float((out - twin).abs().max())
+    print(f"K7 {n} elements x {k} FMAs: elements that are not 0x{fp.FIXED_POINT_BITS:08X} "
+          f"{n_const}, differing from the twin {n_twin}, max|kernel-twin| {err!r}; twin "
+          f"{plain_ms:.2f} ms (one run of {2 * k} eager launches, CUDA events)")
+    check(n_const == 0, f"K7: {n_const} elements are not the fixed point")
+    check(n_twin == 0, f"K7: {n_twin} elements differ from the twin")
+
+    flop = fp.FLOP_PER_STEP * k * n
+    bound, by = least_ms(flop, 4 * n)
+    ceiling = bench.fp32_fma_bound_tflops(dev)
+    ms = cuda_ms(lambda: fp.fma_chain(device=dev), 1, 5)
+    print(f"  kernel {ms:.4f} ms (median, CUDA events), {flop / ms / 1e9:.3f} TFLOP/s, "
+          f"{bound / ms:.1%} of the bound {bound:.5f} ms ({by}) at 67 TFLOP/s; the card's "
+          f"own ceiling (SMs x 128 x 2 x max clock) {ceiling:.3f} TFLOP/s, "
+          f"{flop / ceiling / 1e9:.5f} ms")
+    check(flop / ms / 1e9 <= ceiling, f"K7 measured above the card's ceiling {ceiling}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def dwell_loop_steps(cr, ci, max_iter: int, periodicity: bool):
+    """(lane steps, executed steps) of escape.cuh:dwell_count<periodicity>
+    over an (ny, nx) grid of f32 coordinates. A lane is counted on every step
+    it starts, up to and including the step on which it escapes or on which
+    its z meets its checkpoint; executed steps are what the lanes' warps burn
+    (bench.warp_executed_steps). The lanes that have stopped are dropped
+    every 32 steps."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    keep = ~mc._interior_mask_torch(cr, ci)
+    lane = torch.zeros(cr.numel(), dtype=torch.int32, device=cr.device)
+    idx = keep.reshape(-1).nonzero()[:, 0]
+    cr, ci = cr[keep], ci[keep]
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(cr)
+    pr, pi = torch.full_like(cr, 1e30), torch.zeros_like(cr)
+    alive = torch.ones_like(cr, dtype=torch.bool)
+    started = torch.zeros_like(idx, dtype=torch.int32)
+    for n in range(max_iter):
+        if n % 32 == 0:
+            lane[idx] += started
+            idx, cr, ci, zr, zi, pr, pi = (t[alive] for t in (idx, cr, ci, zr, zi, pr, pi))
+            alive = torch.ones_like(cr, dtype=torch.bool)
+            started = torch.zeros_like(idx, dtype=torch.int32)
+            if idx.numel() == 0:
+                break
+        started += alive
+        zr, zi = zr * zr - zi * zi + cr, 2.0 * zr * zi + ci
+        alive = alive & (zr * zr + zi * zi <= 4.0)
+        if periodicity:
+            alive = alive & ~((zr == pr) & (zi == pi))
+            if (n + 1) & n == 0:
+                pr, pi = zr, zi
+    lane[idx] += started
+    return int(lane.sum(dtype=torch.int64)), int(bench.warp_executed_steps(
+        lane.view(keep.shape)))
+
+
+def phase_periodic(dev):
+    """Phase 15: K2's periodicity entry against plain K2 and its twin, then
+    both timed in turns at max_iter 500 and 20,000."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import _launch
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    dom = BOUNDARY_DOMAIN
+    max_err = 0.0
+    for ny, nx in DWELL_SHAPES:
+        torch.cuda.synchronize()
+        reset_launches()
+        per = mc.mandelbrot_field(dom, nx, ny, 500, device=dev, periodicity=True)
+        torch.cuda.synchronize()
+        launches = dict(_launch.launches)
+        check(launches["dwell_periodic"] == 1 and sum(launches.values()) == 1,
+              f"periodic K2 {ny}x{nx}: launches {launches}")
+        plain = mc.mandelbrot_field(dom, nx, ny, 500, device=dev)
+        twin = mc.dwell_field_torch(dom, nx, ny, 500, device=dev, periodicity=True)
+        d_plain, d_twin = int((per != plain).sum()), int((per != twin).sum())
+        max_err = max(max_err, float((per - twin).abs().max()))
+        print(f"K2 periodic {ny}x{nx}, max_iter 500: pixels differing from plain K2 "
+              f"{d_plain}, from its twin {d_twin}")
+        check(d_plain == 0 and d_twin == 0, f"periodic K2 {ny}x{nx} differs")
+
+    ny, nx = DWELL_SHAPES[0]
+    cr, ci = mc._grid_coords(dom, nx, ny, dev)
+    interior = mc._interior_mask_torch(cr, ci)
+    result = None
+    for max_iter in (500, 20000):
+        def run(periodicity):
+            return mc.mandelbrot_field(dom, nx, ny, max_iter, device=dev,
+                                       periodicity=periodicity)
+
+        torch.cuda.synchronize()
+        reset_launches()
+        per = run(True)
+        launched = _launch.launches["dwell_periodic"]  # of this one call
+        plain = run(False)
+        check(bool(torch.equal(plain, per)), f"periodic K2 differs at max_iter {max_iter}")
+        counted = {flag: dwell_loop_steps(cr, ci, max_iter, flag) for flag in (False, True)}
+        steps = {flag: counted[flag][0] for flag in counted}
+        executed = {flag: counted[flag][1] for flag in counted}
+        want = bench.dwell_step_counts(plain, interior, max_iter)
+        check((steps[False], executed[False]) == (int(want[0]), int(want[1])),
+              f"max_iter {max_iter}: counted {counted[False]} plain steps, the output says "
+              f"{want}")
+        turns = [(flag, cuda_ms(lambda: run(flag), 2, 10))
+                 for flag in (False, True, True, False)]
+        t = {flag: statistics.median(ms for f, ms in turns if f == flag)
+             for flag in (False, True)}
+        print(f"K2 {ny}x{nx}, max_iter {max_iter}, in turns (median ms, CUDA events): "
+              + ", ".join(f"{'periodic' if f else 'plain'} {ms:.4f}" for f, ms in turns))
+        print(f"  plain {steps[False]} steps, periodic {steps[True]} steps "
+              f"({steps[True] / steps[False]:.4f} of plain); executed by their warps: plain "
+              f"{executed[False]}, periodic {executed[True]} "
+              f"({executed[True] / executed[False]:.4f} of plain); bounded pixels outside the "
+              f"analytic interior {int(((plain == max_iter) & ~interior).sum())}; periodic "
+              f"is {'faster' if t[True] < t[False] else 'slower'} by "
+              f"{abs(t[True] - t[False]) / t[False] * 100:.1f}%")
+        if max_iter == 500:
+            plain_ms = cuda_ms(lambda: mc.dwell_field_torch(dom, nx, ny, 500, device=dev,
+                                                            periodicity=True), 1, 3)
+            bound, by = bound_ms("dwell_periodic", steps[True], 4 * nx * ny)
+            print(f"  twin {plain_ms:.4f} ms; bound {bound:.5f} ms ({by})")
+            result = dict(launches=launched, max_abs_err=max_err, ms=t[True], plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by)
+    return result
+
+
+def phase_variograms(dev):
+    """Phase 16: run_variograms at the defaults, f32 twice and f64 once."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch.kernels import _launch
+    from cmtci_torch.pipelines.variograms import VariogramConfig, run_variograms
+
+    gammas = ("gamma_construct", "gamma_mandelbrot", "gamma_cross")
+    counts = ("counts_construct", "counts_mandelbrot", "counts_cross")
+    runs = {}
+    reset_launches()
+    for label, dtype in (("f32 first", "float32"), ("f32 second", "float32"),
+                         ("f64", "float64")):
+        cfg = VariogramConfig(vario_dtype=dtype, field_dtype=dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_variograms(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[label] = out
+        print(f"variograms ({label}): {wall:.3f} s wall, {out['n_construct']} C points, "
+              f"{out['n_boundary']} boundary points; layers (s): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in out["stage_times"].items()))
+        for key in gammas:
+            check(bool(np.isfinite(out[key]).all()), f"variograms {label}: {key} not finite")
+    check(sum(_launch.launches.values()) == 0,
+          f"run_variograms launched a kernel: {_launch.launches}")
+    for key in counts:
+        check(np.array_equal(runs["f32 first"][key], runs["f32 second"][key]),
+              f"variograms: {key} differs between two f32 runs")
+    rep = max(float(np.max(np.abs(runs["f32 first"][k] - runs["f32 second"][k])))
+              for k in gammas)
+    print(f"  two f32 runs: counts equal, largest |gamma difference| {rep!r}")
+
+    # the self-variograms' totals against an independent count of the
+    # subsample pairs under rmax, on the locations the pipeline drew
+    cfg = VariogramConfig()
+    xs = np.linspace(cfg.domain[0], cfg.domain[1], cfg.grid_nx)
+    ys = np.linspace(cfg.domain[2], cfg.domain[3], cfg.grid_ny)
+    gx, gy = np.meshgrid(xs, ys, indexing="xy")
+    coords = np.column_stack([gx.ravel(), gy.ravel()])
+    for label, dt in (("f32 first", torch.float32), ("f64", torch.float64)):
+        rng = np.random.RandomState(cfg.seed)
+        for key in counts[:2]:
+            idx = rng.choice(coords.shape[0], size=cfg.m_target, replace=False)
+            c = torch.as_tensor(coords[idx], dtype=dt, device=dev)
+            rmax = torch.as_tensor(cfg.rmax, dtype=dt, device=dev)
+            pairs = 0
+            for i in range(0, len(c), 2048):
+                dx = c[i : i + 2048, 0, None] - c[None, :, 0]
+                dy = c[i : i + 2048, 1, None] - c[None, :, 1]
+                under = torch.sqrt(dx * dx + dy * dy) < rmax
+                pairs += int(torch.triu(under, diagonal=i + 1).sum())
+            total = int(runs[label][key].sum())
+            print(f"  {label} {key}: total {total}, pairs under rmax {pairs}")
+            check(total == pairs, f"variograms {label} {key}: {total} != {pairs} pairs")
+    worst = 0.0
+    for key in gammas:
+        g32, g64 = runs["f32 first"][key], runs["f64"][key]
+        m = g64 != 0
+        rel = float(np.max(np.abs(g32[m] - g64[m]) / np.abs(g64[m])))
+        worst = max(worst, rel)
+        print(f"  f32 against f64 {key}: largest relative deviation {rel!r}")
+    check(worst <= 1e-3, f"variograms: f32 gamma {worst!r} from f64, beyond 1e-3")
+
+
+def phase_pointstats(dev):
+    """Phase 17: the 150,000-point statistics' f32 paths against f64 on
+    subsets, and the f32 Hausdorff's memory at full size."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.stats import embeddings as em
+    from cmtci_torch.stats import pointstats as ps
+
+    c1, c2 = bench.bench_clouds(150_000)
+    sub = c1[:20_000]
+    r, n32, _, _ = ps._shell_counts(sub, 0.5, 0.02, dtype=torch.float32, device=dev)
+    _, n64, _, _ = ps._shell_counts(sub, 0.5, 0.02, dtype=torch.float64, device=dev)
+    # pairs whose f64 distance sits within 4e-7 of a shell edge (the f32
+    # coordinates and distance round at about 1e-7 at these magnitudes)
+    edges = torch.as_tensor(np.concatenate([r, [r[-1] + 0.02]]), device=dev)
+    xy = torch.as_tensor(sub, dtype=torch.float64, device=dev)
+    near = torch.zeros(len(edges), dtype=torch.int64, device=dev)
+    for i in range(0, len(xy), 1024):
+        dx = xy[i : i + 1024, 0, None] - xy[None, i:, 0]
+        dy = xy[i : i + 1024, 1, None] - xy[None, i:, 1]
+        d = torch.sqrt(dx * dx + dy * dy)
+        d = d[torch.ones_like(d, dtype=torch.bool).triu(diagonal=1)]  # pairs j > i
+        for k in range(len(edges)):
+            near[k] += ((d - edges[k]).abs() <= 4e-7).sum()
+    near = near.cpu().numpy()
+    diff = np.abs(n32 - n64)
+    print(f"shell counts, 20,000 points: f64 total {int(n64.sum())}, f32 total "
+          f"{int(n32.sum())}; shells that differ {int((diff > 0).sum())}, largest "
+          f"difference {int(diff.max())}; pairs within 4e-7 of an edge {int(near.sum())}")
+    check(bool((diff <= near[:-1] + near[1:]).all()),
+          f"f32 shell counts differ from f64 by more than the edge pairs: {diff.tolist()}")
+    check(abs(n32.sum() - n64.sum()) <= near[-1],
+          f"f32 total {n32.sum()} vs f64 {n64.sum()}, edge pairs {near[-1]}")
+
+    sub = c1[:5_000]
+    k32, s32 = em.build_sparse_kernel(sub, k=20, dtype=torch.float32, device=dev)
+    k64, s64 = em.build_sparse_kernel(sub, k=20, dtype=torch.float64, device=dev)
+    a, b = k32.tocsr(), k64.tocsr()
+    a.sort_indices()
+    b.sort_indices()
+    same = np.array_equal(a.indptr, b.indptr) and np.array_equal(a.indices, b.indices)
+    print(f"kNN kernel, 5,000 points, k 20: f32 and f64 neighbour sets "
+          f"{'equal' if same else 'DIFFER'}; sigma {s32!r} vs {s64!r}")
+    check(same, "the f32 kNN kernel's neighbour sets differ from the f64 search's")
+    check(abs(s32 - s64) <= 1e-12 * s64, f"kNN sigma {s32!r} vs {s64!r}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    h = ps.hausdorff(c1, c2, dtype=torch.float32, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"Hausdorff, 150,000 x 150,000 in f32: {h!r} in {wall:.3f} s wall, peak device "
+          f"memory {peak:.2f} GiB")
+    check(0 < h < 1 and peak < 40, f"Hausdorff {h!r}, peak {peak:.2f} GiB")
+
+
+BENCH_KEYS = ("value", "dwell_tflops", "vpu_peak_tflops", "dwell_mfu", "dwell_mfu_useful",
+              "de_tflops", "de_mfu", "fp32_fma_bound_tflops", "escape_grid_res4096_mpix_s",
+              "escape_grid_res8192_mpix_s", "spatial_stats_150k_s", "knn_150k_s",
+              "eigensweep_s", "tracker_warm_s", "equipotential_s", "variograms_s", "tci_4x_s")
+BENCH_KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "fma_peak")
+
+
+def phase_bench(dev):
+    """Phase 18: cmtci_torch.bench at full size; returns the launches of its
+    run."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import _launch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = bench.run(bench.BenchSizes(), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_launch.launches)
+    print(f"bench: {wall:.2f} s wall; launches {launches}")
+    print(json.dumps(result))
+    errors = [k for k in result if k.endswith("_error")]
+    check(not errors, f"bench keys failed: { {k: result[k] for k in errors} }")
+    for key in BENCH_KEYS:
+        check(key in result, f"bench: {key} is missing")
+        check(math.isfinite(result[key]) and result[key] > 0, f"bench: {key} = {result[key]!r}")
+    check(result["not_ported"] == ["uniformize_green_s", "uniformize_fem_s", "coupling_s"],
+          f"bench: not_ported {result['not_ported']}")
+    check(not [k for k in result if "_vs_" in k or k.startswith("vs_")],
+          "bench printed a ratio key")
+    check(result["vpu_peak_tflops"] <= result["fp32_fma_bound_tflops"],
+          f"vpu_peak_tflops {result['vpu_peak_tflops']} above the card's ceiling "
+          f"{result['fp32_fma_bound_tflops']}")
+    for name in BENCH_KERNELS:
+        check(launches[name] >= 1, f"the bench run never launched {name}: {launches}")
+    return launches
+
+
 def main() -> int:
     card = card_line()
     print(card)
@@ -870,6 +1253,11 @@ def main() -> int:
     k6 = phase_dwell_ms(dev)
     tci_launches = phase_tci(dev)
     phase_tci_f64(dev)
+    k7 = phase_fma(dev)
+    k2_periodic = phase_periodic(dev)
+    phase_variograms(dev)
+    phase_pointstats(dev)
+    bench_launches = phase_bench(dev)
 
     k1_ms, k1_plain, k1_bound, k1_by = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
@@ -883,11 +1271,13 @@ def main() -> int:
                             plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by=k3_by),
         **fields,
         "dwell_ms": k6,
+        "fma_peak": dict(launches=bench_launches["fma_peak"], **k7),
+        "dwell_periodic": k2_periodic,
     }
     print(card)
     print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": f"cmtci_torch/csrc/{n}.cu",
-         "replaces": REPLACES[n], **kernels[n], "library_ms": None} for n in KERNELS]}))
+        {"name": n, "route": "cuda", "source": f"cmtci_torch/csrc/{SOURCE.get(n, n)}.cu",
+         "replaces": REPLACES[n], **kernels[n], "library_ms": None} for n in ENTRIES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,421 @@
+"""cmtci_torch benchmark: the port's counterpart of the reference's ``bench.py``,
+one JSON line under the same key names.
+
+Run it as ``python -m cmtci_torch.bench`` (or ``cmtci-torch bench``). It runs
+on the card; without one it raises unless ``--device cpu`` is given, and a
+CPU run is for checking the control flow only (``--small`` cuts every size so
+that it takes seconds): a time taken on the CPU is no device metric.
+
+Keys, each at the reference's configuration (``BenchSizes`` holds them):
+  * metric/value/unit: escape-time grid throughput, K2 at res 2000,
+    max_iter 500 on (-2.1, 0.9) x (-1.5, 1.5), in Mpix/s. K2 takes the 2000
+    columns as they are (the reference pads to 2048 and crops).
+  * dwell_tflops, vpu_peak_tflops, dwell_mfu, dwell_mfu_useful, de_tflops,
+    de_mfu: the roofline accounting of K2 and K4 at 2048 x 2048 on the
+    padded domain, against K7's measured chained-FMA rate. `useful` steps
+    are the lanes' own; `executed` steps are what the SIMD unit burns: a
+    warp of K2 is 32 consecutive columns of one row (dwell.cu launches
+    (32, 8) blocks) and runs until its last lane stops, so executed = 32 x
+    the warp's longest lane, summed over warps. Operations per step are
+    counted from the .cu bodies (mandelbrot_cuda.OPS_PER_STEP: each mul, add
+    and compare once), while K7's rate counts an FMA as two. K4's executed
+    steps are counted from its own orbits, which run to radius 4, a step or
+    two past the dwell's radius 2 (the reference models them by the dwell
+    grid's).
+    fp32_fma_bound_tflops is the card's own ceiling, SMs x 128 lanes x 2 x
+    the maximum SM clock.
+  * escape_grid_res4096_mpix_s, escape_grid_res8192_mpix_s: K2 at 4x and
+    16x the pixels.
+  * spatial_stats_150k_s: two 150,000-point f32 shell-count scans plus the
+    f32 Hausdorff; knn_150k_s: the f32 kNN kernel build (k = 20).
+  * eigensweep_s, tracker_warm_s, equipotential_s, variograms_s, tci_4x_s:
+    wall times of the pipelines on their kernel paths, best of three, each
+    with the reference's closing assertion.
+Times of kernels are taken between two CUDA events around a run of launches
+after a warm-up; pipeline times are host-clock walls that end in a device
+synchronize.
+
+`not_ported` names the reference's keys whose pipelines the port does not
+have yet. `omitted` names the reference's ratio keys: each divides by a
+constant measured on another machine, so the port prints none of them. A key
+that throws is recorded as `<key>_error` and the process exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from cmtci_torch.kernels import companion, fma_peak
+from cmtci_torch.kernels import mandelbrot_cuda as mc
+from cmtci_torch.pipelines.analysis import TCIConfig, run_tci
+from cmtci_torch.pipelines.equipotential import EquipotentialConfig, run_equipotential
+from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
+from cmtci_torch.pipelines.variograms import VariogramConfig, run_variograms
+from cmtci_torch.stats import pointstats as ps
+from cmtci_torch.stats.embeddings import build_sparse_kernel
+from cmtci_torch.utils.device import resolve_device
+
+DOM = (-2.1, 0.9, -1.5, 1.5)
+#: K4's escape radius in the de_tflops / de_mfu keys
+DE_ESCAPE_R = 4.0
+
+#: the reference's keys whose pipelines are not ported yet
+NOT_PORTED = ["uniformize_green_s", "uniformize_fem_s", "coupling_s"]
+#: the reference's ratio keys; each divides by a REFERENCE_* constant of
+#: another machine
+OMITTED = {
+    "keys": ["vs_baseline", "eigensweep_vs_lapack", "tracker_vs_reference",
+             "equipotential_vs_reference", "variograms_vs_f64_cpu",
+             "uniformize_green_vs_f64_cpu", "uniformize_fem_vs_r3_cpu", "tci_4x_vs_f64_cpu",
+             "coupling_vs_f64_cpu"],
+    "reason": "each is a ratio to a constant measured on another machine",
+}
+
+
+def _dense_tracker() -> TrackerConfig:
+    return TrackerConfig(sigma_bins=3.0, t_fixed=25, bins_start=64, bins_max=512,
+                         construct_max_start=300, construct_max_growth=1.6,
+                         mandelbrot_samples_growth=1.6, mandelbrot_samples_max=300000,
+                         field_dtype="float32", de_impl="cuda")
+
+
+@dataclass
+class BenchSizes:
+    """Sizes and configurations of every key; the defaults are the
+    reference's."""
+    res: int = 2000
+    max_iter: int = 500
+    reps: int = 50
+    mfu_res: int = 2048
+    fma_elems: int = fma_peak.N_ELEMS
+    fma_steps: int = fma_peak.K_STEPS
+    scale_grids: tuple = ((4096, 12), (8192, 3))  # (res, launches timed)
+    cloud_points: int = 150_000
+    knn_k: int = 20
+    stage4_ns: tuple = tuple(range(20, 1221, 20))
+    tracker: TrackerConfig = field(default_factory=_dense_tracker)
+    equipotential: EquipotentialConfig = field(
+        default_factory=lambda: EquipotentialConfig(potential_dtype="float32"))
+    variograms: VariogramConfig = field(
+        default_factory=lambda: VariogramConfig(vario_dtype="float32",
+                                                field_dtype="float32"))
+    tci: TCIConfig = field(
+        default_factory=lambda: TCIConfig(mandelbrot_grid=2400, de_impl="cuda"))
+
+
+def small_sizes() -> BenchSizes:
+    """Every key at a size a CPU runs in seconds."""
+    return BenchSizes(
+        res=96, max_iter=60, reps=2, mfu_res=64, fma_elems=4096, fma_steps=64,
+        scale_grids=((128, 2), (160, 1)), cloud_points=600, knn_k=8,
+        stage4_ns=(20, 40),
+        tracker=TrackerConfig(sigma_bins=3.0, t_fixed=3, bins_start=16, bins_max=32,
+                              construct_max_start=60, mandelbrot_grid_start=96,
+                              mandelbrot_samples_start=600, field_dtype="float32",
+                              de_impl="cuda"),
+        equipotential=EquipotentialConfig(n_max=12, max_iter=300,
+                                          potential_dtype="float32"),
+        variograms=VariogramConfig(vario_dtype="float32", field_dtype="float32",
+                                   n_list=(10, 20), boundary_grid=48, boundary_max_iter=60,
+                                   grid_nx=24, grid_ny=24, potential_max_iter=60,
+                                   m_target=200),
+        tci=TCIConfig(construct_ns=(20, 40), mandelbrot_grid=96, mandelbrot_samples=800,
+                      grid_bins=32, de_impl="cuda"))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _per_launch_s(fn, reps: int, rounds: int, dev: torch.device) -> float:
+    """Seconds per call of fn(): after one warm-up call, the best of `rounds`
+    timings of `reps` back-to-back calls, between two CUDA events on the card
+    (the host clock on the CPU)."""
+    fn()
+    _sync(dev)
+    best = float("inf")
+    for _ in range(rounds):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            stop.record()
+            stop.synchronize()
+            best = min(best, start.elapsed_time(stop) * 1e-3)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+    return best / reps
+
+
+def _best_wall_s(fn, rounds: int, dev: torch.device):
+    """(best wall seconds of `rounds` calls of fn(), the last result); each
+    timing ends in a device synchronize."""
+    best = float("inf")
+    out = None
+    for _ in range(rounds):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def padded_domain(sizes: BenchSizes):
+    """The headline domain continued to mfu_res x mfu_res nodes at the
+    res-grid's spacing (the reference's padded roofline grid)."""
+    dx = (DOM[1] - DOM[0]) / (sizes.res - 1)
+    n = sizes.mfu_res
+    return (DOM[0], DOM[0] + dx * (n - 1), DOM[2], DOM[2] + dx * (n - 1))
+
+
+def warp_executed_steps(lane: torch.Tensor, warp: int = 32) -> float:
+    """Steps the SIMD unit burns for a (ny, nx) grid of per-lane step counts:
+    a warp is `warp` consecutive columns of one row (dwell.cu launches (32, 8)
+    blocks) and runs as long as its longest lane, idle lanes included, so it
+    is warp x that maximum, summed over the warps (a row's last warp may be
+    ragged)."""
+    ny, nx = lane.shape
+    pad = (-nx) % warp
+    if pad:
+        lane = torch.nn.functional.pad(lane, (0, pad))
+    return float(warp * lane.view(ny, -1, warp).max(dim=2).values.double().sum())
+
+
+def dwell_step_counts(dwell: torch.Tensor, interior: torch.Tensor, max_iter: int):
+    """(useful, executed) orbit steps of one K2 launch, from its (ny, nx)
+    output and the analytic-interior mask of the same grid. A lane iterates
+    dwell + 1 steps when it escapes, max_iter when it does not, and none when
+    it is analytically interior; useful is their sum, executed what their
+    warps burn (warp_executed_steps)."""
+    lane = torch.where(interior, 0.0, (dwell + 1.0).clamp(max=float(max_iter))).double()
+    return float(lane.sum()), warp_executed_steps(lane)
+
+
+def escape_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
+                      r2: float) -> torch.Tensor:
+    """Per-lane loop trips (int32, the shape of cr) of an escape kernel of
+    squared radius r2 on f32 coordinates, in the kernels' op order: none for
+    an analytically interior lane, else every step up to and including the
+    first with |z|^2 > r2, max_iter for a lane that stays inside."""
+    active = ~mc._interior_mask_torch(cr, ci)
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(cr)
+    lane = torch.zeros(cr.shape, dtype=torch.int32, device=cr.device)
+    for _ in range(max_iter):
+        lane += active
+        zr, zi = (torch.where(active, zr * zr - zi * zi + cr, zr),
+                  torch.where(active, 2.0 * zr * zi + ci, zi))
+        active = active & (zr * zr + zi * zi <= r2)
+    return lane
+
+
+def fp32_fma_bound_tflops(dev: torch.device) -> float:
+    """The card's FP32 FMA ceiling in TFLOP/s: SMs x 128 lanes x 2 operations
+    x the maximum SM clock (nvidia-smi's clocks.max.sm). The card is named to
+    nvidia-smi by its UUID: torch's index follows CUDA_VISIBLE_DEVICES,
+    nvidia-smi's does not."""
+    props = torch.cuda.get_device_properties(dev)
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits", f"--id=GPU-{props.uuid}"],
+                          capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(proc.stdout.strip().splitlines()[0])
+    return props.multi_processor_count * 128 * 2 * mhz * 1e6 / 1e12
+
+
+def bench_dwell(sizes: BenchSizes, dev: torch.device) -> float:
+    """Mpix/s of the headline dwell grid."""
+    per_grid = _per_launch_s(
+        lambda: mc.mandelbrot_field(DOM, sizes.res, sizes.res, sizes.max_iter, device=dev),
+        sizes.reps, 3, dev)
+    return sizes.res * sizes.res / per_grid / 1e6
+
+
+def bench_vpu_peak(sizes: BenchSizes, dev: torch.device) -> float:
+    """TFLOP/s of K7's chained FMAs (an FMA is two operations)."""
+    per_run = _per_launch_s(
+        lambda: fma_peak.fma_chain(sizes.fma_elems, sizes.fma_steps, device=dev), 1, 3, dev)
+    return fma_peak.FLOP_PER_STEP * sizes.fma_steps * sizes.fma_elems / per_run / 1e12
+
+
+def bench_mfu(sizes: BenchSizes, dev: torch.device) -> dict:
+    """The roofline keys of K2 and K4 on the padded grid."""
+    n = sizes.mfu_res
+    dom = padded_domain(sizes)
+
+    def k2():
+        return mc.mandelbrot_field(dom, n, n, sizes.max_iter, device=dev)
+
+    per_grid = _per_launch_s(k2, sizes.reps, 3, dev)
+    cr, ci = mc._grid_coords(dom, n, n, dev)
+    useful, executed = dwell_step_counts(k2(), mc._interior_mask_torch(cr, ci),
+                                         sizes.max_iter)
+    ops = mc.OPS_PER_STEP
+    peak = bench_vpu_peak(sizes, dev)
+    out = {"dwell_tflops": round(ops["dwell"] * executed / per_grid / 1e12, 3),
+           "vpu_peak_tflops": round(peak, 3)}
+    out["dwell_mfu"] = round(out["dwell_tflops"] / peak, 3)
+    out["dwell_mfu_useful"] = round(ops["dwell"] * useful / per_grid / 1e12 / peak, 3)
+    de_per_grid = _per_launch_s(
+        lambda: mc.mandelbrot_field(dom, n, n, sizes.max_iter, "de", DE_ESCAPE_R, dev),
+        sizes.reps, 3, dev)
+    de_executed = warp_executed_steps(
+        escape_lane_steps(cr, ci, sizes.max_iter, DE_ESCAPE_R * DE_ESCAPE_R))
+    out["de_tflops"] = round(ops["de_std"] * de_executed / de_per_grid / 1e12, 3)
+    out["de_mfu"] = round(out["de_tflops"] / peak, 3)
+    if dev.type == "cuda":
+        out["fp32_fma_bound_tflops"] = round(fp32_fma_bound_tflops(dev), 3)
+    return out
+
+
+def bench_clouds(n: int):
+    """The reference's two noisy-circle clouds of n points (default_rng(1))."""
+    rng = np.random.default_rng(1)
+    t = rng.uniform(0, 2 * np.pi, n)
+    r = 1.0 + 0.05 * rng.standard_normal(n)
+    c1 = np.column_stack([r * np.cos(t), r * np.sin(t)])
+    c2 = c1[::-1] + 0.01 * rng.standard_normal((n, 2))
+    return c1, c2
+
+
+def bench_scale(sizes: BenchSizes, dev: torch.device) -> dict:
+    """The scale keys: K2 at the larger grids, the two f32 pair scans with
+    the Hausdorff, and the f32 kNN kernel build."""
+    out = {}
+    for res, reps in sizes.scale_grids:
+        per_grid = _per_launch_s(
+            lambda: mc.mandelbrot_field(DOM, res, res, sizes.max_iter, device=dev),
+            reps, 2, dev)
+        out[f"escape_grid_res{res}_mpix_s"] = round(res * res / per_grid / 1e6, 1)
+
+    c1, c2 = bench_clouds(sizes.cloud_points)
+    f32 = torch.float32
+
+    def scan():
+        sh1 = ps._shell_counts(c1, 0.5, 0.02, dtype=f32, device=dev)
+        sh2 = ps._shell_counts(c2, 0.5, 0.02, dtype=f32, device=dev)
+        h = ps.hausdorff(c1, c2, dtype=f32, device=dev)
+        assert sh1[1].sum() > 0 and sh2[1].sum() > 0 and h > 0
+        return h
+
+    scan()  # first-use kernels
+    best, _ = _best_wall_s(scan, 2, dev)
+    out["spatial_stats_150k_s"] = round(best, 2)
+
+    best, (kmat, sigma) = _best_wall_s(
+        lambda: build_sparse_kernel(c1, k=sizes.knn_k, dtype=f32, device=dev), 2, dev)
+    assert kmat.shape == (sizes.cloud_points, sizes.cloud_points) and sigma > 0
+    out["knn_150k_s"] = round(best, 2)
+    return out
+
+
+def bench_eigensweep(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the stage-4 inverse cloud."""
+    ns = list(sizes.stage4_ns)
+    companion.inverse_cloud(ns, device=dev)
+    best, z = _best_wall_s(lambda: companion.inverse_cloud(ns, device=dev), 3, dev)
+    assert z.shape[0] == sum(ns)
+    return best
+
+
+def bench_tracker(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the dense tracker on the K1 path."""
+    cfg = sizes.tracker
+    best, (rows, _) = _best_wall_s(lambda: run_tracker(cfg, device=dev), 3, dev)
+    assert len(rows) == int(math.log2(cfg.bins_max // cfg.bins_start)) + 1
+    return best
+
+
+def bench_equipotential(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the equipotential pipeline on the K3 path."""
+    best, out = _best_wall_s(
+        lambda: run_equipotential(sizes.equipotential, plots=False, device=dev), 3, dev)
+    assert 0.5 < out["summary"]["escaped_frac"] < 1.0
+    return best
+
+
+def bench_variograms(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the variogram pipeline in f32."""
+    best, out = _best_wall_s(lambda: run_variograms(sizes.variograms, device=dev), 3, dev)
+    assert np.isfinite(out["gamma_construct"][1:]).all()
+    return best
+
+
+def bench_tci_4x(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the TCI pipeline at the 4x grid on the K1 path."""
+    best, (out, kls, _) = _best_wall_s(
+        lambda: run_tci(sizes.tci, plots=False, device=dev), 3, dev)
+    assert kls[-1] < kls[0] and out["KL_final"] < 1e-5
+    return best
+
+
+#: (key, function, digits) of the pipeline keys, in the reference's order
+PIPELINE_KEYS = (
+    ("eigensweep_s", bench_eigensweep, 3),
+    ("tracker_warm_s", bench_tracker, 2),
+    ("equipotential_s", bench_equipotential, 2),
+    ("variograms_s", bench_variograms, 2),
+    ("tci_4x_s", bench_tci_4x, 2),
+)
+
+
+def run(sizes: BenchSizes | None = None, device="cuda") -> dict:
+    """Run every ported key on `device` and return the result dict. A key
+    that throws is recorded as `<key>_error` (its message, cut to 300
+    characters) and the others still run."""
+    sizes = sizes if sizes is not None else BenchSizes()
+    dev = resolve_device(device)
+    result = {"metric": f"escape_grid_res{sizes.res}_mi{sizes.max_iter}_throughput",
+              "value": None, "unit": "Mpix/s",
+              "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")}
+
+    def guarded(name: str, fn):
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 (recorded under the key, and main exits non-zero)
+            result[name + "_error"] = repr(e)[:300]
+            return None
+
+    value = guarded("dwell", lambda: bench_dwell(sizes, dev))
+    if value is not None:
+        result["value"] = round(value, 2)
+    result.update(guarded("mfu", lambda: bench_mfu(sizes, dev)) or {})
+    result.update(guarded("scale", lambda: bench_scale(sizes, dev)) or {})
+    for name, fn, digits in PIPELINE_KEYS:
+        s = guarded(name, lambda fn=fn: fn(sizes, dev))
+        if s is not None:
+            result[name] = round(s, digits)
+    result["not_ported"] = list(NOT_PORTED)
+    result["omitted"] = dict(OMITTED)
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m cmtci_torch.bench", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--small", action="store_true",
+                    help="every key at a size a CPU runs in seconds (control flow only)")
+    args = ap.parse_args(argv)
+    result = run(small_sizes() if args.small else BenchSizes(), device=args.device)
+    print(json.dumps(result))
+    return 1 if any(k.endswith("_error") for k in result) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,13 @@
 """cmtci-torch command-line driver (the ported subcommands of ``cmtci``).
 
-Ported so far: tracker, boundary, equipotential, tci. On a CUDA session
-(``--device cuda``, the default) the dtype/backend knobs default to the
-card's hand-written kernels: tracker field_dtype=float32 and de_impl=cuda
+Ported so far: tracker, boundary, equipotential, tci, variograms, bench. On a
+CUDA session (``--device cuda``, the default) the dtype/backend knobs default
+to the card's fast paths: tracker field_dtype=float32 and de_impl=cuda
 (K1), boundary backend=cuda (K2), equipotential green_dtype=float32 (K3),
-tci de_impl=cuda (K1). ``--parity`` opts out to the host/f64 paths (for tci,
-the numpy DE), ``--device cpu`` to the f64 plain-torch paths, and an
-explicit per-flag value always wins.
+tci de_impl=cuda (K1), variograms vario_dtype=field_dtype=float32.
+``--parity`` opts out to the host/f64 paths (for tci, the numpy DE),
+``--device cpu`` to the f64 plain-torch paths, and an explicit per-flag value
+always wins. ``bench`` forwards its arguments to ``cmtci_torch.bench``.
 ``--device cuda`` without a card raises; nothing falls back to the CPU.
 ``--no-plots`` skips the figures (matplotlib is then not needed).
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 #: per-subcommand (flag, CUDA-session default, host default) triples
 _PLATFORM_FLAGS = {
@@ -23,6 +25,8 @@ _PLATFORM_FLAGS = {
     "boundary": (("backend", "cuda", "torch"),),
     "equipotential": (("green_dtype", "float32", "float64"),),
     "tci": (("de_impl", "cuda", "torch"),),
+    "variograms": (("vario_dtype", "float32", "float64"),
+                   ("field_dtype", "float32", "float64")),
 }
 
 #: per-subcommand (flag, --parity default) pairs, where parity is not the
@@ -110,10 +114,29 @@ def _parser():
                         "the device (CUDA-session default); torch = the f64 DE field; "
                         "numpy = the host numpy DE (--parity)")
     _add_common(p, "the host numpy DE (bitwise the reference's numpy path)", plots=True)
+
+    p = sub.add_parser("variograms", help="potentials + semivariograms + cross")
+    p.add_argument("--grid", type=int, default=256)
+    p.add_argument("--detrend", action="store_true")
+    p.add_argument("--fit-model", action="store_true")
+    p.add_argument("--vario-dtype", choices=["float64", "float32"], default=None,
+                   help="dtype of the all-pairs binning (CUDA-session default float32)")
+    p.add_argument("--field-dtype", choices=["float64", "float32"], default=None,
+                   help="dtype of the DE proxy and the potentials (CUDA-session default "
+                        "float32; borderline DE-threshold points flip)")
+    _add_common(p, "the f64 fields and binning whatever the device")
+
+    sub.add_parser("bench", add_help=False,
+                   help="the benchmark (python -m cmtci_torch.bench; same arguments)")
     return ap
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["bench"]:
+        from cmtci_torch import bench
+
+        raise SystemExit(bench.main(argv[1:]))
     args = _parser().parse_args(argv)
     _resolve_platform_defaults(args)
     if args.cmd == "tracker":
@@ -158,6 +181,14 @@ def main(argv=None):
         out, _, _ = run_tci(cfg, f"{args.out}_tci_results.json", plots=not args.no_plots,
                             device=args.device)
         print(json.dumps(out))
+    elif args.cmd == "variograms":
+        from cmtci_torch.pipelines.variograms import VariogramConfig, run_variograms
+
+        cfg = VariogramConfig(grid_nx=args.grid, grid_ny=args.grid, detrend=args.detrend,
+                              fit_model=args.fit_model, vario_dtype=args.vario_dtype,
+                              field_dtype=args.field_dtype)
+        out = run_variograms(cfg, f"{args.out}_variograms.csv", device=args.device)
+        print(f"variograms: {out['n_construct']} C pts, {out['n_boundary']} M pts")
 
 
 if __name__ == "__main__":

@@ -13,8 +13,14 @@
 //     2*zr*zi + ci); stop if !(|z|^2 <= 4) (so NaN counts as an escape);
 //     else dwell += 1. The output is (float)dwell: the first n with
 //     |z_{n+1}|^2 > 4, else max_iter.
-//   * the Pallas kernel's optional Brent periodicity check is not here: no
-//     caller of the port asks for it (ROADMAP Queue 2, K2).
+//   * dwell_periodic_launch runs the same loop with the Pallas kernel's
+//     optional Brent periodicity check (escape.cuh:dwell_count<true>; public
+//     switch mandelbrot_field(periodicity=True)): a pixel whose orbit returns
+//     bitwise to a checkpoint stops early with max_iter. Its output is the
+//     plain kernel's for every input. The check costs two compares and a
+//     checkpoint move per step and pays only where bounded, non-analytic
+//     pixels would otherwise run a long max_iter out. The flag is a template
+//     parameter, so the plain kernel keeps its registers.
 //
 // What bounds it on this card: FP32 issue (11 FP32 operations per step:
 // 6 mul, 4 add/sub, 1 compare; no memory traffic but one 4-byte store a
@@ -35,6 +41,7 @@
 
 namespace {
 
+template <bool PERIODIC>
 __global__ void dwell_kernel(float* __restrict__ out, int nx, int ny, float xmin,
                              float ymin, float dx, float dy, int max_iter) {
     const int col = blockIdx.x * blockDim.x + threadIdx.x;
@@ -43,20 +50,31 @@ __global__ void dwell_kernel(float* __restrict__ out, int nx, int ny, float xmin
 
     const float cr = xmin + (float)col * dx;
     const float ci = ymin + (float)row * dy;
-    const int dwell = dwell_count(cr, ci, max_iter);
+    const int dwell = dwell_count<PERIODIC>(cr, ci, max_iter);
     out[(size_t)row * (size_t)nx + (size_t)col] = (float)dwell;
+}
+
+template <bool PERIODIC>
+int launch(void* out, int nx, int ny, float xmin, float ymin, float dx, float dy,
+           int max_iter, void* stream) {
+    const dim3 block(32, 8);
+    const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+    dwell_kernel<PERIODIC><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<float*>(out), nx, ny, xmin, ymin, dx, dy, max_iter);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream). Returns cudaGetLastError()
-// as an int; the caller raises when it is not 0. Allocates nothing and does
-// not synchronize.
+// Launch on `stream` (PyTorch's current stream). Each returns
+// cudaGetLastError() as an int; the caller raises when it is not 0. They
+// allocate nothing and do not synchronize.
 extern "C" int dwell_launch(void* out, int nx, int ny, float xmin, float ymin, float dx,
                             float dy, int max_iter, void* stream) {
-    const dim3 block(32, 8);
-    const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-    dwell_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<float*>(out), nx, ny, xmin, ymin, dx, dy, max_iter);
-    return static_cast<int>(cudaGetLastError());
+    return launch<false>(out, nx, ny, xmin, ymin, dx, dy, max_iter, stream);
+}
+
+extern "C" int dwell_periodic_launch(void* out, int nx, int ny, float xmin, float ymin,
+                                     float dx, float dy, int max_iter, void* stream) {
+    return launch<true>(out, nx, ny, xmin, ymin, dx, dy, max_iter, stream);
 }

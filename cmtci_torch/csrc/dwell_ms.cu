@@ -9,7 +9,7 @@
 //   * the flag, where it is >= 0 (a tile whose coarse samples and one-sample
 //     halo all have that dwell), for every pixel of the tile, interior ones
 //     included, as the Pallas kernel does;
-//   * escape.cuh:dwell_count, the loop K2 runs, where the flag is -1.
+//   * escape.cuh:dwell_count, the plain loop K2 runs, where the flag is -1.
 // With -fmad=false the output equals the plain twin
 // (mandelbrot_cuda.dwell_fill_torch) bitwise, and equals K2 wherever the
 // fill decision is right (tests/test_pallas_kernel.py holds the reference to
@@ -46,7 +46,7 @@ __global__ void dwell_ms_kernel(const float* __restrict__ fill, float* __restric
     if (!(fv >= 0.0f)) {
         const float cr = xmin + (float)col * dx;
         const float ci = ymin + (float)row * dy;
-        v = (float)dwell_count(cr, ci, max_iter);
+        v = (float)dwell_count<false>(cr, ci, max_iter);
     }
     out[(size_t)row * (size_t)nx + (size_t)col] = v;
 }

@@ -29,10 +29,24 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 // (the loop is skipped); otherwise, for n = 0..max_iter-1,
 // z <- (zr*zr - zi*zi + cr, 2*zr*zi + ci), stop if !(|z|^2 <= 4) (NaN counts
 // as an escape), else dwell += 1. The twin is mandelbrot_cuda._dwell_torch.
+//
+// PERIODIC adds the Pallas kernel's optional Brent cycle check
+// (mandelbrot_pallas.py:94-133): the thread keeps a checkpoint of z, moved to
+// the current z when the number of steps taken is a power of two, and a z
+// that is still inside and bitwise equal to the checkpoint has entered a
+// true f32 cycle: the orbit can never escape, so the thread stops with
+// max_iter. The result is the plain loop's for every c (a lane in a cycle
+// would have counted up to max_iter); only the steps iterated differ. The
+// Pallas kernel moves its checkpoint at chunk ends (a tile iterates in chunks
+// of 32); the schedule does not enter the result. The checkpoint starts at
+// (1e30, 0), which no z with |z|^2 <= 4 equals.
+template <bool PERIODIC>
 __device__ __forceinline__ int dwell_count(float cr, float ci, int max_iter) {
     int dwell = max_iter;
     if (!interior_mask(cr, ci)) {
         float zr = 0.0f, zi = 0.0f;
+        float pr = 1e30f, pi = 0.0f;
+        unsigned next = 1u;
         dwell = 0;
         for (int n = 0; n < max_iter; ++n) {
             const float nzr = zr * zr - zi * zi + cr;
@@ -41,6 +55,17 @@ __device__ __forceinline__ int dwell_count(float cr, float ci, int max_iter) {
             zi = nzi;
             if (!(zr * zr + zi * zi <= 4.0f)) break;
             ++dwell;
+            if constexpr (PERIODIC) {
+                if (zr == pr && zi == pi) {
+                    dwell = max_iter;
+                    break;
+                }
+                if ((unsigned)(n + 1) == next) {
+                    pr = zr;
+                    pi = zi;
+                    next <<= 1;
+                }
+            }
         }
     }
     return dwell;

@@ -1,8 +1,8 @@
 """Mandelbrot dwell grid, Green potential, the TCI and standard
-distance-estimator fields, the grid escape potentials and the boundary-band
-sampler.
+distance-estimator fields, the grid escape potentials, the 5-point smoother
+and the boundary-band and threshold samplers.
 
-Port of the tracker, boundary, equipotential and TCI subset of
+Port of the tracker, boundary, equipotential, TCI and variogram subset of
 ``cmtci/kernels/mandelbrot.py``; ``de_field_std`` and
 ``escape_potential_grid`` are the f64 contracts of the K4 and K5 kernels. Complex values are (re, im) tensor pairs,
 and the op order is the reference's (``de_field_tci``: dz is updated BEFORE
@@ -262,6 +262,31 @@ def escape_potential_grid(cr, ci, max_iter: int = 500, escape_r: float = 4.0,
         tail = 0.5 * torch.log(torch.clamp(a2, min=1e-300)) / float(pow2[max_iter - 1])
         g = torch.where(esc, g, torch.where(a2 > 0.0, tail, torch.zeros_like(g)))
     return g
+
+
+def smooth5(g: torch.Tensor) -> torch.Tensor:
+    """Interior 5-point average (variograms_construct_mandelbrot.py:168-173);
+    the edge rows and columns are kept."""
+    out = g.clone()
+    out[1:-1, 1:-1] = (g[1:-1, 1:-1] + g[:-2, 1:-1] + g[2:, 1:-1] + g[1:-1, :-2]
+                       + g[1:-1, 2:]) / 5.0
+    return out
+
+
+def boundary_points_threshold(domain=(-2.25, 1.25, -1.75, 1.75), grid_n: int = 600,
+                              dist_thresh: float = 0.002, max_iter: int = 500,
+                              escape_r: float = 4.0, dtype=torch.float64,
+                              device="cuda") -> np.ndarray:
+    """Threshold boundary proxy (variograms_construct_mandelbrot.py:90-104):
+    the complex128 nodes of a grid_n x grid_n grid that escape with a
+    standard distance estimate <= dist_thresh, in row-major order. The DE
+    field runs in `dtype` on `device` (de_field_std); only the selected
+    nodes' coordinates, the grid's own values in `dtype`, reach the host."""
+    cr, ci = complex_grid(domain, grid_n, grid_n, dtype=dtype, device=device)
+    esc, dist, _, _ = de_field_std(cr, ci, max_iter=max_iter, escape_r=escape_r)
+    mask = esc & (dist <= dist_thresh)
+    pts = torch.stack([cr[mask], ci[mask]]).cpu().numpy().astype(np.float64)
+    return pts[0] + 1j * pts[1]
 
 
 def de_field_tci_numpy(c: np.ndarray, max_iter: int = 250, escape_r: float = 250.0,

@@ -10,7 +10,7 @@ hosts (``tci_de_field_pallas``, ``_tci_selection_core``,
 ``mandelbrot_field_pallas``, ``_dwell_kernel(ms=True)`` with
 ``dwell_field_ms``, and ``_cloud_green_kernel`` with ``green_cloud_f32``. The
 kernels are ``csrc/{tci_de,dwell,cloud_green,de_std,green_grid,dwell_ms}.cu``,
-built with nvcc and called through ctypes (``_build.py``).
+built with nvcc (``_build.py``) and called through ctypes (``_launch.py``).
 
 A wrapper given a CPU device runs the kernel's plain twin; given a CUDA
 device it launches the kernel or raises. Nothing falls back. The q25 band and
@@ -21,42 +21,20 @@ the reference.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
+from cmtci_torch.kernels._launch import launch as _launch
+from cmtci_torch.kernels._launch import launches  # noqa: F401  (callers read the counts here)
 from cmtci_torch.utils.device import resolve_device
 
-#: kernel launches per library, counted where the wrapper launches; read and
-#: reset by callers that need to show a run went through the kernels
-launches = {"tci_de": 0, "dwell": 0, "cloud_green": 0, "de_std": 0, "green_grid": 0,
-            "dwell_ms": 0}
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "tci_de": [_P, _I, _F, _F, _F, _F, _I, _F, _P],
-    "dwell": [_P, _I, _I, _F, _F, _F, _F, _I, _P],
-    "cloud_green": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "de_std": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _P],
-    "green_grid": [_P, _I, _I, _F, _F, _F, _F, _I, _F, _P],
-    "dwell_ms": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P],
-}
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Launch csrc/<name>.cu's entry point on dev's current stream and
-    count it; raise on a non-zero cudaGetLastError()."""
-    from cmtci_torch.kernels._build import library
-
-    fn = getattr(library(name), f"{name}_launch")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    launches[name] += 1
+#: FP32 operations per orbit step of each kernel's loop body, each mul, add,
+#: sub and compare counted once (the build's -fmad=false keeps them apart):
+#: tci_de.cu 12 mul, 7 add/sub, 3 compares; de_std.cu 12 mul, 7 add/sub, 1
+#: compare; the others 6 mul, 4 add/sub, 1 compare. The periodic dwell loop
+#: adds two compares with the checkpoint.
+OPS_PER_STEP = {"tci_de": 22, "dwell": 11, "dwell_periodic": 13, "cloud_green": 11,
+                "de_std": 20, "green_grid": 11, "dwell_ms": 11}
 
 
 def _params(domain, nx: int, ny: int | None = None) -> np.ndarray:
@@ -241,7 +219,8 @@ FIELD_KINDS = {"dwell": "dwell", "de": "de_std", "green": "green_grid"}
 
 
 def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.device,
-                 fill_px: torch.Tensor | None = None) -> torch.Tensor:
+                 fill_px: torch.Tensor | None = None,
+                 periodicity: bool = False) -> torch.Tensor:
     """Twin of escape.cuh:dwell_count over the grid of f32 `params`, the
     loop K2 and K6's fine pass share. fill_px (f32 (ny, nx), optional) is K6's
     per-pixel fill flag: where it is >= 0 the pixel takes it and skips the
@@ -249,6 +228,10 @@ def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch
 
     A lane's z is frozen where the kernel's thread breaks (escaped), so
     every lane ends with the kernel's state and count.
+
+    periodicity adds dwell_count<true>'s Brent cycle check: a checkpoint of
+    z, moved when the steps taken are a power of two; a lane still inside
+    whose z equals its checkpoint bitwise stops and gets max_iter.
     """
     cr, ci = _coords(params, nx, ny, dev)
     interior = _interior_mask_torch(cr, ci)
@@ -260,6 +243,10 @@ def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch
         dwell = torch.where(filled, fill_px, dwell)
     zr = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
     zi = torch.zeros_like(zr)
+    if periodicity:
+        pr = torch.full_like(zr, 1e30)  # no z with |z|^2 <= 4 equals it
+        pi = torch.zeros_like(zr)
+        cyc = torch.zeros_like(act)
     for n in range(max_iter):
         if n % 32 == 0 and not bool(act.any()):
             break
@@ -268,26 +255,37 @@ def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch
         zr = torch.where(act, nzr, zr)
         zi = torch.where(act, nzi, zi)
         act = act & (zr * zr + zi * zi <= 4.0)  # NaN -> False: an escape
+        if periodicity:
+            hit = act & (zr == pr) & (zi == pi)
+            cyc = cyc | hit
+            act = act & ~hit
+            if (n + 1) & n == 0:  # n + 1 steps taken, a power of two
+                pr, pi = zr, zi
         dwell = dwell + act.to(torch.float32)
+    if periodicity:
+        dwell = torch.where(cyc, float(max_iter), dwell)
     return dwell
 
 
 def dwell_field_torch(domain, nx: int, ny: int, max_iter: int = 500,
-                      device="cpu") -> torch.Tensor:
+                      device="cpu", periodicity: bool = False) -> torch.Tensor:
     """Plain-torch twin of the K2 kernel: f32 (ny, nx) dwell, the first n
-    (0-based) with |z_{n+1}|^2 > 4, else max_iter, in K2's f32 op order."""
-    return _dwell_torch(_params(domain, nx, ny), nx, ny, max_iter, resolve_device(device))
+    (0-based) with |z_{n+1}|^2 > 4, else max_iter, in K2's f32 op order;
+    with periodicity, the twin of K2's periodic entry point."""
+    return _dwell_torch(_params(domain, nx, ny), nx, ny, max_iter, resolve_device(device),
+                        periodicity=periodicity)
 
 
-def _dwell(params: np.ndarray, nx: int, ny: int, max_iter: int,
-           dev: torch.device) -> torch.Tensor:
-    """K2 over the grid of f32 `params` on `dev` (its twin on the CPU)."""
+def _dwell(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.device,
+           periodicity: bool = False) -> torch.Tensor:
+    """K2 over the grid of f32 `params` on `dev` (its twin on the CPU);
+    with periodicity, K2's entry point with the cycle check."""
     if dev.type == "cpu":
-        return _dwell_torch(params, nx, ny, max_iter, dev)
+        return _dwell_torch(params, nx, ny, max_iter, dev, periodicity=periodicity)
     xmin, ymin, dx, dy = (float(v) for v in params)
     out = torch.empty((ny, nx), dtype=torch.float32, device=dev)
-    _launch("dwell", dev, out.data_ptr(), int(nx), int(ny), xmin, ymin, dx, dy,
-            int(max_iter))
+    _launch("dwell_periodic" if periodicity else "dwell", dev, out.data_ptr(), int(nx),
+            int(ny), xmin, ymin, dx, dy, int(max_iter))
     return out
 
 
@@ -372,7 +370,8 @@ def green_field_torch(domain, nx: int, ny: int, max_iter: int = 500,
 
 
 def mandelbrot_field(domain, nx: int, ny: int, max_iter: int = 500, kind: str = "dwell",
-                     escape_r: float = 4.0, device="cuda") -> torch.Tensor:
+                     escape_r: float = 4.0, device="cuda",
+                     periodicity: bool = False) -> torch.Tensor:
     """f32 (ny, nx) escape-time field over an np.linspace-style grid on
     `device` (``mandelbrot_field_pallas``). domain = (xmin, xmax, ymin,
     ymax), layout (ny, nx) like complex_grid(); the kernel covers exactly
@@ -382,13 +381,17 @@ def mandelbrot_field(domain, nx: int, ny: int, max_iter: int = 500, kind: str = 
       * "de": the standard distance estimator, radius escape_r (K4);
       * "green": g = log|z_k| 2^-k at the first |z| > escape_r, else 0 (K5).
     A CUDA device launches the kind's kernel, a CPU device runs its twin.
+    periodicity (kind "dwell" only, as in the reference, where the other
+    kinds ignore it) runs K2 with the Brent cycle check: the same output,
+    bounded orbits that enter an f32 cycle stop early. It pays at a high
+    max_iter only.
     """
     if kind not in FIELD_KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {tuple(FIELD_KINDS)}")
     dev = resolve_device(device)
     params = _params(domain, nx, ny)
     if kind == "dwell":
-        return _dwell(params, nx, ny, max_iter, dev)
+        return _dwell(params, nx, ny, max_iter, dev, periodicity)
     if dev.type == "cpu":
         twin = de_field_std_torch if kind == "de" else green_field_torch
         return twin(domain, nx, ny, max_iter, escape_r, device=dev)

@@ -232,3 +232,60 @@ def test_cli_boundary_writes_files(tmp_path):
     assert "vertices ->" in proc.stdout
     for suffix in ("_boundary.csv", "_meta.txt", "_boundary.png"):
         assert os.path.exists(f"{out}{suffix}"), suffix
+
+
+def test_k2_periodicity_twin_equals_plain_and_pallas_option():
+    """K2's periodicity option at the shape of the reference's own test
+    (tests/test_green_compacted.py:32-40): the port's periodic twin is
+    bitwise its plain twin, as the reference's periodic kernel is bitwise its
+    plain one; against the interpreted Pallas kernel with periodicity=True at
+    least 99.9% of pixels are equal (XLA contracts FMAs there)."""
+    plain = mc.mandelbrot_field(DOM, 256, 32, max_iter=120, device="cpu")
+    periodic = mc.mandelbrot_field(DOM, 256, 32, max_iter=120, device="cpu", periodicity=True)
+    assert torch.equal(periodic, plain)
+    assert torch.equal(mc.dwell_field_torch(DOM, 256, 32, 120, periodicity=True), plain)
+    ref = np.asarray(mandelbrot_field_pallas(DOM, 256, 32, max_iter=120, kind="dwell",
+                                             tile=(32, 256), periodicity=True))
+    assert (periodic.numpy() == ref).mean() >= 0.999
+    # the other kinds ignore the switch, as in the reference
+    de = mc.mandelbrot_field(DOM, 64, 32, 60, "de", device="cpu", periodicity=True)
+    assert torch.equal(de, mc.mandelbrot_field(DOM, 64, 32, 60, "de", device="cpu"))
+    assert all(v == 0 for v in mc.launches.values()) and "dwell_periodic" in mc.launches
+
+
+def _brent_hit_step(cr, ci, max_iter):
+    """Steps one f32 lane takes until Brent's check fires (escape.cuh's
+    schedule: the checkpoint moves when the steps taken are a power of two);
+    max_iter + 1 when it never does, 0 for an escaping lane."""
+    f32 = np.float32
+    zr = zi = f32(0.0)
+    pr, pi, nxt = f32(1e30), f32(0.0), 1
+    for n in range(max_iter):
+        zr, zi = zr * zr - zi * zi + cr, f32(2.0) * zr * zi + ci
+        if not zr * zr + zi * zi <= f32(4.0):
+            return 0
+        if zr == pr and zi == pi:
+            return n + 1
+        if n + 1 == nxt:
+            pr, pi, nxt = zr, zi, nxt * 2
+    return max_iter + 1
+
+
+def test_k2_periodicity_on_a_window_of_bounded_lanes():
+    """A window across the period-3 bulb at c = -0.125 + 0.745i, which the
+    analytic cardioid and period-2 tests do not cover: its lanes are bounded
+    and iterate to max_iter 2000 without the check. The periodic twin is
+    still bitwise the plain one, and the check is not vacuous there: f32
+    orbits of the window do return to a checkpoint well before 2000 steps."""
+    dom = (-0.26, 0.02, 0.66, 0.92)
+    nx, ny, max_iter = 28, 26, 2000
+    plain = mc.dwell_field_torch(dom, nx, ny, max_iter)
+    periodic = mc.dwell_field_torch(dom, nx, ny, max_iter, periodicity=True)
+    assert torch.equal(periodic, plain)
+    cr, ci = mc._grid_coords(dom, nx, ny, torch.device("cpu"))
+    bounded = (plain == max_iter) & ~mc._interior_mask_torch(cr, ci)
+    assert 0.2 < float(bounded.float().mean()) < 0.8
+    hits = np.array([_brent_hit_step(np.float32(cr[r, c]), np.float32(ci[r, c]), max_iter)
+                     for r, c in bounded.nonzero().tolist()])
+    assert (hits > 0).all()  # a lane that cycles is a bounded lane
+    assert (hits <= max_iter).mean() > 0.5 and np.median(hits) < max_iter / 2

@@ -14,6 +14,13 @@ import cmtci_torch.pipelines.tracker
 import cmtci_torch.pipelines.boundary
 import cmtci_torch.pipelines.equipotential
 import cmtci_torch.pipelines.analysis
+import cmtci_torch.pipelines.variograms
+import cmtci_torch.bench
+import cmtci_torch.kernels.fma_peak
+import cmtci_torch.kernels.potential
+import cmtci_torch.kernels._launch
+import cmtci_torch.stats.variogram
+import cmtci_torch.stats.embeddings
 import cmtci_torch.stats.pointstats
 import cmtci_torch.stats.curvature
 import cmtci_torch.stats.spectral
