@@ -7,7 +7,9 @@ Phases (each one checks what it computed; any failure exits non-zero and
 prints no result line):
   1. the card (nvidia-smi name and power limit; torch.cuda.is_available());
   2. build every kernel from csrc/ (one nvcc per source, all started
-     together; ctypes), with each build's seconds and ptxas report;
+     together; ctypes), with each build's seconds and ptxas report (a spill
+     fails the run), and the footprint csrc/dwell.cu is built with against
+     mandelbrot_cuda.DWELL_FOOTPRINT;
   3. K1 (csrc/tci_de.cu) against its plain-torch twin on the card at the
      four dense-tracker grids on the tracker's domain, and at run_tci's 600 x
      600 and 2400 x 2400 grids on its own domain: identical escape and q25
@@ -22,16 +24,26 @@ prints no result line):
      contracts of tests/test_tracker_regression.py (rel 2e-3 / 5%);
   6. K2 (csrc/dwell.cu) against its twin at 2000 x 2000 and 1001 x 1999, and
      at the other grids the bench launches it on (2048 x 2048 on the bench's
-     padded domain, 4096 x 4096 and 8192 x 8192), max_iter 500: bitwise
-     equal; times, and the orbit steps the kernel iterates (interior pixels
-     skip the loop);
+     padded domain, 4096 x 4096 and 8192 x 8192), max_iter 500, and at the
+     shapes and iteration counts that stress its schedule (2 x 2, 3 x 5,
+     ragged widths and heights, max_iter 1, C - 1, C, C + 1, 500 and 20,000
+     for C steps between two exit tests): bitwise equal; times, the orbit
+     steps the pixels need (interior pixels skip the loop) and the steps the
+     kernel's warps execute for them;
   7. run_boundary at the default config (res 2000, max_iter 500) on both
      backends: one K2 launch on "cuda", none on "torch"; K2 equal to the f64
      dwell on >= 99% of pixels; both contours inside their bounds around the
      golden artifacts/mandel_boundary.csv.gz (symmetric Hausdorff);
   8. K3 (csrc/cloud_green.cu) against its twin on the full default cloud
      (n 2..200, four families, after the host interior short-circuit) in one
-     launch of 20000 iterations: every output row bitwise equal;
+     launch of 20000 iterations, on 1, 31, 33, 257 and all points at 1,
+     S - 1, S and S + 1 iterations (S steps a speculative chunk), on points
+     that leave on the last step of a chunk and on the first of the next, on
+     resumed states outside the radius and non-finite inputs, and on a
+     launch resumed from another's state rows: every output row bitwise
+     equal; green_cloud_f32 staged (stage_iters 4096) equal to the single
+     launch; the kernel's time on device-resident inputs, the wrapper's from
+     numpy inputs, and the chain bound;
   9. run_equipotential at the CLI defaults with float32 (K3, one launch) and
      float64 (no launch): f32 against f64 on the card, and f64 against the
      reference's numbers in tests/data/equipotential_default_f64.json;
@@ -75,14 +87,21 @@ prints no result line):
  18. cmtci_torch.bench at full size, its JSON on a line of its own: no
      `_error` key, every ported key present and finite, `not_ported` exactly
      the three waiting keys, no ratio key, vpu_peak_tflops no higher than the
-     card's FP32 FMA ceiling, and K1, K2, K3, K4 and K7 each launched.
+     card's FP32 FMA ceiling, dwell_mfu_useful <= dwell_mfu <= 1, and K1, K2,
+     K3, K4 and K7 each launched.
 The kernels line gives, per kernel, its launches on its path, max |kernel -
 twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
 (the orbit steps these inputs need times the operations per step of the .cu
 body; for K7 two per FMA) over 67 TFLOP/s and the bytes (inputs read once,
 outputs written once) over 3.35 TB/s, the H100 SXM's published peaks at 700
-W. No single PyTorch call computes an escape-time field or a chain of
-dependent FMAs, so library_ms is null.
+W. K3's operations are dependent ones: a lane's orbit is a serial chain, so
+its bound is the longest lane's steps x 3 dependent FP32 instructions x the
+measured dependent-issue latency at the card's maximum SM clock, far above
+the other two; its bound_by stays "operations" and bound_detail says so. A
+kernel's ms is the median time per launch of CHAIN launches back to back
+(K7, a kernel of milliseconds: of one launch); K3's is taken on inputs
+resident on the card. No single PyTorch call computes an escape-time field or
+a chain of dependent FMAs, so library_ms is null.
 
 The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
 other grids' times are printed in phase 3; K2's launches are those of the
@@ -125,6 +144,12 @@ REPLACES = {
     "dwell_periodic": "cmtci/kernels/mandelbrot_pallas.py:94",
 }
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
+#: launches back to back in one timing of a kernel (cuda_ms)
+CHAIN = 20
+#: cycles between two dependent FP32 instructions of one warp, measured on an
+#: H100 80GB HBM3 by `python -m cmtci_torch.sweep_schedules` (4.05 at 1.92 and
+#: at 1.97 GHz); K3's chain bound is worked out from it
+FP32_DEPENDENT_CYCLES = 4.05
 FIELD_SHAPES = ((2048, 2048), (1001, 1999))  # (ny, nx)
 MS_SHAPE, MS_STRIDE, MS_TILE = (2048, 2048), 8, (32, 256)
 TCI_GRIDS = (600, 2400)
@@ -167,8 +192,12 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int, reps: int) -> float:
-    """Median device time of fn() in ms (CUDA events around each call)."""
+def cuda_ms(fn, warmup: int, reps: int, chain: int = 1) -> float:
+    """Median device time of fn() in ms over `reps` timings, each between two
+    CUDA events around `chain` calls back to back, divided by `chain`. With
+    chain 1 the events also enclose the host's time to issue the one launch,
+    which is most of the reading for a kernel of a few hundredths of a ms;
+    CHAIN calls keep the card busy, so the reading is the kernel's."""
     import torch
 
     for _ in range(warmup):
@@ -178,10 +207,11 @@ def cuda_ms(fn, warmup: int, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(chain):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / chain)
     return statistics.median(times)
 
 
@@ -268,6 +298,15 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+            if "spill" in line:
+                check("0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"{name}: ptxas reports a spill: {line.strip()}")
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    built = mc.dwell_footprint_built()
+    print(f"  dwell.cu is built with the footprint {built}")
+    check(built == mc.DWELL_FOOTPRINT,
+          f"dwell.cu reports {built}, mandelbrot_cuda.DWELL_FOOTPRINT is {mc.DWELL_FOOTPRINT}")
 
 
 def phase_kernels(dev):
@@ -303,7 +342,7 @@ def phase_kernels(dev):
         sel_k, cnt_k, q_k = mc.band_selection(esc_k, out_k.clamp(min=0.0))
         sel_t, cnt_t, q_t = mc.band_selection(esc_t, out_t.clamp(min=0.0))
         check(bool(torch.equal(sel_k, sel_t)), f"{path} grid {g}: band masks differ")
-        ms = cuda_ms(lambda: mc._tci_field(dom, g, max_iter, escape_r, dev), 3, 20)
+        ms = cuda_ms(lambda: mc._tci_field(dom, g, max_iter, escape_r, dev), 3, 20, CHAIN)
         plain_ms = cuda_ms(lambda: mc.tci_de_field_torch(dom, g, max_iter, escape_r,
                                                          device=dev), 1, 3)
         steps = orbit_steps(*mc._grid_coords(dom, g, g, dev), max_iter,
@@ -312,8 +351,9 @@ def phase_kernels(dev):
         timing[(path, g)] = (ms, plain_ms, bound, by)
         print(f"K1 {path} grid {g}: escaped {int(cnt_k)}/{g * g}, band {int(sel_k.sum())}, "
               f"q25 {float(q_k)!r}, d bitwise-differing pixels {n_diff}, "
-              f"max|kernel-twin| {err!r}; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
-              f"(median, CUDA events); {steps} orbit steps, bound {bound:.5f} ms ({by})")
+              f"max|kernel-twin| {err!r}; kernel {ms:.4f} ms (median per launch, {CHAIN} back "
+              f"to back), twin {plain_ms:.4f} ms (median, CUDA events); {steps} orbit steps, "
+              f"bound {bound:.5f} ms ({by})")
     return max_err, timing
 
 
@@ -427,15 +467,41 @@ def bench_grids():
             + [(bench.DOM, res, res) for res, _ in sizes.scale_grids])
 
 
+def dwell_edge_cases(c: int):
+    """(ny, nx, max_iter) beyond the pipelines' grids, for K2's schedule: nx no
+    multiple of a thread's, a warp's or a block's columns, ny no multiple of a
+    patch's rows, grids smaller than one patch, and max_iter around `c`, the
+    steps between two exit tests, and far above them."""
+    small = [(2, 2), (3, 5), (13, 37), (257, 33)]
+    cases = [(ny, nx, it) for ny, nx in small for it in sorted({1, max(c - 1, 1), c, c + 1})]
+    return cases + [(13, 37, 500), (130, 1003, 500), (130, 1003, 20000)]
+
+
 def phase_dwell(dev):
-    """Phase 6: K2 against its twin on the card, at the boundary's shapes and
-    at every grid the bench launches it on."""
+    """Phase 6: K2 against its twin on the card, at the boundary's shapes, at
+    every grid the bench launches it on, and at the shapes and iteration
+    counts that stress its schedule."""
     import torch
 
+    from cmtci_torch import bench
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
     timing = {}
     max_err = 0.0
+    foot = mc.DWELL_FOOTPRINT
+    edge = dwell_edge_cases(foot["c"])
+    for ny, nx, max_iter in edge:
+        out_k = mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, max_iter=max_iter, device=dev)
+        out_t = mc.dwell_field_torch(BOUNDARY_DOMAIN, nx, ny, max_iter, device=dev)
+        torch.cuda.synchronize()
+        check(out_k.shape == out_t.shape == (ny, nx), f"K2 {ny}x{nx}: shape")
+        n_diff = int((out_k != out_t).sum())
+        max_err = max(max_err, float((out_k - out_t).abs().max()))
+        check(n_diff == 0, f"K2 {ny}x{nx}, max_iter {max_iter}: {n_diff} pixels differ "
+                           "from the twin")
+    print(f"K2 schedule cases (footprint {foot}): {len(edge)} grids and iteration counts, "
+          f"{', '.join(f'{ny}x{nx}@{it}' for ny, nx, it in edge)}: 0 differing pixels each")
+
     max_iter = 500
     cases = [(BOUNDARY_DOMAIN, ny, nx) for ny, nx in DWELL_SHAPES] + bench_grids()
     for dom, ny, nx in cases:
@@ -446,25 +512,36 @@ def phase_dwell(dev):
         check(out_k.shape == out_t.shape == (ny, nx), f"{label}: shape {tuple(out_k.shape)}")
         n_diff = int((out_k != out_t).sum())
         max_err = max(max_err, float((out_k - out_t).abs().max()))
-        # loop trips: an escaping pixel runs dwell + 1 steps, a bounded one
-        # max_iter, an analytically interior one none
+        # loop trips: an escaping pixel needs dwell + 1 steps, a bounded one
+        # max_iter, an analytically interior one none; executed is what the
+        # warps of the kernel's footprint burn for them
         interior = mc._interior_mask_torch(*mc._grid_coords(dom, nx, ny, dev))
-        steps = dwell_steps(out_k, interior, max_iter)
+        useful, executed = bench.dwell_step_counts(out_k, interior, max_iter)
+        _, executed_rows = bench.dwell_step_counts(out_k, interior, max_iter, bench.ROW_WARP)
+        steps = int(useful)
         print(f"{label}: kernel vs twin differing pixels {n_diff}, mean dwell "
-              f"{float(out_k.mean())!r}, interior pixels {int(interior.sum())}, iterated "
-              f"orbit steps {steps}")
+              f"{float(out_k.mean())!r}, interior pixels {int(interior.sum())}, useful "
+              f"orbit steps {steps}, executed by the kernel's warps {int(executed)} "
+              f"(executed / useful {executed / useful:.4f}; one-row warps with a test every "
+              f"step would execute {executed_rows / useful:.4f})")
         check(n_diff == 0, f"{label}: {n_diff} pixels differ from the twin")
         del out_t
-        ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter=max_iter,
-                                                 device=dev), 3, 20)
+
+        def k2():
+            return mc.mandelbrot_field(dom, nx, ny, max_iter=max_iter, device=dev)
+
+        ms = cuda_ms(k2, 3, 20, CHAIN)
+        single_ms = cuda_ms(k2, 3, 20)
         # the twin takes seconds at the two scale grids: one timed run there
         plain_ms = cuda_ms(lambda: mc.dwell_field_torch(dom, nx, ny, max_iter, device=dev),
                            *((1, 3) if nx * ny <= 2048 * 2048 else (0, 1)))
         bound, by = bound_ms("dwell", steps, 4 * nx * ny)
         if dom == BOUNDARY_DOMAIN:
             timing[(ny, nx)] = (ms, plain_ms, bound, by)
-        print(f"  kernel {ms:.4f} ms ({steps / ms / 1e9:.4f} G orbit steps per ms), "
-              f"twin {plain_ms:.4f} ms (median, CUDA events); bound {bound:.5f} ms ({by})")
+        print(f"  kernel {ms:.4f} ms (median per launch, {CHAIN} back to back; "
+              f"{steps / ms / 1e9:.4f} G orbit steps per ms), {single_ms:.4f} ms around one "
+              f"launch, twin {plain_ms:.4f} ms (median, CUDA events); bound {bound:.5f} ms "
+              f"({by})")
     return max_err, timing
 
 
@@ -528,11 +605,69 @@ def default_cloud(dev):
                            for f in cfg.families])
 
 
+K3_ROWS = ("k", "zer", "zei", "zr", "zi", "act")
+
+
+def k3_chunk() -> int:
+    """S, the steps of a speculative chunk csrc/cloud_green.cu is built with."""
+    import re
+
+    with open(os.path.join(ROOT, "cmtci_torch", "csrc", "cloud_green.cu")) as f:
+        return int(re.search(r"constexpr int S = (\d+);", f.read()).group(1))
+
+
+def real_point_escaping_at(step: int) -> float:
+    """An f32 real c past the cusp at 1/4 whose orbit leaves the radius-2 disc
+    exactly at the 1-based `step` (the step falls as c grows, about
+    pi / sqrt(c - 1/4)), found by bisection on the scalar f32 orbit."""
+    import numpy as np
+
+    f32 = np.float32
+
+    def escape_step(c):
+        c, z = f32(c), f32(0)
+        for n in range(1, 100_000):
+            z = z * z + c
+            if z * z > f32(4.0):
+                return n
+        raise SmokeFailure(f"c = {c!r} does not escape")
+
+    lo, hi = 0.25 + (3.0 / step) ** 2 / 4, 0.25 + (3.3 / step) ** 2 * 4
+    for _ in range(60):
+        mid = float(f32(0.5 * (lo + hi)))
+        got = escape_step(mid)
+        if got == step:
+            return mid
+        lo, hi = (mid, hi) if got > step else (lo, mid)
+    raise SmokeFailure(f"no f32 real point escapes at step {step}")
+
+
+def k3_against_twin(label, cr, ci, zr0, zi0, iters, dev):
+    """K3 on the card against its twin on the same inputs: every row
+    bitwise (NaN equal to NaN). Returns (kernel output, max |kernel - twin|)."""
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    out_k = mc.cloud_green(cr, ci, zr0, zi0, iters, 2.0, device=dev)
+    out_t = mc.cloud_green_torch(cr, ci, zr0, zi0, iters, 2.0, device=dev)
+    torch.cuda.synchronize()
+    check(out_k.shape == out_t.shape == (6, len(cr)), f"{label}: shape {tuple(out_k.shape)}")
+    same = (out_k == out_t) | (torch.isnan(out_k) & torch.isnan(out_t))
+    diff = {r: int((~same[i]).sum()) for i, r in enumerate(K3_ROWS)}
+    check(all(v == 0 for v in diff.values()), f"{label}: K3 differs from its twin: {diff}")
+    err = float(torch.where(same, 0.0, (out_k - out_t).abs()).max())
+    return out_k, err
+
+
 def phase_cloud_green(dev):
-    """Phase 8: K3 against its twin on the full default cloud."""
+    """Phase 8: K3 against its twin on the full default cloud and on the
+    cases that stress its chunks; its time on device-resident inputs, the
+    wrapper's from numpy inputs, and the chain bound."""
     import numpy as np
     import torch
 
+    from cmtci_torch import bench
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
     pts = default_cloud(dev)
@@ -542,38 +677,117 @@ def phase_cloud_green(dev):
     ci = pts.imag[keep].astype(np.float32)
     z0 = np.zeros_like(cr)
     iters = 20000
-    out_k = mc.cloud_green(cr, ci, z0, z0, iters, 2.0, device=dev)
+    s = k3_chunk()
+
+    # the whole cloud at the full budget: the twin takes seconds, so once
     t0 = time.perf_counter()
     out_t = mc.cloud_green_torch(cr, ci, z0, z0, iters, 2.0, device=dev)
     torch.cuda.synchronize()
     twin_s = time.perf_counter() - t0
-    rows = ("k", "zer", "zei", "zr", "zi", "act")
-    diff = {r: int((out_k[i] != out_t[i]).sum()) for i, r in enumerate(rows)}
+    out_k = mc.cloud_green(cr, ci, z0, z0, iters, 2.0, device=dev)
+    diff = {r: int((out_k[i] != out_t[i]).sum()) for i, r in enumerate(K3_ROWS)}
     n_esc = int((out_k[0] > 0).sum())
     print(f"K3 default cloud: {pts.size} points, {int(keep.sum())} after the interior "
           f"short-circuit, {n_esc} escape in {iters} iterations; differing entries per "
-          f"row {diff}")
+          f"row {diff}; chunks of S = {s} steps")
     check(all(v == 0 for v in diff.values()), f"K3 differs from its twin: {diff}")
     max_err = float((out_k - out_t).abs().max())
-    ms = cuda_ms(lambda: mc.cloud_green(cr, ci, z0, z0, iters, 2.0, device=dev), 2, 10)
-    plain_ms = cuda_ms(lambda: mc.cloud_green_torch(cr, ci, z0, z0, iters, 2.0,
+    del out_t
+
+    # m and iters around a warp and a chunk (the long budget on a few points
+    # too: their twin stops as soon as no lane is active)
+    cases = [(m, it) for m in (1, 31, 33, 257, cr.size) for it in (1, s - 1, s, s + 1)]
+    cases += [(m, iters) for m in (1, 33)] + [(257, 3 * s + 7), (cr.size, 3 * s + 7)]
+    for m, it in cases:
+        _, err = k3_against_twin(f"K3 m {m}, iters {it}", cr[:m], ci[:m], z0[:m], z0[:m], it,
+                                 dev)
+        max_err = max(max_err, err)
+    print(f"K3 m x iters cases: {', '.join(f'{m}@{it}' for m, it in cases)}: all six rows "
+          "bitwise the twin's")
+
+    # lanes that leave on the last step of a chunk (S, 2S), on the first of
+    # the next (S + 1, 2S + 1) and just before (S - 1)
+    want = [s - 1, s, s + 1, 2 * s, 2 * s + 1]
+    ecr = np.asarray([real_point_escaping_at(k) for k in want], dtype=np.float32)
+    ez = np.zeros_like(ecr)
+    out_e, err = k3_against_twin("K3 chunk edges", ecr, ez, ez, ez, 3 * s + 7, dev)
+    got = out_e[0].cpu().numpy().astype(int).tolist()
+    print(f"K3 chunk edges: real points {ecr.tolist()} leave at steps {got}")
+    check(got == want, f"K3 chunk edges: escape steps {got}, expected {want}")
+    max_err = max(max_err, err)
+
+    # resumed states: beyond the radius already, overflowing, inf and NaN, NaN
+    # and inf coordinates, an interior c with a state outside
+    rcr = np.array([0.5, 0.5, 0.5, 0.5, np.nan, np.inf, -np.inf, 0.5, 0.0, 0.5], np.float32)
+    rci = np.array([0.1, 0.1, 0.1, 0.1, 0.0, 0.0, 1.0, np.nan, 0.0, 0.1], np.float32)
+    rzr = np.array([3.0, 1e20, np.inf, np.nan, 0.0, 0.0, 0.0, 0.0, 5.0, -2.0001], np.float32)
+    rzi = np.array([0.0, 1e20, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 5.0, 0.0], np.float32)
+    for it in (1, s, 2 * s + 3):
+        out_r, err = k3_against_twin(f"K3 resumed states, iters {it}", rcr, rci, rzr, rzi, it,
+                                     dev)
+        max_err = max(max_err, err)
+    k_r = out_r[0].cpu().numpy()
+    check(k_r[0] == 1 and k_r[9] == 1 and k_r[8] == 0,
+          f"K3 resumed states: k {k_r.tolist()} (a state outside leaves on step 1, an "
+          "interior c never)")
+    print(f"K3 resumed states outside the radius, non-finite states and coordinates: "
+          f"bitwise the twin's at iters 1, {s}, {2 * s + 3}; k {k_r.tolist()}")
+
+    # a launch resumed from the state rows of an earlier one
+    first = s + 5
+    one = mc.cloud_green(cr, ci, z0, z0, first, 2.0, device=dev).cpu().numpy()
+    act = one[5] == 1
+    _, err = k3_against_twin("K3 resumed launch", cr[act], ci[act], one[3][act], one[4][act],
+                             2 * s + 1, dev)
+    max_err = max(max_err, err)
+
+    # the staged host loop against the single launch, on the whole cloud
+    reset_launches()
+    g1, k1, phi1 = mc.green_cloud_f32(pts, iters, 2.0, device=dev)
+    single_launches = mc.launches["cloud_green"]
+    g5, k5, phi5 = mc.green_cloud_f32(pts, iters, 2.0, stage_iters=4096, device=dev)
+    staged_launches = mc.launches["cloud_green"] - single_launches
+    check(single_launches == 1 and staged_launches == 5,
+          f"green_cloud_f32 launches: single {single_launches}, staged {staged_launches}")
+    check(np.array_equal(g1, g5) and np.array_equal(k1, k5)
+          and np.array_equal(phi1, phi5, equal_nan=True),
+          "green_cloud_f32 with stage_iters 4096 differs from the single launch")
+    print(f"K3 resumed launch ({int(act.sum())} lanes after {first} steps) bitwise the "
+          f"twin's; green_cloud_f32 staged (stage_iters 4096, {staged_launches} launches) "
+          f"equal to the single launch on g, k and phi of all {pts.size} points")
+
+    # the kernel alone: inputs resident on the card; and the wrapper as the
+    # pipeline calls it, from numpy arrays (four host-to-device copies)
+    crd, cid, z0d = (torch.as_tensor(a, device=dev) for a in (cr, ci, z0))
+    ms = cuda_ms(lambda: mc.cloud_green(crd, cid, z0d, z0d, iters, 2.0, device=dev), 2, 10,
+                 5)
+    single_ms = cuda_ms(lambda: mc.cloud_green(crd, cid, z0d, z0d, iters, 2.0, device=dev),
+                        2, 10)
+    numpy_ms = cuda_ms(lambda: mc.cloud_green(cr, ci, z0, z0, iters, 2.0, device=dev), 2, 10)
+    plain_ms = cuda_ms(lambda: mc.cloud_green_torch(crd, cid, z0d, z0d, iters, 2.0,
                                                     device=dev), 0, 1)
     # loop trips: k for a point that escapes at step k, iters for a bounded
     # one, none for an analytically interior one
-    interior = mc._interior_mask_torch(*(torch.as_tensor(a, device=dev) for a in (cr, ci)))
-    steps = int(torch.where(out_k[0] > 0, out_k[0], torch.where(interior, 0.0, float(iters)))
-                .sum(dtype=torch.float64))
-    longest = int(torch.where(interior, 0.0, torch.where(out_k[0] > 0, out_k[0],
-                                                         float(iters))).max())
-    bound, by = bound_ms("cloud_green", steps, 4 * 4 * cr.size + 6 * 4 * cr.size)
-    # one lane's chain: each step's z update is 3 dependent FP32 ops (mul,
-    # sub, add) of about 4 cycles at the 1.98 GHz boost clock
-    chain = longest * 3 * 4 / 1.98e9 * 1e3
-    print(f"  kernel {ms:.4f} ms (median, CUDA events), twin {plain_ms:.4f} ms (one rep, "
-          f"CUDA events; first twin call {twin_s:.3f} s wall); {steps} orbit steps, "
-          f"bound {bound:.5f} ms ({by}); the longest lane's {longest} dependent steps "
-          f"take at least about {chain:.4f} ms")
-    return max_err, ms, plain_ms, bound, by
+    interior = mc._interior_mask_torch(crd, cid)
+    lane = torch.where(interior, 0.0, torch.where(out_k[0] > 0, out_k[0], float(iters)))
+    steps = int(lane.sum(dtype=torch.float64))
+    longest = int(lane.max())
+    long_lanes = int((lane >= iters).sum())
+    flat, by = bound_ms("cloud_green", steps, 4 * 4 * cr.size + 6 * 4 * cr.size)
+    # the bound: one lane's orbit is a serial chain, each step's z update
+    # three dependent FP32 instructions (mul, sub, add) at the measured
+    # dependent-issue latency and the card's maximum SM clock
+    clock_hz = bench.max_sm_clock_mhz(dev) * 1e6
+    chain = longest * 3 * FP32_DEPENDENT_CYCLES / clock_hz * 1e3
+    check(chain > flat, f"K3: the chain bound {chain} ms is below the {by} bound {flat} ms")
+    print(f"  kernel {ms:.4f} ms on device-resident inputs (median per launch, 5 back to "
+          f"back; {single_ms:.4f} ms around one launch), wrapper from numpy inputs "
+          f"{numpy_ms:.4f} ms, twin {plain_ms:.4f} ms (one rep, CUDA events; first twin "
+          f"call {twin_s:.3f} s wall); {steps} orbit steps, {long_lanes} lanes run all "
+          f"{iters}; bound {chain:.5f} ms (the longest lane's {longest} steps x 3 dependent "
+          f"FP32 instructions x {FP32_DEPENDENT_CYCLES} cycles at {clock_hz / 1e9:.3f} GHz; "
+          f"kernel at {chain / ms:.1%} of it); by {by} alone {flat:.5f} ms")
+    return max_err, ms, plain_ms, chain
 
 
 def run_equip(dev, dtype, tmp):
@@ -745,13 +959,14 @@ def phase_fields(dev):
             steps = orbit_steps(*mc._grid_coords(dom, nx, ny, dev), max_iter,
                                 float(escape_r * escape_r))
             ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter, kind,
-                                                     escape_r, dev), 3, 20)
+                                                     escape_r, dev), 3, 20, CHAIN)
             plain_ms = cuda_ms(lambda: twins[kind](dom, nx, ny, max_iter,
                                                    escape_r, device=dev), 1, 3)
             bound, by = bound_ms(lib, steps, 4 * nx * ny)
             print(f"{label}: kernel vs twin differing pixels {n_diff}, max|kernel-twin| "
                   f"{err!r}, NaN pixels {int(torch.isnan(out_k).sum())}; within {tol} of "
-                  f"the f64 counterpart on {close!r} (contract > {share}); kernel {ms:.4f} ms, "
+                  f"the f64 counterpart on {close!r} (contract > {share}); kernel {ms:.4f} ms "
+                  f"(median per launch, {CHAIN} back to back), "
                   f"twin {plain_ms:.4f} ms (median, CUDA events); {steps} orbit steps, "
                   f"bound {bound:.5f} ms ({by})")
             if (dom, ny, nx) == cases[0]:
@@ -812,17 +1027,17 @@ def phase_dwell_ms(dev):
     turns = []
     for label, fn in (("K2", k2), ("K6 two-pass", two_pass), ("K6 two-pass", two_pass),
                       ("K2", k2)):
-        turns.append((label, cuda_ms(fn, 3, 20)))
+        turns.append((label, cuda_ms(fn, 3, 20, CHAIN)))
     coarse_ms = cuda_ms(lambda: mc._dwell(cparams, nx // stride, ny // stride, max_iter, dev),
-                        3, 20)
-    fill_ms = cuda_ms(lambda: mc.fill_flags(coarse, th // stride, tw // stride), 3, 20)
+                        3, 20, CHAIN)
+    fill_ms = cuda_ms(lambda: mc.fill_flags(coarse, th // stride, tw // stride), 3, 20, CHAIN)
     fine_ms = cuda_ms(lambda: mc.dwell_fill(dom, nx, ny, fill, MS_TILE, max_iter, device=dev),
-                      3, 20)
+                      3, 20, CHAIN)
     plain_ms = cuda_ms(lambda: mc.dwell_fill_torch(dom, nx, ny, fill, MS_TILE, max_iter,
                                                    device=dev), 1, 3)
     k2_ms = statistics.median(t for lab, t in turns if lab == "K2")
     two_ms = statistics.median(t for lab, t in turns if lab != "K2")
-    print("  in turns (median ms, CUDA events): "
+    print(f"  in turns (median ms per call, {CHAIN} back to back, CUDA events): "
           + ", ".join(f"{lab} {t:.4f}" for lab, t in turns))
     print(f"  coarse pass (K2 at {ny // stride}x{nx // stride}) {coarse_ms:.4f} ms, "
           f"{coarse_steps} steps; fill decision {fill_ms:.4f} ms; fine pass (K6) "
@@ -951,15 +1166,13 @@ def phase_fma(dev):
 
 
 def dwell_loop_steps(cr, ci, max_iter: int, periodicity: bool):
-    """(lane steps, executed steps) of escape.cuh:dwell_count<periodicity>
-    over an (ny, nx) grid of f32 coordinates. A lane is counted on every step
-    it starts, up to and including the step on which it escapes or on which
-    its z meets its checkpoint; executed steps are what the lanes' warps burn
-    (bench.warp_executed_steps). The lanes that have stopped are dropped
-    every 32 steps."""
+    """int32 (ny, nx) steps each pixel needs under escape.cuh:dwell_count
+    <periodicity> over a grid of f32 coordinates: a pixel is counted on every
+    step it starts, up to and including the step on which it escapes or on
+    which its z meets its checkpoint. The pixels that have stopped are
+    dropped every 32 steps."""
     import torch
 
-    from cmtci_torch import bench
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
     keep = ~mc._interior_mask_torch(cr, ci)
@@ -986,8 +1199,7 @@ def dwell_loop_steps(cr, ci, max_iter: int, periodicity: bool):
             if (n + 1) & n == 0:
                 pr, pi = zr, zi
     lane[idx] += started
-    return int(lane.sum(dtype=torch.int64)), int(bench.warp_executed_steps(
-        lane.view(keep.shape)))
+    return lane.view(keep.shape)
 
 
 def phase_periodic(dev):
@@ -1032,18 +1244,23 @@ def phase_periodic(dev):
         launched = _launch.launches["dwell_periodic"]  # of this one call
         plain = run(False)
         check(bool(torch.equal(plain, per)), f"periodic K2 differs at max_iter {max_iter}")
-        counted = {flag: dwell_loop_steps(cr, ci, max_iter, flag) for flag in (False, True)}
-        steps = {flag: counted[flag][0] for flag in counted}
-        executed = {flag: counted[flag][1] for flag in counted}
+        # the steps each entry's pixels need, and what its warps burn for them:
+        # the plain kernel's on its own footprint, the periodic entry's on
+        # one-row warps with a test every step
+        lanes = {flag: dwell_loop_steps(cr, ci, max_iter, flag) for flag in (False, True)}
+        steps = {flag: int(lanes[flag].sum(dtype=torch.int64)) for flag in lanes}
+        executed = {False: int(bench.warp_executed_steps(lanes[False], mc.DWELL_FOOTPRINT)),
+                    True: int(bench.warp_executed_steps(lanes[True], bench.ROW_WARP))}
         want = bench.dwell_step_counts(plain, interior, max_iter)
         check((steps[False], executed[False]) == (int(want[0]), int(want[1])),
-              f"max_iter {max_iter}: counted {counted[False]} plain steps, the output says "
-              f"{want}")
-        turns = [(flag, cuda_ms(lambda: run(flag), 2, 10))
+              f"max_iter {max_iter}: counted {(steps[False], executed[False])} plain steps, "
+              f"the output says {want}")
+        turns = [(flag, cuda_ms(lambda: run(flag), 2, 10, CHAIN if max_iter == 500 else 4))
                  for flag in (False, True, True, False)]
         t = {flag: statistics.median(ms for f, ms in turns if f == flag)
              for flag in (False, True)}
-        print(f"K2 {ny}x{nx}, max_iter {max_iter}, in turns (median ms, CUDA events): "
+        print(f"K2 {ny}x{nx}, max_iter {max_iter}, in turns (median ms per launch, back to "
+              "back, CUDA events): "
               + ", ".join(f"{'periodic' if f else 'plain'} {ms:.4f}" for f, ms in turns))
         print(f"  plain {steps[False]} steps, periodic {steps[True]} steps "
               f"({steps[True] / steps[False]:.4f} of plain); executed by their warps: plain "
@@ -1224,6 +1441,13 @@ def phase_bench(dev):
     check(result["vpu_peak_tflops"] <= result["fp32_fma_bound_tflops"],
           f"vpu_peak_tflops {result['vpu_peak_tflops']} above the card's ceiling "
           f"{result['fp32_fma_bound_tflops']}")
+    # K2's executed steps are counted on the footprint dwell.cu is built with
+    # (phase 2 checked the two agree), so the keys can neither pass 1 nor
+    # fall below the useful share
+    check(result["dwell_mfu_useful"] <= result["dwell_mfu"] <= 1.0,
+          f"dwell_mfu_useful {result['dwell_mfu_useful']} <= dwell_mfu {result['dwell_mfu']} "
+          "<= 1 does not hold")
+    check(result["de_mfu"] <= 1.0, f"de_mfu {result['de_mfu']} above 1")
     for name in BENCH_KERNELS:
         check(launches[name] >= 1, f"the bench run never launched {name}: {launches}")
     return launches
@@ -1247,7 +1471,7 @@ def main() -> int:
     phase_f64(dev, oracle)
     k2_err, k2_timing = phase_dwell(dev)
     k2_launches = phase_boundary(dev)
-    k3_err, k3_ms, k3_plain_ms, k3_bound, k3_by = phase_cloud_green(dev)
+    k3_err, k3_ms, k3_plain_ms, k3_bound = phase_cloud_green(dev)
     k3_launches = phase_equipotential(dev)
     fields = phase_fields(dev)
     k6 = phase_dwell_ms(dev)
@@ -1267,8 +1491,11 @@ def main() -> int:
                        plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by),
         "dwell": dict(launches=k2_launches, max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                       bound_ms=k2_bound, bound_by=k2_by),
+        # K3's bound is by operations, but dependent ones: the chain of its
+        # longest lane at the FP32 dependent-issue latency (phase 8)
         "cloud_green": dict(launches=k3_launches, max_abs_err=k3_err, ms=k3_ms,
-                            plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by=k3_by),
+                            plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by="operations",
+                            bound_detail="dependent chain of the longest lane"),
         **fields,
         "dwell_ms": k6,
         "fma_peak": dict(launches=bench_launches["fma_peak"], **k7),

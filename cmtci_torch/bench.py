@@ -13,10 +13,12 @@ Keys, each at the reference's configuration (``BenchSizes`` holds them):
   * dwell_tflops, vpu_peak_tflops, dwell_mfu, dwell_mfu_useful, de_tflops,
     de_mfu: the roofline accounting of K2 and K4 at 2048 x 2048 on the
     padded domain, against K7's measured chained-FMA rate. `useful` steps
-    are the lanes' own; `executed` steps are what the SIMD unit burns: a
-    warp of K2 is 32 consecutive columns of one row (dwell.cu launches
-    (32, 8) blocks) and runs until its last lane stops, so executed = 32 x
-    the warp's longest lane, summed over warps. Operations per step are
+    are the pixels' own; `executed` steps are what the SIMD unit burns, by
+    the schedule each kernel runs: a warp of K2 holds a patch of pixels
+    (mandelbrot_cuda.DWELL_FOOTPRINT, the constants dwell.cu is built with)
+    and iterates until its longest pixel stops, rounded up to the steps
+    between two exit tests; a warp of K4 is 32 consecutive
+    columns of one row. Operations per step are
     counted from the .cu bodies (mandelbrot_cuda.OPS_PER_STEP: each mul, add
     and compare once), while K7's rate counts an FMA as two. K4's executed
     steps are counted from its own orbits, which run to radius 4, a step or
@@ -184,27 +186,36 @@ def padded_domain(sizes: BenchSizes):
     return (DOM[0], DOM[0] + dx * (n - 1), DOM[2], DOM[2] + dx * (n - 1))
 
 
-def warp_executed_steps(lane: torch.Tensor, warp: int = 32) -> float:
-    """Steps the SIMD unit burns for a (ny, nx) grid of per-lane step counts:
-    a warp is `warp` consecutive columns of one row (dwell.cu launches (32, 8)
-    blocks) and runs as long as its longest lane, idle lanes included, so it
-    is warp x that maximum, summed over the warps (a row's last warp may be
-    ragged)."""
+#: a warp of the kernels launched in (32, 8) blocks (K4, K6, the periodic K2):
+#: 32 consecutive columns of one row, an exit test a step
+ROW_WARP = {"c": 1, "patch_w": 32, "patch_h": 1}
+
+
+def warp_executed_steps(lane: torch.Tensor, footprint: dict = ROW_WARP) -> float:
+    """Steps the SIMD unit burns for a (ny, nx) grid of per-pixel step counts
+    under a kernel's schedule (the keys of mandelbrot_cuda.DWELL_FOOTPRINT): a
+    warp holds a patch of patch_w columns x patch_h rows of pixels, one a
+    thread, and runs until its longest pixel has stopped, rounded up to the
+    `c` steps between two exit tests; every one of its 32 lanes counts for
+    that long, idle or not (a warp on the grid's edge may be ragged)."""
+    c, w, h = footprint["c"], footprint["patch_w"], footprint["patch_h"]
     ny, nx = lane.shape
-    pad = (-nx) % warp
-    if pad:
-        lane = torch.nn.functional.pad(lane, (0, pad))
-    return float(warp * lane.view(ny, -1, warp).max(dim=2).values.double().sum())
+    lane = torch.nn.functional.pad(lane, (0, (-nx) % w, 0, (-ny) % h))
+    longest = lane.view(lane.shape[0] // h, h, lane.shape[1] // w, w).amax(dim=(1, 3))
+    trips = torch.ceil(longest.double() / c) * c
+    return float(w * h * trips.sum())
 
 
-def dwell_step_counts(dwell: torch.Tensor, interior: torch.Tensor, max_iter: int):
+def dwell_step_counts(dwell: torch.Tensor, interior: torch.Tensor, max_iter: int,
+                      footprint: dict = mc.DWELL_FOOTPRINT):
     """(useful, executed) orbit steps of one K2 launch, from its (ny, nx)
-    output and the analytic-interior mask of the same grid. A lane iterates
+    output and the analytic-interior mask of the same grid. A pixel needs
     dwell + 1 steps when it escapes, max_iter when it does not, and none when
-    it is analytically interior; useful is their sum, executed what their
-    warps burn (warp_executed_steps)."""
+    it is analytically interior; useful is their sum, executed what the warps
+    of `footprint` burn for them (warp_executed_steps; the default is the
+    schedule dwell.cu's plain kernel is built with)."""
     lane = torch.where(interior, 0.0, (dwell + 1.0).clamp(max=float(max_iter))).double()
-    return float(lane.sum()), warp_executed_steps(lane)
+    return float(lane.sum()), warp_executed_steps(lane, footprint)
 
 
 def escape_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
@@ -224,17 +235,22 @@ def escape_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
     return lane
 
 
-def fp32_fma_bound_tflops(dev: torch.device) -> float:
-    """The card's FP32 FMA ceiling in TFLOP/s: SMs x 128 lanes x 2 operations
-    x the maximum SM clock (nvidia-smi's clocks.max.sm). The card is named to
-    nvidia-smi by its UUID: torch's index follows CUDA_VISIBLE_DEVICES,
-    nvidia-smi's does not."""
+def max_sm_clock_mhz(dev: torch.device) -> float:
+    """The card's maximum SM clock in MHz (nvidia-smi's clocks.max.sm). The
+    card is named to nvidia-smi by its UUID: torch's index follows
+    CUDA_VISIBLE_DEVICES, nvidia-smi's does not."""
     props = torch.cuda.get_device_properties(dev)
     proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                            "--format=csv,noheader,nounits", f"--id=GPU-{props.uuid}"],
                           capture_output=True, text=True, timeout=60, check=True)
-    mhz = float(proc.stdout.strip().splitlines()[0])
-    return props.multi_processor_count * 128 * 2 * mhz * 1e6 / 1e12
+    return float(proc.stdout.strip().splitlines()[0])
+
+
+def fp32_fma_bound_tflops(dev: torch.device) -> float:
+    """The card's FP32 FMA ceiling in TFLOP/s: SMs x 128 lanes x 2 operations
+    x the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * 128 * 2 * max_sm_clock_mhz(dev) * 1e6 / 1e12
 
 
 def bench_dwell(sizes: BenchSizes, dev: torch.device) -> float:

@@ -24,8 +24,10 @@ __device__ __forceinline__ float max_nan(float a, float b) {
     return (a != a) ? a : fmaxf(a, b);
 }
 
-// The dwell loop of K2 (dwell.cu) and of K6's fine pass (dwell_ms.cu), kept
-// here so the two cannot drift: max_iter for an analytically interior c
+// The dwell loop of K6's fine pass (dwell_ms.cu) and of K2's periodic entry
+// (dwell.cu), one pixel a thread with an exit test in every step, kept here
+// so the two cannot drift; K2's plain kernel (dwell.cu) computes the same
+// count on its own schedule. It is max_iter for an analytically interior c
 // (the loop is skipped); otherwise, for n = 0..max_iter-1,
 // z <- (zr*zr - zi*zi + cr, 2*zr*zi + ci), stop if !(|z|^2 <= 4) (NaN counts
 // as an escape), else dwell += 1. The twin is mandelbrot_cuda._dwell_torch.

@@ -31,10 +31,19 @@ from cmtci_torch.utils.device import resolve_device
 #: FP32 operations per orbit step of each kernel's loop body, each mul, add,
 #: sub and compare counted once (the build's -fmad=false keeps them apart):
 #: tci_de.cu 12 mul, 7 add/sub, 3 compares; de_std.cu 12 mul, 7 add/sub, 1
-#: compare; the others 6 mul, 4 add/sub, 1 compare. The periodic dwell loop
-#: adds two compares with the checkpoint.
-OPS_PER_STEP = {"tci_de": 22, "dwell": 11, "dwell_periodic": 13, "cloud_green": 11,
+#: compare; escape.cuh:dwell_count and green_grid.cu 6 mul, 4 add/sub, 1
+#: compare, and the periodic dwell loop two more compares with the
+#: checkpoint. dwell.cu's plain kernel and cloud_green.cu's chunks carry the
+#: squares zr*zr and zi*zi from the radius test into the next update: 4 mul,
+#: 4 add/sub, 1 compare.
+OPS_PER_STEP = {"tci_de": 22, "dwell": 9, "dwell_periodic": 13, "cloud_green": 9,
                 "de_std": 20, "green_grid": 11, "dwell_ms": 11}
+
+#: the schedule csrc/dwell.cu's plain kernel is built with (its constexpr C,
+#: PATCH_W, PATCH_H; dwell_footprint() returns the same on the card): a thread
+#: iterates one pixel and tests for its exit every `c` steps; a warp is a
+#: patch of patch_w columns x patch_h rows of pixels
+DWELL_FOOTPRINT = {"c": 4, "patch_w": 4, "patch_h": 8}
 
 
 def _params(domain, nx: int, ny: int | None = None) -> np.ndarray:
@@ -227,7 +236,8 @@ def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch
     loop, as K6's thread does.
 
     A lane's z is frozen where the kernel's thread breaks (escaped), so
-    every lane ends with the kernel's state and count.
+    every lane ends with the kernel's state and count (K2's plain kernel
+    iterates an escaped pixel on with its latch down; its count is the same).
 
     periodicity adds dwell_count<true>'s Brent cycle check: a checkpoint of
     z, moved when the steps taken are a power of two; a lane still inside
@@ -287,6 +297,19 @@ def _dwell(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.devic
     _launch("dwell_periodic" if periodicity else "dwell", dev, out.data_ptr(), int(nx),
             int(ny), xmin, ymin, dx, dy, int(max_iter))
     return out
+
+
+def dwell_footprint_built() -> dict:
+    """DWELL_FOOTPRINT as the built csrc/dwell.cu reports it (needs nvcc)."""
+    import ctypes
+
+    from cmtci_torch.kernels._build import library
+
+    fn = library("dwell").dwell_footprint
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    vals = (ctypes.c_int * 3)()
+    fn(vals)
+    return dict(zip(("c", "patch_w", "patch_h"), (int(v) for v in vals)))
 
 
 def de_field_std_torch(domain, nx: int, ny: int, max_iter: int = 500,

@@ -1,0 +1,357 @@
+"""Time schedule variants of K2 (csrc/dwell.cu, dwell_launch) and K3
+(csrc/cloud_green.cu) against the kernels as committed, in turns on one card.
+
+Run it on the card from the root of a checkout:
+
+    python -m cmtci_torch.sweep_schedules [--alt LABEL=DIR[:KEY=V,...]] ... [--out FILE]
+
+The committed sources hold one value of each tuning constant. A variant is
+the committed source with some `constexpr int KEY = V;` lines rewritten, built
+into build/sweep/<label>/ and never anywhere else; the package goes on
+launching the committed kernel. `--alt` adds sources from another directory
+that export the same C entry points (the kernels of an earlier commit, unpacked
+with `git show <commit>:cmtci_torch/csrc/dwell.cu`, or a design that was tried
+and not kept: K2 with several orbits a thread, K2 with lane-level refill),
+with constants rewritten the same way.
+
+Every variant's output is held bitwise to the committed kernel's at every
+shape before it is timed, and the committed kernel's to its plain twin once.
+Times are per launch in ms between two CUDA events: `single` around one
+launch (median of the rounds) and `chained` around 20 launches back to back,
+on an output tensor allocated once. The variants run in turns inside each
+round, so that clock and temperature drift falls on all of them alike.
+
+It also measures the FP32 dependent-issue latency K3's chain floor is worked
+out from: one warp runs a chain of dependent FMUL -> FADD pairs between two
+clock64() reads (a probe kernel held in this file, on no path of the package).
+The result is printed, and written as JSON to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from cmtci_torch import bench
+from cmtci_torch.kernels import _build, _launch, companion
+from cmtci_torch.kernels import mandelbrot_cuda as mc
+from cmtci_torch.pipelines.equipotential import EquipotentialConfig
+
+SWEEP_DIR = _build.BUILD_DIR.parent / "sweep"
+MAX_ITER = 500
+K2_SHAPES = (2000, 4096, 8192)
+K3_ITERS = 20000
+
+#: K2 variants of the committed source: label -> constants rewritten
+K2_VARIANTS = {
+    "c1": dict(C=1), "c2": dict(C=2), "c3": dict(C=3), "c4": dict(C=4), "c6": dict(C=6),
+    "c8": dict(C=8),
+    "c4_row": dict(C=4, PATCH_W=32, PATCH_H=1), "c4_16x2": dict(C=4, PATCH_W=16, PATCH_H=2),
+    "c4_8x4": dict(C=4, PATCH_W=8, PATCH_H=4), "c4_4x8": dict(C=4, PATCH_W=4, PATCH_H=8),
+    "c4_2x16": dict(C=4, PATCH_W=2, PATCH_H=16),
+    "c4_w1": dict(C=4, WARPS=1), "c4_w2": dict(C=4, WARPS=2), "c4_w8": dict(C=4, WARPS=8),
+}
+#: K3 variants of the committed source
+K3_VARIANTS = {
+    "s16": dict(S=16), "s32": dict(S=32), "s64": dict(S=64), "s128": dict(S=128),
+    "s256": dict(S=256),
+    # WAVES 1 keeps every block of the default cloud resident (5 an SM), 2 three
+    # an SM, 4 two an SM, 8 one an SM
+    "s64_waves1": dict(S=64, WAVES=1), "s64_waves2": dict(S=64, WAVES=2),
+    "s64_waves4": dict(S=64, WAVES=4), "s128_waves1": dict(S=128, WAVES=1),
+    "s64_b64": dict(S=64, BLOCK=64), "s64_b256": dict(S=64, BLOCK=256),
+}
+
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void probe(float* out, long long* cycles, float x, float a, float b, int n) {
+    const long long t0 = clock64();
+#pragma unroll 64
+    for (int i = 0; i < n; ++i) {
+        x = x * a;
+        x = x + b;
+    }
+    const long long t1 = clock64();
+    out[threadIdx.x] = x;
+    cycles[threadIdx.x] = t1 - t0;
+}
+extern "C" int probe_launch(void* out, void* cycles, float x, float a, float b, int n,
+                            void* stream) {
+    probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<float*>(out), static_cast<long long*>(cycles), x, a, b, n);
+    return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def rewrite(text: str, consts: dict) -> str:
+    for key, val in consts.items():
+        text, n = re.subn(rf"(constexpr int {key} = )\d+;", rf"\g<1>{int(val)};", text)
+        if n != 1:
+            raise ValueError(f"`constexpr int {key} = ...;` found {n} times")
+    return text
+
+
+def build(label: str, name: str, src_dir: Path, consts: dict):
+    """(ctypes library, registers and spill lines of ptxas) of src_dir/<name>.cu
+    with `consts` rewritten, built into build/sweep/<label>/."""
+    out_dir = SWEEP_DIR / label
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for h in src_dir.glob("*.cuh"):
+        (out_dir / h.name).write_text(h.read_text())
+    src = out_dir / f"{name}.cu"
+    src.write_text(rewrite((src_dir / f"{name}.cu").read_text(), consts))
+    so = out_dir / f"lib{name}.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {label}:\n{proc.stdout}{proc.stderr}")
+    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "registers" in ln or "spill" in ln]
+    return ctypes.CDLL(str(so)), ptxas
+
+
+def entry(lib, name: str):
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = _launch.ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def in_turns(calls: dict, rounds: int = 7, chain: int = 20) -> dict:
+    """{label: (single ms, chained ms per launch)}, medians over `rounds`;
+    within a round every variant runs once, in the dict's order."""
+    single = {k: [] for k in calls}
+    chained = {k: [] for k in calls}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for label, fn in calls.items():
+            for reps, into in ((1, single), (chain, chained)):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                stop.record()
+                stop.synchronize()
+                into[label].append(start.elapsed_time(stop) / reps)
+    return {k: (statistics.median(single[k]), statistics.median(chained[k])) for k in calls}
+
+
+def parse_alts(specs, name: str):
+    """[(label, dir, consts)] of the --alt entries whose directory holds
+    <name>.cu."""
+    out = []
+    for spec in specs:
+        label, _, rest = spec.partition("=")
+        path, _, consts = rest.partition(":")
+        if not (Path(path) / f"{name}.cu").exists():
+            continue
+        kv = dict(item.split("=") for item in consts.split(",")) if consts else {}
+        out.append((label, Path(path), {k: int(v) for k, v in kv.items()}))
+    return out
+
+
+def build_all(name: str, variants: dict, alts) -> dict:
+    jobs = ([(f"{name}-{lab}", name, _build.CSRC, c) for lab, c in variants.items()]
+            + [(f"{name}-{lab}", name, d, c) for lab, d, c in alts])
+    with ThreadPoolExecutor(8) as ex:
+        built = list(ex.map(lambda j: build(*j), jobs))
+    labels = list(variants) + [lab for lab, _, _ in alts]
+    return dict(zip(labels, built))
+
+
+def stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def sweep_k2(dev, alts) -> dict:
+    built = build_all("dwell", K2_VARIANTS, alts)
+    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "shapes": {}}
+    dom = bench.DOM
+    foot = mc.DWELL_FOOTPRINT
+    for n in K2_SHAPES:
+        xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
+        want = mc.mandelbrot_field(dom, n, n, MAX_ITER, device=dev)
+        if n == K2_SHAPES[0]:
+            twin = mc.dwell_field_torch(dom, n, n, MAX_ITER, device=dev)
+            check(torch.equal(want, twin), "the committed K2 differs from its twin")
+            interior = mc._interior_mask_torch(*mc._grid_coords(dom, n, n, dev))
+            ratios = {}
+            for lab, c in K2_VARIANTS.items():
+                f = dict(foot, **{k.lower(): v for k, v in c.items() if k != "WARPS"})
+                useful, executed = bench.dwell_step_counts(want, interior, MAX_ITER, f)
+                ratios[lab] = executed / useful
+            report["executed_over_useful"] = ratios
+        out = torch.empty((n, n), dtype=torch.float32, device=dev)
+        calls = {"committed": lambda: _launch.launch(
+            "dwell", dev, out.data_ptr(), n, n, xmin, ymin, dx, dy, MAX_ITER)}
+        for lab, (lib, _) in built.items():
+            fn = entry(lib, "dwell")
+
+            def call(fn=fn):
+                rc = fn(out.data_ptr(), n, n, xmin, ymin, dx, dy, MAX_ITER, stream(dev))
+                check(rc == 0, f"dwell_launch returned cudaError {rc}")
+
+            out.fill_(-1.0)
+            call()
+            torch.cuda.synchronize()
+            diff = int((out != want).sum())
+            check(diff == 0, f"K2 variant {lab} differs from the committed kernel at {diff} px")
+            calls[lab] = call
+        report["shapes"][n] = in_turns(calls)
+    return report
+
+
+def default_cloud(dev):
+    """The equipotential CLI default cloud after the host's interior
+    short-circuit, as f32 tensors on the card."""
+    cfg = EquipotentialConfig()
+    ns = list(range(cfg.n_min, cfg.n_max + 1))
+    pts = np.concatenate([companion.inverse_cloud(ns, f, tol=cfg.eig_tol, device=dev)
+                          for f in cfg.families])
+    pts = pts[~mc.exact_interior(pts)]
+    cr = torch.as_tensor(pts.real.astype(np.float32), device=dev)
+    ci = torch.as_tensor(pts.imag.astype(np.float32), device=dev)
+    return cr, ci
+
+
+def sweep_k3(dev, alts) -> dict:
+    built = build_all("cloud_green", K3_VARIANTS, alts)
+    cr, ci = default_cloud(dev)
+    z0 = torch.zeros_like(cr)
+    m = cr.numel()
+    want = mc.cloud_green(cr, ci, z0, z0, K3_ITERS, 2.0, device=dev)
+    twin = mc.cloud_green_torch(cr, ci, z0, z0, K3_ITERS, 2.0, device=dev)
+    check(torch.equal(want, twin), "the committed K3 differs from its twin")
+    out = torch.empty((6, m), dtype=torch.float32, device=dev)
+    args = (cr.data_ptr(), ci.data_ptr(), z0.data_ptr(), z0.data_ptr(), out.data_ptr(), m,
+            K3_ITERS, 4.0)
+    calls = {"committed": lambda: _launch.launch("cloud_green", dev, *args)}
+    for lab, (lib, _) in built.items():
+        fn = entry(lib, "cloud_green")
+
+        def call(fn=fn):
+            rc = fn(*args, stream(dev))
+            check(rc == 0, f"cloud_green_launch returned cudaError {rc}")
+
+        out.fill_(-1.0)
+        call()
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"K3 variant {lab} differs from the committed kernel")
+        calls[lab] = call
+    longest = int(torch.where(want[0] > 0, want[0], float(K3_ITERS)).max())
+    return {"ptxas": {lab: p for lab, (_, p) in built.items()}, "points": m,
+            "longest_lane_steps": longest, "times": in_turns(calls, chain=5)}
+
+
+def fp32_dependent_latency(dev) -> dict:
+    """Cycles between two dependent FP32 instructions (FMUL -> FADD -> FMUL
+    ...) of one warp alone on its SM, and the clock the chain ran at."""
+    out_dir = SWEEP_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "probe.cu").write_text(PROBE_SRC)
+    so = out_dir / "libprobe.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(out_dir / "probe.cu")], capture_output=True, text=True, check=True)
+    fn = ctypes.CDLL(str(so)).probe_launch
+    P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    fn.argtypes = [P, P, F, F, F, I, P]
+    fn.restype = I
+    out = torch.empty(32, dtype=torch.float32, device=dev)
+    cyc = torch.empty(32, dtype=torch.int64, device=dev)
+    n = 1 << 20  # 2^21 dependent instructions
+
+    def call():
+        rc = fn(out.data_ptr(), cyc.data_ptr(), 1.0, 1.0, 0.0, n, stream(dev))
+        check(rc == 0, f"probe_launch returned cudaError {rc}")
+
+    ms, _ = in_turns({"probe": call}, rounds=5, chain=2)["probe"]
+    cycles = float(cyc.max())
+    return {"dependent_instructions": 2 * n, "cycles": cycles,
+            "cycles_per_instruction": cycles / (2 * n), "ms": ms,
+            "ns_per_instruction": ms * 1e6 / (2 * n), "clock_ghz": cycles / (ms * 1e6)}
+
+
+def wrapper_overhead_us(dev) -> dict:
+    """Host microseconds a call of K2 through each layer, on an 8 x 8 grid
+    whose kernel takes no time: the raw ctypes entry, _launch.launch, and
+    mandelbrot_field (which also builds the parameters and the output)."""
+    import time
+
+    out = torch.empty((8, 8), dtype=torch.float32, device=dev)
+    raw = entry(_build.library("dwell"), "dwell")
+    calls = {
+        "ctypes": lambda: raw(out.data_ptr(), 8, 8, -2.0, -1.0, 0.1, 0.1, 5, stream(dev)),
+        "launch": lambda: _launch.launch("dwell", dev, out.data_ptr(), 8, 8, -2.0, -1.0, 0.1,
+                                         0.1, 5),
+        "mandelbrot_field": lambda: mc.mandelbrot_field(bench.DOM, 8, 8, 5, device=dev),
+    }
+    result = {}
+    for label, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        result[label] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m cmtci_torch.sweep_schedules",
+                                 description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--alt", action="append", default=[],
+                    help="LABEL=DIR[:KEY=V,...]: sources of another directory")
+    ap.add_argument("--out", default=None, help="write the report as JSON here")
+    args = ap.parse_args(argv)
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    report = {"card": card, "latency": fp32_dependent_latency(dev),
+              "wrapper_overhead_us": wrapper_overhead_us(dev),
+              "k2": sweep_k2(dev, parse_alts(args.alt, "dwell")),
+              "k3": sweep_k3(dev, parse_alts(args.alt, "cloud_green"))}
+    print(card)
+    print("FP32 dependent-issue latency:", json.dumps(report["latency"]))
+    print("host microseconds a K2 call:", json.dumps(report["wrapper_overhead_us"]))
+    for n, times in report["k2"]["shapes"].items():
+        print(f"K2 {n} x {n}, max_iter {MAX_ITER} (ms per launch: single, chained):")
+        for lab, (s, c) in times.items():
+            ratio = report["k2"]["executed_over_useful"].get(lab)
+            print(f"  {lab:>14}: {s:.4f} {c:.4f}"
+                  + (f"  executed/useful {ratio:.3f}" if ratio and n == K2_SHAPES[0] else ""))
+    print(f"K3 {report['k3']['points']} points, {K3_ITERS} iterations, longest lane "
+          f"{report['k3']['longest_lane_steps']} steps (ms per launch: single, chained):")
+    for lab, (s, c) in report["k3"]["times"].items():
+        print(f"  {lab:>14}: {s:.4f} {c:.4f}")
+    for k in ("k2", "k3"):
+        for lab, lines in report[k]["ptxas"].items():
+            print(f"ptxas {k} {lab}: " + " | ".join(lines))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

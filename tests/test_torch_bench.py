@@ -102,7 +102,9 @@ def test_k7_wrapper_on_cpu_runs_twin_and_counts_no_launch():
 def test_dwell_step_counts_on_planted_array():
     """2 rows x 40 columns, max_iter 100: row 0 escapes at dwell 4 except one
     bounded lane (column 3) and one interior lane (column 35); row 1 is
-    interior throughout. Warps: columns 0-31 and the ragged 32-39."""
+    interior throughout. On the row layout the warps are columns 0-31 and the
+    ragged 32-39 of each row; on K2's own footprint (the default) a warp holds
+    patch_w columns x patch_h rows and tests its exit every c steps."""
     dwell = torch.full((2, 40), 4.0)
     interior = torch.zeros((2, 40), dtype=torch.bool)
     dwell[0, 3] = 100.0
@@ -110,13 +112,18 @@ def test_dwell_step_counts_on_planted_array():
     dwell[0, 35] = 100.0
     interior[1] = True
     dwell[1] = 100.0
-    useful, executed = bench.dwell_step_counts(dwell, interior, 100)
+    useful, executed = bench.dwell_step_counts(dwell, interior, 100, bench.ROW_WARP)
     assert useful == 38 * 5 + 100
     assert executed == 32 * 100 + 32 * 5
+    f = mc.DWELL_FOOTPRINT
+    useful, executed = bench.dwell_step_counts(dwell, interior, 100)
+    assert useful == 38 * 5 + 100
+    trips = [100 if x0 <= 3 else 5 for x0 in range(0, 40, f["patch_w"])]
+    assert executed == sum(32 * -(-t // f["c"]) * f["c"] for t in trips)
     # a lane that escapes at the last step iterates max_iter steps, not more
     assert bench.dwell_step_counts(torch.full((1, 32), 99.0),
-                                   torch.zeros((1, 32), dtype=torch.bool), 100) \
-        == (3200.0, 3200.0)
+                                   torch.zeros((1, 32), dtype=torch.bool), 100,
+                                   bench.ROW_WARP) == (3200.0, 3200.0)
 
 
 def test_escape_lane_steps_agree_with_the_dwell_and_grow_with_the_radius():
@@ -129,7 +136,7 @@ def test_escape_lane_steps_agree_with_the_dwell_and_grow_with_the_radius():
     lane2 = bench.escape_lane_steps(cr, ci, max_iter, 4.0)
     assert lane2.dtype == torch.int32 and lane2.shape == (n, n)
     assert (lane2[interior] == 0).all() and int(lane2.max()) == max_iter
-    useful, executed = bench.dwell_step_counts(dwell, interior, max_iter)
+    useful, executed = bench.dwell_step_counts(dwell, interior, max_iter, bench.ROW_WARP)
     assert float(lane2.sum()) == useful
     assert bench.warp_executed_steps(lane2) == executed
     lane4 = bench.escape_lane_steps(cr, ci, max_iter, 16.0)

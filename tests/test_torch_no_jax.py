@@ -16,6 +16,7 @@ import cmtci_torch.pipelines.equipotential
 import cmtci_torch.pipelines.analysis
 import cmtci_torch.pipelines.variograms
 import cmtci_torch.bench
+import cmtci_torch.sweep_schedules
 import cmtci_torch.kernels.fma_peak
 import cmtci_torch.kernels.potential
 import cmtci_torch.kernels._launch
