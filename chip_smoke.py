@@ -8,13 +8,21 @@ prints no result line):
   1. the card (nvidia-smi name and power limit; torch.cuda.is_available());
   2. build every kernel from csrc/ (one nvcc per source, all started
      together; ctypes), with each build's seconds and ptxas report (a spill
-     fails the run), and the footprint csrc/dwell.cu is built with against
-     mandelbrot_cuda.DWELL_FOOTPRINT;
-  3. K1 (csrc/tci_de.cu) against its plain-torch twin on the card at the
-     four dense-tracker grids on the tracker's domain, and at run_tci's 600 x
-     600 and 2400 x 2400 grids on its own domain: identical escape and q25
-     band masks, d bitwise equal (or within rtol 1e-6, with the differing
-     pixels counted), and the median time, orbit steps and bound of each;
+     fails the run), and the footprints csrc/dwell.cu, de_std.cu and
+     tci_de.cu are built with against mandelbrot_cuda.DWELL_FOOTPRINT,
+     DE_FOOTPRINT and TCI_FOOTPRINT;
+  3. K1 (csrc/tci_de.cu) against its plain-torch twin on the card at small
+     and ragged grids (smaller than a warp's patch, one row and column more
+     than a patch and a block) with max_iter 1, C - 1, C, C + 1, 2C - 1, 250,
+     500 and 501 for C steps between two exit tests, at the four
+     dense-tracker grids on the tracker's domain, and at run_tci's 600 x 600
+     and 2400 x 2400 grids on its own domain: identical escape masks, identical
+     sets of pixels with d > 0 (counted at each grid) and identical q25 band
+     masks, d bitwise equal (or within rtol 1e-6, with the differing pixels
+     counted; bitwise at the schedule's cases), and the median time, the
+     orbit steps the pixels need in the kernel's two passes (z alone for all,
+     z and dz for the late escapers), the steps the kernel's warps execute
+     for them and the bound of each;
   4. the dense Appendix-A tracker (bench.py's config) on the kernel path,
      twice: 4 rows of the oracle's sizes, finite metrics, one kernel launch
      per stage, rows within the statistical bounds of the oracle
@@ -47,13 +55,15 @@ prints no result line):
   9. run_equipotential at the CLI defaults with float32 (K3, one launch) and
      float64 (no launch): f32 against f64 on the card, and f64 against the
      reference's numbers in tests/data/equipotential_default_f64.json;
- 10. K4 (csrc/de_std.cu) and K5 (csrc/green_grid.cu) through
-     mandelbrot_field(kind="de" | "green") at 2048 x 2048 and 1001 x 1999,
-     and K4 at 2048 x 2048 on the bench's padded domain (its de_mfu grid),
-     max_iter 500, R 4: bitwise equal to their twins
+ 10. K4 (csrc/de_std.cu) at small and ragged grids and the iteration counts
+     of phase 3 around its schedule: bitwise equal to its twin; then K4 and K5
+     (csrc/green_grid.cu) through mandelbrot_field(kind="de" | "green") at
+     2048 x 2048 and 1001 x 1999, and K4 at 2048 x 2048 on the bench's padded
+     domain (its de_mfu grid), max_iter 500, R 4: bitwise equal to their twins
      (or within rtol 1e-6, the differing pixels counted), the reference's
      contracts against the f64 de_field_std / escape_potential_grid on the
-     card, one launch each, times, iterated orbit steps and bounds;
+     card, one launch each, times, the orbit steps the pixels need, the steps
+     each kernel's warps execute for them, and bounds;
  11. K6 (csrc/dwell_ms.cu) through dwell_field_ms at 2048 x 2048, max_iter
      500, stride 8, tile (32, 256): one K2 (coarse) and one K6 launch, the
      output bitwise equal to K2's with tiles filled, the fine pass bitwise
@@ -92,16 +102,21 @@ prints no result line):
 The kernels line gives, per kernel, its launches on its path, max |kernel -
 twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
 (the orbit steps these inputs need times the operations per step of the .cu
-body; for K7 two per FMA) over 67 TFLOP/s and the bytes (inputs read once,
-outputs written once) over 3.35 TB/s, the H100 SXM's published peaks at 700
-W. K3's operations are dependent ones: a lane's orbit is a serial chain, so
-its bound is the longest lane's steps x 3 dependent FP32 instructions x the
-measured dependent-issue latency at the card's maximum SM clock, far above
-the other two; its bound_by stays "operations" and bound_detail says so. A
-kernel's ms is the median time per launch of CHAIN launches back to back
-(K7, a kernel of milliseconds: of one launch); K3's is taken on inputs
-resident on the card. No single PyTorch call computes an escape-time field or
-a chain of dependent FMAs, so library_ms is null.
+body; for K1 the z-only steps of all pixels and the z and dz steps of the late
+escapers, each at its own count; for K7 two per FMA) over 67 TFLOP/s and the
+bytes (inputs read once, outputs written once) over 3.35 TB/s, the H100 SXM's
+published peaks at 700 W. K3's operations are dependent ones: a lane's orbit
+is a serial chain, so its bound is the longest lane's steps x 3 dependent FP32
+instructions x the measured latency between dependent instructions at the
+card's maximum SM clock, far above the other two; its bound_by stays
+"operations" and bound_detail says so. A kernel's ms is the median time per
+launch of CHAIN launches back to back (K7, a kernel of milliseconds: of one
+launch); K3's is taken on inputs resident on the card. For K1, K4 and K5 ms is
+the time of the same launches replayed from a CUDA graph, which the host's
+time to start a launch cannot enter (K1 at the tracker's grids is shorter than
+that time), and chained_ms the time of the launches started one by one. No
+single PyTorch call computes an escape-time field or a chain of dependent
+FMAs, so library_ms is null.
 
 The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
 other grids' times are printed in phase 3; K2's launches are those of the
@@ -192,23 +207,39 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int, reps: int, chain: int = 1) -> float:
+def cuda_ms(fn, warmup: int, reps: int, chain: int = 1, graph: bool = False) -> float:
     """Median device time of fn() in ms over `reps` timings, each between two
     CUDA events around `chain` calls back to back, divided by `chain`. With
     chain 1 the events also enclose the host's time to issue the one launch,
     which is most of the reading for a kernel of a few hundredths of a ms;
-    CHAIN calls keep the card busy, so the reading is the kernel's."""
+    CHAIN calls keep the card busy, so the reading is the kernel's, as long as
+    the kernel outlasts the host's 10 to 25 microseconds a launch. graph
+    captures the `chain` calls once into a CUDA graph and times its replays:
+    the host does nothing between the launches, so a shorter kernel reads
+    its own time too."""
     import torch
 
     for _ in range(warmup):
         fn()
+
+    def back_to_back():
+        for _ in range(chain):
+            fn()
+
+    run = back_to_back
+    if graph:
+        torch.cuda.synchronize()
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            back_to_back()
+        captured.replay()
+        run = captured.replay
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(chain):
-            fn()
+        run()
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / chain)
@@ -234,38 +265,6 @@ def least_ms(ops: float, nbytes: int):
     t_ops = ops / PEAK_FP32 * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def orbit_steps(cr, ci, max_iter: int, r2: float, tci: bool = False) -> int:
-    """Loop trips the escape kernels run on these f32 coordinates: none for
-    an analytically interior pixel; otherwise up to the first |z|^2 > r2
-    (tci=False: K4, K5) or, for K1, until the pixel has escaped and its dz
-    is non-finite."""
-    import torch
-
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
-
-    active = ~mc._interior_mask_torch(cr, ci)
-    zr = torch.zeros_like(cr)
-    zi = torch.zeros_like(cr)
-    dzr, dzi = torch.ones_like(cr), torch.zeros_like(cr)
-    esc = torch.zeros_like(active)
-    steps = torch.zeros((), dtype=torch.int64, device=cr.device)
-    for _ in range(max_iter):
-        steps += active.sum()
-        if tci:
-            tr, ti = 2.0 * zr, 2.0 * zi
-            dzr, dzi = (torch.where(active, tr * dzr - ti * dzi + 1.0, dzr),
-                        torch.where(active, tr * dzi + ti * dzr, dzi))
-        zr, zi = (torch.where(active, zr * zr - zi * zi + cr, zr),
-                  torch.where(active, 2.0 * zr * zi + ci, zi))
-        a2 = zr * zr + zi * zi
-        if tci:
-            esc = esc | (active & (a2 > r2))
-            active = active & ~(esc & ~(torch.isfinite(dzr) & torch.isfinite(dzi)))
-        else:
-            active = active & (a2 <= r2)
-    return int(steps)
 
 
 def dwell_steps(dwell, interior, max_iter: int) -> int:
@@ -303,57 +302,121 @@ def phase_build():
                       f"{name}: ptxas reports a spill: {line.strip()}")
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
-    built = mc.dwell_footprint_built()
-    print(f"  dwell.cu is built with the footprint {built}")
-    check(built == mc.DWELL_FOOTPRINT,
-          f"dwell.cu reports {built}, mandelbrot_cuda.DWELL_FOOTPRINT is {mc.DWELL_FOOTPRINT}")
+    for name, (lib, _) in mc.FOOTPRINT_ENTRY.items():
+        built, want = mc.footprint_built(name), getattr(mc, name)
+        print(f"  {lib}.cu is built with the footprint {built}")
+        check(built == want, f"{lib}.cu reports {built}, mandelbrot_cuda.{name} is {want}")
 
 
-def phase_kernels(dev):
-    """Phase 3: K1 against its twin on the card at the tracker's stage grids
-    and at run_tci's grids, each on its pipeline's domain."""
+def schedule_iters(c: int):
+    """Iteration counts around a schedule of `c` steps between two exit
+    tests: below, at and above a chunk, one short of two chunks, the
+    pipelines' 250 and 500, and 501."""
+    return sorted({1, max(c - 1, 1), c, c + 1, 2 * c - 1, 250, 500, 501})
+
+
+def tci_edge_cases(c: int):
+    """(grid_n, max_iter) beyond the pipelines' grids, for K1's schedule:
+    grids smaller than a patch, one row and column more than a patch's width,
+    its height and a block's width, and no multiple of any of them."""
+    return [(n, it) for n in (2, 5, 9, 17, 37, 130) for it in schedule_iters(c)]
+
+
+def de_edge_cases(c: int):
+    """(ny, nx, max_iter) beyond the field shapes, for K4's schedule, as
+    tci_edge_cases on grids that need not be square."""
+    grids = [(2, 2), (3, 5), (9, 5), (8, 17), (13, 37), (257, 33), (130, 1003)]
+    return [(ny, nx, it) for ny, nx in grids for it in schedule_iters(c)]
+
+
+def tci_against_twin(label, dom, g, max_iter, escape_r, dev):
+    """K1 on the card against its twin on one grid: the shape, finite output,
+    equal escape masks, equal sets of pixels with d > 0 (the late escapers
+    that decide the band), d bitwise equal or within rtol 1e-6 with the
+    differing pixels counted. Returns (kernel output, twin output, differing
+    pixels, max |kernel - twin|, pixels with d > 0)."""
     import torch
 
     from cmtci_torch.kernels import mandelbrot_cuda as mc
+
+    out_k = mc._tci_field(dom, g, max_iter, escape_r, dev)
+    out_t = mc.tci_de_field_torch(dom, g, max_iter, escape_r, device=dev)
+    torch.cuda.synchronize()
+    check(out_k.shape == out_t.shape == (g, g), f"{label}: shape {tuple(out_k.shape)}")
+    check(bool(torch.isfinite(out_k).all()), f"{label}: non-finite kernel output")
+    esc_k, esc_t = out_k >= 0, out_t >= 0
+    check(bool(torch.equal(esc_k, esc_t)),
+          f"{label}: escape masks differ at {int((esc_k != esc_t).sum())} pixels")
+    pos_k, pos_t = out_k > 0, out_t > 0
+    check(bool(torch.equal(pos_k, pos_t)),
+          f"{label}: the pixels with d > 0 differ at {int((pos_k != pos_t).sum())} pixels")
+    n_diff = int((out_k != out_t).sum())
+    if n_diff:
+        close = torch.isclose(out_k, out_t, rtol=1e-6, atol=0.0)
+        check(bool(close.all()), f"{label}: d differs beyond rtol 1e-6 at "
+                                 f"{int((~close).sum())} pixels")
+    return out_k, out_t, n_diff, float((out_k - out_t).abs().max()), int(pos_k.sum())
+
+
+def phase_kernels(dev):
+    """Phase 3: K1 against its twin on the card at the grids and iteration
+    counts that stress its schedule, at the tracker's stage grids and at
+    run_tci's grids, each on its pipeline's domain."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
     from cmtci_torch.pipelines.analysis import TCIConfig
+
+    foot = mc.TCI_FOOTPRINT
+    edge = tci_edge_cases(foot["c"])
+    max_err = 0.0
+    positive = []
+    for g, max_iter in edge:
+        _, _, n_diff, err, n_pos = tci_against_twin(f"K1 grid {g}, max_iter {max_iter}", DOMAIN,
+                                                    g, max_iter, ESCAPE_R, dev)
+        check(n_diff == 0, f"K1 grid {g}, max_iter {max_iter}: {n_diff} pixels differ from "
+                           "the twin")
+        max_err = max(max_err, err)
+        positive.append(n_pos)
+    print(f"K1 schedule cases (footprint {foot}): {len(edge)} grids and iteration counts, "
+          + ", ".join(f"{g}@{it}: {n} px with d > 0" for (g, it), n in zip(edge, positive))
+          + "; 0 differing pixels each, the d > 0 sets equal")
 
     tci = TCIConfig()
     cases = ([("tracker", DOMAIN, g, MAX_ITER, ESCAPE_R) for g in GRIDS]
              + [("tci", tci.domain, g, tci.max_iter, tci.escape_r) for g in TCI_GRIDS])
-    max_err = 0.0
     timing = {}
     for path, dom, g, max_iter, escape_r in cases:
-        out_k = mc._tci_field(dom, g, max_iter, escape_r, dev)
-        out_t = mc.tci_de_field_torch(dom, g, max_iter, escape_r, device=dev)
-        torch.cuda.synchronize()
-        check(out_k.shape == out_t.shape == (g, g),
-              f"{path} grid {g}: shape {tuple(out_k.shape)}")
-        check(bool(torch.isfinite(out_k).all()), f"{path} grid {g}: non-finite kernel output")
-        esc_k, esc_t = out_k >= 0, out_t >= 0
-        check(bool(torch.equal(esc_k, esc_t)),
-              f"{path} grid {g}: escape masks differ at {int((esc_k != esc_t).sum())} pixels")
-        n_diff = int((out_k != out_t).sum())
-        if n_diff:
-            close = torch.isclose(out_k, out_t, rtol=1e-6, atol=0.0)
-            check(bool(close.all()), f"{path} grid {g}: d differs beyond rtol 1e-6 at "
-                                     f"{int((~close).sum())} pixels")
-        err = float((out_k - out_t).abs().max())
+        out_k, out_t, n_diff, err, n_pos = tci_against_twin(f"{path} grid {g}", dom, g, max_iter,
+                                                            escape_r, dev)
         max_err = max(max_err, err)
+        esc_k, esc_t = out_k >= 0, out_t >= 0
         sel_k, cnt_k, q_k = mc.band_selection(esc_k, out_k.clamp(min=0.0))
         sel_t, cnt_t, q_t = mc.band_selection(esc_t, out_t.clamp(min=0.0))
         check(bool(torch.equal(sel_k, sel_t)), f"{path} grid {g}: band masks differ")
         ms = cuda_ms(lambda: mc._tci_field(dom, g, max_iter, escape_r, dev), 3, 20, CHAIN)
+        graph_ms = cuda_ms(lambda: mc._tci_field(dom, g, max_iter, escape_r, dev), 3, 20, CHAIN,
+                           graph=True)
         plain_ms = cuda_ms(lambda: mc.tci_de_field_torch(dom, g, max_iter, escape_r,
                                                          device=dev), 1, 3)
-        steps = orbit_steps(*mc._grid_coords(dom, g, g, dev), max_iter,
-                            float(escape_r * escape_r), tci=True)
-        bound, by = bound_ms("tci_de", steps, 4 * g * g)
-        timing[(path, g)] = (ms, plain_ms, bound, by)
-        print(f"K1 {path} grid {g}: escaped {int(cnt_k)}/{g * g}, band {int(sel_k.sum())}, "
+        first, second = bench.tci_lane_steps(*mc._grid_coords(dom, g, g, dev), max_iter,
+                                             float(escape_r * escape_r))
+        steps = [int(lane.sum(dtype=torch.int64)) for lane in (first, second)]
+        executed = (bench.warp_executed_steps(first, foot, max_iter)
+                    + bench.warp_executed_steps(second, dict(foot, c=1)))
+        bound, by = least_ms(steps[0] * mc.OPS_PER_STEP["tci_de"]
+                             + steps[1] * mc.OPS_PER_STEP["tci_de_late"], 4 * g * g)
+        timing[(path, g)] = (ms, plain_ms, bound, by, graph_ms)
+        print(f"K1 {path} grid {g}: escaped {int(cnt_k)}/{g * g}, d > 0 at {n_pos} pixels, "
+              f"band {int(sel_k.sum())}, "
               f"q25 {float(q_k)!r}, d bitwise-differing pixels {n_diff}, "
               f"max|kernel-twin| {err!r}; kernel {ms:.4f} ms (median per launch, {CHAIN} back "
-              f"to back), twin {plain_ms:.4f} ms (median, CUDA events); {steps} orbit steps, "
-              f"bound {bound:.5f} ms ({by})")
+              f"to back; {graph_ms:.4f} ms replayed from a CUDA graph), twin {plain_ms:.4f} ms "
+              f"(median, CUDA events); {steps[0]} z-only "
+              f"orbit steps, {steps[1]} (z, dz) steps of the {int((second > 0).sum())} late "
+              f"escapers, executed by the kernel's warps {int(executed)} (executed / useful "
+              f"{executed / sum(steps):.4f}), bound {bound:.5f} ms ({by})")
     return max_err, timing
 
 
@@ -916,14 +979,31 @@ def compare_twin(out_k, out_t, label):
 
 
 def phase_fields(dev):
-    """Phase 10: K4 and K5 through mandelbrot_field against their twins and
-    the f64 contracts."""
+    """Phase 10: K4 at the grids and iteration counts that stress its
+    schedule; K4 and K5 through mandelbrot_field against their twins and the
+    f64 contracts."""
     import torch
 
+    from cmtci_torch import bench
     from cmtci_torch.kernels import mandelbrot as mb
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
     max_iter, escape_r = 500, 4.0
+    foot = mc.DE_FOOTPRINT
+    edge = de_edge_cases(foot["c"])
+    edge_err = 0.0
+    for ny, nx, it in edge:
+        label = f"K4 {ny}x{nx}, max_iter {it}"
+        out_k = mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, it, "de", escape_r, dev)
+        out_t = mc.de_field_std_torch(BOUNDARY_DOMAIN, nx, ny, it, escape_r, device=dev)
+        torch.cuda.synchronize()
+        check(out_k.shape == out_t.shape == (ny, nx), f"{label}: shape")
+        n_diff, err = compare_twin(out_k, out_t, label)
+        check(n_diff == 0, f"{label}: {n_diff} pixels differ from the twin")
+        edge_err = max(edge_err, err)
+    print(f"K4 schedule cases (footprint {foot}): {len(edge)} grids and iteration counts, "
+          f"{', '.join(f'{ny}x{nx}@{it}' for ny, nx, it in edge)}: 0 differing pixels each")
+
     twins = {"de": mc.de_field_std_torch, "green": mc.green_field_torch}
     libs = {"de": "de_std", "green": "green_grid"}
     contract = {"de": (dict(rtol=1e-3, atol=1e-9), 0.98),
@@ -956,24 +1036,33 @@ def phase_fields(dev):
             close = float(torch.isclose(out_k.double(), f64, **tol).double().mean())
             check(close > share, f"{label}: {close!r} of pixels within {tol} of f64, "
                                  f"not > {share}")
-            steps = orbit_steps(*mc._grid_coords(dom, nx, ny, dev), max_iter,
-                                float(escape_r * escape_r))
+            lane = bench.escape_lane_steps(*mc._grid_coords(dom, nx, ny, dev), max_iter,
+                                           float(escape_r * escape_r))
+            steps = int(lane.sum(dtype=torch.int64))
+            executed = bench.warp_executed_steps(lane, foot if kind == "de" else bench.ROW_WARP)
             ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter, kind,
                                                      escape_r, dev), 3, 20, CHAIN)
+            graph_ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter, kind,
+                                                           escape_r, dev), 3, 20, CHAIN,
+                               graph=True)
             plain_ms = cuda_ms(lambda: twins[kind](dom, nx, ny, max_iter,
                                                    escape_r, device=dev), 1, 3)
             bound, by = bound_ms(lib, steps, 4 * nx * ny)
             print(f"{label}: kernel vs twin differing pixels {n_diff}, max|kernel-twin| "
                   f"{err!r}, NaN pixels {int(torch.isnan(out_k).sum())}; within {tol} of "
                   f"the f64 counterpart on {close!r} (contract > {share}); kernel {ms:.4f} ms "
-                  f"(median per launch, {CHAIN} back to back), "
-                  f"twin {plain_ms:.4f} ms (median, CUDA events); {steps} orbit steps, "
-                  f"bound {bound:.5f} ms ({by})")
+                  f"(median per launch, {CHAIN} back to back; {graph_ms:.4f} ms replayed from a "
+                  f"CUDA graph), "
+                  f"twin {plain_ms:.4f} ms (median, CUDA events); {steps} useful orbit steps, "
+                  f"executed by the kernel's warps {int(executed)} (executed / useful "
+                  f"{executed / steps:.4f}), bound {bound:.5f} ms ({by})")
             if (dom, ny, nx) == cases[0]:
-                result[lib] = dict(launches=launches[lib], max_abs_err=err, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                result[lib] = dict(launches=launches[lib], max_abs_err=err, ms=graph_ms,
+                                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                   chained_ms=ms)
             else:
                 result[lib]["max_abs_err"] = max(result[lib]["max_abs_err"], err)
+    result["de_std"]["max_abs_err"] = max(result["de_std"]["max_abs_err"], edge_err)
     return result
 
 
@@ -1483,12 +1572,13 @@ def main() -> int:
     phase_pointstats(dev)
     bench_launches = phase_bench(dev)
 
-    k1_ms, k1_plain, k1_bound, k1_by = k1_timing[("tracker", GRIDS[-1])]
+    k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
     print(f"K1 launches: {results[1][3]} per dense tracker run, {tci_launches} per run_tci")
     kernels = {
-        "tci_de": dict(launches=results[1][3], max_abs_err=k1_err, ms=k1_ms,
-                       plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by),
+        "tci_de": dict(launches=results[1][3], max_abs_err=k1_err, ms=k1_graph_ms,
+                       plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
+                       chained_ms=k1_ms),
         "dwell": dict(launches=k2_launches, max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                       bound_ms=k2_bound, bound_by=k2_by),
         # K3's bound is by operations, but dependent ones: the chain of its

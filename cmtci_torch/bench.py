@@ -14,16 +14,16 @@ Keys, each at the reference's configuration (``BenchSizes`` holds them):
     de_mfu: the roofline accounting of K2 and K4 at 2048 x 2048 on the
     padded domain, against K7's measured chained-FMA rate. `useful` steps
     are the pixels' own; `executed` steps are what the SIMD unit burns, by
-    the schedule each kernel runs: a warp of K2 holds a patch of pixels
-    (mandelbrot_cuda.DWELL_FOOTPRINT, the constants dwell.cu is built with)
-    and iterates until its longest pixel stops, rounded up to the steps
-    between two exit tests; a warp of K4 is 32 consecutive
-    columns of one row. Operations per step are
-    counted from the .cu bodies (mandelbrot_cuda.OPS_PER_STEP: each mul, add
-    and compare once), while K7's rate counts an FMA as two. K4's executed
-    steps are counted from its own orbits, which run to radius 4, a step or
-    two past the dwell's radius 2 (the reference models them by the dwell
-    grid's).
+    the schedule each kernel runs: a warp holds a patch of pixels and
+    iterates until its longest pixel stops, rounded up to the steps between
+    two exit tests (mandelbrot_cuda.DWELL_FOOTPRINT for K2 and DE_FOOTPRINT
+    for K4, the constants dwell.cu and de_std.cu are built with). The keys
+    follow the schedule: one that executes fewer steps in less time can
+    lower de_tflops. Operations per step are counted from the .cu bodies
+    (mandelbrot_cuda.OPS_PER_STEP: each mul, add and compare once), while
+    K7's rate counts an FMA as two. K4's executed steps are counted from its
+    own orbits, which run to radius 4, a step or two past the dwell's radius
+    2 (the reference models them by the dwell grid's).
     fp32_fma_bound_tflops is the card's own ceiling, SMs x 128 lanes x 2 x
     the maximum SM clock.
   * escape_grid_res4096_mpix_s, escape_grid_res8192_mpix_s: K2 at 4x and
@@ -186,23 +186,28 @@ def padded_domain(sizes: BenchSizes):
     return (DOM[0], DOM[0] + dx * (n - 1), DOM[2], DOM[2] + dx * (n - 1))
 
 
-#: a warp of the kernels launched in (32, 8) blocks (K4, K6, the periodic K2):
+#: a warp of the kernels launched in (32, 8) blocks (K5, K6, the periodic K2):
 #: 32 consecutive columns of one row, an exit test a step
 ROW_WARP = {"c": 1, "patch_w": 32, "patch_h": 1}
 
 
-def warp_executed_steps(lane: torch.Tensor, footprint: dict = ROW_WARP) -> float:
+def warp_executed_steps(lane: torch.Tensor, footprint: dict = ROW_WARP,
+                        max_steps: int | None = None) -> float:
     """Steps the SIMD unit burns for a (ny, nx) grid of per-pixel step counts
     under a kernel's schedule (the keys of mandelbrot_cuda.DWELL_FOOTPRINT): a
     warp holds a patch of patch_w columns x patch_h rows of pixels, one a
     thread, and runs until its longest pixel has stopped, rounded up to the
     `c` steps between two exit tests; every one of its 32 lanes counts for
-    that long, idle or not (a warp on the grid's edge may be ragged)."""
+    that long, idle or not (a warp on the grid's edge may be ragged).
+    max_steps caps a warp's steps, for a kernel whose chunks never pass
+    max_iter (K1 runs its last max_iter mod c steps one by one)."""
     c, w, h = footprint["c"], footprint["patch_w"], footprint["patch_h"]
     ny, nx = lane.shape
     lane = torch.nn.functional.pad(lane, (0, (-nx) % w, 0, (-ny) % h))
     longest = lane.view(lane.shape[0] // h, h, lane.shape[1] // w, w).amax(dim=(1, 3))
     trips = torch.ceil(longest.double() / c) * c
+    if max_steps is not None:
+        trips = trips.clamp(max=max_steps)
     return float(w * h * trips.sum())
 
 
@@ -233,6 +238,50 @@ def escape_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
                   torch.where(active, 2.0 * zr * zi + ci, zi))
         active = active & (zr * zr + zi * zi <= r2)
     return lane
+
+
+def tci_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, r2: float):
+    """(first, second): per-lane loop trips (int32, the shape of cr) of K1's
+    two passes on f32 coordinates, in the kernel's op order and with a test
+    after every step. first is the z-only pass: none for an analytically
+    interior lane, else every step up to and including the first after which
+    the lane has escaped and its z is non-finite, max_iter for a lane that
+    gets there never. second is the (z, dz) pass of the late escapers, the
+    escaped lanes whose z is still finite after max_iter - 1 steps: every
+    step until the lane has escaped and its dz is non-finite, else max_iter;
+    0 for all other lanes."""
+    outside = ~mc._interior_mask_torch(cr, ci)
+    active = outside.clone()
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(cr)
+    hit = torch.zeros_like(active)
+    first = torch.zeros(cr.shape, dtype=torch.int32, device=cr.device)
+    for _ in range(max_iter):
+        first += active
+        zr, zi = (torch.where(active, zr * zr - zi * zi + cr, zr),
+                  torch.where(active, 2.0 * zr * zi + ci, zi))
+        hit = hit | (active & (zr * zr + zi * zi > r2))
+        active = active & ~(hit & ~(torch.isfinite(zr) & torch.isfinite(zi)))
+    late = hit & (first >= max_iter)
+    # the step-by-step (z, dz) loop, on the late escapers only
+    idx = late.reshape(-1).nonzero()[:, 0]
+    cr_l, ci_l = cr.reshape(-1)[idx], ci.reshape(-1)[idx]
+    zr, zi = torch.zeros_like(cr_l), torch.zeros_like(cr_l)
+    dzr, dzi = torch.ones_like(cr_l), torch.zeros_like(cr_l)
+    active = torch.ones_like(cr_l, dtype=torch.bool)
+    esc = torch.zeros_like(active)
+    trips = torch.zeros(idx.shape, dtype=torch.int32, device=cr.device)
+    for _ in range(max_iter if idx.numel() else 0):
+        trips += active
+        tr, ti = 2.0 * zr, 2.0 * zi
+        dzr, dzi = (torch.where(active, tr * dzr - ti * dzi + 1.0, dzr),
+                    torch.where(active, tr * dzi + ti * dzr, dzi))
+        zr, zi = (torch.where(active, zr * zr - zi * zi + cr_l, zr),
+                  torch.where(active, tr * zi + ci_l, zi))
+        esc = esc | (active & (zr * zr + zi * zi > r2))
+        active = active & ~(esc & ~(torch.isfinite(dzr) & torch.isfinite(dzi)))
+    second = torch.zeros_like(first)
+    second.view(-1)[idx] = trips
+    return first, second
 
 
 def max_sm_clock_mhz(dev: torch.device) -> float:
@@ -290,7 +339,7 @@ def bench_mfu(sizes: BenchSizes, dev: torch.device) -> dict:
         lambda: mc.mandelbrot_field(dom, n, n, sizes.max_iter, "de", DE_ESCAPE_R, dev),
         sizes.reps, 3, dev)
     de_executed = warp_executed_steps(
-        escape_lane_steps(cr, ci, sizes.max_iter, DE_ESCAPE_R * DE_ESCAPE_R))
+        escape_lane_steps(cr, ci, sizes.max_iter, DE_ESCAPE_R * DE_ESCAPE_R), mc.DE_FOOTPRINT)
     out["de_tflops"] = round(ops["de_std"] * de_executed / de_per_grid / 1e12, 3)
     out["de_mfu"] = round(out["de_tflops"] / peak, 3)
     if dev.type == "cuda":

@@ -68,19 +68,6 @@ constexpr int BLOCK = 128;  // threads a block: one warp for each scheduler of a
 constexpr int WAVES = 8;    // rounds of blocks an SM should at most see
 constexpr int SMEM_KB = 224;  // dynamic shared memory shared out among an SM's blocks
 
-// One step of a speculative chunk: the z update from the carried squares, the
-// new squares, and the sticky radius flag, with no branch.
-__device__ __forceinline__ void bare_step(float& zr, float& zi, float& zr2, float& zi2,
-                                          bool& hit, float cr, float ci, float r2) {
-    const float nzr = zr2 - zi2 + cr;
-    const float nzi = 2.0f * zr * zi + ci;
-    zr = nzr;
-    zi = nzi;
-    zr2 = nzr * nzr;
-    zi2 = nzi * nzi;
-    hit = hit || (zr2 + zi2 > r2);
-}
-
 __global__ void __launch_bounds__(BLOCK)
 cloud_green_kernel(const float* __restrict__ cr_in, const float* __restrict__ ci_in,
                    const float* __restrict__ zr0, const float* __restrict__ zi0,

@@ -72,3 +72,22 @@ __device__ __forceinline__ int dwell_count(float cr, float ci, int max_iter) {
     }
     return dwell;
 }
+
+// One branch-free orbit step of the speculative chunks of K3
+// (cloud_green.cu) and of K1's first pass (tci_de.cu), kept here so the two
+// cannot drift: the z update from the carried squares, the new squares, and
+// the sticky radius flag. zr2 and zi2 carry zr*zr and zi*zi from one step's
+// radius test into the next step's update (the same products of the same
+// values as the step-by-step loops, so the same bits): 4 mul, 4 add/sub, 1
+// compare. The first step over the radius raises the flag whatever later
+// steps overflow to; a NaN |z|^2 does not raise it, an inf one does.
+__device__ __forceinline__ void bare_step(float& zr, float& zi, float& zr2, float& zi2,
+                                          bool& hit, float cr, float ci, float r2) {
+    const float nzr = zr2 - zi2 + cr;
+    const float nzi = 2.0f * zr * zi + ci;
+    zr = nzr;
+    zi = nzi;
+    zr2 = nzr * nzr;
+    zi2 = nzi * nzi;
+    hit = hit || (zr2 + zi2 > r2);
+}

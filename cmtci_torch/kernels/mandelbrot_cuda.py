@@ -30,20 +30,31 @@ from cmtci_torch.utils.device import resolve_device
 
 #: FP32 operations per orbit step of each kernel's loop body, each mul, add,
 #: sub and compare counted once (the build's -fmad=false keeps them apart):
-#: tci_de.cu 12 mul, 7 add/sub, 3 compares; de_std.cu 12 mul, 7 add/sub, 1
-#: compare; escape.cuh:dwell_count and green_grid.cu 6 mul, 4 add/sub, 1
-#: compare, and the periodic dwell loop two more compares with the
-#: checkpoint. dwell.cu's plain kernel and cloud_green.cu's chunks carry the
-#: squares zr*zr and zi*zi from the radius test into the next update: 4 mul,
-#: 4 add/sub, 1 compare.
-OPS_PER_STEP = {"tci_de": 22, "dwell": 9, "dwell_periodic": 13, "cloud_green": 9,
-                "de_std": 20, "green_grid": 11, "dwell_ms": 11}
+#: de_std.cu's de_bare_step 9 mul, 7 add/sub, 1 compare (the squares zr*zr,
+#: zi*zi and 2*zr are carried); escape.cuh:bare_step, the z-only step of
+#: cloud_green.cu's chunks and of tci_de.cu's first pass, 4 mul, 4 add/sub, 1
+#: compare, as dwell.cu's plain kernel (tci_de.cu's two finiteness tests run
+#: once a chunk and are not counted); "tci_de_late", the step-by-step (z, dz)
+#: loop of tci_de.cu's second pass, 12 mul, 7 add/sub, 3 compares;
+#: escape.cuh:dwell_count and green_grid.cu 6 mul, 4 add/sub, 1 compare, and
+#: the periodic dwell loop two more compares with the checkpoint.
+OPS_PER_STEP = {"tci_de": 9, "tci_de_late": 22, "dwell": 9, "dwell_periodic": 13,
+                "cloud_green": 9, "de_std": 17, "green_grid": 11, "dwell_ms": 11}
 
 #: the schedule csrc/dwell.cu's plain kernel is built with (its constexpr C,
 #: PATCH_W, PATCH_H; dwell_footprint() returns the same on the card): a thread
 #: iterates one pixel and tests for its exit every `c` steps; a warp is a
 #: patch of patch_w columns x patch_h rows of pixels
 DWELL_FOOTPRINT = {"c": 4, "patch_w": 4, "patch_h": 8}
+#: the same of csrc/de_std.cu (de_footprint()) and csrc/tci_de.cu
+#: (tci_footprint())
+DE_FOOTPRINT = {"c": 3, "patch_w": 4, "patch_h": 8}
+TCI_FOOTPRINT = {"c": 6, "patch_w": 4, "patch_h": 8}
+
+#: (library, C entry) that reports each footprint on the card
+FOOTPRINT_ENTRY = {"DWELL_FOOTPRINT": ("dwell", "dwell_footprint"),
+                   "DE_FOOTPRINT": ("de_std", "de_footprint"),
+                   "TCI_FOOTPRINT": ("tci_de", "tci_footprint")}
 
 
 def _params(domain, nx: int, ny: int | None = None) -> np.ndarray:
@@ -97,9 +108,10 @@ def tci_de_field_torch(domain, grid_n: int, max_iter: int = 250,
     masked loop over the whole grid. Returns the raw f32 (grid_n, grid_n)
     field: d (>= 0) where escaped, -1 where not.
 
-    A lane stops updating where the kernel's thread breaks (analytically
-    interior, or escaped with a non-finite dz), so the state each lane ends
-    with is the kernel's.
+    A lane stops updating once it is analytically interior, or escaped with
+    a non-finite dz. The kernel iterates dz only for the few late escapers
+    whose dz can still be finite at max_iter; its output is the same
+    (csrc/tci_de.cu says why).
     """
     dev = resolve_device(device)
     f32 = torch.float32
@@ -299,13 +311,15 @@ def _dwell(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.devic
     return out
 
 
-def dwell_footprint_built() -> dict:
-    """DWELL_FOOTPRINT as the built csrc/dwell.cu reports it (needs nvcc)."""
+def footprint_built(name: str) -> dict:
+    """The footprint `name` (a key of FOOTPRINT_ENTRY) as the built library
+    reports it (needs nvcc)."""
     import ctypes
 
     from cmtci_torch.kernels._build import library
 
-    fn = library("dwell").dwell_footprint
+    lib, entry = FOOTPRINT_ENTRY[name]
+    fn = getattr(library(lib), entry)
     fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
     vals = (ctypes.c_int * 3)()
     fn(vals)
@@ -317,9 +331,10 @@ def de_field_std_torch(domain, nx: int, ny: int, max_iter: int = 500,
     """Plain-torch twin of the K4 kernel: the f32 (ny, nx) standard
     distance estimator in K4's op order (``_de_kernel``).
 
-    z and dz are latched at the first |z|^2 > R^2 and the lane stops there,
-    as the kernel's thread breaks; an analytically interior lane counts as
-    escaped with zero latches (d = 0); a lane that never escapes gives 0.
+    z and dz are latched at the first |z|^2 > R^2 and the lane stops there
+    (the kernel's thread reads them from the snapshots of the chunk it stops
+    in); an analytically interior lane counts as escaped with zero latches
+    (d = 0); a lane that never escapes gives 0.
     """
     dev = resolve_device(device)
     cr, ci = _grid_coords(domain, nx, ny, dev)

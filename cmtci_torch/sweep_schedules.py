@@ -1,9 +1,11 @@
-"""Time schedule variants of K2 (csrc/dwell.cu, dwell_launch) and K3
-(csrc/cloud_green.cu) against the kernels as committed, in turns on one card.
+"""Time schedule variants of K2 (csrc/dwell.cu, dwell_launch), K3
+(csrc/cloud_green.cu), K4 (csrc/de_std.cu) and K1 (csrc/tci_de.cu) against the
+kernels as committed, in turns on one card.
 
 Run it on the card from the root of a checkout:
 
-    python -m cmtci_torch.sweep_schedules [--alt LABEL=DIR[:KEY=V,...]] ... [--out FILE]
+    python -m cmtci_torch.sweep_schedules [--only k4,k1] [--alt LABEL=DIR[:KEY=V,...]] ...
+                                          [--out FILE]
 
 The committed sources hold one value of each tuning constant. A variant is
 the committed source with some `constexpr int KEY = V;` lines rewritten, built
@@ -11,15 +13,27 @@ into build/sweep/<label>/ and never anywhere else; the package goes on
 launching the committed kernel. `--alt` adds sources from another directory
 that export the same C entry points (the kernels of an earlier commit, unpacked
 with `git show <commit>:cmtci_torch/csrc/dwell.cu`, or a design that was tried
-and not kept: K2 with several orbits a thread, K2 with lane-level refill),
-with constants rewritten the same way.
+and not kept: K2 with several orbits a thread, K2 with lane-level refill, K4
+with a replay of the flagged chunk in place of the snapshots, K1 iterating dz
+in every step), with constants rewritten the same way; the directory holds
+the `.cuh` its sources include. `--only` names the sweeps to run (k2, k3, k4, k1 and probe, the
+latency and wrapper measurements; all by default).
 
 Every variant's output is held bitwise to the committed kernel's at every
-shape before it is timed, and the committed kernel's to its plain twin once.
-Times are per launch in ms between two CUDA events: `single` around one
-launch (median of the rounds) and `chained` around 20 launches back to back,
-on an output tensor allocated once. The variants run in turns inside each
-round, so that clock and temperature drift falls on all of them alike.
+shape before it is timed, and the committed kernel's to its plain twin once a
+shape (K2 and K3: once). Times are per launch in ms between two CUDA events:
+`single` around one launch (median of the rounds), `chained` around 20
+launches back to back, and `replayed` around the same 20 launches captured
+once into a CUDA graph, which the host starts with one call (a kernel shorter
+than the host's 10 to 25 microseconds a launch reads its own time only there),
+on an output tensor allocated once. The variants run in
+turns inside each round, so that clock and temperature drift falls on all of
+them alike. K4 runs at the bench's padded 2048 x 2048 and at 2000 x 2000 on
+the boundary's domain (max_iter 500, R 4), K1 at 912 x 912 on the tracker's
+domain and at 2400 x 2400 on run_tci's (their max_iter and R); beside each
+variant stands the ratio of the orbit steps its warps execute to the steps the
+pixels need (bench.warp_executed_steps on the variant's footprint; for K1 the
+steps of its two passes, bench.tci_lane_steps).
 
 It also measures the FP32 dependent-issue latency K3's chain floor is worked
 out from: one warp runs a chain of dependent FMUL -> FADD pairs between two
@@ -45,12 +59,16 @@ import torch
 from cmtci_torch import bench
 from cmtci_torch.kernels import _build, _launch, companion
 from cmtci_torch.kernels import mandelbrot_cuda as mc
+from cmtci_torch.pipelines.analysis import TCIConfig
 from cmtci_torch.pipelines.equipotential import EquipotentialConfig
+from cmtci_torch.pipelines.tracker import TrackerConfig
 
 SWEEP_DIR = _build.BUILD_DIR.parent / "sweep"
 MAX_ITER = 500
 K2_SHAPES = (2000, 4096, 8192)
 K3_ITERS = 20000
+#: max_iter of the scan of K4 and K1 at their first shape
+SCAN_ITERS = (16, 64, 250, 1000, 4000)
 
 #: K2 variants of the committed source: label -> constants rewritten
 K2_VARIANTS = {
@@ -71,6 +89,22 @@ K3_VARIANTS = {
     "s64_waves4": dict(S=64, WAVES=4), "s128_waves1": dict(S=128, WAVES=1),
     "s64_b64": dict(S=64, BLOCK=64), "s64_b256": dict(S=64, BLOCK=256),
 }
+
+
+def _schedule_variants() -> dict:
+    """The variants of a kernel with the constants C, PATCH_W, PATCH_H and
+    WARPS: the steps between two exit tests, the warp's patch and the warps a
+    block, each varied around C = 4 on a 4 x 8 patch with 4 warps."""
+    out = {f"c{c}": dict(C=c) for c in (1, 2, 3, 4, 6, 8)}
+    out.update({f"c4_{w}x{32 // w}": dict(C=4, PATCH_W=w, PATCH_H=32 // w)
+                for w in (32, 16, 8, 4, 2)})
+    out.update({f"c4_w{w}": dict(C=4, WARPS=w) for w in (1, 2, 8)})
+    return out
+
+
+#: K4 and K1 variants of the committed sources
+K4_VARIANTS = _schedule_variants()
+K1_VARIANTS = _schedule_variants()
 
 PROBE_SRC = r"""
 #include <cuda_runtime.h>
@@ -134,25 +168,47 @@ def entry(lib, name: str):
 
 
 def in_turns(calls: dict, rounds: int = 7, chain: int = 20) -> dict:
-    """{label: (single ms, chained ms per launch)}, medians over `rounds`;
-    within a round every variant runs once, in the dict's order."""
+    """{label: (single ms, chained ms per launch, replayed ms per launch)},
+    medians over `rounds`; within a round every variant runs once, in the
+    dict's order. `replayed` is `chain` launches captured once into a CUDA
+    graph and replayed between the two events: the host does nothing in
+    between, so a kernel shorter than the host's time to launch it (some 10 to
+    25 microseconds through ctypes) still reads its own time."""
     single = {k: [] for k in calls}
     chained = {k: [] for k in calls}
+    replayed = {k: [] for k in calls}
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
+    graphs = {}
+    for label, fn in calls.items():
+        graphs[label] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[label]):
+            for _ in range(chain):
+                fn()
+        graphs[label].replay()
+    torch.cuda.synchronize()
+
+    def timed(run, reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / reps
+
     for _ in range(rounds):
         for label, fn in calls.items():
-            for reps, into in ((1, single), (chain, chained)):
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(reps):
+            def back_to_back(fn=fn):
+                for _ in range(chain):
                     fn()
-                stop.record()
-                stop.synchronize()
-                into[label].append(start.elapsed_time(stop) / reps)
-    return {k: (statistics.median(single[k]), statistics.median(chained[k])) for k in calls}
+
+            single[label].append(timed(fn, 1))
+            chained[label].append(timed(back_to_back, chain))
+            replayed[label].append(timed(graphs[label].replay, chain))
+    return {k: tuple(statistics.median(v[k]) for v in (single, chained, replayed))
+            for k in calls}
 
 
 def parse_alts(specs, name: str):
@@ -220,6 +276,102 @@ def sweep_k2(dev, alts) -> dict:
     return report
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries at which a and b differ, a NaN equal to a NaN."""
+    return int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+
+
+def sweep_de(dev, kernel: str, alts) -> dict:
+    """K4 (kernel "de_std") or K1 ("tci_de"): every variant and alternative
+    against the committed kernel at the kernel's two shapes."""
+    k4 = kernel == "de_std"
+    if k4:
+        variants, foot, label = K4_VARIANTS, mc.DE_FOOTPRINT, "K4"
+        cases = [(bench.padded_domain(bench.BenchSizes()), 2048, MAX_ITER, bench.DE_ESCAPE_R),
+                 (bench.DOM, 2000, MAX_ITER, bench.DE_ESCAPE_R)]
+    else:
+        variants, foot, label = K1_VARIANTS, mc.TCI_FOOTPRINT, "K1"
+        trk, tci = TrackerConfig(), TCIConfig()
+        cases = [(trk.domain, 912, trk.max_iter, trk.escape_r),
+                 (tci.domain, 2400, tci.max_iter, tci.escape_r)]
+    built = build_all(kernel, variants, alts)
+    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "shapes": {},
+              "executed_over_useful": {}, "useful_steps": {}}
+
+    def lane_steps(cr, ci, max_iter, r2):
+        """Per-lane trips of the kernel's loops: one grid for K4, two for K1."""
+        if k4:
+            return [bench.escape_lane_steps(cr, ci, max_iter, r2)]
+        return list(bench.tci_lane_steps(cr, ci, max_iter, r2))
+
+    for dom, n, max_iter, escape_r in cases:
+        xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
+        r2 = float(np.float32(escape_r * escape_r))
+        grid = (n, n) if k4 else (n,)
+        if k4:
+            want = mc.mandelbrot_field(dom, n, n, max_iter, "de", escape_r, dev)
+            twin = mc.de_field_std_torch(dom, n, n, max_iter, escape_r, device=dev)
+        else:
+            want = mc._tci_field(dom, n, max_iter, escape_r, dev)
+            twin = mc.tci_de_field_torch(dom, n, max_iter, escape_r, device=dev)
+        check(same_bits(want, twin) == 0, f"the committed {label} differs from its twin at {n}")
+        cr, ci = mc._grid_coords(dom, n, n, dev)
+        lanes = lane_steps(cr, ci, max_iter, r2)
+        useful = float(sum(lane.sum(dtype=torch.float64) for lane in lanes))
+
+        def executed(f):
+            # K1's chunks never pass max_iter; its second pass tests every step
+            if k4:
+                return bench.warp_executed_steps(lanes[0], f)
+            return (bench.warp_executed_steps(lanes[0], f, max_iter)
+                    + bench.warp_executed_steps(lanes[1], dict(f, c=1)))
+
+        ratios = {"committed": executed(foot) / useful,
+                  "one-row warps, a test a step": executed(bench.ROW_WARP) / useful}
+        for lab, c in variants.items():
+            f = dict(foot, **{k.lower(): v for k, v in c.items() if k != "WARPS"})
+            ratios[lab] = executed(f) / useful
+        report["executed_over_useful"][n] = ratios
+        report["useful_steps"][n] = useful
+        out = torch.empty((n, n), dtype=torch.float32, device=dev)
+        args = (out.data_ptr(), *grid, xmin, ymin, dx, dy, max_iter, r2)
+        calls = {"committed": lambda args=args: _launch.launch(kernel, dev, *args)}
+        for lab, (lib, _) in built.items():
+            fn = entry(lib, kernel)
+
+            def call(fn=fn, args=args):
+                rc = fn(*args, stream(dev))
+                check(rc == 0, f"{kernel}_launch returned cudaError {rc}")
+
+            out.fill_(-2.0)
+            call()
+            torch.cuda.synchronize()
+            diff = same_bits(out, want)
+            check(diff == 0, f"{label} variant {lab} differs from the committed kernel at "
+                             f"{diff} px of {n} x {n}")
+            calls[lab] = call
+        report["shapes"][n] = in_turns(calls)
+
+    # the committed kernel at the first shape over a range of max_iter: what
+    # the pixels that run max_iter out cost, beside the steps all pixels need
+    dom, n, _, escape_r = cases[0]
+    xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
+    r2 = float(np.float32(escape_r * escape_r))
+    cr, ci = mc._grid_coords(dom, n, n, dev)
+    out = torch.empty((n, n), dtype=torch.float32, device=dev)
+    grid = (n, n) if k4 else (n,)
+    calls, useful = {}, {}
+    for it in SCAN_ITERS:
+        args = (out.data_ptr(), *grid, xmin, ymin, dx, dy, it, r2)
+        calls[it] = lambda args=args: _launch.launch(kernel, dev, *args)
+        useful[it] = float(sum(lane.sum(dtype=torch.float64)
+                               for lane in lane_steps(cr, ci, it, r2)))
+    times = in_turns(calls)
+    report["max_iter_scan"] = {"n": n, "ms": {it: times[it][2] for it in SCAN_ITERS},
+                               "useful_steps": useful}
+    return report
+
+
 def default_cloud(dev):
     """The equipotential CLI default cloud after the host's interior
     short-circuit, as f32 tensors on the card."""
@@ -283,7 +435,7 @@ def fp32_dependent_latency(dev) -> dict:
         rc = fn(out.data_ptr(), cyc.data_ptr(), 1.0, 1.0, 0.0, n, stream(dev))
         check(rc == 0, f"probe_launch returned cudaError {rc}")
 
-    ms, _ = in_turns({"probe": call}, rounds=5, chain=2)["probe"]
+    ms, _, _ = in_turns({"probe": call}, rounds=5, chain=2)["probe"]
     cycles = float(cyc.max())
     return {"dependent_instructions": 2 * n, "cycles": cycles,
             "cycles_per_instruction": cycles / (2 * n), "ms": ms,
@@ -322,30 +474,59 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--alt", action="append", default=[],
                     help="LABEL=DIR[:KEY=V,...]: sources of another directory")
+    ap.add_argument("--only", default="probe,k2,k3,k4,k1",
+                    help="comma-separated sweeps to run: probe, k2, k3, k4, k1")
     ap.add_argument("--out", default=None, help="write the report as JSON here")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    check(only <= {"probe", "k2", "k3", "k4", "k1"}, f"unknown sweep in --only {args.only}")
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    report = {"card": card, "latency": fp32_dependent_latency(dev),
-              "wrapper_overhead_us": wrapper_overhead_us(dev),
-              "k2": sweep_k2(dev, parse_alts(args.alt, "dwell")),
-              "k3": sweep_k3(dev, parse_alts(args.alt, "cloud_green"))}
+    report = {"card": card}
     print(card)
-    print("FP32 dependent-issue latency:", json.dumps(report["latency"]))
-    print("host microseconds a K2 call:", json.dumps(report["wrapper_overhead_us"]))
-    for n, times in report["k2"]["shapes"].items():
-        print(f"K2 {n} x {n}, max_iter {MAX_ITER} (ms per launch: single, chained):")
-        for lab, (s, c) in times.items():
-            ratio = report["k2"]["executed_over_useful"].get(lab)
-            print(f"  {lab:>14}: {s:.4f} {c:.4f}"
-                  + (f"  executed/useful {ratio:.3f}" if ratio and n == K2_SHAPES[0] else ""))
-    print(f"K3 {report['k3']['points']} points, {K3_ITERS} iterations, longest lane "
-          f"{report['k3']['longest_lane_steps']} steps (ms per launch: single, chained):")
-    for lab, (s, c) in report["k3"]["times"].items():
-        print(f"  {lab:>14}: {s:.4f} {c:.4f}")
-    for k in ("k2", "k3"):
-        for lab, lines in report[k]["ptxas"].items():
+    if "probe" in only:
+        report["latency"] = fp32_dependent_latency(dev)
+        report["wrapper_overhead_us"] = wrapper_overhead_us(dev)
+        print("FP32 latency between dependent instructions:", json.dumps(report["latency"]))
+        print("host microseconds a K2 call:", json.dumps(report["wrapper_overhead_us"]))
+    if "k2" in only:
+        report["k2"] = sweep_k2(dev, parse_alts(args.alt, "dwell"))
+        for n, times in report["k2"]["shapes"].items():
+            print(f"K2 {n} x {n}, max_iter {MAX_ITER} (ms per launch: single, chained, "
+                  "replayed from a CUDA graph):")
+            for lab, (s, c, g) in times.items():
+                ratio = report["k2"]["executed_over_useful"].get(lab)
+                print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}"
+                      + (f"  executed/useful {ratio:.3f}" if ratio and n == K2_SHAPES[0] else ""))
+    if "k3" in only:
+        report["k3"] = sweep_k3(dev, parse_alts(args.alt, "cloud_green"))
+        print(f"K3 {report['k3']['points']} points, {K3_ITERS} iterations, longest lane "
+              f"{report['k3']['longest_lane_steps']} steps (ms per launch: single, chained, "
+              "replayed from a CUDA graph):")
+        for lab, (s, c, g) in report["k3"]["times"].items():
+            print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}")
+    for key, kernel in (("k4", "de_std"), ("k1", "tci_de")):
+        if key not in only:
+            continue
+        report[key] = sweep_de(dev, kernel, parse_alts(args.alt, kernel))
+        for n, times in report[key]["shapes"].items():
+            ratios = report[key]["executed_over_useful"][n]
+            print(f"{key.upper()} {n} x {n}, {report[key]['useful_steps'][n]:.0f} useful steps; "
+                  f"one-row warps with a test a step would execute "
+                  f"{ratios['one-row warps, a test a step']:.3f} of them "
+                  "(ms per launch: single, chained, replayed from a CUDA graph):")
+            for lab, (s, c, g) in times.items():
+                ratio = ratios.get(lab)
+                print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}"
+                      + (f"  executed/useful {ratio:.3f}" if ratio else ""))
+        scan = report[key]["max_iter_scan"]
+        print(f"{key.upper()} {scan['n']} x {scan['n']}, the committed kernel by max_iter "
+              "(ms replayed from a CUDA graph, useful steps): "
+              + ", ".join(f"{it}: {scan['ms'][it]:.4f}, {scan['useful_steps'][it]:.0f}"
+                          for it in SCAN_ITERS))
+    for k in ("k2", "k3", "k4", "k1"):
+        for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -8,6 +8,7 @@ x 8192 steps.
 """
 
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -142,6 +143,93 @@ def test_escape_lane_steps_agree_with_the_dwell_and_grow_with_the_radius():
     lane4 = bench.escape_lane_steps(cr, ci, max_iter, 16.0)
     assert (lane4 >= lane2).all() and int((lane4 > lane2).sum()) > 0
     assert float((lane4 - lane2)[lane2 < max_iter].float().mean()) < 2.0
+
+
+def _executed_brute(lane: np.ndarray, f: dict, max_steps=None) -> float:
+    """32 lanes x each warp's trips, warp by warp over the patches."""
+    ny, nx = lane.shape
+    total = 0
+    for y0 in range(0, ny, f["patch_h"]):
+        for x0 in range(0, nx, f["patch_w"]):
+            longest = int(lane[y0:y0 + f["patch_h"], x0:x0 + f["patch_w"]].max())
+            trips = -(-longest // f["c"]) * f["c"]
+            total += 32 * (trips if max_steps is None else min(trips, max_steps))
+    return float(total)
+
+
+@pytest.mark.parametrize("shape", [(37, 61), (9, 5), (64, 64)])
+def test_de_executed_steps_on_k4s_footprint_against_a_brute_force_count(shape):
+    """K4's executed steps as bench_mfu counts them: its own orbits to radius
+    4 (escape_lane_steps) on DE_FOOTPRINT, warp by warp on a ragged grid."""
+    ny, nx = shape
+    max_iter = 60
+    cr, ci = mc._grid_coords(bench.DOM, nx, ny, torch.device("cpu"))
+    lane = bench.escape_lane_steps(cr, ci, max_iter, bench.DE_ESCAPE_R ** 2)
+    got = bench.warp_executed_steps(lane, mc.DE_FOOTPRINT)
+    assert got == _executed_brute(lane.numpy(), mc.DE_FOOTPRINT) >= float(lane.sum())
+    if ny * nx > 1000:
+        assert got != bench.warp_executed_steps(lane, bench.ROW_WARP)
+
+
+@pytest.mark.parametrize("max_iter", [30, 32])
+def test_tci_lane_steps_of_k1s_two_passes(max_iter):
+    """K1's first pass runs z alone until the lane has escaped and z is
+    non-finite, a few steps past the radius; the second pass belongs to the
+    few late escapers, which hold every pixel with d > 0; K1's chunks never
+    pass max_iter, which max_steps says."""
+    n = 48
+    dom = (-2.2, 1.2, -1.6, 1.6)
+    cr, ci = mc._grid_coords(dom, n, n, torch.device("cpu"))
+    first, second = bench.tci_lane_steps(cr, ci, max_iter, 62500.0)
+    to_radius = bench.escape_lane_steps(cr, ci, max_iter, 62500.0)
+    assert first.dtype == second.dtype == torch.int32 and (first >= to_radius).all()
+    assert int((first > to_radius).sum()) > 0 and int(first.max()) == max_iter
+    assert int((first - to_radius).max()) <= 8
+    assert (first[mc._interior_mask_torch(cr, ci)] == 0).all()
+    late = second > 0
+    d = mc.tci_de_field_torch(dom, n, max_iter, 250.0)
+    assert 0 < int((d > 0).sum()) <= int(late.sum()) < 0.05 * n * n
+    assert late[d > 0].all() and (d[late] >= 0).all() and (first[late] == max_iter).all()
+    assert int(second.max()) == max_iter
+    f = mc.TCI_FOOTPRINT
+    capped = bench.warp_executed_steps(first, f, max_iter)
+    assert capped == _executed_brute(first.numpy(), f, max_iter)
+    if max_iter % f["c"]:
+        assert capped < bench.warp_executed_steps(first, f)
+
+
+def _step_ops(body: str):
+    """(mul, add/sub, compare) counted from the text of a step's body."""
+    return (body.count(" * "), body.count(" + ") + body.count(" - "),
+            body.count(" > ") + body.count("<="))
+
+
+def _csrc(name: str) -> str:
+    return (Path(mc.__file__).resolve().parents[1] / "csrc" / name).read_text()
+
+
+def test_ops_per_step_of_k4_and_k1_count_their_steps():
+    """de_std.cu iterates its de_bare_step, 9 mul, 7 add/sub, 1 compare;
+    tci_de.cu iterates escape.cuh:bare_step in its first pass, 4 mul, 4
+    add/sub, 1 compare, and the step-by-step (z, dz) loop of late_escaper in
+    its second, 12 mul, 7 add/sub, 3 compares (the radius and the two halves
+    of dz). OPS_PER_STEP states each."""
+    text = _csrc("de_std.cu")
+    body = text[text.index("void de_bare_step("):]
+    body = body[body.index("const float tr"):body.index("\n}\n")]
+    assert _step_ops(body) == (9, 7, 1) and mc.OPS_PER_STEP["de_std"] == 17
+    assert text.count("de_bare_step(zr, zi, zr2, zi2, dzr, dzi, hit, cr, ci, r2);") == 1
+    text = _csrc("escape.cuh")
+    body = text[text.index("void bare_step("):]
+    body = body[body.index("const float nzr"):body.index("\n}\n")]
+    assert _step_ops(body) == (4, 4, 1) and mc.OPS_PER_STEP["tci_de"] == 9
+    text = _csrc("tci_de.cu")
+    assert text.count("bare_step(zr, zi, zr2, zi2, hit, cr, ci, r2);") == 2  # chunk and tail
+    body = text[text.index("float late_escaper("):]
+    body = body[body.index("const float tr"):body.index("break;")]
+    mul, add, cmp = _step_ops(body)
+    assert (mul, add, cmp + body.count("isfinite(")) == (12, 7, 3)
+    assert mc.OPS_PER_STEP["tci_de_late"] == 22
 
 
 def test_padded_domain_keeps_the_headline_spacing():

@@ -1,15 +1,18 @@
-"""The schedules of K2 (csrc/dwell.cu, plain entry) and K3
-(csrc/cloud_green.cu), modelled on the CPU.
+"""The schedules of K2 (csrc/dwell.cu, plain entry), K3
+(csrc/cloud_green.cu), K4 (csrc/de_std.cu) and K1 (csrc/tci_de.cu), modelled
+on the CPU.
 
 The kernels run only on the card, where chip_smoke.py holds them bitwise to
 their plain twins. Their control flow is new (K2: a latched orbit with an
 exit test every C steps, the dwell added up after the loop and clamped; K3:
-speculative branch-free chunks with a replay from the saved state), so each is
-restated here as a scalar numpy-f32 model, line by line from the .cu, with the
-tuning constants read out of the .cu text, and held to the twin with exact
-equality on every pixel and every output row. Exact, because kernel, model and
-twin run one f32 op sequence on the same values; the schedule does not enter
-the result.
+speculative branch-free chunks with a replay from the saved state; K4 and K1:
+chunks of the shared branch-free step with a sticky flag, the state at the
+first escape picked from the newest chunk's snapshots, K4 overshooting
+max_iter and K1 ending on a step-by-step tail), so each is restated here as a
+scalar numpy-f32 model, line by line from the .cu, with the tuning constants
+read out of the .cu text, and held to the twin with exact equality on every
+pixel and every output row. Exact, because kernel, model and twin run one f32
+op sequence on the same values; the schedule does not enter the result.
 """
 
 import re
@@ -51,6 +54,8 @@ def constants(name: str) -> dict:
 
 K2 = constants("dwell")
 K3 = constants("cloud_green")
+K4 = constants("de_std")
+K1 = constants("tci_de")
 
 
 def interior_model(cr, ci) -> bool:
@@ -376,6 +381,447 @@ def test_k2_escape_past_max_iter_inside_the_last_chunk_is_clamped():
 
 
 # ---------------------------------------------------------------------------
+# K4 and K1: chunks of escape.cuh:de_bare_step with a sticky flag; the state
+# at the first escape from the newest chunk's snapshots
+# ---------------------------------------------------------------------------
+
+
+def de_bare_step_model(st, cr, ci, r2):
+    """escape.cuh:de_bare_step on st = [zr, zi, zr2, zi2, dzr, dzi, hit]."""
+    zr, zi, zr2, zi2, dzr, dzi, hit = st
+    tr = F(2.0) * zr
+    ti = F(2.0) * zi
+    ndzr = tr * dzr - ti * dzi + F(1.0)
+    ndzi = tr * dzi + ti * dzr
+    nzr = zr2 - zi2 + cr
+    nzi = tr * zi + ci
+    zr2 = nzr * nzr
+    zi2 = nzi * nzi
+    hit = hit or bool(zr2 + zi2 > r2)
+    return [nzr, nzi, zr2, zi2, ndzr, ndzi, hit]
+
+
+def pixel_c(col, row, params):
+    xmin, ymin, dx, dy = (F(v) for v in params)
+    return xmin + F(col) * dx, ymin + F(row) * dy
+
+
+def de_std_thread_model(col, row, params, max_iter, r2, c_steps):
+    """One thread of de_std_kernel up to its formula: (esc, lzr, lzi, ldr,
+    ldi, chunks run); the thread stores 0 when esc is False (an interior
+    pixel, or none escaped) and the formula of the latches when it is True."""
+    cr, ci = pixel_c(col, row, params)
+    esc, lzr, lzi, ldr, ldi = False, F(0), F(0), F(1), F(0)
+    chunks = 0
+    if not interior_model(cr, ci) and max_iter > 0:
+        st = [F(0), F(0), F(0), F(0), F(1), F(0), False]
+        snap = [None] * c_steps
+        n = 0
+        while True:
+            for c in range(c_steps):
+                st = de_bare_step_model(st, cr, ci, r2)
+                snap[c] = (st[0], st[1], st[4], st[5], st[6])
+            n += c_steps
+            chunks += 1
+            if not (not st[6] and n < max_iter):
+                break
+        first = c_steps
+        for c in range(c_steps - 1, -1, -1):
+            if snap[c][4]:
+                first = c
+                lzr, lzi, ldr, ldi = snap[c][:4]
+        esc = st[6] and n - c_steps + first < max_iter
+    return esc, lzr, lzi, ldr, ldi, chunks
+
+
+def bare_step_model(st, cr, ci, r2):
+    """escape.cuh:bare_step on st = [zr, zi, zr2, zi2, hit]."""
+    zr, zi, zr2, zi2, hit = st
+    nzr = zr2 - zi2 + cr
+    nzi = F(2.0) * zr * zi + ci
+    zr2 = nzr * nzr
+    zi2 = nzi * nzi
+    hit = hit or bool(zr2 + zi2 > r2)
+    return [nzr, nzi, zr2, zi2, hit]
+
+
+def late_escaper_model(cr, ci, max_iter, r2):
+    """tci_de.cu:late_escaper up to its formula: (esc, lzr, lzi, dzr, dzi)."""
+    zr, zi, dzr, dzi, lzr, lzi = F(0), F(0), F(1), F(0), F(0), F(0)
+    esc = False
+    for _ in range(max_iter):
+        tr = F(2.0) * zr
+        ti = F(2.0) * zi
+        ndzr = tr * dzr - ti * dzi + F(1.0)
+        ndzi = tr * dzi + ti * dzr
+        nzr = zr * zr - zi * zi + cr
+        nzi = F(2.0) * zr * zi + ci
+        dzr, dzi, zr, zi = ndzr, ndzi, nzr, nzi
+        a2 = zr * zr + zi * zi
+        if not esc and a2 > r2:
+            esc = True
+            lzr, lzi = zr, zi
+        if esc and not (np.isfinite(dzr) and np.isfinite(dzi)):
+            break
+    return esc, lzr, lzi, dzr, dzi
+
+
+def tci_de_thread_model(col, row, params, max_iter, r2, c_steps):
+    """One thread of tci_de_kernel: (what it stores, z-only steps taken).
+    What it stores is -1.0 (not escaped), 0.0 (escaped and z seen non-finite
+    before the last step), or the tuple (esc, lzr, lzi, dzr, dzi) that
+    late_escaper hands to the formula."""
+    cr, ci = pixel_c(col, row, params)
+    steps = 0
+    if interior_model(cr, ci):
+        return F(-1.0), steps
+    st = [F(0), F(0), F(0), F(0), False]
+    dead_at = max_iter
+    n = 0
+    while n + c_steps <= max_iter:  # whole chunks
+        for _ in range(c_steps):
+            st = bare_step_model(st, cr, ci, r2)
+        steps += c_steps
+        if st[4] and not (np.isfinite(st[0]) and np.isfinite(st[1])):
+            dead_at = n + c_steps
+            n = max_iter
+            break
+        n += c_steps
+    while n < max_iter:  # the last max_iter mod C steps, one by one
+        st = bare_step_model(st, cr, ci, r2)
+        steps += 1
+        if st[4] and not (np.isfinite(st[0]) and np.isfinite(st[1])):
+            dead_at = n + 1
+            break
+        n += 1
+    if not st[4]:
+        return F(-1.0), steps
+    if dead_at < max_iter:
+        return F(0.0), steps
+    return late_escaper_model(cr, ci, max_iter, r2), steps
+
+
+def patch_threads(nx, ny, consts):
+    """(row, col) of every thread the launchers of de_std.cu and tci_de.cu
+    start that passes the bounds test, over their grid of blocks, warps and
+    lanes; every pixel must come exactly once."""
+    pw, ph, warps = consts["PATCH_W"], consts["PATCH_H"], consts["WARPS"]
+    assert pw * ph == 32
+    seen = np.zeros((ny, nx), dtype=bool)
+    block_cols = warps * pw
+    grid_y = (ny + ph - 1) // ph
+    for r in range(grid_y):  # blockIdx.y: rows from the middle outwards
+        by = (grid_y - 1) // 2 + ((r + 1) // 2 if r & 1 else -(r // 2))
+        for bx in range((nx + block_cols - 1) // block_cols):
+            for tid in range(32 * warps):
+                lane, warp = tid & 31, tid >> 5
+                col = (bx * warps + warp) * pw + lane % pw
+                row = by * ph + lane // pw
+                if col >= nx or row >= ny:
+                    continue
+                assert not seen[row, col], "a pixel was stored twice"
+                seen[row, col] = True
+                yield row, col
+    assert seen.all(), "a pixel was never stored"
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def de_std_formula(lzr, lzi, ldr, ldi):
+    """de_std_kernel's formula on tensors of latches. Its sqrt, log and
+    division are torch's (on the CPU numpy's f32 sqrt and log differ from
+    torch's by an ulp on some inputs; on the card kernel and twin both call
+    CUDA's); the point here is the loop."""
+    az = torch.sqrt(lzr * lzr + lzi * lzi)
+    pr = 2.0 * (lzr * ldr - lzi * ldi)
+    pi = 2.0 * (lzr * ldi + lzi * ldr)
+    num = torch.log(torch.maximum(az, az.new_tensor(1.0))) * az
+    den = torch.maximum(torch.sqrt(pr * pr + pi * pi), az.new_tensor(1e-14))
+    return num / den
+
+
+def tci_de_formula(lzr, lzi, dzr, dzi):
+    """tci_de_kernel's formula on tensors, as de_std_formula."""
+    az = torch.sqrt(lzr * lzr + lzi * lzi)
+    pr = 2.0 * lzr * dzr - 2.0 * lzi * dzi
+    pi = 2.0 * lzr * dzi + 2.0 * lzi * dzr
+    den = torch.maximum(torch.sqrt(pr * pr + pi * pi), az.new_tensor(1e-12))
+    num = torch.log(torch.maximum(az, az.new_tensor(1.0))) * az
+    d = num / den
+    return torch.where(torch.isfinite(d), d, az.new_tensor(0.0))
+
+
+def de_std_grid_model(nx, ny, params, max_iter, escape_r, consts=K4):
+    """de_std_launch over (ny, nx): the threads' latches from the scalar
+    model, then what each thread stores: the formula where it escaped, else
+    0."""
+    r2 = F(escape_r * escape_r)
+    esc = np.zeros((ny, nx), dtype=bool)
+    lat = np.zeros((4, ny, nx), dtype=F)
+    for row, col in patch_threads(nx, ny, consts):
+        e, *latches, _ = de_std_thread_model(col, row, params, max_iter, r2, consts["C"])
+        esc[row, col] = e
+        lat[:, row, col] = latches
+    d = de_std_formula(*(_t(a) for a in lat))
+    return torch.where(_t(esc), d, d.new_tensor(0.0)).numpy()
+
+
+def tci_de_grid_model(n, params, max_iter, escape_r, consts=K1):
+    """tci_de_launch over (n, n): what each thread stores, the late
+    escapers' through late_escaper's formula (as de_std_grid_model, on the
+    whole grid). Returns (field, late escapers)."""
+    r2 = F(escape_r * escape_r)
+    out = np.full((n, n), np.nan, dtype=F)
+    late = np.zeros((n, n), dtype=bool)
+    esc = np.zeros((n, n), dtype=bool)
+    lat = np.zeros((4, n, n), dtype=F)
+    for row, col in patch_threads(n, n, consts):
+        stored, _ = tci_de_thread_model(col, row, params, max_iter, r2, consts["C"])
+        if isinstance(stored, tuple):
+            late[row, col] = True
+            esc[row, col] = stored[0]
+            lat[:, row, col] = stored[1:]
+        else:
+            out[row, col] = stored
+    d = tci_de_formula(*(_t(a) for a in lat))
+    d = torch.where(_t(esc), d, d.new_tensor(-1.0))
+    return torch.where(_t(late), d, _t(out)).numpy(), late
+
+
+def assert_same_bits(model: np.ndarray, twin: torch.Tensor):
+    twin = twin.numpy()
+    assert model.shape == twin.shape and model.dtype == twin.dtype == np.float32
+    both_nan = np.isnan(model) & np.isnan(twin)
+    np.testing.assert_array_equal(np.where(both_nan, 0, model.view(np.int32)),
+                                  np.where(both_nan, 0, twin.view(np.int32)))
+
+
+C4, C1 = K4["C"], K1["C"]
+TRACKER_DOM = (-2.2, 1.2, -1.6, 1.6)
+
+
+@pytest.mark.parametrize("ny,nx,max_iter", [
+    (2, 2, 1), (3, 5, C4 - 1), (9, 37, C4), (9, 37, C4 + 1), (7, 33, 2 * C4 - 1),
+    (9, 5, 30), (5, 67, 2 * C4 + 1), (17, 23, 61), (45, 70, 500), (6, 9, 0)])
+def test_k4_chunked_snapshot_model_equals_twin(ny, nx, max_iter):
+    """Ragged grids (no multiple of a patch or a block, one row or column
+    more than a patch) across the boundary; max_iter below, at and above C
+    and not a multiple of it."""
+    twin = mc.de_field_std_torch(DOM, nx, ny, max_iter, 4.0)
+    model = de_std_grid_model(nx, ny, mc._params(DOM, nx, ny), max_iter, 4.0)
+    assert_same_bits(model, twin)
+    if max_iter >= 30:
+        assert (model > 0).any() and (model == 0).any()
+
+
+@pytest.mark.parametrize("consts", [
+    dict(C=1, PATCH_W=32, PATCH_H=1, WARPS=8), dict(C=3, PATCH_W=8, PATCH_H=4, WARPS=2),
+    dict(C=8, PATCH_W=2, PATCH_H=16, WARPS=1)])
+def test_k4_and_k1_model_results_do_not_depend_on_the_schedule(consts):
+    ny, nx, max_iter = 9, 21, 37
+    twin = mc.de_field_std_torch(DOM, nx, ny, max_iter, 4.0)
+    model = de_std_grid_model(nx, ny, mc._params(DOM, nx, ny), max_iter, 4.0, consts)
+    assert_same_bits(model, twin)
+    for max_iter in (16, 37):  # a multiple of each C but 3, and of none
+        twin = mc.tci_de_field_torch(TRACKER_DOM, 13, max_iter, 250.0)
+        model, _ = tci_de_grid_model(13, mc._params(TRACKER_DOM, 13), max_iter, 250.0, consts)
+        assert_same_bits(model, twin)
+
+
+def lane_steps(dom, nx, ny, max_iter, r2):
+    cr, ci = mc._grid_coords(dom, nx, ny, torch.device("cpu"))
+    return bench.escape_lane_steps(cr, ci, max_iter, r2).numpy()
+
+
+def test_k4_first_escape_on_every_position_of_a_chunk_and_at_the_edge_of_max_iter():
+    """Pixels whose first escape falls on each position of a chunk; and for
+    one of each, max_iter equal to the escape step (the escape counts: the
+    twin's d, not 0) and one below it (it does not: 0, though the chunk runs
+    over it and raises the flag)."""
+    nx, ny, r2 = 41, 19, F(16.0)
+    params = mc._params(DOM, nx, ny)
+    steps = lane_steps(DOM, nx, ny, 200, 16.0)  # 1-based escape step; 200 if none
+    for pos in range(C4):
+        rows, cols = np.nonzero((steps % C4 == pos) & (steps > C4) & (steps < 200))
+        assert rows.size, f"no pixel escapes on position {pos} of a chunk"
+        row, col, k = int(rows[0]), int(cols[0]), int(steps[rows[0], cols[0]])
+        esc, *_, chunks = de_std_thread_model(col, row, params, k, r2, C4)
+        assert esc and chunks == -(-k // C4)
+        esc, *_, chunks = de_std_thread_model(col, row, params, k - 1, r2, C4)
+        assert not esc and chunks == -(-(k - 1) // C4)
+        # the same two counts on the grid: the twin agrees at that pixel
+        for max_iter, escaped in ((k, True), (k - 1, False)):
+            twin = mc.de_field_std_torch(DOM, nx, ny, max_iter, 4.0)
+            model = de_std_grid_model(nx, ny, params, max_iter, 4.0)
+            assert_same_bits(model, twin)
+            assert (twin[row, col] != 0) == escaped
+
+
+@pytest.mark.parametrize("domain", [
+    (float("nan"), 1.0, -1.0, 1.0), (-1e20, 1e20, -1e20, 1e20), (-3e38, 3e38, -1.0, 1.0),
+    (-2.0, 2.0, float("-inf"), 1.0)])
+def test_k4_and_k1_nan_and_inf_coordinates(domain):
+    """Non-finite and overflowing coordinates: a NaN |z|^2 never raises the
+    flag, an inf one does, and the steps after a hit run on to inf and NaN
+    unread."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        params = mc._params(domain, 7, 5)
+        twin = mc.de_field_std_torch(domain, 7, 5, 11, 4.0)
+        assert_same_bits(de_std_grid_model(7, 5, params, 11, 4.0), twin)
+        params = mc._params(domain, 5)
+        twin = mc.tci_de_field_torch(domain, 5, 11, 250.0)
+        assert_same_bits(tci_de_grid_model(5, params, 11, 250.0)[0], twin)
+
+
+@pytest.mark.parametrize("n,max_iter", [
+    (2, 1), (5, C1 - 1), (9, C1), (9, C1 + 1), (13, 2 * C1 - 1), (33, 2 * C1 + 1), (17, 30),
+    (21, 61), (11, 250), (57, 250), (64, 48), (7, 0)])
+def test_k1_two_pass_model_equals_twin(n, max_iter):
+    """Ragged grids across the boundary on the tracker's domain; max_iter
+    below, at and above C, a multiple of it and not (the tracker's 250 is
+    none of 6)."""
+    twin = mc.tci_de_field_torch(TRACKER_DOM, n, max_iter, 250.0)
+    model, _ = tci_de_grid_model(n, mc._params(TRACKER_DOM, n), max_iter, 250.0)
+    assert_same_bits(model, twin)
+    if max_iter >= 30:
+        assert (model == -1).any() and (model == 0).any()
+
+
+def test_k1_only_late_escapers_have_a_positive_d_and_they_take_the_second_pass():
+    """The pixels that escape with dz still finite at max_iter are the only
+    ones with d > 0 and decide the q25 band. Each is a late escaper in the
+    model: it runs the step-by-step (z, dz) orbit, exactly max_iter dz steps,
+    whatever max_iter mod C is, and its d is bitwise the twin's. The second
+    pass is rare, and an early escaper never iterates dz."""
+    n = 61
+    params = mc._params(TRACKER_DOM, n)
+    r2 = F(250.0 * 250.0)
+    for max_iter in (13, 14, 15, 16):
+        twin = mc.tci_de_field_torch(TRACKER_DOM, n, max_iter, 250.0)
+        model, late = tci_de_grid_model(n, params, max_iter, 250.0)
+        assert_same_bits(model, twin)
+        assert (model > 0).sum() >= 3 and late[model > 0].all()
+        assert late.sum() < 0.1 * n * n
+        for row, col in zip(*np.nonzero(model > 0)):
+            esc, _, _, dzr, dzi = late_escaper_model(*pixel_c(col, row, params), max_iter, r2)
+            assert esc and np.isfinite(dzr) and np.isfinite(dzi)
+        # an early escaper stores 0 from the first pass and leaves it at a
+        # chunk's end, or on the step-by-step tail
+        rows, cols = np.nonzero((model == 0) & ~late)
+        stored, steps = tci_de_thread_model(cols[0], rows[0], params, max_iter, r2, C1)
+        assert stored == 0.0 and not isinstance(stored, tuple)
+        assert steps < max_iter and (steps % C1 == 0 or steps > max_iter - max_iter % C1)
+
+
+def first_pass_exit(c, max_iter, r2=F(62500.0)):
+    """(escape step, step after which z is non-finite) of the z-only orbit of
+    c, 1-based; None where it does not happen within max_iter steps."""
+    cr, ci = F(c.real), F(c.imag)
+    zr, zi = F(0), F(0)
+    k = s = None
+    for n in range(1, max_iter + 1):
+        zr, zi = zr * zr - zi * zi + cr, F(2.0) * zr * zi + ci
+        if k is None and zr * zr + zi * zi > r2:
+            k = n
+        if k is not None and not (np.isfinite(zr) and np.isfinite(zi)):
+            s = n
+            break
+    return k, s
+
+
+def test_k1_the_edge_between_the_two_passes():
+    """For pixels whose z turns non-finite at step s: with max_iter = s + C
+    the first pass sees it before the last step and proves d = 0 (the next
+    step makes dz non-finite); with max_iter = s + 1 it does so if a test
+    falls on a step before the last, else the pixel takes the second pass;
+    with max_iter = s, and down to its escape step, it takes the second pass;
+    below that it has not escaped. Each is bitwise the twin's, for s on every
+    position of a chunk."""
+    n = 33
+    params = mc._params(TRACKER_DOM, n)
+    r2 = F(250.0 * 250.0)
+    seen = set()
+    for row, col in patch_threads(n, n, K1):
+        cr, ci = pixel_c(col, row, params)
+        k, s = first_pass_exit(complex(cr, ci), 40)
+        if s is None or s % C1 in seen or k < 3:
+            continue
+        seen.add(s % C1)
+        assert k < s <= k + 7
+        for max_iter, want in ((s + C1, ("zero",)), (s + 1, ("zero", "late")), (s, ("late",)),
+                               (k, ("late",)), (k - 1, ("none",))):
+            stored, _ = tci_de_thread_model(col, row, params, max_iter, r2, C1)
+            kind = ("late" if isinstance(stored, tuple) else
+                    "zero" if stored == 0.0 else "none")
+            assert kind in want, (s, max_iter)
+            twin = mc.tci_de_field_torch(TRACKER_DOM, n, max_iter, 250.0)
+            assert_same_bits(tci_de_grid_model(n, params, max_iter, 250.0)[0], twin)
+    assert seen == set(range(C1))
+
+
+@pytest.mark.parametrize("c", [-2.0 + 0.0j, 1.0j, -1.5436890126920764 + 0.0j])
+def test_k1_dz_overflows_before_z_escapes(c):
+    """A bounded z with |2z| > 1 step after step: the twin's dz overflows
+    while z stays inside; the pixel runs max_iter out (no early exit without
+    an escape) and outputs -1, in the model as in the twin. The pixel is
+    (0, 0) of a 2 x 2 grid whose corner is c."""
+    dom = (c.real, c.real + 1.0, c.imag, c.imag + 1.0)
+    params = mc._params(dom, 2)
+    max_iter = 250
+    stored, steps = tci_de_thread_model(0, 0, params, max_iter, F(62500.0), C1)
+    assert stored == -1.0 and steps == max_iter
+    esc, _, _, dzr, dzi = late_escaper_model(*pixel_c(0, 0, params), max_iter, F(62500.0))
+    assert not esc and not (np.isfinite(dzr) and np.isfinite(dzi))
+    twin = mc.tci_de_field_torch(dom, 2, max_iter, 250.0)
+    assert_same_bits(tci_de_grid_model(2, params, max_iter, 250.0)[0], twin)
+    assert twin[0, 0] == -1.0
+
+
+def test_the_outputs_stored_without_the_formula_are_the_formulas():
+    """K4 stores 0 for an analytically interior pixel, which counts as
+    escaped with the latches z = 0, dz = 1: the formula there is +0. K1
+    stores 0 for an escaped pixel whose dz has a non-finite half, whatever
+    the latched z beyond the radius is: the formula there is +0 too."""
+    one, zero = torch.ones(1), torch.zeros(1)
+    d = de_std_formula(zero, zero, one, zero)
+    assert d.item() == 0.0 and not np.signbit(d.numpy())[0]
+    inf, nan = float("inf"), float("nan")
+    lz = [0.0, -0.0, 251.0, -251.0, 1446.0, 1e19, -3e38, inf, -inf]
+    dz = [inf, -inf, nan, 0.0, 1.0, -1e30, 3e38]
+    lzr, lzi, dzr, dzi = (a.reshape(-1) for a in torch.meshgrid(
+        *(torch.tensor(v, dtype=torch.float32) for v in (lz, lz, dz, dz)), indexing="ij"))
+    beyond = lzr * lzr + lzi * lzi > 62500.0  # a latched z is beyond the radius
+    dead = ~(torch.isfinite(dzr) & torch.isfinite(dzi))
+    d = tci_de_formula(lzr, lzi, dzr, dzi)[beyond & dead]
+    assert d.numel() > 1000 and (d == 0).all() and not np.signbit(d.numpy()).any()
+
+
+def test_k1_nan_dz_gives_zero_distance():
+    """The input of test_nan_dz_gives_zero_distance
+    (tests/test_torch_mandelbrot.py): c = 2 escapes at step 4, and at step 8
+    its z turns inf and its dz (inf, 0), so |2 z dz| is NaN (0 * inf). With
+    two chunks to spare the model's first pass sees the inf z and stores 0; at
+    max_iter 8 the pixel takes the second pass, whose max_nan keeps the NaN
+    and whose d is 0 too; at 7 its dz is still finite. Each bitwise the
+    twin's."""
+    dom = (2.0, 3.0, 0.0, 1.0)
+    params = mc._params(dom, 2)
+    r2 = F(62500.0)
+    assert first_pass_exit(2.0 + 0.0j, 12) == (4, 8)
+    for max_iter in (12, 9, 8, 7, 5, 4, 3):
+        twin = mc.tci_de_field_torch(dom, 2, max_iter)
+        assert_same_bits(tci_de_grid_model(2, params, max_iter, 250.0)[0], twin)
+    assert float(mc.tci_de_field_torch(dom, 2, 12)[0, 0]) == 0.0
+    stored, steps = tci_de_thread_model(0, 0, params, 8 + 2 * C1, r2, C1)
+    assert not isinstance(stored, tuple) and stored == 0.0 and steps == -(-8 // C1) * C1
+    esc, lzr, lzi, dzr, dzi = tci_de_thread_model(0, 0, params, 8, r2, C1)[0]
+    assert esc and (lzr, lzi) == (F(1446.0), F(0.0)) and np.isinf(dzr) and dzi == 0
+    assert np.isfinite(tci_de_thread_model(0, 0, params, 7, r2, C1)[0][3])
+
+
+# ---------------------------------------------------------------------------
 # the step accounting and the footprint constants
 # ---------------------------------------------------------------------------
 
@@ -394,7 +840,7 @@ def executed_brute(lane: np.ndarray, f: dict) -> float:
 
 @pytest.mark.parametrize("footprint", [
     mc.DWELL_FOOTPRINT, bench.ROW_WARP, dict(c=3, patch_w=8, patch_h=4),
-    dict(c=8, patch_w=16, patch_h=2)])
+    dict(c=8, patch_w=16, patch_h=2), dict(c=2, patch_w=2, patch_h=16)])
 @pytest.mark.parametrize("shape", [(11, 45), (4, 32), (1, 7), (64, 256)])
 def test_warp_executed_steps_against_a_brute_force_count(footprint, shape):
     rng = np.random.default_rng(3)
@@ -426,17 +872,38 @@ def test_footprint_constants_equal_the_constexpr_values_of_dwell_cu():
                                   "patch_h": K2["PATCH_H"]}
     assert K2["PATCH_W"] * K2["PATCH_H"] == 32
     text = (CSRC / "dwell.cu").read_text()
-    # dwell_footprint() returns them in the order dwell_footprint_built reads
+    # dwell_footprint() returns them in the order footprint_built reads
     order = re.findall(r"out3\[(\d)\] = (\w+);", text)
     assert order == [("0", "C"), ("1", "PATCH_W"), ("2", "PATCH_H")]
 
 
+@pytest.mark.parametrize("name,consts,entry", [("DE_FOOTPRINT", K4, "de_footprint"),
+                                               ("TCI_FOOTPRINT", K1, "tci_footprint")])
+def test_de_and_tci_footprints_equal_the_constexpr_values(name, consts, entry):
+    assert getattr(mc, name) == {"c": consts["C"], "patch_w": consts["PATCH_W"],
+                                 "patch_h": consts["PATCH_H"]}
+    lib, c_entry = mc.FOOTPRINT_ENTRY[name]
+    assert c_entry == entry
+    text = (CSRC / f"{lib}.cu").read_text()
+    body = text[text.index(f'extern "C" void {entry}(int* out3)'):]
+    order = re.findall(r"out3\[(\d)\] = (\w+);", body)
+    assert order == [("0", "C"), ("1", "PATCH_W"), ("2", "PATCH_H")]
+    # no compare-and-break in the steps of the chunk: the unrolled loop calls
+    # the branch-free step and nothing that branches
+    chunk = text[text.index("#pragma unroll\n            for (int c = 0; c < C; ++c)"):]
+    chunk = chunk[:chunk.index("\n            }" if lib == "de_std" else ";\n")]
+    assert "bare_step(" in chunk and "break" not in chunk and "if (" not in chunk
+
+
 def test_ops_per_step_count_the_cu_bodies():
     """4 mul, 4 add/sub and 1 compare in the step of dwell.cu's plain kernel
-    and of cloud_green.cu's chunk."""
-    for name, start, stop in (("dwell", "for (int c = 0; c < C; ++c)", "up[c] = inside;"),
-                              ("cloud_green", "void bare_step(", "\n}\n")):
-        text = (CSRC / f"{name}.cu").read_text()
+    and in escape.cuh:bare_step, the step of cloud_green.cu's chunks and of
+    tci_de.cu's first pass."""
+    for name, src, start, stop in (
+            ("dwell", "dwell.cu", "for (int c = 0; c < C; ++c)", "up[c] = inside;"),
+            ("cloud_green", "escape.cuh", "void bare_step(", "\n}\n"),
+            ("tci_de", "escape.cuh", "void bare_step(", "\n}\n")):
+        text = (CSRC / src).read_text()
         body = text[text.index(start):]
         body = body[body.index("const float nzr"):body.index(stop)]
         muls = body.count(" * ")
@@ -444,10 +911,15 @@ def test_ops_per_step_count_the_cu_bodies():
         compares = body.count("<=") + body.count(" > ")
         assert (muls, adds, compares) == (4, 4, 1), (name, muls, adds, compares)
         assert mc.OPS_PER_STEP[name] == muls + adds + compares
+        if src == "escape.cuh":
+            assert (CSRC / f"{name}.cu").read_text().count(
+                "bare_step(zr, zi, zr2, zi2, hit, cr, ci, r2);") >= 1
 
 
 @pytest.mark.parametrize("name,variants", [("dwell", "K2_VARIANTS"),
-                                           ("cloud_green", "K3_VARIANTS")])
+                                           ("cloud_green", "K3_VARIANTS"),
+                                           ("de_std", "K4_VARIANTS"),
+                                           ("tci_de", "K1_VARIANTS")])
 def test_sweep_variants_name_constants_the_sources_have(name, variants):
     """Every variant of cmtci_torch.sweep_schedules rewrites `constexpr int`
     lines that csrc/<name>.cu really has, once each, and nothing else."""
