@@ -67,8 +67,11 @@ prints no result line):
  11. K6 (csrc/dwell_ms.cu) through dwell_field_ms at 2048 x 2048, max_iter
      500, stride 8, tile (32, 256): one K2 (coarse) and one K6 launch, the
      output bitwise equal to K2's with tiles filled, the fine pass bitwise
-     equal to its twin; coarse, fill, fine and two-pass times against K2,
-     timed in turns (K2, K6, K6, K2);
+     equal to its twin, and so on tiles that blocks straddle (flags drawn
+     from a seed); coarse, fill, fine (chained and from a CUDA graph) and
+     two-pass times against K2, timed in turns (K2, K6, K6, K2); the fine
+     pass's useful and executed steps on its footprint, and its bound at the
+     new operations a step beside the earlier design's;
  12. run_tci on the kernel path (de_impl "cuda", one K1 launch a run) at the
      default 600 x 600 grid and at 2400 x 2400 (BASELINE configs[4]), twice
      each: KL non-increasing, KL_final < 1e-5, Spectral_L2 NaN, and at 2400
@@ -83,9 +86,15 @@ prints no result line):
      clock;
  15. K2's periodicity entry (csrc/dwell.cu, dwell_periodic_launch) through
      mandelbrot_field(periodicity=True) at 2000 x 2000 and 1001 x 1999,
-     max_iter 500: bitwise equal to plain K2 and to its twin; then plain and
-     periodic K2 timed in turns at 2000 x 2000 at max_iter 500 and 20,000,
-     with the orbit steps each iterates there;
+     max_iter 500, and at cases around its schedule (exact cycles caught by
+     the first checkpoint, the period-3 window at 2000 and 20,000
+     iterations, ragged grids, max_iter below a chunk, escapes on the last
+     step; cycles caught on every position of a chunk and against the
+     checkpoint past the first power of two above C): bitwise equal to
+     plain K2 and to its twin; then plain and periodic K2 timed in turns at
+     2000 x 2000 at max_iter 500 and 20,000, with the orbit steps each needs
+     (the periodic entry's under its own checkpoint schedule) and executes,
+     and the bound at the new operations a step beside the earlier design's;
  16. run_variograms at the defaults in f32 (twice) and f64: the same counts
      both times, each self-variogram's total count equal to the number of
      subsample pairs under rmax, f32 gamma within 1e-3 relative of f64;
@@ -114,7 +123,8 @@ launch of CHAIN launches back to back (K7, a kernel of milliseconds: of one
 launch); K3's is taken on inputs resident on the card. For K1, K4 and K5 ms is
 the time of the same launches replayed from a CUDA graph, which the host's
 time to start a launch cannot enter (K1 at the tracker's grids is shorter than
-that time), and chained_ms the time of the launches started one by one. No
+that time), and chained_ms the time of the launches started one by one; K6
+and K2's periodic entry keep the chained time as ms and give graph_ms. No
 single PyTorch call computes an escape-time field or a chain of dependent
 FMAs, so library_ms is null.
 
@@ -159,6 +169,11 @@ REPLACES = {
     "dwell_periodic": "cmtci/kernels/mandelbrot_pallas.py:94",
 }
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
+#: FP32 operations a step of the loops K6 and K2's periodic entry ran before
+#: they moved onto escape.cuh:dwell_chunked (one pixel a thread, a compare
+#: and a break in every step; the periodic check two compares more), beside
+#: which the new bounds are printed
+OPS_BEFORE = {"dwell_ms": 11, "dwell_periodic": 13}
 #: launches back to back in one timing of a kernel (cuda_ms)
 CHAIN = 20
 #: cycles between two dependent FP32 instructions of one warp, measured on an
@@ -1066,11 +1081,20 @@ def phase_fields(dev):
     return result
 
 
+def ms_straddle_cases():
+    """(ny, nx, tile) of K6 cases whose tiles are no multiple of a block (a
+    block of the footprint spans WARPS * PATCH_W columns and PATCH_H rows), so
+    that blocks straddle tiles, and one whose tiles are smaller than a warp's
+    patch."""
+    return [(96, 480, (4, 8)), (96, 480, (12, 24)), (64, 64, (2, 2)), (40, 1000, (8, 40))]
+
+
 def phase_dwell_ms(dev):
-    """Phase 11: K6 through dwell_field_ms against K2 and its twin, and the
-    two-pass time against K2's in turns."""
+    """Phase 11: K6 through dwell_field_ms against K2 and its twin, on tiles
+    that blocks straddle, and the two-pass time against K2's in turns."""
     import torch
 
+    from cmtci_torch import bench
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
     ny, nx = MS_SHAPE
@@ -1098,14 +1122,36 @@ def phase_dwell_ms(dev):
     n_twin, err = compare_twin(fine_k, fine_t, "K6 fine pass")
     check(n_twin == 0, f"K6 fine pass differs from its twin at {n_twin} pixels")
 
+    # tiles that blocks straddle: flags drawn from a seed, half of them -1
+    foot = mc.DWELL_MS_FOOTPRINT
+    gen = torch.Generator().manual_seed(11)
+    for sny, snx, tile in ms_straddle_cases():
+        flags = torch.randint(0, max_iter + 1, (sny // tile[0], snx // tile[1]),
+                              generator=gen).float()
+        flags[torch.rand(flags.shape, generator=gen) < 0.5] = -1.0
+        flags = flags.to(dev)
+        k = mc.dwell_fill(dom, snx, sny, flags, tile, max_iter, device=dev)
+        tw_ = mc.dwell_fill_torch(dom, snx, sny, flags, tile, max_iter, device=dev)
+        n_s, e_s = compare_twin(k, tw_, f"K6 {sny}x{snx} tile {tile}")
+        err = max(err, e_s)
+        check(n_s == 0, f"K6 {sny}x{snx}, tile {tile}: {n_s} pixels differ from its twin")
+    print(f"K6 on tiles that blocks straddle (footprint {foot}): "
+          + ", ".join(f"{a}x{b} tile {c}" for a, b, c in ms_straddle_cases())
+          + ": 0 differing pixels each")
+
     interior = mc._interior_mask_torch(*mc._grid_coords(dom, nx, ny, dev))
     filled_px = mc._fill_pixels(fill, MS_TILE) >= 0
-    fine_steps = dwell_steps(torch.where(filled_px, -1.0, fine_k), interior | filled_px,
-                             max_iter)
+    fine_lane = torch.where(interior | filled_px, 0.0,
+                            (fine_k + 1.0).clamp(max=max_iter)).double()
+    fine_steps = int(fine_lane.sum())
+    executed = int(bench.warp_executed_steps(fine_lane, foot))
+    executed_rows = int(bench.warp_executed_steps(fine_lane, bench.ROW_WARP))
     c_interior = mc._interior_mask_torch(*mc._coords(cparams, nx // stride, ny // stride, dev))
     coarse_steps = dwell_steps(coarse, c_interior, max_iter)
     k2_steps = dwell_steps(plain, interior, max_iter)
-    bound, by = bound_ms("dwell_ms", fine_steps, 4 * nx * ny + 4 * fill.numel())
+    nbytes = 4 * nx * ny + 4 * fill.numel()
+    bound, by = bound_ms("dwell_ms", fine_steps, nbytes)
+    bound_before, _ = least_ms(fine_steps * OPS_BEFORE["dwell_ms"], nbytes)
 
     def k2():
         mc.mandelbrot_field(dom, nx, ny, max_iter, device=dev)
@@ -1120,8 +1166,12 @@ def phase_dwell_ms(dev):
     coarse_ms = cuda_ms(lambda: mc._dwell(cparams, nx // stride, ny // stride, max_iter, dev),
                         3, 20, CHAIN)
     fill_ms = cuda_ms(lambda: mc.fill_flags(coarse, th // stride, tw // stride), 3, 20, CHAIN)
-    fine_ms = cuda_ms(lambda: mc.dwell_fill(dom, nx, ny, fill, MS_TILE, max_iter, device=dev),
-                      3, 20, CHAIN)
+
+    def fine():
+        mc.dwell_fill(dom, nx, ny, fill, MS_TILE, max_iter, device=dev)
+
+    fine_ms = cuda_ms(fine, 3, 20, CHAIN)
+    fine_graph_ms = cuda_ms(fine, 3, 20, CHAIN, graph=True)
     plain_ms = cuda_ms(lambda: mc.dwell_fill_torch(dom, nx, ny, fill, MS_TILE, max_iter,
                                                    device=dev), 1, 3)
     k2_ms = statistics.median(t for lab, t in turns if lab == "K2")
@@ -1130,12 +1180,17 @@ def phase_dwell_ms(dev):
           + ", ".join(f"{lab} {t:.4f}" for lab, t in turns))
     print(f"  coarse pass (K2 at {ny // stride}x{nx // stride}) {coarse_ms:.4f} ms, "
           f"{coarse_steps} steps; fill decision {fill_ms:.4f} ms; fine pass (K6) "
-          f"{fine_ms:.4f} ms, {fine_steps} steps, twin {plain_ms:.4f} ms; K2 alone "
+          f"{fine_ms:.4f} ms chained, {fine_graph_ms:.4f} ms replayed from a CUDA graph, "
+          f"{fine_steps} useful steps, executed by its warps {executed} (executed / useful "
+          f"{executed / fine_steps:.4f}; one-row warps with a test every step "
+          f"{executed_rows / fine_steps:.4f}), twin {plain_ms:.4f} ms; K2 alone "
           f"{k2_steps} steps. Two-pass {two_ms:.4f} ms against K2 {k2_ms:.4f} ms: "
           f"{'faster' if two_ms < k2_ms else 'slower'} by "
-          f"{abs(two_ms - k2_ms) / k2_ms * 100:.1f}%; fine pass bound {bound:.5f} ms ({by})")
+          f"{abs(two_ms - k2_ms) / k2_ms * 100:.1f}%; fine pass bound {bound:.5f} ms ({by}, "
+          f"{mc.OPS_PER_STEP['dwell_ms']} operations a step; at the earlier design's "
+          f"{OPS_BEFORE['dwell_ms']}: {bound_before:.5f} ms)")
     return dict(launches=launches["dwell_ms"], max_abs_err=err, ms=fine_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, graph_ms=fine_graph_ms)
 
 
 def phase_tci(dev):
@@ -1254,46 +1309,38 @@ def phase_fma(dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
 
-def dwell_loop_steps(cr, ci, max_iter: int, periodicity: bool):
-    """int32 (ny, nx) steps each pixel needs under escape.cuh:dwell_count
-    <periodicity> over a grid of f32 coordinates: a pixel is counted on every
-    step it starts, up to and including the step on which it escapes or on
-    which its z meets its checkpoint. The pixels that have stopped are
-    dropped every 32 steps."""
-    import torch
+#: the domain of tests/test_torch_boundary.py's window across the period-3
+#: bulb: its bounded lanes are not analytically interior and cycle in f32
+PERIOD3_WINDOW = (-0.26, 0.02, 0.66, 0.92)
+#: a 3 x 3 grid that holds c = -2 and c = +-i exactly: their orbits are
+#: periodic within two steps, so the first checkpoint (at step C) catches them
+EXACT_CYCLES = (-2.0, 0.0, -1.0, 1.0)
+#: a window around the centre of the period-3 bulb at -0.1226 + 0.7449i: its
+#: orbits become periodic in f32 within a few steps, so the checkpoints of
+#: the first moves catch them
+PERIOD3_CENTRE = (-0.1326, -0.1126, 0.7349, 0.7549)
 
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
 
-    keep = ~mc._interior_mask_torch(cr, ci)
-    lane = torch.zeros(cr.numel(), dtype=torch.int32, device=cr.device)
-    idx = keep.reshape(-1).nonzero()[:, 0]
-    cr, ci = cr[keep], ci[keep]
-    zr, zi = torch.zeros_like(cr), torch.zeros_like(cr)
-    pr, pi = torch.full_like(cr, 1e30), torch.zeros_like(cr)
-    alive = torch.ones_like(cr, dtype=torch.bool)
-    started = torch.zeros_like(idx, dtype=torch.int32)
-    for n in range(max_iter):
-        if n % 32 == 0:
-            lane[idx] += started
-            idx, cr, ci, zr, zi, pr, pi = (t[alive] for t in (idx, cr, ci, zr, zi, pr, pi))
-            alive = torch.ones_like(cr, dtype=torch.bool)
-            started = torch.zeros_like(idx, dtype=torch.int32)
-            if idx.numel() == 0:
-                break
-        started += alive
-        zr, zi = zr * zr - zi * zi + cr, 2.0 * zr * zi + ci
-        alive = alive & (zr * zr + zi * zi <= 4.0)
-        if periodicity:
-            alive = alive & ~((zr == pr) & (zi == pi))
-            if (n + 1) & n == 0:
-                pr, pi = zr, zi
-    lane[idx] += started
-    return lane.view(keep.shape)
+def periodic_schedule_cases(c: int, last_step_iters):
+    """(label, domain, ny, nx, max_iter) around the periodic entry's
+    schedule: the grid with exact cycles at max_iter below, at and above a
+    chunk and around the first power of two past C; the period-3 window at
+    2000 and 20,000 iterations; ragged grids at 500; and the ragged grid at
+    iteration counts on which some of its pixels escape on the last step."""
+    pow2 = 1 << c.bit_length()  # the least power of two above c
+    cases = [("exact cycles", EXACT_CYCLES, 3, 3, it)
+             for it in sorted(set(schedule_iters(c)) | {2 * c, pow2, pow2 + 1, pow2 + c + 1})]
+    cases += [("period-3 window", PERIOD3_WINDOW, 26, 28, it) for it in (2000, 20000)]
+    cases += [("period-3 centre", PERIOD3_CENTRE, 32, 32, it) for it in (2 * pow2 + 1, 500)]
+    cases += [("ragged", BOUNDARY_DOMAIN, ny, nx, 500) for ny, nx in ((13, 37), (130, 1003))]
+    cases += [("last step", BOUNDARY_DOMAIN, 130, 1003, it) for it in last_step_iters]
+    return cases
 
 
 def phase_periodic(dev):
-    """Phase 15: K2's periodicity entry against plain K2 and its twin, then
-    both timed in turns at max_iter 500 and 20,000."""
+    """Phase 15: K2's periodicity entry against plain K2 and its twin at the
+    boundary's shapes and at cases around its schedule, then both timed in
+    turns at max_iter 500 and 20,000, with the steps each needs."""
     import torch
 
     from cmtci_torch import bench
@@ -1301,8 +1348,22 @@ def phase_periodic(dev):
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
     dom = BOUNDARY_DOMAIN
+    foot = mc.DWELL_PERIODIC_FOOTPRINT
+    c = foot["c"]
     max_err = 0.0
+    positions, checkpoints = set(), set()
+
+    def caught_where(cdom, ny, nx, max_iter):
+        """Record the chunk positions of the steps on which cycles are caught
+        and the steps of the checkpoints they are caught against."""
+        lane, caught = bench.periodic_lane_steps(*mc._grid_coords(cdom, nx, ny, dev),
+                                                 max_iter, c)
+        hit = caught > 0
+        positions.update(((lane[hit] - 1) % c).tolist())
+        checkpoints.update(caught[hit].unique().tolist())
+
     for ny, nx in DWELL_SHAPES:
+        caught_where(dom, ny, nx, 500)
         torch.cuda.synchronize()
         reset_launches()
         per = mc.mandelbrot_field(dom, nx, ny, 500, device=dev, periodicity=True)
@@ -1317,6 +1378,43 @@ def phase_periodic(dev):
         print(f"K2 periodic {ny}x{nx}, max_iter 500: pixels differing from plain K2 "
               f"{d_plain}, from its twin {d_twin}")
         check(d_plain == 0 and d_twin == 0, f"periodic K2 {ny}x{nx} differs")
+
+    # iteration counts at which pixels of the ragged grid escape on the last
+    # step: dwells d of the grid with (d + 1) mod C at 1 and at C - 1
+    ragged = mc.dwell_field_torch(dom, 1003, 130, 500, device=dev)
+    dwells = sorted(set(int(v) for v in ragged.unique().tolist()) - {500})
+    last_step = [next(d + 1 for d in dwells if d > 2 * c and (d + 1) % c == r)
+                 for r in sorted({1 % c, (c - 1) % c})]
+    last_hits = 0
+    cases = periodic_schedule_cases(c, last_step)
+    for label, cdom, ny, nx, max_iter in cases:
+        per = mc.mandelbrot_field(cdom, nx, ny, max_iter, device=dev, periodicity=True)
+        plain = mc.mandelbrot_field(cdom, nx, ny, max_iter, device=dev)
+        twin = mc.dwell_field_torch(cdom, nx, ny, max_iter, device=dev, periodicity=True)
+        d_plain, d_twin = int((per != plain).sum()), int((per != twin).sum())
+        check(d_plain == 0 and d_twin == 0, f"periodic K2, {label} {ny}x{nx} at max_iter "
+                                            f"{max_iter}: {d_plain} pixels differ from plain "
+                                            f"K2, {d_twin} from its twin")
+        caught_where(cdom, ny, nx, max_iter)
+        if label == "last step":
+            last_hits += int((per == max_iter - 1).sum())
+    first_past = -(-(1 << c.bit_length()) // c) * c  # the chunk end of the first power above C
+    print(f"K2 periodic schedule cases (footprint {foot}): {len(cases)} grids and iteration "
+          "counts, " + ", ".join(f"{lab} {ny}x{nx}@{it}" for lab, _, ny, nx, it in cases)
+          + f": 0 differing pixels each; cycles caught on chunk positions {sorted(positions)}, "
+          f"against checkpoints set at steps {sorted(checkpoints)[:12]}; {last_hits} pixels "
+          f"escape on the last step (max_iter {last_step})")
+    # caught on the last step of a chunk; against the first checkpoint (step
+    # C), and against one that moved at or after the first chunk end past the
+    # power of two above C (a compare once a chunk catches a cycle against a
+    # checkpoint only if its period divides the distance, so a later one will
+    # do)
+    check(positions == {c - 1}, f"cycles caught on chunk positions {sorted(positions)}, "
+                                f"not {c - 1}")
+    check(c in checkpoints and max(checkpoints) >= first_past,
+          f"cycles caught against checkpoints {sorted(checkpoints)}: none of step {c}, or "
+          f"none of step {first_past} or later")
+    check(last_hits > 0, "no pixel escapes on the last step")
 
     ny, nx = DWELL_SHAPES[0]
     cr, ci = mc._grid_coords(dom, nx, ny, dev)
@@ -1333,17 +1431,22 @@ def phase_periodic(dev):
         launched = _launch.launches["dwell_periodic"]  # of this one call
         plain = run(False)
         check(bool(torch.equal(plain, per)), f"periodic K2 differs at max_iter {max_iter}")
-        # the steps each entry's pixels need, and what its warps burn for them:
-        # the plain kernel's on its own footprint, the periodic entry's on
-        # one-row warps with a test every step
-        lanes = {flag: dwell_loop_steps(cr, ci, max_iter, flag) for flag in (False, True)}
-        steps = {flag: int(lanes[flag].sum(dtype=torch.int64)) for flag in lanes}
-        executed = {False: int(bench.warp_executed_steps(lanes[False], mc.DWELL_FOOTPRINT)),
-                    True: int(bench.warp_executed_steps(lanes[True], bench.ROW_WARP))}
-        want = bench.dwell_step_counts(plain, interior, max_iter)
-        check((steps[False], executed[False]) == (int(want[0]), int(want[1])),
-              f"max_iter {max_iter}: counted {(steps[False], executed[False])} plain steps, "
-              f"the output says {want}")
+        # the steps each entry's pixels need and what its warps burn for them:
+        # the plain kernel's on its footprint; the periodic entry's under its
+        # own checkpoint schedule on its footprint, and under the
+        # step-by-step schedule of its earlier design on one-row warps
+        steps = {}
+        steps["plain"], executed = (int(v) for v in bench.dwell_step_counts(
+            plain, interior, max_iter))
+        lane, caught = bench.periodic_lane_steps(cr, ci, max_iter, c)
+        plain_lane = torch.where(interior, 0.0, (plain + 1.0).clamp(max=max_iter)).int()
+        check(bool(torch.equal(lane[caught == 0], plain_lane[caught == 0])),
+              "the periodic steps of the lanes no cycle caught differ from plain K2's")
+        steps["periodic"] = int(lane.sum(dtype=torch.int64))
+        executed_p = int(bench.warp_executed_steps(lane, foot))
+        old_lane, _ = bench.periodic_lane_steps(cr, ci, max_iter, 1)
+        steps["before"] = int(old_lane.sum(dtype=torch.int64))
+        executed_old = int(bench.warp_executed_steps(old_lane, bench.ROW_WARP))
         turns = [(flag, cuda_ms(lambda: run(flag), 2, 10, CHAIN if max_iter == 500 else 4))
                  for flag in (False, True, True, False)]
         t = {flag: statistics.median(ms for f, ms in turns if f == flag)
@@ -1351,20 +1454,29 @@ def phase_periodic(dev):
         print(f"K2 {ny}x{nx}, max_iter {max_iter}, in turns (median ms per launch, back to "
               "back, CUDA events): "
               + ", ".join(f"{'periodic' if f else 'plain'} {ms:.4f}" for f, ms in turns))
-        print(f"  plain {steps[False]} steps, periodic {steps[True]} steps "
-              f"({steps[True] / steps[False]:.4f} of plain); executed by their warps: plain "
-              f"{executed[False]}, periodic {executed[True]} "
-              f"({executed[True] / executed[False]:.4f} of plain); bounded pixels outside the "
-              f"analytic interior {int(((plain == max_iter) & ~interior).sum())}; periodic "
-              f"is {'faster' if t[True] < t[False] else 'slower'} by "
+        print(f"  steps needed: plain {steps['plain']}, periodic {steps['periodic']} "
+              f"({steps['periodic'] / steps['plain']:.4f} of plain; {int((caught > 0).sum())} "
+              f"cycles caught), periodic under the earlier step-by-step schedule "
+              f"{steps['before']}; executed by their warps: plain {executed}, periodic "
+              f"{executed_p} ({executed_p / executed:.4f} of plain; executed / useful "
+              f"{executed_p / steps['periodic']:.4f}), the earlier design's one-row warps "
+              f"{executed_old}; bounded pixels outside the analytic interior "
+              f"{int(((plain == max_iter) & ~interior).sum())}; periodic is "
+              f"{'faster' if t[True] < t[False] else 'slower'} by "
               f"{abs(t[True] - t[False]) / t[False] * 100:.1f}%")
+        bound, by = bound_ms("dwell_periodic", steps["periodic"], 4 * nx * ny)
+        bound_before, _ = least_ms(steps["before"] * OPS_BEFORE["dwell_periodic"], 4 * nx * ny)
+        print(f"  bound {bound:.5f} ms ({by}, {mc.OPS_PER_STEP['dwell_periodic']} operations "
+              f"a step); as the earlier design counted it ({OPS_BEFORE['dwell_periodic']} a "
+              f"step, step-by-step checkpoints) {bound_before:.5f} ms")
         if max_iter == 500:
             plain_ms = cuda_ms(lambda: mc.dwell_field_torch(dom, nx, ny, 500, device=dev,
                                                             periodicity=True), 1, 3)
-            bound, by = bound_ms("dwell_periodic", steps[True], 4 * nx * ny)
-            print(f"  twin {plain_ms:.4f} ms; bound {bound:.5f} ms ({by})")
+            graph_ms = cuda_ms(lambda: run(True), 2, 10, CHAIN, graph=True)
+            print(f"  twin {plain_ms:.4f} ms; periodic replayed from a CUDA graph "
+                  f"{graph_ms:.4f} ms")
             result = dict(launches=launched, max_abs_err=max_err, ms=t[True], plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by)
+                          bound_ms=bound, bound_by=by, graph_ms=graph_ms)
     return result
 
 
@@ -1494,10 +1606,11 @@ def phase_pointstats(dev):
     check(0 < h < 1 and peak < 40, f"Hausdorff {h!r}, peak {peak:.2f} GiB")
 
 
-BENCH_KEYS = ("value", "dwell_tflops", "vpu_peak_tflops", "dwell_mfu", "dwell_mfu_useful",
-              "de_tflops", "de_mfu", "fp32_fma_bound_tflops", "escape_grid_res4096_mpix_s",
-              "escape_grid_res8192_mpix_s", "spatial_stats_150k_s", "knn_150k_s",
-              "eigensweep_s", "tracker_warm_s", "equipotential_s", "variograms_s", "tci_4x_s")
+BENCH_KEYS = ("value", "dwell_entry_ms", "dwell_tflops", "vpu_peak_tflops", "dwell_mfu",
+              "dwell_mfu_useful", "de_tflops", "de_mfu", "fp32_fma_bound_tflops",
+              "escape_grid_res4096_mpix_s", "escape_grid_res8192_mpix_s", "spatial_stats_150k_s",
+              "knn_150k_s", "eigensweep_s", "tracker_warm_s", "equipotential_s", "variograms_s",
+              "tci_4x_s")
 BENCH_KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "fma_peak")
 
 

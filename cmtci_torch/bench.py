@@ -10,6 +10,9 @@ Keys, each at the reference's configuration (``BenchSizes`` holds them):
   * metric/value/unit: escape-time grid throughput, K2 at res 2000,
     max_iter 500 on (-2.1, 0.9) x (-1.5, 1.5), in Mpix/s. K2 takes the 2000
     columns as they are (the reference pads to 2048 and crops).
+    dwell_entry_ms (the card only): ms per call of the same grid through
+    K2's ctypes entry (_launch.launch), timed the same way; `value` includes
+    the host's time in mandelbrot_field, which is close to the kernel's own.
   * dwell_tflops, vpu_peak_tflops, dwell_mfu, dwell_mfu_useful, de_tflops,
     de_mfu: the roofline accounting of K2 and K4 at 2048 x 2048 on the
     padded domain, against K7's measured chained-FMA rate. `useful` steps
@@ -186,8 +189,9 @@ def padded_domain(sizes: BenchSizes):
     return (DOM[0], DOM[0] + dx * (n - 1), DOM[2], DOM[2] + dx * (n - 1))
 
 
-#: a warp of the kernels launched in (32, 8) blocks (K5, K6, the periodic K2):
-#: 32 consecutive columns of one row, an exit test a step
+#: a warp of the kernels launched in (32, 8) blocks (K5, and K6 and K2's
+#: periodic entry in their earlier design): 32 consecutive columns of one
+#: row, an exit test a step
 ROW_WARP = {"c": 1, "patch_w": 32, "patch_h": 1}
 
 
@@ -238,6 +242,54 @@ def escape_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
                   torch.where(active, 2.0 * zr * zi + ci, zi))
         active = active & (zr * zr + zi * zi <= r2)
     return lane
+
+
+def periodic_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, c: int):
+    """(lane, caught): per-lane loop trips (int32, the shape of cr) of K2's
+    periodic entry on f32 coordinates with chunks of c steps (the `c` of
+    mandelbrot_cuda.DWELL_PERIODIC_FOOTPRINT), and the step of the
+    checkpoint each lane's cycle was caught against (int32; 0 where none
+    was). A lane runs every step up to and including the one on which it
+    escapes or its cycle is caught, at most max_iter; none for an
+    analytically interior lane. The checkpoint starts at (1e30, 0); at each
+    chunk end (a multiple of c) z is compared with it, and it moves to z at
+    the first chunk end at or past each power of two. c = 1 is the twin's
+    step-by-step Brent schedule (and the entry's earlier design). The lanes
+    that have stopped are dropped every 32 steps."""
+    keep = ~mc._interior_mask_torch(cr, ci)
+    lane = torch.zeros(cr.numel(), dtype=torch.int32, device=cr.device)
+    caught = torch.zeros_like(lane)
+    idx = keep.reshape(-1).nonzero()[:, 0]
+    cr, ci = cr.reshape(-1)[idx], ci.reshape(-1)[idx]
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(cr)
+    pr, pi = torch.full_like(cr, 1e30), torch.zeros_like(cr)
+    alive = torch.ones_like(cr, dtype=torch.bool)
+    stop_at = torch.zeros_like(idx, dtype=torch.int32)  # the step a lane stopped on
+    against = torch.zeros_like(stop_at)  # the step of the checkpoint it was caught against
+    nxt, moved = 1, 0  # the next move is at the first chunk end >= nxt
+    for n in range(1, max_iter + 1):  # n steps taken after this one
+        zr, zi = zr * zr - zi * zi + cr, 2.0 * zr * zi + ci
+        stop = alive & ~(zr * zr + zi * zi <= 4.0)  # NaN counts as an escape
+        alive = alive & ~stop
+        if n % c == 0:
+            hit = alive & (zr == pr) & (zi == pi)
+            alive = alive & ~hit
+            against.masked_fill_(hit, moved)
+            stop = stop | hit
+        stop_at.masked_fill_(stop, n)
+        if n % c == 0 and n >= nxt:
+            pr, pi, moved = zr, zi, n
+            nxt = 1 << n.bit_length()  # the least power of two above n
+        if n % 32 == 0:
+            lane[idx], caught[idx] = stop_at, against
+            idx, cr, ci, zr, zi, pr, pi, stop_at, against = (
+                t[alive] for t in (idx, cr, ci, zr, zi, pr, pi, stop_at, against))
+            alive = torch.ones_like(cr, dtype=torch.bool)
+            if idx.numel() == 0:
+                break
+    lane[idx] = torch.where(alive, max_iter, stop_at).to(torch.int32)
+    caught[idx] = against
+    return lane.view(keep.shape), caught.view(keep.shape)
 
 
 def tci_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, r2: float):
@@ -308,6 +360,24 @@ def bench_dwell(sizes: BenchSizes, dev: torch.device) -> float:
         lambda: mc.mandelbrot_field(DOM, sizes.res, sizes.res, sizes.max_iter, device=dev),
         sizes.reps, 3, dev)
     return sizes.res * sizes.res / per_grid / 1e6
+
+
+def bench_dwell_entry_ms(sizes: BenchSizes, dev: torch.device) -> float:
+    """ms per call of K2's ctypes entry (dwell_launch, through the counted
+    _launch.launch) at the headline grid, timed as `value` is: what `value`
+    would read without the host's time in mandelbrot_field (parameters and
+    output allocation). The card only: the CPU has no kernel."""
+    from cmtci_torch.kernels import _launch
+
+    if dev.type != "cuda":
+        raise RuntimeError(f"K2's ctypes entry runs on a CUDA device, not {dev}")
+    n = sizes.res
+    xmin, ymin, dx, dy = (float(v) for v in mc._params(DOM, n, n))
+    out = torch.empty((n, n), dtype=torch.float32, device=dev)
+    return _per_launch_s(
+        lambda: _launch.launch("dwell", dev, out.data_ptr(), n, n, xmin, ymin, dx, dy,
+                               sizes.max_iter),
+        sizes.reps, 3, dev) * 1e3
 
 
 def bench_vpu_peak(sizes: BenchSizes, dev: torch.device) -> float:
@@ -458,6 +528,10 @@ def run(sizes: BenchSizes | None = None, device="cuda") -> dict:
     value = guarded("dwell", lambda: bench_dwell(sizes, dev))
     if value is not None:
         result["value"] = round(value, 2)
+    if dev.type == "cuda":
+        entry_ms = guarded("dwell_entry", lambda: bench_dwell_entry_ms(sizes, dev))
+        if entry_ms is not None:
+            result["dwell_entry_ms"] = round(entry_ms, 5)
     result.update(guarded("mfu", lambda: bench_mfu(sizes, dev)) or {})
     result.update(guarded("scale", lambda: bench_scale(sizes, dev)) or {})
     for name, fn, digits in PIPELINE_KEYS:

@@ -75,7 +75,6 @@ constexpr int C = 3;        // orbit steps between two exit tests
 constexpr int PATCH_W = 4;  // pixels across a warp's patch
 constexpr int PATCH_H = 8;  // pixels down a warp's patch
 constexpr int WARPS = 4;    // warps a block, side by side along x
-static_assert(PATCH_W * PATCH_H == 32, "a warp's patch is 32 threads");
 
 // One branch-free orbit step: dz <- 2 z dz + 1 and z <- z^2 + c, both from the
 // old z, then the new squares and the sticky radius flag. zr2 and zi2 carry
@@ -106,13 +105,9 @@ __device__ __forceinline__ void de_bare_step(float& zr, float& zi, float& zr2, f
 __global__ void __launch_bounds__(32 * WARPS)
 de_std_kernel(float* __restrict__ out, int nx, int ny, float xmin, float ymin, float dx,
               float dy, int max_iter, float r2) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int col = (blockIdx.x * WARPS + warp) * PATCH_W + lane % PATCH_W;
     // rows of blocks in the order middle of the grid, one below, one above, ...
-    const int r = blockIdx.y;
-    const int by = (int)(gridDim.y - 1) / 2 + ((r & 1) ? (r + 1) / 2 : -(r / 2));
-    const int row = by * PATCH_H + lane / PATCH_W;
+    int col, row;
+    patch_pixel<PATCH_W, PATCH_H, WARPS, true>(col, row);
     if (col >= nx || row >= ny) return;
 
     const float cr = xmin + (float)col * dx;

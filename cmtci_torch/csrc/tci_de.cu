@@ -79,7 +79,6 @@ constexpr int C = 6;        // orbit steps between two exit tests
 constexpr int PATCH_W = 4;  // pixels across a warp's patch
 constexpr int PATCH_H = 8;  // pixels down a warp's patch
 constexpr int WARPS = 4;    // warps a block, side by side along x
-static_assert(PATCH_W * PATCH_H == 32, "a warp's patch is 32 threads");
 
 // The whole (z, dz) orbit of one pixel, step by step, and the formula: the
 // second pass of a late escaper. max_nan (escape.cuh) propagates NaN:
@@ -119,13 +118,9 @@ __device__ float late_escaper(float cr, float ci, int max_iter, float r2) {
 __global__ void __launch_bounds__(32 * WARPS)
 tci_de_kernel(float* __restrict__ out, int grid_n, float xmin, float ymin, float dx,
               float dy, int max_iter, float r2) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int col = (blockIdx.x * WARPS + warp) * PATCH_W + lane % PATCH_W;
     // rows of blocks in the order middle of the grid, one below, one above, ...
-    const int r = blockIdx.y;
-    const int by = (int)(gridDim.y - 1) / 2 + ((r & 1) ? (r + 1) / 2 : -(r / 2));
-    const int row = by * PATCH_H + lane / PATCH_W;
+    int col, row;
+    patch_pixel<PATCH_W, PATCH_H, WARPS, true>(col, row);
     if (col >= grid_n || row >= grid_n) return;
 
     const float cr = xmin + (float)col * dx;

@@ -33,26 +33,33 @@ from cmtci_torch.utils.device import resolve_device
 #: de_std.cu's de_bare_step 9 mul, 7 add/sub, 1 compare (the squares zr*zr,
 #: zi*zi and 2*zr are carried); escape.cuh:bare_step, the z-only step of
 #: cloud_green.cu's chunks and of tci_de.cu's first pass, 4 mul, 4 add/sub, 1
-#: compare, as dwell.cu's plain kernel (tci_de.cu's two finiteness tests run
-#: once a chunk and are not counted); "tci_de_late", the step-by-step (z, dz)
-#: loop of tci_de.cu's second pass, 12 mul, 7 add/sub, 3 compares;
-#: escape.cuh:dwell_count and green_grid.cu 6 mul, 4 add/sub, 1 compare, and
-#: the periodic dwell loop two more compares with the checkpoint.
-OPS_PER_STEP = {"tci_de": 9, "tci_de_late": 22, "dwell": 9, "dwell_periodic": 13,
-                "cloud_green": 9, "de_std": 17, "green_grid": 11, "dwell_ms": 11}
+#: compare, as escape.cuh:dwell_chunked, the step of dwell.cu's two entries
+#: and of dwell_ms.cu (tci_de.cu's two finiteness tests run once a chunk and
+#: are not counted, nor are the periodic entry's compares with its
+#: checkpoint, which run once a chunk); "tci_de_late", the step-by-step (z,
+#: dz) loop of tci_de.cu's second pass, 12 mul, 7 add/sub, 3 compares;
+#: green_grid.cu 6 mul, 4 add/sub, 1 compare.
+OPS_PER_STEP = {"tci_de": 9, "tci_de_late": 22, "dwell": 9, "dwell_periodic": 9,
+                "cloud_green": 9, "de_std": 17, "green_grid": 11, "dwell_ms": 9}
 
 #: the schedule csrc/dwell.cu's plain kernel is built with (its constexpr C,
 #: PATCH_W, PATCH_H; dwell_footprint() returns the same on the card): a thread
 #: iterates one pixel and tests for its exit every `c` steps; a warp is a
 #: patch of patch_w columns x patch_h rows of pixels
 DWELL_FOOTPRINT = {"c": 4, "patch_w": 4, "patch_h": 8}
-#: the same of csrc/de_std.cu (de_footprint()) and csrc/tci_de.cu
+#: the same of dwell.cu's periodic entry (P_C, P_PATCH_W, P_PATCH_H;
+#: dwell_periodic_footprint()), of csrc/dwell_ms.cu
+#: (dwell_ms_footprint()), csrc/de_std.cu (de_footprint()) and csrc/tci_de.cu
 #: (tci_footprint())
+DWELL_PERIODIC_FOOTPRINT = {"c": 8, "patch_w": 4, "patch_h": 8}
+DWELL_MS_FOOTPRINT = {"c": 4, "patch_w": 4, "patch_h": 8}
 DE_FOOTPRINT = {"c": 3, "patch_w": 4, "patch_h": 8}
 TCI_FOOTPRINT = {"c": 6, "patch_w": 4, "patch_h": 8}
 
 #: (library, C entry) that reports each footprint on the card
 FOOTPRINT_ENTRY = {"DWELL_FOOTPRINT": ("dwell", "dwell_footprint"),
+                   "DWELL_PERIODIC_FOOTPRINT": ("dwell", "dwell_periodic_footprint"),
+                   "DWELL_MS_FOOTPRINT": ("dwell_ms", "dwell_ms_footprint"),
                    "DE_FOOTPRINT": ("de_std", "de_footprint"),
                    "TCI_FOOTPRINT": ("tci_de", "tci_footprint")}
 
@@ -242,18 +249,19 @@ FIELD_KINDS = {"dwell": "dwell", "de": "de_std", "green": "green_grid"}
 def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.device,
                  fill_px: torch.Tensor | None = None,
                  periodicity: bool = False) -> torch.Tensor:
-    """Twin of escape.cuh:dwell_count over the grid of f32 `params`, the
-    loop K2 and K6's fine pass share. fill_px (f32 (ny, nx), optional) is K6's
-    per-pixel fill flag: where it is >= 0 the pixel takes it and skips the
-    loop, as K6's thread does.
+    """Twin of escape.cuh:dwell_chunked over the grid of f32 `params`, the
+    loop K2's two entries and K6's fine pass share, step by step. fill_px
+    (f32 (ny, nx), optional) is K6's per-pixel fill flag: where it is >= 0
+    the pixel takes it and skips the loop, as K6's thread does.
 
-    A lane's z is frozen where the kernel's thread breaks (escaped), so
-    every lane ends with the kernel's state and count (K2's plain kernel
-    iterates an escaped pixel on with its latch down; its count is the same).
+    A lane's z is frozen where it escapes, and its count with it (the kernels
+    iterate an escaped pixel on with its latch down; the count is the same).
 
-    periodicity adds dwell_count<true>'s Brent cycle check: a checkpoint of
-    z, moved when the steps taken are a power of two; a lane still inside
-    whose z equals its checkpoint bitwise stops and gets max_iter.
+    periodicity adds the Brent cycle check of K2's periodic entry: a
+    checkpoint of z, moved here when the steps taken are a power of two (the
+    kernel moves it at chunk ends only; the schedule does not enter the
+    result); a lane still inside whose z equals its checkpoint bitwise stops
+    and gets max_iter.
     """
     cr, ci = _coords(params, nx, ny, dev)
     interior = _interior_mask_torch(cr, ci)

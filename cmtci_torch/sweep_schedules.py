@@ -1,10 +1,11 @@
-"""Time schedule variants of K2 (csrc/dwell.cu, dwell_launch), K3
-(csrc/cloud_green.cu), K4 (csrc/de_std.cu) and K1 (csrc/tci_de.cu) against the
-kernels as committed, in turns on one card.
+"""Time schedule variants of K2 (csrc/dwell.cu, dwell_launch), K2's
+periodic entry (dwell_periodic_launch, "k2p"), K3 (csrc/cloud_green.cu), K4
+(csrc/de_std.cu), K1 (csrc/tci_de.cu) and K6's fine pass (csrc/dwell_ms.cu)
+against the kernels as committed, in turns on one card.
 
 Run it on the card from the root of a checkout:
 
-    python -m cmtci_torch.sweep_schedules [--only k4,k1] [--alt LABEL=DIR[:KEY=V,...]] ...
+    python -m cmtci_torch.sweep_schedules [--only k2p,k6] [--alt LABEL=DIR[:KEY=V,...]] ...
                                           [--out FILE]
 
 The committed sources hold one value of each tuning constant. A variant is
@@ -16,8 +17,8 @@ with `git show <commit>:cmtci_torch/csrc/dwell.cu`, or a design that was tried
 and not kept: K2 with several orbits a thread, K2 with lane-level refill, K4
 with a replay of the flagged chunk in place of the snapshots, K1 iterating dz
 in every step), with constants rewritten the same way; the directory holds
-the `.cuh` its sources include. `--only` names the sweeps to run (k2, k3, k4, k1 and probe, the
-latency and wrapper measurements; all by default).
+the `.cuh` its sources include. `--only` names the sweeps to run (k2, k2p, k3, k4, k1, k6
+and probe, the latency and wrapper measurements; all by default).
 
 Every variant's output is held bitwise to the committed kernel's at every
 shape before it is timed, and the committed kernel's to its plain twin once a
@@ -30,10 +31,16 @@ on an output tensor allocated once. The variants run in
 turns inside each round, so that clock and temperature drift falls on all of
 them alike. K4 runs at the bench's padded 2048 x 2048 and at 2000 x 2000 on
 the boundary's domain (max_iter 500, R 4), K1 at 912 x 912 on the tracker's
-domain and at 2400 x 2400 on run_tci's (their max_iter and R); beside each
-variant stands the ratio of the orbit steps its warps execute to the steps the
-pixels need (bench.warp_executed_steps on the variant's footprint; for K1 the
-steps of its two passes, bench.tci_lane_steps).
+domain and at 2400 x 2400 on run_tci's (their max_iter and R); K2's periodic
+entry at 2000 x 2000 on the boundary's domain at max_iter 500 and 20,000, with
+the plain K2 in the same rounds; K6's fine pass at 2048 x 2048 (stride 8,
+tiles of 32 x 256) on the flags of the coarse pass, and then the two-pass
+dwell_field_ms against K2 (chained only: the fill decision reads a count on
+the host). Beside each variant stands the ratio of the orbit steps its warps
+execute to the steps the pixels need (bench.warp_executed_steps on the
+variant's footprint; for K1 the steps of its two passes, bench.tci_lane_steps;
+for the periodic entry the steps under the variant's own checkpoint schedule,
+bench.periodic_lane_steps).
 
 It also measures the FP32 dependent-issue latency K3's chain floor is worked
 out from: one warp runs a chain of dependent FMUL -> FADD pairs between two
@@ -105,6 +112,36 @@ def _schedule_variants() -> dict:
 #: K4 and K1 variants of the committed sources
 K4_VARIANTS = _schedule_variants()
 K1_VARIANTS = _schedule_variants()
+#: K6 variants: the same with the rows of blocks in order, and some with
+#: the rows from the middle outwards
+K6_VARIANTS = {**{lab: dict(c, MIDDLE_OUT=0) for lab, c in _schedule_variants().items()},
+               **{f"c{c}_mid": dict(C=c, MIDDLE_OUT=1) for c in (3, 4, 6, 8)}}
+
+
+def _periodic_variants() -> dict:
+    """Variants of dwell.cu's periodic entry (its P_* constants): C, the
+    patch, the warps a block and the rows of blocks from the middle outwards
+    ("mid"; in order otherwise), around a 4 x 8 patch with 4 warps, and
+    C = 8 (the committed chunk, where the chunk end's checkpoint work is
+    spread over more steps) on other patches."""
+    out = {f"c{c}": dict(P_C=c) for c in (1, 2, 3, 4, 6, 8, 12)}
+    out.update({f"c4_{w}x{32 // w}": dict(P_C=4, P_PATCH_W=w, P_PATCH_H=32 // w)
+                for w in (32, 16, 8, 2)})
+    out.update({f"c4_w{w}": dict(P_C=4, P_WARPS=w) for w in (2, 8)})
+    out.update({f"c{c}_mid": dict(P_C=c, P_MIDDLE_OUT=1) for c in (4, 6, 12)})
+    out.update({f"c8_{lab}": dict(P_C=8, **kv)
+                for lab, kv in (("8x4", dict(P_PATCH_W=8, P_PATCH_H=4)),
+                                ("w2", dict(P_WARPS=2)), ("w8", dict(P_WARPS=8)))})
+    return {lab: {"P_MIDDLE_OUT": 0, **c} for lab, c in out.items()}
+
+
+K2P_VARIANTS = _periodic_variants()
+#: max_iter of the periodic entry's two timings
+K2P_ITERS = (MAX_ITER, 20000)
+#: K6's grid, coarse stride and tile (chip_smoke.py phase 11's)
+K6_SHAPE, K6_STRIDE, K6_TILE = 2048, 8, (32, 256)
+#: the sweeps --only may name
+SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k6")
 
 PROBE_SRC = r"""
 #include <cuda_runtime.h>
@@ -167,26 +204,29 @@ def entry(lib, name: str):
     return fn
 
 
-def in_turns(calls: dict, rounds: int = 7, chain: int = 20) -> dict:
+def in_turns(calls: dict, rounds: int = 7, chain: int = 20, graphs: bool = True) -> dict:
     """{label: (single ms, chained ms per launch, replayed ms per launch)},
     medians over `rounds`; within a round every variant runs once, in the
     dict's order. `replayed` is `chain` launches captured once into a CUDA
     graph and replayed between the two events: the host does nothing in
     between, so a kernel shorter than the host's time to launch it (some 10 to
-    25 microseconds through ctypes) still reads its own time."""
+    25 microseconds through ctypes) still reads its own time. graphs=False
+    (calls that synchronize with the host) leaves `replayed` NaN."""
     single = {k: [] for k in calls}
     chained = {k: [] for k in calls}
     replayed = {k: [] for k in calls}
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
-    graphs = {}
+    captured = {}
     for label, fn in calls.items():
-        graphs[label] = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graphs[label]):
+        if not graphs:
+            break
+        captured[label] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured[label]):
             for _ in range(chain):
                 fn()
-        graphs[label].replay()
+        captured[label].replay()
     torch.cuda.synchronize()
 
     def timed(run, reps):
@@ -206,7 +246,8 @@ def in_turns(calls: dict, rounds: int = 7, chain: int = 20) -> dict:
 
             single[label].append(timed(fn, 1))
             chained[label].append(timed(back_to_back, chain))
-            replayed[label].append(timed(graphs[label].replay, chain))
+            replayed[label].append(timed(captured[label].replay, chain) if graphs
+                                   else float("nan"))
     return {k: tuple(statistics.median(v[k]) for v in (single, chained, replayed))
             for k in calls}
 
@@ -225,9 +266,14 @@ def parse_alts(specs, name: str):
     return out
 
 
-def build_all(name: str, variants: dict, alts) -> dict:
-    jobs = ([(f"{name}-{lab}", name, _build.CSRC, c) for lab, c in variants.items()]
-            + [(f"{name}-{lab}", name, d, c) for lab, d, c in alts])
+def build_all(name: str, variants: dict, alts, tag: str | None = None) -> dict:
+    """{label: build(...)} of every variant and alternative of csrc/<name>.cu,
+    each into build/sweep/<tag>-<label>/ (tag: name by default; a sweep of
+    another entry of the same source takes its own, so that no library is
+    rebuilt while another sweep has it loaded)."""
+    tag = tag or name
+    jobs = ([(f"{tag}-{lab}", name, _build.CSRC, c) for lab, c in variants.items()]
+            + [(f"{tag}-{lab}", name, d, c) for lab, d, c in alts])
     with ThreadPoolExecutor(8) as ex:
         built = list(ex.map(lambda j: build(*j), jobs))
     labels = list(variants) + [lab for lab, _, _ in alts]
@@ -372,6 +418,124 @@ def sweep_de(dev, kernel: str, alts) -> dict:
     return report
 
 
+def _grid_call(fn, name: str, out, n: int, dom, max_iter: int, dev):
+    """A call of the C entry `fn` (<name>_launch) on the n x n grid of `dom`
+    into `out`, raising on a launch error."""
+    xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
+
+    def call():
+        rc = fn(out.data_ptr(), n, n, xmin, ymin, dx, dy, max_iter, stream(dev))
+        check(rc == 0, f"{name}_launch returned cudaError {rc}")
+
+    return call
+
+
+def sweep_k2p(dev, alts) -> dict:
+    """K2's periodic entry: every variant and alternative against the
+    committed entry and plain K2 at 2000 x 2000, max_iter 500 and 20,000,
+    with plain K2 timed in the same rounds."""
+    built = build_all("dwell", K2P_VARIANTS, alts, tag="dwell_periodic")
+    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "max_iter": {},
+              "executed_over_useful": {}, "useful_steps": {}}
+    dom, n = bench.DOM, K2_SHAPES[0]
+    cr, ci = mc._grid_coords(dom, n, n, dev)
+    foot = mc.DWELL_PERIODIC_FOOTPRINT
+    for max_iter in K2P_ITERS:
+        want = mc.mandelbrot_field(dom, n, n, max_iter, device=dev)
+        per = mc.mandelbrot_field(dom, n, n, max_iter, device=dev, periodicity=True)
+        check(torch.equal(per, want), f"the committed periodic K2 differs from plain K2 at "
+                                      f"max_iter {max_iter}")
+        if max_iter == MAX_ITER:
+            twin = mc.dwell_field_torch(dom, n, n, max_iter, device=dev, periodicity=True)
+            check(torch.equal(per, twin), "the committed periodic K2 differs from its twin")
+        lanes = {}
+
+        def ratio(f):
+            if f["c"] not in lanes:
+                lanes[f["c"]] = bench.periodic_lane_steps(cr, ci, max_iter, f["c"])[0]
+            lane = lanes[f["c"]]
+            return bench.warp_executed_steps(lane, f) / float(lane.sum(dtype=torch.float64))
+
+        ratios = {"committed": ratio(foot)}
+        report["useful_steps"][max_iter] = float(lanes[foot["c"]].sum(dtype=torch.float64))
+        for lab, c in K2P_VARIANTS.items():
+            f = {"c": c.get("P_C", foot["c"]), "patch_w": c.get("P_PATCH_W", foot["patch_w"]),
+                 "patch_h": c.get("P_PATCH_H", foot["patch_h"])}
+            ratios[lab] = ratio(f)
+        report["executed_over_useful"][max_iter] = ratios
+        out = torch.empty((n, n), dtype=torch.float32, device=dev)
+        calls = {"plain K2": _grid_call(entry(_build.library("dwell"), "dwell"), "dwell", out,
+                                        n, dom, max_iter, dev),
+                 "committed": _grid_call(entry(_build.library("dwell"), "dwell_periodic"),
+                                         "dwell_periodic", out, n, dom, max_iter, dev)}
+        for lab, (lib, _) in built.items():
+            call = _grid_call(entry(lib, "dwell_periodic"), "dwell_periodic", out, n, dom,
+                              max_iter, dev)
+            out.fill_(-1.0)
+            call()
+            torch.cuda.synchronize()
+            diff = int((out != want).sum())
+            check(diff == 0, f"periodic K2 variant {lab} differs from plain K2 at {diff} px "
+                             f"(max_iter {max_iter})")
+            calls[lab] = call
+        report["max_iter"][max_iter] = in_turns(calls, chain=20 if max_iter == MAX_ITER else 5)
+    return report
+
+
+def sweep_k6(dev, alts) -> dict:
+    """K6's fine pass: every variant and alternative against the committed
+    kernel on the coarse pass's flags at 2048 x 2048; then the two-pass
+    dwell_field_ms against K2, chained."""
+    built = build_all("dwell_ms", K6_VARIANTS, alts)
+    dom, n, stride, (th, tw) = bench.DOM, K6_SHAPE, K6_STRIDE, K6_TILE
+    cparams = mc._coarse_params(dom, n, n, stride)
+    coarse = mc._dwell(cparams, n // stride, n // stride, MAX_ITER, dev)
+    fill = mc.fill_flags(coarse, th // stride, tw // stride).contiguous()
+    want = mc.dwell_fill(dom, n, n, fill, K6_TILE, MAX_ITER, device=dev)
+    twin = mc.dwell_fill_torch(dom, n, n, fill, K6_TILE, MAX_ITER, device=dev)
+    check(torch.equal(want, twin), "the committed K6 differs from its twin")
+    plain = mc.mandelbrot_field(dom, n, n, MAX_ITER, device=dev)
+    filled = mc._fill_pixels(fill, K6_TILE) >= 0
+    interior = mc._interior_mask_torch(*mc._grid_coords(dom, n, n, dev))
+    # the unfilled pixels' steps, as K2 needs them; a filled pixel needs none
+    lane = torch.where(filled | interior, 0.0, (plain + 1.0).clamp(max=float(MAX_ITER)))
+    useful = float(lane.sum(dtype=torch.float64))
+    foot = mc.DWELL_MS_FOOTPRINT
+    ratios = {"committed": bench.warp_executed_steps(lane, foot) / useful,
+              "one-row warps, a test a step": bench.warp_executed_steps(lane) / useful}
+    for lab, c in K6_VARIANTS.items():
+        f = dict(foot, **{k.lower(): v for k, v in c.items() if k in ("C", "PATCH_W",
+                                                                      "PATCH_H")})
+        ratios[lab] = bench.warp_executed_steps(lane, f) / useful
+    xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
+    out = torch.empty((n, n), dtype=torch.float32, device=dev)
+    args = (fill.data_ptr(), out.data_ptr(), n, n, xmin, ymin, dx, dy, MAX_ITER, th, tw)
+    calls = {"committed": lambda: _launch.launch("dwell_ms", dev, *args)}
+    for lab, (lib, _) in built.items():
+        fn = entry(lib, "dwell_ms")
+
+        def call(fn=fn):
+            rc = fn(*args, stream(dev))
+            check(rc == 0, f"dwell_ms_launch returned cudaError {rc}")
+
+        out.fill_(-2.0)
+        call()
+        torch.cuda.synchronize()
+        diff = int((out != want).sum())
+        check(diff == 0, f"K6 variant {lab} differs from the committed kernel at {diff} px")
+        calls[lab] = call
+    fine = in_turns(calls)
+    ms_out, _ = mc.dwell_field_ms(dom, n, n, MAX_ITER, stride, K6_TILE, device=dev)
+    check(torch.equal(ms_out, plain), "dwell_field_ms differs from K2 at 2048 x 2048")
+    two_pass = in_turns({
+        "K2": lambda: mc.mandelbrot_field(dom, n, n, MAX_ITER, device=dev),
+        "two-pass": lambda: mc.dwell_field_ms(dom, n, n, MAX_ITER, stride, K6_TILE,
+                                              device=dev)}, graphs=False)
+    return {"ptxas": {lab: p for lab, (_, p) in built.items()}, "fine": fine,
+            "two_pass": two_pass, "executed_over_useful": ratios, "useful_steps": useful,
+            "filled_tiles": int((fill >= 0).sum()), "tiles": fill.numel()}
+
+
 def default_cloud(dev):
     """The equipotential CLI default cloud after the host's interior
     short-circuit, as f32 tensors on the card."""
@@ -474,12 +638,12 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--alt", action="append", default=[],
                     help="LABEL=DIR[:KEY=V,...]: sources of another directory")
-    ap.add_argument("--only", default="probe,k2,k3,k4,k1",
-                    help="comma-separated sweeps to run: probe, k2, k3, k4, k1")
+    ap.add_argument("--only", default=",".join(SWEEPS),
+                    help="comma-separated sweeps to run: " + ", ".join(SWEEPS))
     ap.add_argument("--out", default=None, help="write the report as JSON here")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
-    check(only <= {"probe", "k2", "k3", "k4", "k1"}, f"unknown sweep in --only {args.only}")
+    check(only <= set(SWEEPS), f"unknown sweep in --only {args.only}")
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -499,6 +663,29 @@ def main(argv=None) -> int:
                 ratio = report["k2"]["executed_over_useful"].get(lab)
                 print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}"
                       + (f"  executed/useful {ratio:.3f}" if ratio and n == K2_SHAPES[0] else ""))
+    if "k2p" in only:
+        report["k2p"] = sweep_k2p(dev, parse_alts(args.alt, "dwell"))
+        for it, times in report["k2p"]["max_iter"].items():
+            ratios = report["k2p"]["executed_over_useful"][it]
+            print(f"K2 periodic {K2_SHAPES[0]} x {K2_SHAPES[0]}, max_iter {it}, "
+                  f"{report['k2p']['useful_steps'][it]:.0f} useful steps under the committed "
+                  "schedule (ms per launch: single, chained, replayed from a CUDA graph):")
+            for lab, (s, c, g) in times.items():
+                ratio = ratios.get(lab)
+                print(f"  {lab:>16}: {s:.4f} {c:.4f} {g:.4f}"
+                      + (f"  executed/useful {ratio:.3f}" if ratio else ""))
+    if "k6" in only:
+        report["k6"] = sweep_k6(dev, parse_alts(args.alt, "dwell_ms"))
+        k6 = report["k6"]
+        print(f"K6 fine pass {K6_SHAPE} x {K6_SHAPE}, {k6['filled_tiles']} of {k6['tiles']} "
+              f"tiles filled, {k6['useful_steps']:.0f} useful steps (ms per launch: single, "
+              "chained, replayed from a CUDA graph):")
+        for lab, (s, c, g) in k6["fine"].items():
+            ratio = k6["executed_over_useful"].get(lab)
+            print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}"
+                  + (f"  executed/useful {ratio:.3f}" if ratio else ""))
+        print("K6 two-pass dwell_field_ms against K2 (ms per call: single, chained): "
+              + ", ".join(f"{lab} {s:.4f} {c:.4f}" for lab, (s, c, _) in k6["two_pass"].items()))
     if "k3" in only:
         report["k3"] = sweep_k3(dev, parse_alts(args.alt, "cloud_green"))
         print(f"K3 {report['k3']['points']} points, {K3_ITERS} iterations, longest lane "
@@ -525,7 +712,7 @@ def main(argv=None) -> int:
               "(ms replayed from a CUDA graph, useful steps): "
               + ", ".join(f"{it}: {scan['ms'][it]:.4f}, {scan['useful_steps'][it]:.0f}"
                           for it in SCAN_ITERS))
-    for k in ("k2", "k3", "k4", "k1"):
+    for k in ("k2", "k2p", "k3", "k4", "k1", "k6"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
     if args.out:

@@ -278,6 +278,17 @@ def test_bench_run_small_has_every_ported_key_finite(small_run):
     assert "fp32_fma_bound_tflops" not in small_run
 
 
+def test_dwell_entry_time_is_a_card_key(small_run):
+    """dwell_entry_ms, K2's own ctypes entry timed as `value` is, exists only
+    on the card: a CPU run has no kernel to call, prints no such key and no
+    error for it, and keeps `value` as it was defined (Mpix/s through
+    mandelbrot_field)."""
+    assert "dwell_entry_ms" not in small_run and "dwell_entry_error" not in small_run
+    assert small_run["unit"] == "Mpix/s" and small_run["value"] > 0
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        bench.bench_dwell_entry_ms(bench.small_sizes(), torch.device("cpu"))
+
+
 def test_bench_run_names_what_waits_and_what_is_omitted(small_run):
     assert small_run["not_ported"] == ["uniformize_green_s", "uniformize_fem_s",
                                        "coupling_s"]

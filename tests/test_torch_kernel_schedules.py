@@ -381,6 +381,312 @@ def test_k2_escape_past_max_iter_inside_the_last_chunk_is_clamped():
 
 
 # ---------------------------------------------------------------------------
+# K2's periodic entry and K6's fine pass on K2's loop (escape.cuh:
+# dwell_chunked): the periodic entry adds a Brent cycle check whose checkpoint
+# moves only at chunk ends, K6 a per-tile fill flag read once a thread; both
+# on the compact warp footprint of escape.cuh:patch_pixel
+# ---------------------------------------------------------------------------
+
+
+K2P = {k[2:]: v for k, v in K2.items() if k.startswith("P_")}  # the periodic entry's
+K6 = constants("dwell_ms")
+#: c = -2 and c = +-i exactly: orbits periodic within two steps
+EXACT_CYCLES = (-2.0, 0.0, -1.0, 1.0)
+#: around the centre of the period-3 bulb: orbits periodic in f32 within a
+#: few steps
+PERIOD3_CENTRE = (-0.1326, -0.1126, 0.7349, 0.7549)
+#: the window of tests/test_torch_boundary.py across the period-3 bulb
+PERIOD3_WINDOW = (-0.26, 0.02, 0.66, 0.92)
+
+
+def dwell_chunked_model(cr, ci, max_iter, c_steps, periodic=False):
+    """escape.cuh:dwell_chunked<C, PERIODIC> in scalar f32:
+    (the dwell it returns, the step the orbit stopped on, the step of the
+    checkpoint a cycle was caught against). The stop is the escape step or the
+    step that caught the cycle, at most max_iter (0 for an interior c); the
+    checkpoint step is 0 where no cycle was caught by step max_iter."""
+    cr, ci = F(cr), F(ci)
+    if interior_model(cr, ci) or max_iter <= 0:
+        return F(max_iter), 0, 0
+    zr, zi, zr2, zi2 = F(0), F(0), F(0), F(0)
+    pr, pi = F(1e30), F(0)
+    nxt, moved = 1, 0
+    inside, cyc = True, False
+    stop, caught = max_iter, 0
+    up = [False] * c_steps
+    n = 0
+    while True:
+        for c in range(c_steps):
+            nzr = zr2 - zi2 + cr
+            nzi = F(2.0) * zr * zi + ci
+            zr, zi = nzr, nzi
+            zr2, zi2 = nzr * nzr, nzi * nzi
+            was = inside
+            inside = inside and bool(zr2 + zi2 <= F(4.0))
+            up[c] = inside
+            if was and not inside:
+                stop = min(n + c + 1, max_iter)
+        n += c_steps
+        if periodic:
+            if inside and zr == pr and zi == pi:
+                cyc = True
+                if n <= max_iter:
+                    stop, caught = n, moved
+            if n >= nxt:
+                pr, pi, moved = zr, zi, n
+                nxt = 1 << n.bit_length()  # 2u << (31 - __clz(n))
+        if not (inside and not cyc and n < max_iter):
+            break
+    dwell = max_iter if cyc else min(n - c_steps + sum(up), max_iter)
+    return F(dwell), stop, caught
+
+
+def patch_grid_model(nx, ny, pw, ph, warps, middle_out, pixel):
+    """A launch of the compact footprint over (ny, nx): ceil(nx / (warps *
+    pw)) x ceil(ny / ph) blocks of 32 * warps threads, each thread at
+    escape.cuh:patch_pixel's (col, row) storing pixel(col, row); every pixel
+    must be stored exactly once."""
+    out = np.full((ny, nx), np.nan, dtype=F)
+    block_cols = warps * pw
+    grid_y = (ny + ph - 1) // ph
+    for r in range(grid_y):
+        by = (grid_y - 1) // 2 + ((r + 1) // 2 if r & 1 else -(r // 2)) if middle_out else r
+        for bx in range((nx + block_cols - 1) // block_cols):
+            for tid in range(32 * warps):
+                lane, warp = tid & 31, tid >> 5
+                col = (bx * warps + warp) * pw + lane % pw
+                row = by * ph + lane // pw
+                if col >= nx or row >= ny:
+                    continue
+                assert np.isnan(out[row, col]), "a pixel was stored twice"
+                out[row, col] = pixel(col, row)
+    assert not np.isnan(out).any(), "a pixel was never stored"
+    return out
+
+
+def periodic_grid_model(nx, ny, params, max_iter, consts=K2P):
+    """dwell_periodic_launch over (ny, nx) with the periodic entry's
+    constants (P_* without the prefix)."""
+    xmin, ymin, dx, dy = (F(v) for v in params)
+
+    def pixel(col, row):
+        return dwell_chunked_model(xmin + F(col) * dx, ymin + F(row) * dy, max_iter,
+                                   consts["C"], True)[0]
+
+    return patch_grid_model(nx, ny, consts["PATCH_W"], consts["PATCH_H"], consts["WARPS"],
+                            bool(consts["MIDDLE_OUT"]), pixel)
+
+
+def fine_pass_model(nx, ny, params, fill, tile, max_iter, consts=K6):
+    """dwell_ms_launch over (ny, nx): a thread reads its tile's flag once and
+    stores it where it is >= 0, else runs K2's loop."""
+    xmin, ymin, dx, dy = (F(v) for v in params)
+    th, tw = tile
+    flags = np.asarray(fill, dtype=F).reshape(-1)
+
+    def pixel(col, row):
+        fv = flags[(row // th) * (nx // tw) + col // tw]
+        if fv >= 0:
+            return fv
+        return dwell_chunked_model(xmin + F(col) * dx, ymin + F(row) * dy, max_iter,
+                                   consts["C"])[0]
+
+    return patch_grid_model(nx, ny, consts["PATCH_W"], consts["PATCH_H"], consts["WARPS"],
+                            bool(consts["MIDDLE_OUT"]), pixel)
+
+
+def assert_bitwise(model: np.ndarray, twin: torch.Tensor):
+    np.testing.assert_array_equal(model.view(np.int32), twin.numpy().view(np.int32))
+
+
+PC = K2P["C"]
+POW2 = 1 << PC.bit_length()  # the least power of two above C
+
+
+@pytest.mark.parametrize("domain,ny,nx,max_iter", [
+    (DOM, 2, 2, 1), (DOM, 9, 37, PC - 1), (DOM, 9, 37, PC), (DOM, 9, 37, PC + 1),
+    (DOM, 13, 17, 300), (DOM, 6, 9, 0), (DOM, 7, 131, 2 * PC + 1),
+    (EXACT_CYCLES, 3, 3, PC), (EXACT_CYCLES, 3, 3, PC + 1), (EXACT_CYCLES, 3, 3, POW2),
+    (EXACT_CYCLES, 3, 3, POW2 + 1), (EXACT_CYCLES, 3, 3, 40),
+    (PERIOD3_CENTRE, 11, 13, 2 * POW2 + 1), (PERIOD3_CENTRE, 11, 13, 200)])
+def test_k2p_chunked_model_equals_twin(domain, ny, nx, max_iter):
+    """The periodic entry as committed (C, patch, warps and block order read
+    out of dwell.cu) on ragged grids, max_iter below, at and
+    off a chunk, and grids whose cycles the first checkpoints catch: bitwise
+    the periodic twin and the plain one."""
+    twin = mc.dwell_field_torch(domain, nx, ny, max_iter, periodicity=True)
+    assert torch.equal(twin, mc.dwell_field_torch(domain, nx, ny, max_iter))
+    assert_bitwise(periodic_grid_model(nx, ny, mc._params(domain, nx, ny), max_iter), twin)
+
+
+@pytest.mark.parametrize("consts", [
+    dict(C=1, PATCH_W=32, PATCH_H=1, WARPS=8, MIDDLE_OUT=0),
+    dict(C=3, PATCH_W=8, PATCH_H=4, WARPS=2, MIDDLE_OUT=1),
+    dict(C=4, PATCH_W=4, PATCH_H=8, WARPS=4, MIDDLE_OUT=0),
+    dict(C=4, PATCH_W=4, PATCH_H=8, WARPS=4, MIDDLE_OUT=1),
+    dict(C=6, PATCH_W=2, PATCH_H=16, WARPS=1, MIDDLE_OUT=1),
+    dict(C=12, PATCH_W=16, PATCH_H=2, WARPS=8, MIDDLE_OUT=0)])
+def test_k2p_model_result_does_not_depend_on_the_schedule(consts):
+    for domain, ny, nx, max_iter in ((DOM, 9, 41, 37), (PERIOD3_CENTRE, 10, 12, 45),
+                                     (EXACT_CYCLES, 3, 3, 2 * consts["C"] + 1)):
+        twin = mc.dwell_field_torch(domain, nx, ny, max_iter, periodicity=True)
+        assert_bitwise(periodic_grid_model(nx, ny, mc._params(domain, nx, ny), max_iter,
+                                           consts), twin)
+
+
+def _catches(c_steps, cases, modulus):
+    """(positions in a chunk of `modulus` steps, checkpoint steps) of the
+    cycles the model with chunks of c_steps catches on the grids of `cases`
+    ((domain, ny, nx, max_iter))."""
+    positions, checkpoints = set(), set()
+    for domain, ny, nx, max_iter in cases:
+        cr, ci = mc._grid_coords(domain, nx, ny, torch.device("cpu"))
+        for a, b in zip(cr.reshape(-1).tolist(), ci.reshape(-1).tolist()):
+            _, stop, caught = dwell_chunked_model(a, b, max_iter, c_steps, True)
+            if caught:
+                positions.add((stop - 1) % modulus)
+                checkpoints.add(caught)
+    return positions, checkpoints
+
+
+@pytest.mark.parametrize("c_steps", [3, 4, 6])
+def test_k2p_catches_cycles_on_every_step_of_a_chunk(c_steps):
+    """The step-by-step schedule (C = 1, the twin's) catches cycles on every
+    step of a chunk of c_steps (the period-3 centre alone has periods that
+    are multiples of 3, so a boundary grid joins it); chunks of c_steps catch
+    them all on a chunk's last step, against the first checkpoint (step C)
+    and against checkpoints that moved at or after the first chunk end past
+    the power of two above C."""
+    first_past = -(-(1 << c_steps.bit_length()) // c_steps) * c_steps
+    cases = [(EXACT_CYCLES, 3, 3, 40), (PERIOD3_CENTRE, 32, 32, 40), (DOM, 40, 80, 200)]
+    positions, _ = _catches(1, cases, c_steps)
+    assert positions == set(range(c_steps))
+    positions, checkpoints = _catches(c_steps, cases, c_steps)
+    assert positions == {c_steps - 1}
+    assert c_steps in checkpoints and max(checkpoints) >= first_past
+
+
+@pytest.mark.parametrize("c_steps", [1, 3, 4, 6, 8])
+def test_periodic_lane_steps_follow_the_chunked_model(c_steps):
+    """bench.periodic_lane_steps, which chip_smoke.py counts K2p's steps
+    with, stops every lane on the model's step and reports the model's
+    checkpoint, on grids with exact cycles, fast and slow catches, escapes
+    and interior pixels."""
+    for domain, ny, nx, max_iter in ((EXACT_CYCLES, 3, 3, 40), (PERIOD3_CENTRE, 12, 14, 70),
+                                     (DOM, 17, 23, 300), (PERIOD3_WINDOW, 6, 7, 100)):
+        cr, ci = mc._grid_coords(domain, nx, ny, torch.device("cpu"))
+        lane, caught = bench.periodic_lane_steps(cr, ci, max_iter, c_steps)
+        want = [dwell_chunked_model(a, b, max_iter, c_steps, True)[1:]
+                for a, b in zip(cr.reshape(-1).tolist(), ci.reshape(-1).tolist())]
+        assert lane.reshape(-1).tolist() == [s for s, _ in want], domain
+        assert caught.reshape(-1).tolist() == [k for _, k in want], domain
+
+
+@pytest.mark.parametrize("c_steps", [PC, 1])
+def test_k2p_chunk_schedule_catches_cycles_on_the_bounded_window(c_steps):
+    """The bounded-lane window of tests/test_torch_boundary.py at max_iter
+    2000, under the committed C with the checkpoint moved and compared at
+    chunk ends, and under the step-by-step schedule: the model's dwell is the
+    plain twin's, and the check fires on most bounded lanes well before
+    max_iter, on chunk ends."""
+    nx, ny, max_iter = 28, 26, 2000
+    plain = mc.dwell_field_torch(PERIOD3_WINDOW, nx, ny, max_iter).numpy()
+    cr, ci = mc._grid_coords(PERIOD3_WINDOW, nx, ny, torch.device("cpu"))
+    bounded = (plain == max_iter) & ~mc._interior_mask_torch(cr, ci).numpy()
+    out = [dwell_chunked_model(a, b, max_iter, c_steps, True)
+           for a, b in zip(cr.reshape(-1).tolist(), ci.reshape(-1).tolist())]
+    dwell = np.array([d for d, _, _ in out], dtype=F).reshape(ny, nx)
+    assert_bitwise(dwell, torch.as_tensor(plain))
+    stops = np.array([s for _, s, _ in out]).reshape(ny, nx)[bounded]
+    caught = np.array([k for _, _, k in out]).reshape(ny, nx)[bounded]
+    assert 0.2 < bounded.mean() < 0.8
+    assert (caught > 0).mean() > 0.5 and np.median(stops) < max_iter / 2
+    assert (stops[caught > 0] % c_steps == 0).all()
+
+
+def _random_flags(shape, seed, max_iter):
+    rng = np.random.default_rng(seed)
+    flags = rng.integers(0, max_iter + 1, size=shape).astype(F)
+    flags[rng.random(shape) < 0.5] = -1.0
+    return flags
+
+
+def _straddles(nx, ny, tile, consts=K6) -> bool:
+    """Whether some block of K6's launch holds pixels of two tiles."""
+    th, tw = tile
+    bw, bh = consts["WARPS"] * consts["PATCH_W"], consts["PATCH_H"]
+    return any(len({(r // th, c // tw) for r in range(y0, min(y0 + bh, ny))
+                    for c in range(x0, min(x0 + bw, nx))}) > 1
+               for y0 in range(0, ny, bh) for x0 in range(0, nx, bw))
+
+
+@pytest.mark.parametrize("ny,nx,tile,max_iter", [
+    (24, 48, (4, 8), 60), (24, 48, (12, 24), 60), (8, 12, (2, 2), K6["C"] + 1),
+    (16, 80, (8, 40), K6["C"] - 1), (24, 48, (24, 48), 30)])
+def test_k6_fine_pass_model_equals_twin_on_tiles_that_blocks_straddle(ny, nx, tile, max_iter):
+    """Flags drawn from a seed, half of them -1, on tiles that are no multiple
+    of a block (and one tile the size of the grid): each thread reads its own
+    tile's flag, so the output is the twin's whether a block straddles tiles
+    or not."""
+    flags = _random_flags((ny // tile[0], nx // tile[1]), ny * nx, max_iter)
+    if tile != (ny, nx):
+        assert _straddles(nx, ny, tile)
+    twin = mc.dwell_fill_torch(DOM, nx, ny, torch.as_tensor(flags), tile, max_iter)
+    assert_bitwise(fine_pass_model(nx, ny, mc._params(DOM, nx, ny), flags, tile, max_iter),
+                   twin)
+
+
+def test_k6_fine_pass_model_on_the_coarse_pass_flags():
+    """The flags dwell_field_ms decides (fill_flags over a coarse K2 pass at
+    stride 4 on (8, 32) tiles, which hold whole blocks): the model is the twin
+    and, where a tile is filled, K2's own output."""
+    ny, nx, stride, tile, max_iter = 64, 256, 4, (8, 32), 60
+    assert not _straddles(nx, ny, tile)
+    out, stats = mc.dwell_field_ms(DOM, nx, ny, max_iter, stride, tile, device="cpu")
+    assert 0 < stats["filled"] < stats["tiles"]
+    coarse = mc._dwell(mc._coarse_params(DOM, nx, ny, stride), nx // stride, ny // stride,
+                       max_iter, torch.device("cpu"))
+    fill = mc.fill_flags(coarse, tile[0] // stride, tile[1] // stride)
+    model = fine_pass_model(nx, ny, mc._params(DOM, nx, ny), fill.numpy(), tile, max_iter)
+    assert_bitwise(model, out)
+    assert_bitwise(model, mc.dwell_field_torch(DOM, nx, ny, max_iter))
+
+
+@pytest.mark.parametrize("consts", [
+    dict(C=1, PATCH_W=32, PATCH_H=1, WARPS=8, MIDDLE_OUT=0),
+    dict(C=3, PATCH_W=8, PATCH_H=4, WARPS=2, MIDDLE_OUT=1),
+    dict(C=6, PATCH_W=2, PATCH_H=16, WARPS=1, MIDDLE_OUT=1),
+    dict(C=8, PATCH_W=16, PATCH_H=2, WARPS=4, MIDDLE_OUT=0)])
+def test_k6_model_result_does_not_depend_on_the_schedule(consts):
+    ny, nx, tile, max_iter = 24, 48, (6, 12), 45
+    flags = _random_flags((ny // tile[0], nx // tile[1]), 5, max_iter)
+    twin = mc.dwell_fill_torch(DOM, nx, ny, torch.as_tensor(flags), tile, max_iter)
+    assert_bitwise(fine_pass_model(nx, ny, mc._params(DOM, nx, ny), flags, tile, max_iter,
+                                   consts), twin)
+
+
+def test_k2_k2p_and_k6_run_the_one_chunked_loop():
+    """dwell.cu's two kernels and dwell_ms.cu's call escape.cuh:dwell_chunked
+    with their own constants, and they, de_std.cu and tci_de.cu call
+    escape.cuh:patch_pixel with their own footprint; the per-step loop of the
+    earlier design is gone."""
+    dwell, ms = (CSRC / "dwell.cu").read_text(), (CSRC / "dwell_ms.cu").read_text()
+    assert "dwell_chunked<C, false>(cr, ci, max_iter)" in dwell
+    assert "dwell_chunked<P_C, true>(cr, ci, max_iter)" in dwell
+    assert "patch_pixel<PATCH_W, PATCH_H, WARPS, false>(col, row)" in dwell
+    assert ("patch_pixel<P_PATCH_W, P_PATCH_H, P_WARPS, P_MIDDLE_OUT != 0>(col, row)"
+            in dwell)
+    assert "dwell_chunked<C, false>(cr, ci, max_iter)" in ms
+    assert "patch_pixel<PATCH_W, PATCH_H, WARPS, MIDDLE_OUT != 0>(col, row)" in ms
+    for name in ("de_std", "tci_de"):
+        text = (CSRC / f"{name}.cu").read_text()
+        assert "patch_pixel<PATCH_W, PATCH_H, WARPS, true>(col, row)" in text, name
+        assert "blockIdx" not in text, name
+    for src in CSRC.iterdir():
+        assert "dwell_count" not in src.read_text(), src.name
+
+
+# ---------------------------------------------------------------------------
 # K4 and K1: chunks of escape.cuh:de_bare_step with a sticky flag; the state
 # at the first escape from the newest chunk's snapshots
 # ---------------------------------------------------------------------------
@@ -872,8 +1178,10 @@ def test_footprint_constants_equal_the_constexpr_values_of_dwell_cu():
                                   "patch_h": K2["PATCH_H"]}
     assert K2["PATCH_W"] * K2["PATCH_H"] == 32
     text = (CSRC / "dwell.cu").read_text()
+    body = text[text.index('extern "C" void dwell_footprint(int* out3)'):]
+    body = body[:body.index("\n}\n")]
     # dwell_footprint() returns them in the order footprint_built reads
-    order = re.findall(r"out3\[(\d)\] = (\w+);", text)
+    order = re.findall(r"out3\[(\d)\] = (\w+);", body)
     assert order == [("0", "C"), ("1", "PATCH_W"), ("2", "PATCH_H")]
 
 
@@ -895,31 +1203,64 @@ def test_de_and_tci_footprints_equal_the_constexpr_values(name, consts, entry):
     assert "bare_step(" in chunk and "break" not in chunk and "if (" not in chunk
 
 
+def _chunk_step(text: str) -> str:
+    """The text of one step of escape.cuh:dwell_chunked's unrolled chunk."""
+    body = text[text.index("int dwell_chunked("):]
+    body = body[body.index("for (int c = 0; c < C; ++c)"):]
+    return body[body.index("const float nzr"):body.index("\n            }\n")]
+
+
 def test_ops_per_step_count_the_cu_bodies():
-    """4 mul, 4 add/sub and 1 compare in the step of dwell.cu's plain kernel
-    and in escape.cuh:bare_step, the step of cloud_green.cu's chunks and of
-    tci_de.cu's first pass."""
-    for name, src, start, stop in (
-            ("dwell", "dwell.cu", "for (int c = 0; c < C; ++c)", "up[c] = inside;"),
-            ("cloud_green", "escape.cuh", "void bare_step(", "\n}\n"),
-            ("tci_de", "escape.cuh", "void bare_step(", "\n}\n")):
-        text = (CSRC / src).read_text()
-        body = text[text.index(start):]
-        body = body[body.index("const float nzr"):body.index(stop)]
+    """4 mul, 4 add/sub and 1 compare in the step of escape.cuh:dwell_chunked,
+    the loop of dwell.cu's plain kernel and of dwell_ms.cu, and in
+    escape.cuh:bare_step, the step of cloud_green.cu's chunks and of
+    tci_de.cu's first pass; the periodic entry's compares with the checkpoint
+    run once a chunk, outside the step, and are not counted."""
+    header = (CSRC / "escape.cuh").read_text()
+    step = _chunk_step(header)
+    plain = step[:step.index("up[c] = inside;")]
+    bare = header[header.index("void bare_step("):]
+    bare = bare[bare.index("const float nzr"):bare.index("\n}\n")]
+    for name, body in (("dwell", plain), ("dwell_ms", plain), ("cloud_green", bare),
+                       ("tci_de", bare)):
         muls = body.count(" * ")
         adds = body.count(" + ") + body.count(" - ")
         compares = body.count("<=") + body.count(" > ")
         assert (muls, adds, compares) == (4, 4, 1), (name, muls, adds, compares)
         assert mc.OPS_PER_STEP[name] == muls + adds + compares
-        if src == "escape.cuh":
+        if body is bare:
             assert (CSRC / f"{name}.cu").read_text().count(
                 "bare_step(zr, zi, zr2, zi2, hit, cr, ci, r2);") >= 1
+    assert step[step.index("up[c] = inside;"):].strip() == "up[c] = inside;"
+    assert " == " not in step
+    chunk_end = header[header.index("n += C;"):header.index("} while (")]
+    assert chunk_end.count("cyc = inside && zr == pr && zi == pi;") == 1
+    assert mc.OPS_PER_STEP["dwell_periodic"] == mc.OPS_PER_STEP["dwell"] == 9
+
+
+def test_periodic_and_fine_pass_footprints_equal_the_constexpr_values():
+    """DWELL_PERIODIC_FOOTPRINT is dwell.cu's P_* constants and
+    DWELL_MS_FOOTPRINT dwell_ms.cu's, in the order the footprint entries
+    write them."""
+    assert mc.DWELL_PERIODIC_FOOTPRINT == {"c": K2["P_C"], "patch_w": K2["P_PATCH_W"],
+                                           "patch_h": K2["P_PATCH_H"]}
+    assert mc.DWELL_MS_FOOTPRINT == {"c": K6["C"], "patch_w": K6["PATCH_W"],
+                                     "patch_h": K6["PATCH_H"]}
+    for name, keys in (("DWELL_PERIODIC_FOOTPRINT", ["P_C", "P_PATCH_W", "P_PATCH_H"]),
+                       ("DWELL_MS_FOOTPRINT", ["C", "PATCH_W", "PATCH_H"])):
+        lib, entry = mc.FOOTPRINT_ENTRY[name]
+        text = (CSRC / f"{lib}.cu").read_text()
+        body = text[text.index(f'extern "C" void {entry}(int* out3)'):]
+        order = re.findall(r"out3\[(\d)\] = (\w+);", body)
+        assert order == [(str(i), k) for i, k in enumerate(keys)], name
 
 
 @pytest.mark.parametrize("name,variants", [("dwell", "K2_VARIANTS"),
+                                           ("dwell", "K2P_VARIANTS"),
                                            ("cloud_green", "K3_VARIANTS"),
                                            ("de_std", "K4_VARIANTS"),
-                                           ("tci_de", "K1_VARIANTS")])
+                                           ("tci_de", "K1_VARIANTS"),
+                                           ("dwell_ms", "K6_VARIANTS")])
 def test_sweep_variants_name_constants_the_sources_have(name, variants):
     """Every variant of cmtci_torch.sweep_schedules rewrites `constexpr int`
     lines that csrc/<name>.cu really has, once each, and nothing else."""
@@ -935,6 +1276,19 @@ def test_sweep_variants_name_constants_the_sources_have(name, variants):
         sweep.rewrite(text, {"NO_SUCH": 1})
     alts = sweep.parse_alts([f"here={CSRC}:C=2,WARPS=8", "gone=/nonexistent"], "dwell")
     assert alts == [("here", CSRC, {"C": 2, "WARPS": 8})]
+
+
+def test_sweep_runs_the_periodic_and_fine_pass_sweeps():
+    """--only takes k2p and k6; the periodic entry's variants vary C and the
+    block order, and each variant set holds the committed schedule's own C."""
+    from cmtci_torch import sweep_schedules as sweep
+
+    assert {"k2p", "k6"} <= set(sweep.SWEEPS)
+    assert {v["P_MIDDLE_OUT"] for v in sweep.K2P_VARIANTS.values()} == {0, 1}
+    assert len({v["P_C"] for v in sweep.K2P_VARIANTS.values()}) >= 5
+    assert any(v.get("P_C") == K2["P_C"] for v in sweep.K2P_VARIANTS.values())
+    assert any(v.get("C") == K6["C"] for v in sweep.K6_VARIANTS.values())
+    assert sweep.K2P_ITERS == (500, 20000)
 
 
 def test_wrappers_raise_without_a_card():
