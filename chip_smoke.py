@@ -8,9 +8,10 @@ prints no result line):
   1. the card (nvidia-smi name and power limit; torch.cuda.is_available());
   2. build every kernel from csrc/ (one nvcc per source, all started
      together; ctypes), with each build's seconds and ptxas report (a spill
-     fails the run), and the footprints csrc/dwell.cu, de_std.cu and
-     tci_de.cu are built with against mandelbrot_cuda.DWELL_FOOTPRINT,
-     DE_FOOTPRINT and TCI_FOOTPRINT;
+     fails the run), and the footprints csrc/dwell.cu (both entries),
+     dwell_ms.cu, de_std.cu, tci_de.cu and green_grid.cu are built with
+     against mandelbrot_cuda.DWELL_FOOTPRINT, DWELL_PERIODIC_FOOTPRINT,
+     DWELL_MS_FOOTPRINT, DE_FOOTPRINT, TCI_FOOTPRINT and GREEN_FOOTPRINT;
   3. K1 (csrc/tci_de.cu) against its plain-torch twin on the card at small
      and ragged grids (smaller than a warp's patch, one row and column more
      than a patch and a block) with max_iter 1, C - 1, C, C + 1, 2C - 1, 250,
@@ -55,15 +56,21 @@ prints no result line):
   9. run_equipotential at the CLI defaults with float32 (K3, one launch) and
      float64 (no launch): f32 against f64 on the card, and f64 against the
      reference's numbers in tests/data/equipotential_default_f64.json;
- 10. K4 (csrc/de_std.cu) at small and ragged grids and the iteration counts
-     of phase 3 around its schedule: bitwise equal to its twin; then K4 and K5
-     (csrc/green_grid.cu) through mandelbrot_field(kind="de" | "green") at
+ 10. K4 (csrc/de_std.cu) and K5 (csrc/green_grid.cu) at small and ragged
+     grids and the iteration counts of phase 3 around each one's schedule:
+     bitwise equal to their twins; K5 also on a grid whose pixels first
+     escape on every position of a chunk, at max_iter equal to such a
+     pixel's escape step and one below it, and on deep escapers whose
+     2^-(k+1) is the last normal, the first subnormal, the last subnormal and
+     0; then K4 and K5 through mandelbrot_field(kind="de" | "green") at
      2048 x 2048 and 1001 x 1999, and K4 at 2048 x 2048 on the bench's padded
-     domain (its de_mfu grid), max_iter 500, R 4: bitwise equal to their twins
-     (or within rtol 1e-6, the differing pixels counted), the reference's
-     contracts against the f64 de_field_std / escape_potential_grid on the
-     card, one launch each, times, the orbit steps the pixels need, the steps
-     each kernel's warps execute for them, and bounds;
+     domain (its de_mfu grid), max_iter 500, R 4: K5 bitwise equal to its
+     twin, K4 bitwise or within rtol 1e-6 (the differing pixels counted), the
+     reference's contracts against the f64 de_field_std /
+     escape_potential_grid on the card, one launch each, times, the orbit
+     steps the pixels need, the steps each kernel's warps execute for them on
+     its footprint, and bounds (K5's also at the 11 operations a step of its
+     earlier design);
  11. K6 (csrc/dwell_ms.cu) through dwell_field_ms at 2048 x 2048, max_iter
      500, stride 8, tile (32, 256): one K2 (coarse) and one K6 launch, the
      output bitwise equal to K2's with tiles filled, the fine pass bitwise
@@ -169,11 +176,11 @@ REPLACES = {
     "dwell_periodic": "cmtci/kernels/mandelbrot_pallas.py:94",
 }
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
-#: FP32 operations a step of the loops K6 and K2's periodic entry ran before
-#: they moved onto escape.cuh:dwell_chunked (one pixel a thread, a compare
-#: and a break in every step; the periodic check two compares more), beside
-#: which the new bounds are printed
-OPS_BEFORE = {"dwell_ms": 11, "dwell_periodic": 13}
+#: FP32 operations a step of the loops K6, K2's periodic entry and K5 ran
+#: before their redesign (one pixel a thread on one-row warps, a compare and
+#: a break in every step; the periodic check two compares more), beside which
+#: the new bounds are printed
+OPS_BEFORE = {"dwell_ms": 11, "dwell_periodic": 13, "green_grid": 11}
 #: launches back to back in one timing of a kernel (cuda_ms)
 CHAIN = 20
 #: cycles between two dependent FP32 instructions of one warp, measured on an
@@ -338,8 +345,8 @@ def tci_edge_cases(c: int):
 
 
 def de_edge_cases(c: int):
-    """(ny, nx, max_iter) beyond the field shapes, for K4's schedule, as
-    tci_edge_cases on grids that need not be square."""
+    """(ny, nx, max_iter) beyond the field shapes, for the schedules of K4
+    and K5, as tci_edge_cases on grids that need not be square."""
     grids = [(2, 2), (3, 5), (9, 5), (8, 17), (13, 37), (257, 33), (130, 1003)]
     return [(ny, nx, it) for ny, nx in grids for it in schedule_iters(c)]
 
@@ -694,10 +701,11 @@ def k3_chunk() -> int:
         return int(re.search(r"constexpr int S = (\d+);", f.read()).group(1))
 
 
-def real_point_escaping_at(step: int) -> float:
-    """An f32 real c past the cusp at 1/4 whose orbit leaves the radius-2 disc
-    exactly at the 1-based `step` (the step falls as c grows, about
-    pi / sqrt(c - 1/4)), found by bisection on the scalar f32 orbit."""
+def real_point_escaping_at(step: int, r2: float = 4.0) -> float:
+    """An f32 real c past the cusp at 1/4 whose orbit leaves the disc of
+    squared radius r2 exactly at the 1-based `step` (the step falls as c
+    grows, about pi / sqrt(c - 1/4)), found by bisection on the scalar f32
+    orbit."""
     import numpy as np
 
     f32 = np.float32
@@ -706,7 +714,7 @@ def real_point_escaping_at(step: int) -> float:
         c, z = f32(c), f32(0)
         for n in range(1, 100_000):
             z = z * z + c
-            if z * z > f32(4.0):
+            if z * z > f32(r2):
                 return n
         raise SmokeFailure(f"c = {c!r} does not escape")
 
@@ -994,9 +1002,10 @@ def compare_twin(out_k, out_t, label):
 
 
 def phase_fields(dev):
-    """Phase 10: K4 at the grids and iteration counts that stress its
-    schedule; K4 and K5 through mandelbrot_field against their twins and the
-    f64 contracts."""
+    """Phase 10: K4 and K5 at the grids and iteration counts that stress
+    their schedules, K5 also at the chunk's positions and on deep escapers;
+    K4 and K5 through mandelbrot_field against their twins and the f64
+    contracts."""
     import torch
 
     from cmtci_torch import bench
@@ -1004,22 +1013,65 @@ def phase_fields(dev):
     from cmtci_torch.kernels import mandelbrot_cuda as mc
 
     max_iter, escape_r = 500, 4.0
-    foot = mc.DE_FOOTPRINT
-    edge = de_edge_cases(foot["c"])
-    edge_err = 0.0
-    for ny, nx, it in edge:
-        label = f"K4 {ny}x{nx}, max_iter {it}"
-        out_k = mc.mandelbrot_field(BOUNDARY_DOMAIN, nx, ny, it, "de", escape_r, dev)
-        out_t = mc.de_field_std_torch(BOUNDARY_DOMAIN, nx, ny, it, escape_r, device=dev)
+    twins = {"de": mc.de_field_std_torch, "green": mc.green_field_torch}
+    foots = {"de": mc.DE_FOOTPRINT, "green": mc.GREEN_FOOTPRINT}
+    edge_err = {}
+
+    def against_twin(label, kind, dom, ny, nx, it):
+        out_k = mc.mandelbrot_field(dom, nx, ny, it, kind, escape_r, dev)
+        out_t = twins[kind](dom, nx, ny, it, escape_r, device=dev)
         torch.cuda.synchronize()
         check(out_k.shape == out_t.shape == (ny, nx), f"{label}: shape")
         n_diff, err = compare_twin(out_k, out_t, label)
         check(n_diff == 0, f"{label}: {n_diff} pixels differ from the twin")
-        edge_err = max(edge_err, err)
-    print(f"K4 schedule cases (footprint {foot}): {len(edge)} grids and iteration counts, "
-          f"{', '.join(f'{ny}x{nx}@{it}' for ny, nx, it in edge)}: 0 differing pixels each")
+        edge_err[kind] = max(edge_err.get(kind, 0.0), err)
+        return out_t
 
-    twins = {"de": mc.de_field_std_torch, "green": mc.green_field_torch}
+    for kind, name in (("de", "K4"), ("green", "K5")):
+        foot = foots[kind]
+        edge = de_edge_cases(foot["c"])
+        for ny, nx, it in edge:
+            against_twin(f"{name} {ny}x{nx}, max_iter {it}", kind, BOUNDARY_DOMAIN, ny, nx, it)
+        print(f"{name} schedule cases (footprint {foot}): {len(edge)} grids and iteration counts, "
+              f"{', '.join(f'{ny}x{nx}@{it}' for ny, nx, it in edge)}: 0 differing pixels each")
+
+    # K5: first escapes on every position of a chunk, and max_iter at the
+    # escape step (it counts) and one below (it does not, though the chunk
+    # runs over it and raises the flag)
+    c5 = mc.GREEN_FOOTPRINT["c"]
+    ny, nx, it = 19, 41, 200
+    r2 = float(escape_r * escape_r)
+    steps = bench.escape_lane_steps(*mc._grid_coords(BOUNDARY_DOMAIN, nx, ny, dev), it, r2)
+    against_twin(f"K5 {ny}x{nx}, max_iter {it}", "green", BOUNDARY_DOMAIN, ny, nx, it)
+    picked = []
+    for pos in range(c5):
+        rows, cols = torch.nonzero((steps % c5 == pos) & (steps > c5) & (steps < it),
+                                   as_tuple=True)
+        check(rows.numel() > 0, f"K5: no pixel of {ny}x{nx} escapes on position {pos} of a "
+                                "chunk")
+        row, col = int(rows[0]), int(cols[0])
+        k = int(steps[row, col])
+        for max_it, escaped in ((k, True), (k - 1, False)):
+            out_t = against_twin(f"K5 {ny}x{nx}, max_iter {max_it}", "green",
+                                 BOUNDARY_DOMAIN, ny, nx, max_it)
+            check(bool(out_t[row, col] != 0) == escaped,
+                  f"K5: pixel ({row}, {col}) escaping at step {k}, max_iter {max_it}: "
+                  f"g {float(out_t[row, col])!r}")
+        picked.append((pos, k))
+    # deep escapers: 1-based escape step k + 1 = 126 (2^-126, the last normal
+    # scale), 127 (subnormal), 149 (the last subnormal) and 150 (0)
+    deep = {}
+    for step in (126, 127, 149, 150):
+        c = real_point_escaping_at(step, r2)
+        out_t = against_twin(f"K5 deep escaper at step {step}", "green",
+                             (c, c + 1.0, 0.0, 1.0), 2, 2, max_iter)
+        deep[step] = float(out_t[0, 0])
+    check(deep[126] > 0 and deep[127] > 0 and deep[149] > 0 and deep[150] == 0,
+          f"K5 deep escapers: g {deep}")
+    print(f"K5 chunk positions on {ny}x{nx} (position, escape step): {picked}, each at "
+          f"max_iter = step and step - 1; deep escapers, g by escape step: {deep}: 0 "
+          "differing pixels each")
+
     libs = {"de": "de_std", "green": "green_grid"}
     contract = {"de": (dict(rtol=1e-3, atol=1e-9), 0.98),
                 "green": (dict(rtol=1e-4, atol=1e-7), 0.99)}
@@ -1042,6 +1094,7 @@ def phase_fields(dev):
             out_t = twins[kind](dom, nx, ny, max_iter, escape_r, device=dev)
             check(out_k.shape == out_t.shape == (ny, nx), f"{label}: shape")
             n_diff, err = compare_twin(out_k, out_t, label)
+            check(kind == "de" or n_diff == 0, f"{label}: {n_diff} pixels differ from the twin")
             cr, ci = mb.complex_grid(dom, nx, ny, dtype=torch.float64, device=dev)
             if kind == "de":
                 f64 = mb.de_field_std(cr, ci, max_iter, escape_r)[1]
@@ -1054,7 +1107,7 @@ def phase_fields(dev):
             lane = bench.escape_lane_steps(*mc._grid_coords(dom, nx, ny, dev), max_iter,
                                            float(escape_r * escape_r))
             steps = int(lane.sum(dtype=torch.int64))
-            executed = bench.warp_executed_steps(lane, foot if kind == "de" else bench.ROW_WARP)
+            executed = bench.warp_executed_steps(lane, foots[kind])
             ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter, kind,
                                                      escape_r, dev), 3, 20, CHAIN)
             graph_ms = cuda_ms(lambda: mc.mandelbrot_field(dom, nx, ny, max_iter, kind,
@@ -1063,6 +1116,11 @@ def phase_fields(dev):
             plain_ms = cuda_ms(lambda: twins[kind](dom, nx, ny, max_iter,
                                                    escape_r, device=dev), 1, 3)
             bound, by = bound_ms(lib, steps, 4 * nx * ny)
+            before = ""
+            if lib in OPS_BEFORE:
+                before_ms, _ = least_ms(steps * OPS_BEFORE[lib], 4 * nx * ny)
+                before = (f", {mc.OPS_PER_STEP[lib]} operations a step; at the earlier "
+                          f"design's {OPS_BEFORE[lib]}: {before_ms:.5f} ms")
             print(f"{label}: kernel vs twin differing pixels {n_diff}, max|kernel-twin| "
                   f"{err!r}, NaN pixels {int(torch.isnan(out_k).sum())}; within {tol} of "
                   f"the f64 counterpart on {close!r} (contract > {share}); kernel {ms:.4f} ms "
@@ -1070,14 +1128,15 @@ def phase_fields(dev):
                   f"CUDA graph), "
                   f"twin {plain_ms:.4f} ms (median, CUDA events); {steps} useful orbit steps, "
                   f"executed by the kernel's warps {int(executed)} (executed / useful "
-                  f"{executed / steps:.4f}), bound {bound:.5f} ms ({by})")
+                  f"{executed / steps:.4f}), bound {bound:.5f} ms ({by}{before})")
             if (dom, ny, nx) == cases[0]:
                 result[lib] = dict(launches=launches[lib], max_abs_err=err, ms=graph_ms,
                                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                                    chained_ms=ms)
             else:
                 result[lib]["max_abs_err"] = max(result[lib]["max_abs_err"], err)
-    result["de_std"]["max_abs_err"] = max(result["de_std"]["max_abs_err"], edge_err)
+    for kind, lib in libs.items():
+        result[lib]["max_abs_err"] = max(result[lib]["max_abs_err"], edge_err[kind])
     return result
 
 

@@ -189,8 +189,8 @@ def padded_domain(sizes: BenchSizes):
     return (DOM[0], DOM[0] + dx * (n - 1), DOM[2], DOM[2] + dx * (n - 1))
 
 
-#: a warp of the kernels launched in (32, 8) blocks (K5, and K6 and K2's
-#: periodic entry in their earlier design): 32 consecutive columns of one
+#: a warp of the kernels launched in (32, 8) blocks (K5, K6 and K2's
+#: periodic entry in their earlier designs): 32 consecutive columns of one
 #: row, an exit test a step
 ROW_WARP = {"c": 1, "patch_w": 32, "patch_h": 1}
 

@@ -1,7 +1,8 @@
 // Shared device helpers of the escape-time kernels: interior_mask (all six
 // of them), max_nan (tci_de.cu, de_std.cu, green_grid.cu), patch_pixel
-// (dwell.cu, dwell_ms.cu, de_std.cu, tci_de.cu), dwell_chunked (dwell.cu's two
-// entries and dwell_ms.cu), bare_step (cloud_green.cu, tci_de.cu).
+// (dwell.cu, dwell_ms.cu, de_std.cu, tci_de.cu, green_grid.cu), dwell_chunked
+// (dwell.cu's two entries and dwell_ms.cu), bare_step (cloud_green.cu,
+// tci_de.cu, green_grid.cu).
 #pragma once
 
 #include <math.h>
@@ -27,7 +28,7 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 }
 
 // The pixel of the calling thread on the compact warp footprint of the dwell,
-// K4 and K1 kernels: a warp's 32 threads tile PATCH_W x PATCH_H pixels (so the
+// K4, K1 and K5 kernels: a warp's 32 threads tile PATCH_W x PATCH_H pixels (so the
 // dwells a warp waits for are neighbours'), a block is WARPS such patches
 // side by side along x. With MIDDLE_OUT the rows of blocks are handed out
 // middle of the grid first, then one below, one above, ... (blockIdx.y is the
@@ -131,13 +132,14 @@ __device__ __forceinline__ int dwell_chunked(float cr, float ci, int max_iter) {
 }
 
 // One branch-free orbit step of the speculative chunks of K3
-// (cloud_green.cu) and of K1's first pass (tci_de.cu), kept here so the two
-// cannot drift: the z update from the carried squares, the new squares, and
-// the sticky radius flag. zr2 and zi2 carry zr*zr and zi*zi from one step's
-// radius test into the next step's update (the same products of the same
-// values as the step-by-step loops, so the same bits): 4 mul, 4 add/sub, 1
-// compare. The first step over the radius raises the flag whatever later
-// steps overflow to; a NaN |z|^2 does not raise it, an inf one does.
+// (cloud_green.cu), of K1's first pass (tci_de.cu) and of K5's chunks
+// (green_grid.cu), kept here so the three cannot drift: the z update from the
+// carried squares, the new squares, and the sticky radius flag. zr2 and zi2
+// carry zr*zr and zi*zi from one step's radius test into the next step's
+// update (the same products of the same values as the step-by-step loops, so
+// the same bits): 4 mul, 4 add/sub, 1 compare. The first step over the
+// radius raises the flag whatever later steps overflow to; a NaN |z|^2 does
+// not raise it, an inf one does.
 __device__ __forceinline__ void bare_step(float& zr, float& zi, float& zr2, float& zi2,
                                           bool& hit, float cr, float ci, float r2) {
     const float nzr = zr2 - zi2 + cr;

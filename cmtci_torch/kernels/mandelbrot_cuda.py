@@ -32,15 +32,16 @@ from cmtci_torch.utils.device import resolve_device
 #: sub and compare counted once (the build's -fmad=false keeps them apart):
 #: de_std.cu's de_bare_step 9 mul, 7 add/sub, 1 compare (the squares zr*zr,
 #: zi*zi and 2*zr are carried); escape.cuh:bare_step, the z-only step of
-#: cloud_green.cu's chunks and of tci_de.cu's first pass, 4 mul, 4 add/sub, 1
-#: compare, as escape.cuh:dwell_chunked, the step of dwell.cu's two entries
-#: and of dwell_ms.cu (tci_de.cu's two finiteness tests run once a chunk and
-#: are not counted, nor are the periodic entry's compares with its
-#: checkpoint, which run once a chunk); "tci_de_late", the step-by-step (z,
-#: dz) loop of tci_de.cu's second pass, 12 mul, 7 add/sub, 3 compares;
-#: green_grid.cu 6 mul, 4 add/sub, 1 compare.
+#: cloud_green.cu's chunks, of tci_de.cu's first pass and of green_grid.cu's
+#: chunks, 4 mul, 4 add/sub, 1 compare (green_grid.cu's snapshot of |z|^2 is
+#: the sum the radius test already takes), as escape.cuh:dwell_chunked, the
+#: step of dwell.cu's two entries and of dwell_ms.cu (tci_de.cu's two
+#: finiteness tests run once a chunk and are not counted, nor are the
+#: periodic entry's compares with its checkpoint, which run once a chunk);
+#: "tci_de_late", the step-by-step (z, dz) loop of tci_de.cu's second pass,
+#: 12 mul, 7 add/sub, 3 compares.
 OPS_PER_STEP = {"tci_de": 9, "tci_de_late": 22, "dwell": 9, "dwell_periodic": 9,
-                "cloud_green": 9, "de_std": 17, "green_grid": 11, "dwell_ms": 9}
+                "cloud_green": 9, "de_std": 17, "green_grid": 9, "dwell_ms": 9}
 
 #: the schedule csrc/dwell.cu's plain kernel is built with (its constexpr C,
 #: PATCH_W, PATCH_H; dwell_footprint() returns the same on the card): a thread
@@ -49,19 +50,21 @@ OPS_PER_STEP = {"tci_de": 9, "tci_de_late": 22, "dwell": 9, "dwell_periodic": 9,
 DWELL_FOOTPRINT = {"c": 4, "patch_w": 4, "patch_h": 8}
 #: the same of dwell.cu's periodic entry (P_C, P_PATCH_W, P_PATCH_H;
 #: dwell_periodic_footprint()), of csrc/dwell_ms.cu
-#: (dwell_ms_footprint()), csrc/de_std.cu (de_footprint()) and csrc/tci_de.cu
-#: (tci_footprint())
+#: (dwell_ms_footprint()), csrc/de_std.cu (de_footprint()), csrc/tci_de.cu
+#: (tci_footprint()) and csrc/green_grid.cu (green_footprint())
 DWELL_PERIODIC_FOOTPRINT = {"c": 8, "patch_w": 4, "patch_h": 8}
 DWELL_MS_FOOTPRINT = {"c": 4, "patch_w": 4, "patch_h": 8}
 DE_FOOTPRINT = {"c": 3, "patch_w": 4, "patch_h": 8}
 TCI_FOOTPRINT = {"c": 6, "patch_w": 4, "patch_h": 8}
+GREEN_FOOTPRINT = {"c": 4, "patch_w": 4, "patch_h": 8}
 
 #: (library, C entry) that reports each footprint on the card
 FOOTPRINT_ENTRY = {"DWELL_FOOTPRINT": ("dwell", "dwell_footprint"),
                    "DWELL_PERIODIC_FOOTPRINT": ("dwell", "dwell_periodic_footprint"),
                    "DWELL_MS_FOOTPRINT": ("dwell_ms", "dwell_ms_footprint"),
                    "DE_FOOTPRINT": ("de_std", "de_footprint"),
-                   "TCI_FOOTPRINT": ("tci_de", "tci_footprint")}
+                   "TCI_FOOTPRINT": ("tci_de", "tci_footprint"),
+                   "GREEN_FOOTPRINT": ("green_grid", "green_footprint")}
 
 
 def _params(domain, nx: int, ny: int | None = None) -> np.ndarray:
@@ -392,7 +395,8 @@ def green_field_torch(domain, nx: int, ny: int, max_iter: int = 500,
     """Plain-torch twin of the K5 kernel: f32 (ny, nx) g = max(0.5
     log(max(|z|^2, 1e-30)) 2^-(n+1), 0) at the first |z|^2 > R^2 (0-based
     step n), else 0, in K5's op order (``_green_kernel``). An escaped lane
-    stops, as the kernel's thread breaks; interior lanes skip."""
+    stops here (the kernel's thread runs its chunk on and reads |z|^2 at the
+    first escape from its snapshots); interior lanes skip."""
     dev = resolve_device(device)
     cr, ci = _grid_coords(domain, nx, ny, dev)
     active = ~_interior_mask_torch(cr, ci)

@@ -1,11 +1,12 @@
 """Time schedule variants of K2 (csrc/dwell.cu, dwell_launch), K2's
 periodic entry (dwell_periodic_launch, "k2p"), K3 (csrc/cloud_green.cu), K4
-(csrc/de_std.cu), K1 (csrc/tci_de.cu) and K6's fine pass (csrc/dwell_ms.cu)
-against the kernels as committed, in turns on one card.
+(csrc/de_std.cu), K1 (csrc/tci_de.cu), K5 (csrc/green_grid.cu) and K6's fine
+pass (csrc/dwell_ms.cu) against the kernels as committed, in turns on one
+card.
 
 Run it on the card from the root of a checkout:
 
-    python -m cmtci_torch.sweep_schedules [--only k2p,k6] [--alt LABEL=DIR[:KEY=V,...]] ...
+    python -m cmtci_torch.sweep_schedules [--only k5,k3] [--alt LABEL=DIR[:KEY=V,...]] ...
                                           [--out FILE]
 
 The committed sources hold one value of each tuning constant. A variant is
@@ -16,9 +17,10 @@ that export the same C entry points (the kernels of an earlier commit, unpacked
 with `git show <commit>:cmtci_torch/csrc/dwell.cu`, or a design that was tried
 and not kept: K2 with several orbits a thread, K2 with lane-level refill, K4
 with a replay of the flagged chunk in place of the snapshots, K1 iterating dz
-in every step), with constants rewritten the same way; the directory holds
-the `.cuh` its sources include. `--only` names the sweeps to run (k2, k2p, k3, k4, k1, k6
-and probe, the latency and wrapper measurements; all by default).
+in every step, K5 with |z|^2 latched in every step), with constants rewritten
+the same way; the directory holds the `.cuh` its sources include. `--only`
+names the sweeps to run (k2, k2p, k3, k4, k1, k5, k6 and probe, the latency
+and wrapper measurements; all by default).
 
 Every variant's output is held bitwise to the committed kernel's at every
 shape before it is timed, and the committed kernel's to its plain twin once a
@@ -30,13 +32,18 @@ than the host's 10 to 25 microseconds a launch reads its own time only there),
 on an output tensor allocated once. The variants run in
 turns inside each round, so that clock and temperature drift falls on all of
 them alike. K4 runs at the bench's padded 2048 x 2048 and at 2000 x 2000 on
-the boundary's domain (max_iter 500, R 4), K1 at 912 x 912 on the tracker's
-domain and at 2400 x 2400 on run_tci's (their max_iter and R); K2's periodic
+the boundary's domain (max_iter 500, R 4), K5 at 2048 x 2048 and 1001 x 1999
+(ny x nx) on the boundary's domain (max_iter 500, R 4), K1 at 912 x 912 on
+the tracker's domain and at 2400 x 2400 on run_tci's (their max_iter and R);
+K4, K1 and K5 also over a range of max_iter at their first shape; K2's periodic
 entry at 2000 x 2000 on the boundary's domain at max_iter 500 and 20,000, with
 the plain K2 in the same rounds; K6's fine pass at 2048 x 2048 (stride 8,
 tiles of 32 x 256) on the flags of the coarse pass, and then the two-pass
 dwell_field_ms against K2 (chained only: the fill decision reads a count on
-the host). Beside each variant stands the ratio of the orbit steps its warps
+the host); K3 on the equipotential's default cloud, and the committed K3
+against the variant with every block resident on two more clouds, a stored
+curve of 2,000 points and the equipotential's cloud at n_max 387 (276,355
+points). Beside each variant stands the ratio of the orbit steps its warps
 execute to the steps the pixels need (bench.warp_executed_steps on the
 variant's footprint; for K1 the steps of its two passes, bench.tci_lane_steps;
 for the periodic entry the steps under the variant's own checkpoint schedule,
@@ -74,7 +81,7 @@ SWEEP_DIR = _build.BUILD_DIR.parent / "sweep"
 MAX_ITER = 500
 K2_SHAPES = (2000, 4096, 8192)
 K3_ITERS = 20000
-#: max_iter of the scan of K4 and K1 at their first shape
+#: max_iter of the scan of K4, K1 and K5 at their first shape
 SCAN_ITERS = (16, 64, 250, 1000, 4000)
 
 #: K2 variants of the committed source: label -> constants rewritten
@@ -112,6 +119,16 @@ def _schedule_variants() -> dict:
 #: K4 and K1 variants of the committed sources
 K4_VARIANTS = _schedule_variants()
 K1_VARIANTS = _schedule_variants()
+#: K5 variants: C, the patch and the warps a block around C = 4 on a 4 x 8
+#: patch with 4 warps, and the rows of blocks in order ("rows"; from the
+#: middle outwards otherwise)
+K5_VARIANTS = {**{f"c{c}": dict(C=c) for c in (2, 3, 4, 6, 8)},
+               **{f"c4_{w}x{32 // w}": dict(C=4, PATCH_W=w, PATCH_H=32 // w)
+                  for w in (32, 16, 8, 2)},
+               **{f"c4_w{w}": dict(C=4, WARPS=w) for w in (1, 2, 8)},
+               **{f"c{c}_rows": dict(C=c, MIDDLE_OUT=0) for c in (3, 4, 6)}}
+#: K5's (ny, nx), chip_smoke.py phase 10's
+K5_SHAPES = ((2048, 2048), (1001, 1999))
 #: K6 variants: the same with the rows of blocks in order, and some with
 #: the rows from the middle outwards
 K6_VARIANTS = {**{lab: dict(c, MIDDLE_OUT=0) for lab, c in _schedule_variants().items()},
@@ -141,7 +158,9 @@ K2P_ITERS = (MAX_ITER, 20000)
 #: K6's grid, coarse stride and tile (chip_smoke.py phase 11's)
 K6_SHAPE, K6_STRIDE, K6_TILE = 2048, 8, (32, 256)
 #: the sweeps --only may name
-SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k6")
+SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k5", "k6")
+#: the schedule constants of a variant that move its step accounting
+FOOT_KEYS = ("C", "PATCH_W", "PATCH_H")
 
 PROBE_SRC = r"""
 #include <cuda_runtime.h>
@@ -328,46 +347,58 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def sweep_de(dev, kernel: str, alts) -> dict:
-    """K4 (kernel "de_std") or K1 ("tci_de"): every variant and alternative
-    against the committed kernel at the kernel's two shapes."""
-    k4 = kernel == "de_std"
-    if k4:
+    """K4 (kernel "de_std"), K1 ("tci_de") or K5 ("green_grid"): every
+    variant and alternative against the committed kernel at the kernel's two
+    shapes, then the committed kernel over SCAN_ITERS at the first."""
+    k1 = kernel == "tci_de"
+    if kernel == "de_std":
         variants, foot, label = K4_VARIANTS, mc.DE_FOOTPRINT, "K4"
-        cases = [(bench.padded_domain(bench.BenchSizes()), 2048, MAX_ITER, bench.DE_ESCAPE_R),
-                 (bench.DOM, 2000, MAX_ITER, bench.DE_ESCAPE_R)]
+        cases = [(bench.padded_domain(bench.BenchSizes()), 2048, 2048, MAX_ITER,
+                  bench.DE_ESCAPE_R), (bench.DOM, 2000, 2000, MAX_ITER, bench.DE_ESCAPE_R)]
+    elif kernel == "green_grid":
+        variants, foot, label = K5_VARIANTS, mc.GREEN_FOOTPRINT, "K5"
+        cases = [(bench.DOM, ny, nx, MAX_ITER, bench.DE_ESCAPE_R) for ny, nx in K5_SHAPES]
     else:
         variants, foot, label = K1_VARIANTS, mc.TCI_FOOTPRINT, "K1"
         trk, tci = TrackerConfig(), TCIConfig()
-        cases = [(trk.domain, 912, trk.max_iter, trk.escape_r),
-                 (tci.domain, 2400, tci.max_iter, tci.escape_r)]
+        cases = [(trk.domain, 912, 912, trk.max_iter, trk.escape_r),
+                 (tci.domain, 2400, 2400, tci.max_iter, tci.escape_r)]
     built = build_all(kernel, variants, alts)
     report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "shapes": {},
               "executed_over_useful": {}, "useful_steps": {}}
 
     def lane_steps(cr, ci, max_iter, r2):
-        """Per-lane trips of the kernel's loops: one grid for K4, two for K1."""
-        if k4:
-            return [bench.escape_lane_steps(cr, ci, max_iter, r2)]
-        return list(bench.tci_lane_steps(cr, ci, max_iter, r2))
+        """Per-lane trips of the kernel's loops: one grid for K4 and K5, two
+        for K1."""
+        if k1:
+            return list(bench.tci_lane_steps(cr, ci, max_iter, r2))
+        return [bench.escape_lane_steps(cr, ci, max_iter, r2)]
 
-    for dom, n, max_iter, escape_r in cases:
-        xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
+    def grid_args(out, dom, ny, nx, max_iter, r2):
+        xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, nx, ny))
+        grid = (nx,) if k1 else (nx, ny)
+        return (out.data_ptr(), *grid, xmin, ymin, dx, dy, max_iter, r2)
+
+    for dom, ny, nx, max_iter, escape_r in cases:
+        shape = f"{ny}x{nx}"
         r2 = float(np.float32(escape_r * escape_r))
-        grid = (n, n) if k4 else (n,)
-        if k4:
-            want = mc.mandelbrot_field(dom, n, n, max_iter, "de", escape_r, dev)
-            twin = mc.de_field_std_torch(dom, n, n, max_iter, escape_r, device=dev)
+        if k1:
+            want = mc._tci_field(dom, nx, max_iter, escape_r, dev)
+            twin = mc.tci_de_field_torch(dom, nx, max_iter, escape_r, device=dev)
         else:
-            want = mc._tci_field(dom, n, max_iter, escape_r, dev)
-            twin = mc.tci_de_field_torch(dom, n, max_iter, escape_r, device=dev)
-        check(same_bits(want, twin) == 0, f"the committed {label} differs from its twin at {n}")
-        cr, ci = mc._grid_coords(dom, n, n, dev)
+            kind = "de" if kernel == "de_std" else "green"
+            twin_fn = mc.de_field_std_torch if kind == "de" else mc.green_field_torch
+            want = mc.mandelbrot_field(dom, nx, ny, max_iter, kind, escape_r, dev)
+            twin = twin_fn(dom, nx, ny, max_iter, escape_r, device=dev)
+        check(same_bits(want, twin) == 0, f"the committed {label} differs from its twin at "
+                                          f"{shape}")
+        cr, ci = mc._grid_coords(dom, nx, ny, dev)
         lanes = lane_steps(cr, ci, max_iter, r2)
         useful = float(sum(lane.sum(dtype=torch.float64) for lane in lanes))
 
         def executed(f):
             # K1's chunks never pass max_iter; its second pass tests every step
-            if k4:
+            if not k1:
                 return bench.warp_executed_steps(lanes[0], f)
             return (bench.warp_executed_steps(lanes[0], f, max_iter)
                     + bench.warp_executed_steps(lanes[1], dict(f, c=1)))
@@ -375,12 +406,12 @@ def sweep_de(dev, kernel: str, alts) -> dict:
         ratios = {"committed": executed(foot) / useful,
                   "one-row warps, a test a step": executed(bench.ROW_WARP) / useful}
         for lab, c in variants.items():
-            f = dict(foot, **{k.lower(): v for k, v in c.items() if k != "WARPS"})
+            f = dict(foot, **{k.lower(): v for k, v in c.items() if k in FOOT_KEYS})
             ratios[lab] = executed(f) / useful
-        report["executed_over_useful"][n] = ratios
-        report["useful_steps"][n] = useful
-        out = torch.empty((n, n), dtype=torch.float32, device=dev)
-        args = (out.data_ptr(), *grid, xmin, ymin, dx, dy, max_iter, r2)
+        report["executed_over_useful"][shape] = ratios
+        report["useful_steps"][shape] = useful
+        out = torch.empty((ny, nx), dtype=torch.float32, device=dev)
+        args = grid_args(out, dom, ny, nx, max_iter, r2)
         calls = {"committed": lambda args=args: _launch.launch(kernel, dev, *args)}
         for lab, (lib, _) in built.items():
             fn = entry(lib, kernel)
@@ -394,26 +425,25 @@ def sweep_de(dev, kernel: str, alts) -> dict:
             torch.cuda.synchronize()
             diff = same_bits(out, want)
             check(diff == 0, f"{label} variant {lab} differs from the committed kernel at "
-                             f"{diff} px of {n} x {n}")
+                             f"{diff} px of {shape}")
             calls[lab] = call
-        report["shapes"][n] = in_turns(calls)
+        report["shapes"][shape] = in_turns(calls)
 
     # the committed kernel at the first shape over a range of max_iter: what
     # the pixels that run max_iter out cost, beside the steps all pixels need
-    dom, n, _, escape_r = cases[0]
-    xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
+    dom, ny, nx, _, escape_r = cases[0]
     r2 = float(np.float32(escape_r * escape_r))
-    cr, ci = mc._grid_coords(dom, n, n, dev)
-    out = torch.empty((n, n), dtype=torch.float32, device=dev)
-    grid = (n, n) if k4 else (n,)
+    cr, ci = mc._grid_coords(dom, nx, ny, dev)
+    out = torch.empty((ny, nx), dtype=torch.float32, device=dev)
     calls, useful = {}, {}
     for it in SCAN_ITERS:
-        args = (out.data_ptr(), *grid, xmin, ymin, dx, dy, it, r2)
+        args = grid_args(out, dom, ny, nx, it, r2)
         calls[it] = lambda args=args: _launch.launch(kernel, dev, *args)
         useful[it] = float(sum(lane.sum(dtype=torch.float64)
                                for lane in lane_steps(cr, ci, it, r2)))
     times = in_turns(calls)
-    report["max_iter_scan"] = {"n": n, "ms": {it: times[it][2] for it in SCAN_ITERS},
+    report["max_iter_scan"] = {"shape": f"{ny}x{nx}",
+                               "ms": {it: times[it][2] for it in SCAN_ITERS},
                                "useful_steps": useful}
     return report
 
@@ -504,8 +534,7 @@ def sweep_k6(dev, alts) -> dict:
     ratios = {"committed": bench.warp_executed_steps(lane, foot) / useful,
               "one-row warps, a test a step": bench.warp_executed_steps(lane) / useful}
     for lab, c in K6_VARIANTS.items():
-        f = dict(foot, **{k.lower(): v for k, v in c.items() if k in ("C", "PATCH_W",
-                                                                      "PATCH_H")})
+        f = dict(foot, **{k.lower(): v for k, v in c.items() if k in FOOT_KEYS})
         ratios[lab] = bench.warp_executed_steps(lane, f) / useful
     xmin, ymin, dx, dy = (float(v) for v in mc._params(dom, n, n))
     out = torch.empty((n, n), dtype=torch.float32, device=dev)
@@ -536,20 +565,48 @@ def sweep_k6(dev, alts) -> dict:
             "filled_tiles": int((fill >= 0).sum()), "tiles": fill.numel()}
 
 
-def default_cloud(dev):
-    """The equipotential CLI default cloud after the host's interior
-    short-circuit, as f32 tensors on the card."""
+#: n_max of the equipotential's cloud that K3's launcher is also timed at
+#: (276,355 points after the interior short-circuit, where the default n_max
+#: 200 gives 73,993)
+K3_LARGE_N_MAX = 387
+#: points of the stored curve K3's launcher is also timed at
+K3_CURVE_POINTS = 2000
+#: the golden boundary polyline the stored curve is taken from
+GOLDEN_BOUNDARY = Path(__file__).resolve().parents[1] / "artifacts" / "mandel_boundary.csv.gz"
+
+
+def _f32_cloud(pts, dev):
+    """(cr, ci) f32 tensors on the card of the complex points `pts` after the
+    host's interior short-circuit, as green_cloud_f32 launches K3 on them."""
+    pts = pts[~mc.exact_interior(pts)]
+    return (torch.as_tensor(pts.real.astype(np.float32), device=dev),
+            torch.as_tensor(pts.imag.astype(np.float32), device=dev))
+
+
+def default_cloud(dev, n_max: int | None = None):
+    """The equipotential's cloud (the CLI defaults, or n 2..n_max) after the
+    host's interior short-circuit, as f32 tensors on the card."""
     cfg = EquipotentialConfig()
-    ns = list(range(cfg.n_min, cfg.n_max + 1))
+    ns = list(range(cfg.n_min, (n_max or cfg.n_max) + 1))
     pts = np.concatenate([companion.inverse_cloud(ns, f, tol=cfg.eig_tol, device=dev)
                           for f in cfg.families])
-    pts = pts[~mc.exact_interior(pts)]
-    cr = torch.as_tensor(pts.real.astype(np.float32), device=dev)
-    ci = torch.as_tensor(pts.imag.astype(np.float32), device=dev)
-    return cr, ci
+    return _f32_cloud(pts, dev)
+
+
+def curve_cloud(dev):
+    """K3_CURVE_POINTS vertices of the golden boundary polyline, evenly spaced
+    along its order: a stored curve as the equipotential's --curve-npy reads
+    one."""
+    xy = np.loadtxt(GOLDEN_BOUNDARY, delimiter=",", skiprows=1)
+    idx = np.linspace(0, len(xy) - 1, K3_CURVE_POINTS).round().astype(int)
+    return _f32_cloud(xy[idx, 0] + 1j * xy[idx, 1], dev)
 
 
 def sweep_k3(dev, alts) -> dict:
+    """Every K3 variant and alternative against the committed kernel on the
+    default cloud; then the committed launcher against every block resident
+    (s64_waves1) on a stored curve and on a large cloud, each held to the
+    twin first."""
     built = build_all("cloud_green", K3_VARIANTS, alts)
     cr, ci = default_cloud(dev)
     z0 = torch.zeros_like(cr)
@@ -574,8 +631,36 @@ def sweep_k3(dev, alts) -> dict:
         check(torch.equal(out, want), f"K3 variant {lab} differs from the committed kernel")
         calls[lab] = call
     longest = int(torch.where(want[0] > 0, want[0], float(K3_ITERS)).max())
-    return {"ptxas": {lab: p for lab, (_, p) in built.items()}, "points": m,
-            "longest_lane_steps": longest, "times": in_turns(calls, chain=5)}
+    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "points": m,
+              "longest_lane_steps": longest, "times": in_turns(calls, chain=5),
+              "clouds": {}}
+    resident = entry(built["s64_waves1"][0], "cloud_green")
+    for label, (cr, ci) in (("curve", curve_cloud(dev)),
+                            (f"n_max {K3_LARGE_N_MAX}", default_cloud(dev, K3_LARGE_N_MAX))):
+        z0 = torch.zeros_like(cr)
+        m = cr.numel()
+        want = mc.cloud_green(cr, ci, z0, z0, K3_ITERS, 2.0, device=dev)
+        twin = mc.cloud_green_torch(cr, ci, z0, z0, K3_ITERS, 2.0, device=dev)
+        check(torch.equal(want, twin), f"the committed K3 differs from its twin on {label}")
+        out = torch.empty((6, m), dtype=torch.float32, device=dev)
+        args = (cr.data_ptr(), ci.data_ptr(), z0.data_ptr(), z0.data_ptr(), out.data_ptr(), m,
+                K3_ITERS, 4.0)
+
+        def call(args=args):
+            rc = resident(*args, stream(dev))
+            check(rc == 0, f"cloud_green_launch returned cudaError {rc}")
+
+        out.fill_(-1.0)
+        call()
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"K3 s64_waves1 differs from the committed kernel on "
+                                      f"{label}")
+        longest = int(torch.where(want[0] > 0, want[0], float(K3_ITERS)).max())
+        report["clouds"][label] = {
+            "points": m, "longest_lane_steps": longest,
+            "times": in_turns({"committed": lambda args=args: _launch.launch(
+                "cloud_green", dev, *args), "s64_waves1": call}, chain=5)}
+    return report
 
 
 def fp32_dependent_latency(dev) -> dict:
@@ -693,14 +778,20 @@ def main(argv=None) -> int:
               "replayed from a CUDA graph):")
         for lab, (s, c, g) in report["k3"]["times"].items():
             print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}")
-    for key, kernel in (("k4", "de_std"), ("k1", "tci_de")):
+        for label, cloud in report["k3"]["clouds"].items():
+            print(f"K3 on the {label} cloud, {cloud['points']} points, longest lane "
+                  f"{cloud['longest_lane_steps']} steps (ms per launch: single, chained, "
+                  "replayed from a CUDA graph):")
+            for lab, (s, c, g) in cloud["times"].items():
+                print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}")
+    for key, kernel in (("k4", "de_std"), ("k1", "tci_de"), ("k5", "green_grid")):
         if key not in only:
             continue
         report[key] = sweep_de(dev, kernel, parse_alts(args.alt, kernel))
-        for n, times in report[key]["shapes"].items():
-            ratios = report[key]["executed_over_useful"][n]
-            print(f"{key.upper()} {n} x {n}, {report[key]['useful_steps'][n]:.0f} useful steps; "
-                  f"one-row warps with a test a step would execute "
+        for shape, times in report[key]["shapes"].items():
+            ratios = report[key]["executed_over_useful"][shape]
+            print(f"{key.upper()} {shape}, {report[key]['useful_steps'][shape]:.0f} useful "
+                  f"steps; one-row warps with a test a step would execute "
                   f"{ratios['one-row warps, a test a step']:.3f} of them "
                   "(ms per launch: single, chained, replayed from a CUDA graph):")
             for lab, (s, c, g) in times.items():
@@ -708,11 +799,11 @@ def main(argv=None) -> int:
                 print(f"  {lab:>14}: {s:.4f} {c:.4f} {g:.4f}"
                       + (f"  executed/useful {ratio:.3f}" if ratio else ""))
         scan = report[key]["max_iter_scan"]
-        print(f"{key.upper()} {scan['n']} x {scan['n']}, the committed kernel by max_iter "
+        print(f"{key.upper()} {scan['shape']}, the committed kernel by max_iter "
               "(ms replayed from a CUDA graph, useful steps): "
               + ", ".join(f"{it}: {scan['ms'][it]:.4f}, {scan['useful_steps'][it]:.0f}"
                           for it in SCAN_ITERS))
-    for k in ("k2", "k2p", "k3", "k4", "k1", "k6"):
+    for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
     if args.out:

@@ -1,13 +1,13 @@
-"""The schedules of K2 (csrc/dwell.cu, plain entry), K3
-(csrc/cloud_green.cu), K4 (csrc/de_std.cu) and K1 (csrc/tci_de.cu), modelled
-on the CPU.
+"""The schedules of K2 (csrc/dwell.cu, both entries), K3
+(csrc/cloud_green.cu), K4 (csrc/de_std.cu), K1 (csrc/tci_de.cu), K5
+(csrc/green_grid.cu) and K6 (csrc/dwell_ms.cu), modelled on the CPU.
 
 The kernels run only on the card, where chip_smoke.py holds them bitwise to
 their plain twins. Their control flow is new (K2: a latched orbit with an
 exit test every C steps, the dwell added up after the loop and clamped; K3:
-speculative branch-free chunks with a replay from the saved state; K4 and K1:
-chunks of the shared branch-free step with a sticky flag, the state at the
-first escape picked from the newest chunk's snapshots, K4 overshooting
+speculative branch-free chunks with a replay from the saved state; K4, K1 and
+K5: chunks of a branch-free step with a sticky flag, the state at the first
+escape picked from the newest chunk's snapshots, K4 and K5 overshooting
 max_iter and K1 ending on a step-by-step tail), so each is restated here as a
 scalar numpy-f32 model, line by line from the .cu, with the tuning constants
 read out of the .cu text, and held to the twin with exact equality on every
@@ -56,6 +56,7 @@ K2 = constants("dwell")
 K3 = constants("cloud_green")
 K4 = constants("de_std")
 K1 = constants("tci_de")
+K5 = constants("green_grid")
 
 
 def interior_model(cr, ci) -> bool:
@@ -128,24 +129,25 @@ def assert_rows_bitwise(model: np.ndarray, twin: torch.Tensor):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), err_msg=name)
 
 
-def escape_step(c: float) -> int:
-    """1-based step at which the real point c leaves the radius-2 disc."""
+def escape_step(c: float, r2: float = 4.0) -> int:
+    """1-based step at which the real point c leaves the disc of squared
+    radius r2 (by default the radius-2 disc)."""
     c, z = F(c), F(0)
     for n in range(1, 100_000):
         z = z * z + c
-        if z * z > F(4.0):
+        if z * z > F(r2):
             return n
     raise AssertionError(c)
 
 
-def real_point_escaping_at(step: int) -> float:
+def real_point_escaping_at(step: int, r2: float = 4.0) -> float:
     """A real c past the cusp whose escape step is exactly `step` (the step
     falls as c grows, about pi/sqrt(c - 1/4)), found by bisection."""
     lo, hi = 0.25 + (3.0 / step) ** 2 / 4, 0.25 + (3.3 / step) ** 2 * 4
-    assert escape_step(lo) > step > escape_step(hi)
+    assert escape_step(lo, r2) > step > escape_step(hi, r2)
     for _ in range(60):
         mid = float(F(0.5 * (lo + hi)))
-        got = escape_step(mid)
+        got = escape_step(mid, r2)
         if got == step:
             return mid
         lo, hi = (mid, hi) if got > step else (lo, mid)
@@ -808,16 +810,19 @@ def tci_de_thread_model(col, row, params, max_iter, r2, c_steps):
 
 
 def patch_threads(nx, ny, consts):
-    """(row, col) of every thread the launchers of de_std.cu and tci_de.cu
-    start that passes the bounds test, over their grid of blocks, warps and
-    lanes; every pixel must come exactly once."""
+    """(row, col) of every thread the launchers of de_std.cu, tci_de.cu and
+    green_grid.cu start that passes the bounds test, over their grid of
+    blocks, warps and lanes (the rows of blocks from the middle outwards
+    unless consts has MIDDLE_OUT 0); every pixel must come exactly once."""
     pw, ph, warps = consts["PATCH_W"], consts["PATCH_H"], consts["WARPS"]
     assert pw * ph == 32
     seen = np.zeros((ny, nx), dtype=bool)
     block_cols = warps * pw
     grid_y = (ny + ph - 1) // ph
-    for r in range(grid_y):  # blockIdx.y: rows from the middle outwards
-        by = (grid_y - 1) // 2 + ((r + 1) // 2 if r & 1 else -(r // 2))
+    for r in range(grid_y):  # blockIdx.y
+        by = r
+        if consts.get("MIDDLE_OUT", 1):
+            by = (grid_y - 1) // 2 + ((r + 1) // 2 if r & 1 else -(r // 2))
         for bx in range((nx + block_cols - 1) // block_cols):
             for tid in range(32 * warps):
                 lane, warp = tid & 31, tid >> 5
@@ -1128,6 +1133,152 @@ def test_k1_nan_dz_gives_zero_distance():
 
 
 # ---------------------------------------------------------------------------
+# K5: chunks of escape.cuh:bare_step with a sticky flag; |z|^2 at the first
+# escape from the newest chunk's snapshots, the formula once after the loop
+# ---------------------------------------------------------------------------
+
+
+C5 = K5["C"]
+
+
+def green_grid_thread_model(col, row, params, max_iter, r2, c_steps):
+    """One thread of green_grid_kernel up to its formula: (esc, a2, k, chunks
+    run), with a2 = |z|^2 at the first escape and k its 0-based step; the
+    thread stores 0 when esc is False and the formula of (a2, k) when it is
+    True."""
+    cr, ci = pixel_c(col, row, params)
+    esc, a2, k = False, F(0), 0
+    chunks = 0
+    if not interior_model(cr, ci) and max_iter > 0:
+        st = [F(0), F(0), F(0), F(0), False]
+        sa2, up = [F(0)] * c_steps, [False] * c_steps
+        n = 0
+        while True:
+            for c in range(c_steps):
+                st = bare_step_model(st, cr, ci, r2)
+                sa2[c] = st[2] + st[3]
+                up[c] = st[4]
+            n += c_steps
+            chunks += 1
+            if not (not st[4] and n < max_iter):
+                break
+        first = c_steps
+        for c in range(c_steps - 1, -1, -1):
+            if up[c]:
+                first = c
+                a2 = sa2[c]
+        k = n - c_steps + first
+        esc = st[4] and k < max_iter
+    return esc, a2, k, chunks
+
+
+def green_formula(a2, k):
+    """green_grid_kernel's formula on a tensor of |z|^2 at the first escape
+    and an array of its 0-based steps: 2^-(k+1) as ldexpf makes it (exact,
+    subnormal or 0), the log torch's, as the twin's (see de_std_formula)."""
+    scale = _t(np.ldexp(F(1.0), -(np.asarray(k) + 1)).astype(F))
+    val = 0.5 * torch.log(torch.maximum(a2, a2.new_tensor(1e-30))) * scale
+    return torch.maximum(val, val.new_tensor(0.0))
+
+
+def green_grid_model(nx, ny, params, max_iter, escape_r, consts=K5):
+    """green_grid_launch over (ny, nx): the threads' (a2, k) from the scalar
+    model on the launcher's patch_pixel mapping, then what each thread
+    stores: the formula where it escaped, else 0."""
+    r2 = F(escape_r * escape_r)
+    esc = np.zeros((ny, nx), dtype=bool)
+    a2 = np.zeros((ny, nx), dtype=F)
+    k = np.zeros((ny, nx), dtype=np.int64)
+    for row, col in patch_threads(nx, ny, consts):
+        esc[row, col], a2[row, col], k[row, col], _ = green_grid_thread_model(
+            col, row, params, max_iter, r2, consts["C"])
+    g = green_formula(_t(a2), k)
+    return torch.where(_t(esc), g, g.new_tensor(0.0)).numpy()
+
+
+@pytest.mark.parametrize("ny,nx,max_iter", [
+    (2, 2, 1), (3, 5, C5 - 1), (9, 37, C5), (9, 37, C5 + 1), (7, 33, 2 * C5 - 1),
+    (5, 3, 60), (17, 23, 60), (9, 17, 500), (45, 70, 500), (6, 9, 0)])
+def test_k5_chunked_snapshot_model_equals_twin(ny, nx, max_iter):
+    """Ragged grids (smaller than a patch, no multiple of a patch or a block,
+    one row or column more than a patch) across the boundary; max_iter below,
+    at and above C and not a multiple of it."""
+    twin = mc.green_field_torch(DOM, nx, ny, max_iter, 4.0)
+    model = green_grid_model(nx, ny, mc._params(DOM, nx, ny), max_iter, 4.0)
+    assert_same_bits(model, twin)
+    if max_iter >= 60:
+        assert (model > 0).any() and (model == 0).any()
+
+
+@pytest.mark.parametrize("consts", [
+    dict(C=1, PATCH_W=32, PATCH_H=1, WARPS=8, MIDDLE_OUT=0),
+    dict(C=3, PATCH_W=8, PATCH_H=4, WARPS=2, MIDDLE_OUT=1),
+    dict(C=6, PATCH_W=16, PATCH_H=2, WARPS=4, MIDDLE_OUT=0),
+    dict(C=8, PATCH_W=2, PATCH_H=16, WARPS=1, MIDDLE_OUT=1)])
+def test_k5_model_results_do_not_depend_on_the_schedule(consts):
+    ny, nx = 9, 21
+    for max_iter in (24, 37):  # a multiple of every C here, and of none but 1
+        twin = mc.green_field_torch(DOM, nx, ny, max_iter, 4.0)
+        model = green_grid_model(nx, ny, mc._params(DOM, nx, ny), max_iter, 4.0, consts)
+        assert_same_bits(model, twin)
+
+
+def test_k5_first_escape_on_every_position_of_a_chunk_and_at_the_edge_of_max_iter():
+    """Pixels whose first escape falls on each position of a chunk; and for
+    one of each, max_iter equal to the escape step (the escape counts: the
+    twin's g, not 0) and one below it (it does not: 0, though the chunk runs
+    over it and raises the flag)."""
+    nx, ny, r2 = 41, 19, F(16.0)
+    params = mc._params(DOM, nx, ny)
+    steps = lane_steps(DOM, nx, ny, 200, 16.0)  # 1-based escape step; 200 if none
+    for pos in range(C5):
+        rows, cols = np.nonzero((steps % C5 == pos) & (steps > C5) & (steps < 200))
+        assert rows.size, f"no pixel escapes on position {pos} of a chunk"
+        row, col, k = int(rows[0]), int(cols[0]), int(steps[rows[0], cols[0]])
+        esc, _, kk, chunks = green_grid_thread_model(col, row, params, k, r2, C5)
+        assert esc and kk == k - 1 and chunks == -(-k // C5)
+        esc, _, _, chunks = green_grid_thread_model(col, row, params, k - 1, r2, C5)
+        assert not esc and chunks == -(-(k - 1) // C5)
+        for max_iter, escaped in ((k, True), (k - 1, False)):
+            twin = mc.green_field_torch(DOM, nx, ny, max_iter, 4.0)
+            model = green_grid_model(nx, ny, params, max_iter, 4.0)
+            assert_same_bits(model, twin)
+            assert bool(twin[row, col] != 0) == escaped
+
+
+@pytest.mark.parametrize("step", [126, 127, 149, 150])
+def test_k5_deep_escapers_where_the_power_of_two_turns_subnormal_and_then_0(step):
+    """A real c escaping at the 1-based step k + 1: 2^-(k+1) is the least
+    normal power at 126, subnormal at 127 and 149 (the least subnormal), and
+    0 at 150, so g is normal, subnormal, subnormal and 0 (not NaN: |z|^2 is
+    finite there); bitwise the twin's. The pixel is (0, 0) of a 2 x 2 grid
+    whose corner is c."""
+    c = real_point_escaping_at(step, 16.0)
+    dom = (c, c + 1.0, 0.0, 1.0)
+    params = mc._params(dom, 2)
+    esc, a2, k, _ = green_grid_thread_model(0, 0, params, 500, F(16.0), C5)
+    assert esc and k + 1 == step and np.isfinite(a2)
+    twin = mc.green_field_torch(dom, 2, 2, 500, 4.0)
+    assert_same_bits(green_grid_model(2, 2, params, 500, 4.0), twin)
+    g = float(twin[0, 0])
+    tiny = float(np.finfo(F).tiny)
+    assert (g > 0) == (step < 150) and (g >= tiny) == (step == 126)
+
+
+@pytest.mark.parametrize("domain", [
+    (float("nan"), 1.0, -1.0, 1.0), (-1e20, 1e20, -1e20, 1e20), (-3e38, 3e38, -1.0, 1.0),
+    (-2.0, 2.0, float("-inf"), 1.0)])
+def test_k5_nan_and_inf_coordinates(domain):
+    """Non-finite and overflowing coordinates: a NaN |z|^2 never raises the
+    flag (g 0), an inf one does (g inf), and the steps after a hit run on to
+    inf and NaN unread."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        params = mc._params(domain, 7, 5)
+        twin = mc.green_field_torch(domain, 7, 5, 11, 4.0)
+        assert_same_bits(green_grid_model(7, 5, params, 11, 4.0), twin)
+
+
+# ---------------------------------------------------------------------------
 # the step accounting and the footprint constants
 # ---------------------------------------------------------------------------
 
@@ -1186,7 +1337,8 @@ def test_footprint_constants_equal_the_constexpr_values_of_dwell_cu():
 
 
 @pytest.mark.parametrize("name,consts,entry", [("DE_FOOTPRINT", K4, "de_footprint"),
-                                               ("TCI_FOOTPRINT", K1, "tci_footprint")])
+                                               ("TCI_FOOTPRINT", K1, "tci_footprint"),
+                                               ("GREEN_FOOTPRINT", K5, "green_footprint")])
 def test_de_and_tci_footprints_equal_the_constexpr_values(name, consts, entry):
     assert getattr(mc, name) == {"c": consts["C"], "patch_w": consts["PATCH_W"],
                                  "patch_h": consts["PATCH_H"]}
@@ -1199,8 +1351,12 @@ def test_de_and_tci_footprints_equal_the_constexpr_values(name, consts, entry):
     # no compare-and-break in the steps of the chunk: the unrolled loop calls
     # the branch-free step and nothing that branches
     chunk = text[text.index("#pragma unroll\n            for (int c = 0; c < C; ++c)"):]
-    chunk = chunk[:chunk.index("\n            }" if lib == "de_std" else ";\n")]
+    chunk = chunk[:chunk.index(";\n" if lib == "tci_de" else "\n            }")]
     assert "bare_step(" in chunk and "break" not in chunk and "if (" not in chunk
+    # the launcher's grid is the one patch_threads models
+    assert "patch_pixel<PATCH_W, PATCH_H, WARPS, " in text
+    assert ("const dim3 grid((nx + block_cols - 1) / block_cols, (ny + PATCH_H - 1) / PATCH_H);"
+            in text or lib == "tci_de")
 
 
 def _chunk_step(text: str) -> str:
@@ -1213,16 +1369,17 @@ def _chunk_step(text: str) -> str:
 def test_ops_per_step_count_the_cu_bodies():
     """4 mul, 4 add/sub and 1 compare in the step of escape.cuh:dwell_chunked,
     the loop of dwell.cu's plain kernel and of dwell_ms.cu, and in
-    escape.cuh:bare_step, the step of cloud_green.cu's chunks and of
-    tci_de.cu's first pass; the periodic entry's compares with the checkpoint
-    run once a chunk, outside the step, and are not counted."""
+    escape.cuh:bare_step, the step of cloud_green.cu's chunks, of tci_de.cu's
+    first pass and of green_grid.cu's chunks (whose snapshot of |z|^2 is the
+    sum the radius test takes); the periodic entry's compares with the
+    checkpoint run once a chunk, outside the step, and are not counted."""
     header = (CSRC / "escape.cuh").read_text()
     step = _chunk_step(header)
     plain = step[:step.index("up[c] = inside;")]
     bare = header[header.index("void bare_step("):]
     bare = bare[bare.index("const float nzr"):bare.index("\n}\n")]
     for name, body in (("dwell", plain), ("dwell_ms", plain), ("cloud_green", bare),
-                       ("tci_de", bare)):
+                       ("tci_de", bare), ("green_grid", bare)):
         muls = body.count(" * ")
         adds = body.count(" + ") + body.count(" - ")
         compares = body.count("<=") + body.count(" > ")
@@ -1236,6 +1393,9 @@ def test_ops_per_step_count_the_cu_bodies():
     chunk_end = header[header.index("n += C;"):header.index("} while (")]
     assert chunk_end.count("cyc = inside && zr == pr && zi == pi;") == 1
     assert mc.OPS_PER_STEP["dwell_periodic"] == mc.OPS_PER_STEP["dwell"] == 9
+    assert "hit = hit || (zr2 + zi2 > r2);" in bare
+    green = (CSRC / "green_grid.cu").read_text()
+    assert green.count("sa2[c] = zr2 + zi2;") == 1 and mc.OPS_PER_STEP["green_grid"] == 9
 
 
 def test_periodic_and_fine_pass_footprints_equal_the_constexpr_values():
@@ -1260,6 +1420,7 @@ def test_periodic_and_fine_pass_footprints_equal_the_constexpr_values():
                                            ("cloud_green", "K3_VARIANTS"),
                                            ("de_std", "K4_VARIANTS"),
                                            ("tci_de", "K1_VARIANTS"),
+                                           ("green_grid", "K5_VARIANTS"),
                                            ("dwell_ms", "K6_VARIANTS")])
 def test_sweep_variants_name_constants_the_sources_have(name, variants):
     """Every variant of cmtci_torch.sweep_schedules rewrites `constexpr int`
@@ -1289,6 +1450,37 @@ def test_sweep_runs_the_periodic_and_fine_pass_sweeps():
     assert any(v.get("P_C") == K2["P_C"] for v in sweep.K2P_VARIANTS.values())
     assert any(v.get("C") == K6["C"] for v in sweep.K6_VARIANTS.values())
     assert sweep.K2P_ITERS == (500, 20000)
+
+
+def test_sweep_runs_the_k5_sweep():
+    """--only takes k5; its variants vary C around the committed one, the
+    patch, the warps and the block order, at chip_smoke.py phase 10's shapes."""
+    from cmtci_torch import sweep_schedules as sweep
+
+    assert "k5" in sweep.SWEEPS
+    assert {v.get("C") for v in sweep.K5_VARIANTS.values()} >= {2, 3, 4, 6, 8, C5}
+    assert {v.get("MIDDLE_OUT", 1) for v in sweep.K5_VARIANTS.values()} == {0, 1}
+    assert {(v.get("PATCH_W", 4), v.get("WARPS", 4)) for v in sweep.K5_VARIANTS.values()} >= {
+        (32, 4), (4, 1), (4, 8)}
+    assert sweep.K5_SHAPES == ((2048, 2048), (1001, 1999))
+
+
+def test_sweep_k3_clouds_drop_the_analytic_interior():
+    """The clouds K3's launcher is timed at: the stored curve is 2,000
+    vertices of the golden boundary in their order, and both it and the
+    equipotential's cloud at a given n_max reach the kernel as green_cloud_f32
+    hands them over, without the analytically interior points."""
+    from cmtci_torch import sweep_schedules as sweep
+
+    cpu = torch.device("cpu")
+    cr, ci = sweep.curve_cloud(cpu)
+    xy = np.loadtxt(sweep.GOLDEN_BOUNDARY, delimiter=",", skiprows=1)
+    pts = xy[np.linspace(0, len(xy) - 1, sweep.K3_CURVE_POINTS).round().astype(int)]
+    keep = ~mc.exact_interior(pts[:, 0] + 1j * pts[:, 1])
+    assert cr.dtype == ci.dtype == torch.float32 and 0 < cr.numel() == keep.sum() < 2000
+    np.testing.assert_array_equal(cr.numpy(), pts[keep, 0].astype(F))
+    small = sweep.default_cloud(cpu, 6)[0].numel()
+    assert 0 < small < sweep.default_cloud(cpu, 9)[0].numel()
 
 
 def test_wrappers_raise_without_a_card():
