@@ -114,7 +114,24 @@ prints no result line):
      `_error` key, every ported key present and finite, `not_ported` exactly
      the three waiting keys, no ratio key, vpu_peak_tflops no higher than the
      card's FP32 FMA ceiling, dwell_mfu_useful <= dwell_mfu <= 1, and K1, K2,
-     K3, K4 and K7 each launched.
+     K3, K4 and K7 each launched;
+ 19. the file bus at the CLI defaults on the card with plots off (no kernel
+     launch): stage1 (max_n 40, 120 x 80 grid, 200 iterations, 600 samples,
+     Sinkhorn eps 1e-2 for 1000 iterations) written to a temporary bus and
+     held to the port's own CPU run of the same call (construct_points within
+     1e-12, the band's pixels and mandel_boundary_sample.csv equal,
+     matches_indices.csv equal, construct_aligned within 1e-10), with the
+     smallest Sinkhorn top-1 to top-2 gap; construct-boundary (alpha 65, 1500
+     points) of that bus and curvature (k = 7) against the CPU run (within
+     1e-10 of the points, kappa within 1e-10 of itself plus 1e-10 of its
+     largest value), against artifacts/construct_boundary.csv.gz (Hausdorff
+     <= 1e-4) and against construct_curv_localpoly_summary.txt (n equal;
+     mean, std, q95 within 2%); curvature of artifacts/mandel_boundary.csv.gz
+     against mandel_curv_localpoly_summary.txt (every value within 1e-8);
+     lucas-boundary at the defaults (n 2..100, alpha 4.5, 2000 points) within
+     1e-10 of the CPU run. Each subcommand's wall is the best of 3 on the host
+     clock ending in a synchronize, beside the Sinkhorn loop's and the DE
+     field's alone.
 The kernels line gives, per kernel, its launches on its path, max |kernel -
 twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
 (the orbit steps these inputs need times the operations per step of the .cu
@@ -159,6 +176,9 @@ ORACLE = os.path.join(ROOT, "tests", "data", "v3_T25_sigma3_dense.csv")
 GOLDEN = os.path.join(ROOT, "artifacts", "mandel_boundary.csv.gz")
 EQUIP_REF = os.path.join(ROOT, "tests", "data", "equipotential_default_f64.json")
 TCI_REF = os.path.join(ROOT, "tests", "data", "tci_default_numpy.json")
+CONSTRUCT_GOLDEN = os.path.join(ROOT, "artifacts", "construct_boundary.csv.gz")
+CONSTRUCT_SUMMARY = os.path.join(ROOT, "artifacts", "construct_curv_localpoly_summary.txt")
+MANDEL_SUMMARY = os.path.join(ROOT, "artifacts", "mandel_curv_localpoly_summary.txt")
 #: the libraries to build, one csrc/<name>.cu each
 KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak")
 #: the entry points of the kernels line, and the source of one named otherwise
@@ -1714,6 +1734,160 @@ def phase_bench(dev):
     return launches
 
 
+def best_of(fn, n: int = 3):
+    """(best wall in s over n calls, each ending in a synchronize; the last
+    call's result)."""
+    import torch
+
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return min(walls), out
+
+
+def read_summary(path) -> dict:
+    """A curvature summary file (the reference's format) as a dict."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == "Local-Polynomial Curvature Summary", f"{path}: header {lines[0]!r}")
+    return {k: float(v) for k, v in (line.split(": ") for line in lines[1:])}
+
+
+def close_to(a, b, tol: float) -> float:
+    """max |a - b| after checking the shapes agree and it is within tol."""
+    import numpy as np
+
+    check(a.shape == b.shape, f"shapes {a.shape} and {b.shape}")
+    err = float(np.max(np.abs(a - b))) if a.size else 0.0
+    check(err <= tol, f"max |difference| {err!r} beyond {tol}")
+    return err
+
+
+def phase_bus(dev):
+    """Phase 19: stage1, construct-boundary, curvature and lucas-boundary at
+    the CLI defaults on the card, held to the port's CPU run and the frozen
+    files."""
+    import filecmp
+
+    import numpy as np
+
+    from cmtci_torch.io.loaders import load_points
+    from cmtci_torch.kernels import _launch
+    from cmtci_torch.kernels import companion
+    from cmtci_torch.pipelines import curvature, lucas_boundary, stage1
+    from cmtci_torch.transport.sinkhorn import sinkhorn_log
+    from cmtci_torch.utils.artifacts import StageTimer
+
+    cfg = stage1.Stage1Config()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        timers = []
+
+        def card_stage1():
+            timers.append(StageTimer(dev))
+            return stage1.run_stage1(cfg, f"{tmp}/card", plots=False, device=dev,
+                                     timer=timers[-1])
+
+        wall, out = best_of(card_stage1)
+        best = min(timers, key=lambda t: sum(t.times.values()))
+        print(f"stage1: {wall:.4f} s best of 3 on the card; layers (s) of the best run: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in best.times.items()))
+        cpu = stage1.run_stage1(cfg, f"{tmp}/cpu", plots=False, device="cpu")
+        print(f"  C {out['C'].shape}, M {out['M'].shape}")
+        err_c = close_to(load_points(f"{tmp}/card/construct_points.csv"),
+                         load_points(f"{tmp}/cpu/construct_points.csv"), 1e-12)
+        for name in ("mandel_boundary_sample.csv", "matches_indices.csv", "meta.txt"):
+            check(filecmp.cmp(f"{tmp}/card/{name}", f"{tmp}/cpu/{name}", shallow=False),
+                  f"stage1: {name} differs between the card and the CPU")
+        err_a = close_to(load_points(f"{tmp}/card/construct_aligned.csv"),
+                         load_points(f"{tmp}/cpu/construct_aligned.csv"), 1e-10)
+        de_s, (_, _, d_card) = best_of(lambda: stage1.band_field(cfg, device=dev))
+        _, _, d_cpu = stage1.band_field(cfg, device="cpu")
+        band_card = (d_card > cfg.threshold_low) & (d_card < cfg.threshold_high)
+        band_cpu = (d_cpu > cfg.threshold_low) & (d_cpu < cfg.threshold_high)
+        check(np.array_equal(band_card, band_cpu), "stage1: the band differs from the CPU's")
+        m = d_cpu != 0
+        print(f"  band {int(band_card.sum())} pixels on both (equal masks); d card against "
+              f"CPU largest relative {float(np.max(np.abs(d_card[m] - d_cpu[m]) / d_cpu[m]))!r}; "
+              f"600 draws and matches equal; C {err_c!r}, C_aligned {err_a!r}")
+
+        xa = np.hstack([stage1.orientation_features(out["C"], cfg.k_orientation), out["C"]])
+        xb = np.hstack([stage1.orientation_features(out["M"], cfg.k_orientation), out["M"]])
+        cost = stage1.feature_cost(xa, xb, device=dev)
+        sk_s, plan = best_of(lambda: sinkhorn_log(cost, iters=stage1.SINKHORN_ITERS,
+                                                  eps=cfg.sinkhorn_reg))
+        plan = plan.cpu().numpy()
+        check(np.array_equal(plan.argmax(axis=1), out["matches"]),
+              "stage1: the plan's argmax is not the pipeline's matches")
+        top = np.sort(plan, axis=1)[:, -2:]
+        gap = float(np.min((top[:, 1] - top[:, 0]) / top[:, 1]))
+        print(f"  Sinkhorn loop ({cost.shape[0]} x {cost.shape[1]}, "
+              f"{stage1.SINKHORN_ITERS} iterations) {sk_s:.4f} s, DE field "
+              f"({cfg.ny} x {cfg.nx}, {cfg.max_iter} iterations, with its grid and its copy "
+              f"to the host) {de_s:.4f} s, best of 3; "
+              f"argmax equal to the matches; smallest top-1 to top-2 gap {gap!r} relative")
+
+        golden = load_points(CONSTRUCT_GOLDEN)
+        summaries = {}
+        for side, device in (("card", dev), ("cpu", "cpu")):
+            pts = load_points(f"{tmp}/{side}/construct_points.csv")
+            cb_s, (b, closed) = best_of(lambda: lucas_boundary.construct_boundary(
+                pts, lucas_boundary.ConstructBoundaryConfig()))
+            cv_s, res = best_of(lambda: curvature.run_curvature(
+                b, curvature.CurvatureConfig(), plots=False, device=device))
+            summaries[side] = (b, res)
+            print(f"  construct-boundary ({side} bus) {cb_s:.4f} s, closed {closed}; "
+                  f"curvature on {side} {cv_s:.4f} s, best of 3")
+        (b_card, r_card), (b_cpu, r_cpu) = summaries["card"], summaries["cpu"]
+        err_b = close_to(b_card, b_cpu, 1e-10)
+        k_card, k_cpu = r_card[0], r_cpu[0]
+        k_err = np.abs(k_card - k_cpu) - 1e-10 * np.abs(k_cpu)
+        check(float(np.max(k_err)) <= 1e-10 * float(np.max(np.abs(k_cpu))),
+              f"curvature: kappa on the card {float(np.max(np.abs(k_card - k_cpu)))!r} "
+              "from the CPU's")
+        h = hausdorff(b_card, golden)
+        check(h <= 1e-4, f"construct boundary: Hausdorff {h!r} from the golden")
+        ref = read_summary(CONSTRUCT_SUMMARY)
+        got = r_card[4]
+        check(got["n"] == ref["n"], f"construct curvature: n {got['n']} != {ref['n']}")
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in ("mean", "std", "q95")}
+        check(max(rel.values()) <= 0.02, f"construct curvature: {rel} beyond 2%")
+        print(f"  construct boundary card against CPU {err_b!r}, kappa largest |difference| "
+              f"{float(np.max(np.abs(k_card - k_cpu)))!r} of max {float(np.max(k_cpu))!r}; "
+              f"Hausdorff to the golden {h!r}; summary {json.dumps(got)}; "
+              f"relative to the golden {json.dumps(rel)}")
+
+        mandel = load_points(GOLDEN)
+        cv_s, res = best_of(lambda: curvature.run_curvature(
+            mandel, curvature.CurvatureConfig(), f"{tmp}/mandel", plots=False, device=dev))
+        ref = read_summary(MANDEL_SUMMARY)
+        check(read_summary(f"{tmp}/mandel_summary.txt").keys() == ref.keys(),
+              "mandel curvature: the summary file's keys differ from the frozen file's")
+        rel = {k: abs(res[4][k] - v) / abs(v) for k, v in ref.items()}
+        check(max(rel.values()) <= 1e-8, f"mandel curvature: {rel} beyond 1e-8")
+        print(f"curvature (mandel golden, {len(mandel)} vertices, k 7): {cv_s:.4f} s best of 3; "
+              f"largest relative deviation from the frozen summary "
+              f"{max(rel.values())!r}")
+
+        lcfg = lucas_boundary.LucasBoundaryConfig()
+        lb_s, xy = best_of(lambda: lucas_boundary.export_lucas_boundary(
+            lcfg, f"{tmp}/run_lucas_points.npy", device=dev))
+        cloud_s, cloud = best_of(lambda: companion.inverse_cloud(
+            list(range(lcfg.n_min, lcfg.n_max + 1)), lcfg.family, device=dev))
+        xy_cpu = lucas_boundary.export_lucas_boundary(lcfg, device="cpu")
+        err_l = close_to(xy, xy_cpu, 1e-10)
+        check(np.array_equal(np.load(f"{tmp}/run_lucas_points.npy"), xy),
+              "lucas-boundary: the npy is not the returned boundary")
+        print(f"lucas-boundary: {lb_s:.4f} s best of 3 ({len(cloud)} cloud points, the cloud "
+              f"alone {cloud_s:.4f} s), {xy.shape[0]} points, card against CPU {err_l!r}")
+    check(sum(_launch.launches.values()) == 0,
+          f"the file bus launched a kernel: {_launch.launches}")
+
+
 def main() -> int:
     card = card_line()
     print(card)
@@ -1743,6 +1917,7 @@ def main() -> int:
     phase_variograms(dev)
     phase_pointstats(dev)
     bench_launches = phase_bench(dev)
+    phase_bus(dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]

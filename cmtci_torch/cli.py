@@ -1,6 +1,7 @@
 """cmtci-torch command-line driver (the ported subcommands of ``cmtci``).
 
-Ported so far: tracker, boundary, equipotential, tci, variograms, bench. On a
+Ported so far: tracker, boundary, equipotential, tci, variograms, bench, and
+the file bus: stage1, lucas-boundary, construct-boundary, curvature. On a
 CUDA session (``--device cuda``, the default) the dtype/backend knobs default
 to the card's fast paths: tracker field_dtype=float32 and de_impl=cuda
 (K1), boundary backend=cuda (K2), equipotential green_dtype=float32 (K3),
@@ -9,7 +10,10 @@ tci de_impl=cuda (K1), variograms vario_dtype=field_dtype=float32.
 ``--device cpu`` to the f64 plain-torch paths, and an explicit per-flag value
 always wins. ``bench`` forwards its arguments to ``cmtci_torch.bench``.
 ``--device cuda`` without a card raises; nothing falls back to the CPU.
-``--no-plots`` skips the figures (matplotlib is then not needed).
+``--no-plots`` skips the figures (matplotlib is then not needed). The
+file-bus subcommands run f64 on the device whatever the session (the
+alpha shapes on the host), so they have no session defaults, and their
+``--parity`` changes nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -126,6 +130,32 @@ def _parser():
                         "float32; borderline DE-threshold points flip)")
     _add_common(p, "the f64 fields and binning whatever the device")
 
+    p = sub.add_parser("lucas-boundary", help="Lucas cloud -> alpha-shape boundary npy")
+    p.add_argument("--n-min", type=int, default=2)
+    p.add_argument("--n-max", type=int, default=100)
+    p.add_argument("--alpha", type=float, default=4.5)
+    p.add_argument("--n-boundary", type=int, default=2000)
+    p.add_argument("--cache-dir", default=None,
+                   help="stage artifact cache dir (resume; keyed by config hash)")
+    _add_common(p, "accepted as the reference accepts it; changes nothing")
+
+    p = sub.add_parser("construct-boundary", help="alpha-shape boundary of a point CSV")
+    p.add_argument("--input-csv", required=True)
+    p.add_argument("--alpha", type=float, default=65.0)
+    p.add_argument("--target-n", type=int, default=1500)
+    _add_common(p, "accepted as the reference accepts it; changes nothing")
+
+    p = sub.add_parser("curvature", help="local-polynomial curvature of a boundary CSV")
+    p.add_argument("--input-csv", required=True)
+    p.add_argument("--neighbors", type=int, default=7)
+    p.add_argument("--closed", type=lambda s: s.lower() in ("1", "true", "yes"), default=True)
+    _add_common(p, "accepted as the reference accepts it; changes nothing", plots=True)
+
+    p = sub.add_parser("stage1", help="stage-1 cleaning pipeline (file bus)")
+    p.add_argument("--max-n", type=int, default=40)
+    p.add_argument("--boundary-samples", type=int, default=600)
+    _add_common(p, "accepted as the reference accepts it; changes nothing", plots=True)
+
     sub.add_parser("bench", add_help=False,
                    help="the benchmark (python -m cmtci_torch.bench; same arguments)")
     return ap
@@ -189,6 +219,41 @@ def main(argv=None):
                               field_dtype=args.field_dtype)
         out = run_variograms(cfg, f"{args.out}_variograms.csv", device=args.device)
         print(f"variograms: {out['n_construct']} C pts, {out['n_boundary']} M pts")
+    elif args.cmd == "lucas-boundary":
+        from cmtci_torch.pipelines.lucas_boundary import (LucasBoundaryConfig,
+                                                          export_lucas_boundary)
+
+        cfg = LucasBoundaryConfig(args.n_min, args.n_max, args.alpha, args.n_boundary)
+        xy = export_lucas_boundary(cfg, f"{args.out}_lucas_points.npy",
+                                   cache_dir=args.cache_dir, device=args.device)
+        print(f"lucas boundary: {xy.shape} -> {args.out}_lucas_points.npy")
+    elif args.cmd == "construct-boundary":
+        from cmtci_torch.io.loaders import load_points
+        from cmtci_torch.pipelines.lucas_boundary import (ConstructBoundaryConfig,
+                                                          construct_boundary)
+        from cmtci_torch.utils.device import resolve_device
+
+        resolve_device(args.device)  # the alpha shape runs on the host; a
+        # --device cuda without a card still raises, as on every subcommand
+        pts = load_points(args.input_csv)
+        b, closed = construct_boundary(pts, ConstructBoundaryConfig(args.alpha, args.target_n),
+                                       args.out)
+        print(f"construct boundary: {len(b)} pts closed={closed}")
+    elif args.cmd == "curvature":
+        from cmtci_torch.io.loaders import load_points
+        from cmtci_torch.pipelines.curvature import CurvatureConfig, run_curvature
+
+        pts = load_points(args.input_csv)
+        _, _, _, _, summary = run_curvature(pts, CurvatureConfig(args.neighbors, args.closed),
+                                            args.out, plots=not args.no_plots,
+                                            device=args.device)
+        print(json.dumps(summary))
+    elif args.cmd == "stage1":
+        from cmtci_torch.pipelines.stage1 import Stage1Config, run_stage1
+
+        out = run_stage1(Stage1Config(max_n=args.max_n, boundary_samples=args.boundary_samples),
+                         args.out, plots=not args.no_plots, device=args.device)
+        print(f"stage1: C={out['C'].shape} M={out['M'].shape} -> {args.out}/")
 
 
 if __name__ == "__main__":

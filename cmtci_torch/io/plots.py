@@ -1,5 +1,6 @@
-"""Figure writers of the boundary, equipotential and TCI pipelines (subset
-of ``cmtci/io/plots.py``, copied unchanged apart from the import).
+"""Figure writers of the boundary, equipotential, TCI, stage-1 and curvature
+pipelines (subset of ``cmtci/io/plots.py``, copied unchanged apart from the
+import).
 
 matplotlib is imported inside each function, never at module import: a
 machine without it still runs every pipeline with ``plots=False``
@@ -31,6 +32,49 @@ def pyplot():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def plot_alignment(c, m, c_aligned, path, title="Construct vs Mandelbrot (aligned)"):
+    plt = pyplot()
+    c, m, ca = _xy(c), _xy(m), _xy(c_aligned)
+    fig = plt.figure(figsize=(8, 6))
+    if len(m):
+        plt.scatter(m[:, 0], m[:, 1], s=6, c="red", label="Mandel sample")
+    if len(c):
+        plt.scatter(c[:, 0], c[:, 1], s=6, c="blue", alpha=0.6, label="Construct")
+    if len(ca):
+        plt.scatter(ca[:, 0], ca[:, 1], s=6, c="cyan", alpha=0.65, label="Construct aligned")
+    plt.legend()
+    plt.axis("equal")
+    plt.title(title)
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_curvature(p, kappa, prefix):
+    """Histogram + color overlay (boundary_curvature_localpoly.py:195-218)."""
+    plt = pyplot()
+    p = _xy(p)
+    fig = plt.figure(figsize=(6, 4))
+    plt.hist(np.asarray(kappa), bins=64)
+    plt.xlabel(r"Curvature $\kappa$")
+    plt.ylabel("Count")
+    plt.title("Local-Polynomial Curvature Histogram")
+    plt.tight_layout()
+    fig.savefig(ensure_dir(f"{prefix}_curvature_hist.png"), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+
+    fig = plt.figure(figsize=(5, 5))
+    sc = plt.scatter(p[:, 0], p[:, 1], c=np.asarray(kappa), s=8)
+    plt.axis("equal")
+    plt.axis("off")
+    plt.colorbar(sc, fraction=0.046, pad=0.04)
+    plt.title("Curvature Overlay (Local-Polynomial)")
+    plt.tight_layout()
+    fig.savefig(f"{prefix}_curvature_overlay.png", dpi=220, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return f"{prefix}_curvature_hist.png", f"{prefix}_curvature_overlay.png"
 
 
 def plot_boundary_overlay(points, boundary, path, title=""):

@@ -1,6 +1,6 @@
 """File-bus writers, schema-compatible with the reference outputs (subset of
-``cmtci/io/writers.py`` used by the tracker, boundary, equipotential and
-TCI pipelines)."""
+``cmtci/io/writers.py`` used by the tracker, boundary, equipotential, TCI,
+stage-1, Lucas-boundary, construct-boundary and curvature pipelines)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import json
 import os
 
 import numpy as np
+
+from cmtci_torch.utils.arrays import as_xy
 
 
 def ensure_dir(path: str):
@@ -23,6 +25,30 @@ def write_xy_csv(path: str, xy, header: str = "x,y"):
     """Boundary CSV with 'x,y' header (mandelbrot_boundary_sample.py:74)."""
     ensure_dir(path)
     np.savetxt(path, np.asarray(xy), delimiter=",", header=header, comments="")
+    return path
+
+
+def write_points_csv(path: str, pts):
+    """Headerless point CSV (construct_stage1_clean.py:178-181 file bus)."""
+    ensure_dir(path)
+    np.savetxt(path, as_xy(pts), delimiter=",")
+    return path
+
+
+def write_matches_csv(path: str, matches):
+    ensure_dir(path)
+    np.savetxt(path, np.asarray(matches, dtype=int), delimiter=",", fmt="%d")
+    return path
+
+
+def write_curvature_csv(path: str, p, kappa, kappa_s, speed, aux):
+    """10-column curvature CSV (boundary_curvature_localpoly.py:186-193)."""
+    ensure_dir(path)
+    header = "idx,x,y,curvature,kappa_signed,speed,xprime,yprime,x2,y2"
+    idx = np.arange(len(p))
+    out = np.c_[idx, p[:, 0], p[:, 1], kappa, kappa_s, speed,
+                aux["xprime"], aux["yprime"], aux["x2"], aux["y2"]]
+    np.savetxt(path, out, delimiter=",", header=header, comments="", fmt="%.10g")
     return path
 
 
@@ -56,6 +82,21 @@ def write_dict_rows_csv(path: str, rows: list):
         w.writeheader()
         for r in rows:
             w.writerow(r)
+    return path
+
+
+def write_hist_csv(path: str, values, bins: int = 80, range_=None):
+    """Histogram CSV (v40:401-410 schema)."""
+    ensure_dir(path)
+    values = np.asarray(values, dtype=float)
+    values = values[np.isfinite(values)]
+    hist, edges = np.histogram(values, bins=bins, range=range_, density=False)
+    centers = 0.5 * (edges[:-1] + edges[1:])
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["bin_left", "bin_right", "bin_center", "count"])
+        for i in range(len(hist)):
+            w.writerow([float(edges[i]), float(edges[i + 1]), float(centers[i]), int(hist[i])])
     return path
 
 

@@ -2,8 +2,8 @@
 distance-estimator fields, the grid escape potentials, the 5-point smoother
 and the boundary-band and threshold samplers.
 
-Port of the tracker, boundary, equipotential, TCI and variogram subset of
-``cmtci/kernels/mandelbrot.py``; ``de_field_std`` and
+Port of the tracker, boundary, equipotential, TCI, variogram and stage-1
+subset of ``cmtci/kernels/mandelbrot.py``; ``de_field_std`` and
 ``escape_potential_grid`` are the f64 contracts of the K4 and K5 kernels. Complex values are (re, im) tensor pairs,
 and the op order is the reference's (``de_field_tci``: dz is updated BEFORE
 z each step, z is latched at the first |z| > escape_r, dz is not latched and
@@ -207,6 +207,56 @@ def de_field_std(cr, ci, max_iter: int = 500, escape_r: float = 4.0, eps: float 
     dist = torch.where(esc, torch.nan_to_num(num / den, nan=0.0, posinf=0.0, neginf=0.0),
                        torch.zeros_like(az))
     return esc, dist, (lzr, lzi), (ldr, ldi)
+
+
+def green_potential(cr, ci, max_iter: int = 20000, escape_r: float = 2.0):
+    """Parameter-plane Green function g_M(c) and Phi(c)
+    (lucas_equipotential_test_v3.py:124-162) on the tensors' device and
+    dtype: one ``_green_stage`` over the whole iteration budget. At first
+    escape k (1-based) log_phi = log(z)·2^-k, g = Re log_phi clamped to
+    >= 0, phi = exp(log_phi); else (0, max_iter, nan). Returns (g, k,
+    phi_r, phi_i)."""
+    _, _, esc, g, kk, lpr, lpi = _green_stage(torch.zeros_like(cr), torch.zeros_like(ci),
+                                              cr, ci, 0, max_iter, escape_r * escape_r,
+                                              max_iter)
+    er = torch.exp(lpr)
+    phi_r = torch.where(esc, er * torch.cos(lpi), torch.nan)
+    phi_i = torch.where(esc, er * torch.sin(lpi), torch.nan)
+    return g, kk, phi_r, phi_i
+
+
+def de_field_stage1(cr, ci, max_iter: int = 200, bailout: float = 1e6):
+    """Stage-1 distance estimator (construct_stage1_clean.py:50-58) on the
+    tensors' device and dtype: |z|·log|z| / max(|dz|, 1e-16) at the FIRST
+    |z| > bailout (z and dz latched there, then the orbit is frozen), else
+    0. No factor 2 in the denominator, unlike the other DE variants.
+    Returns (esc, d)."""
+    zr = torch.zeros_like(cr)
+    zi = torch.zeros_like(ci)
+    dzr = torch.ones_like(cr)
+    dzi = torch.zeros_like(ci)
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    lzr, lzi = torch.zeros_like(cr), torch.zeros_like(ci)
+    ldr, ldi = torch.ones_like(cr), torch.zeros_like(ci)
+    for _ in range(max_iter):
+        tr, ti = 2.0 * zr, 2.0 * zi
+        dzr, dzi = tr * dzr - ti * dzi + 1.0, tr * dzi + ti * dzr
+        zr, zi = _zsq_add_c(zr, zi, cr, ci)
+        hit = ~esc & (torch.hypot(zr, zi) > bailout)
+        lzr = torch.where(hit, zr, lzr)
+        lzi = torch.where(hit, zi, lzi)
+        ldr = torch.where(hit, dzr, ldr)
+        ldi = torch.where(hit, dzi, ldi)
+        esc = esc | hit
+        zr = torch.where(esc, 0.0, zr)
+        zi = torch.where(esc, 0.0, zi)
+        dzr = torch.where(esc, 1.0, dzr)
+        dzi = torch.where(esc, 0.0, dzi)
+    az = torch.hypot(lzr, lzi)
+    adz = torch.maximum(torch.hypot(ldr, ldi), ldr.new_tensor(1e-16))
+    d = torch.where(esc, az * torch.log(torch.maximum(az, az.new_tensor(1e-300))) / adz,
+                    torch.zeros_like(az))
+    return esc, d
 
 
 #: escape_potential_grid's normalizations

@@ -1,6 +1,7 @@
 """Procrustes alignment without scaling (S7).
 
-Copy of ``cmtci/transport/procrustes.py`` (numpy only).
+Copy of ``cmtci/transport/procrustes.py`` (numpy only), with the
+transport-plan-weighted variant.
 Reference: tci_construct_mandelbrot_v002_fixed.py:73-78.
 
 The reference takes svd(Y0^T X0) = U S V^T and applies R = U V^T to the
@@ -33,3 +34,22 @@ def procrustes_align_no_scale(xc, yc, convention: str = "fixed", return_transfor
     if return_transform:
         return out, r, y.mean(0) - x.mean(0) @ r
     return out
+
+
+def procrustes_align_weighted(x, y, plan):
+    """Transport-plan-weighted Procrustes (MandelBoundary.py intent).
+
+    Weighted means by the plan marginals, cross-covariance C = X0^T G Y0,
+    rotation R = U V^T from svd(C), aligned = X0 R + mean_Y. Returns
+    (aligned (N,2), R)."""
+    x = np.asarray(x, dtype=float)
+    y = np.asarray(y, dtype=float)
+    g = np.asarray(plan, dtype=float)
+    x_mean = np.average(x, axis=0, weights=g.sum(1))
+    y_mean = np.average(y, axis=0, weights=g.sum(0))
+    x0 = x - x_mean
+    y0 = y - y_mean
+    c = x0.T @ g @ y0
+    u, _, vt = np.linalg.svd(c)
+    r = u @ vt
+    return x0 @ r + y_mean, r

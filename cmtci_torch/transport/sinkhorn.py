@@ -1,8 +1,10 @@
-"""Kernel-argmax matcher (the tracker's "fixed" entropic OT alignment).
+"""Kernel-argmax matcher (the tracker's "fixed" entropic OT alignment) and
+the full log-domain Sinkhorn (the stage-1 matcher).
 
-Port of ``entropic_argmax_match`` from ``cmtci/transport/sinkhorn.py``
-(tci_construct_mandelbrot_v002_fixed.py:62-71 semantics): subsample the
-larger cloud to the smaller's size with the caller's numpy RNG, scale the
+Port of ``entropic_argmax_match``, ``sinkhorn_log`` and ``sinkhorn_match``
+from ``cmtci/transport/sinkhorn.py``. The argmax matcher
+(tci_construct_mandelbrot_v002_fixed.py:62-71 semantics) subsamples the
+larger cloud to the smaller's size with the caller's numpy RNG, scales the
 distance matrix by its mean, K = exp(-M/eps), match = argmax over rows.
 
 backend="numpy" is the reference's exact op order (scipy cdist, full K);
@@ -13,6 +15,8 @@ switches to a matrix-product formula with other rounding on large inputs.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -93,3 +97,37 @@ def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torc
         match = _match_fused(torch.as_tensor(ax, dtype=dt, device=dev),
                              torch.as_tensor(by, dtype=dt, device=dev), eps).cpu().numpy()
     return y[match], x
+
+
+def sinkhorn_log(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05) -> torch.Tensor:
+    """Log-domain Sinkhorn with uniform marginals on the cost's device and
+    dtype; returns the plan. The reference's ``lax.scan`` becomes `iters`
+    eager steps of two ``torch.logsumexp`` calls, with no host round trip
+    inside the loop (tci_construct_mandelbrot-v002.py:60-72 intent, stable
+    for small eps)."""
+    n, m = cost.shape
+    log_mu = -math.log(n) * torch.ones(n, dtype=cost.dtype, device=cost.device)
+    log_nu = -math.log(m) * torch.ones(m, dtype=cost.dtype, device=cost.device)
+    mk = -cost / eps
+    f = torch.zeros(n, dtype=cost.dtype, device=cost.device)
+    g = torch.zeros(m, dtype=cost.dtype, device=cost.device)
+    for _ in range(iters):
+        f = eps * (log_mu - torch.logsumexp(mk + g[None, :] / eps, dim=1))
+        g = eps * (log_nu - torch.logsumexp(mk + f[:, None] / eps, dim=0))
+    return torch.exp(mk + f[:, None] / eps + g[None, :] / eps)
+
+
+def sinkhorn_match(x, y, eps: float = 0.05, iters: int = 1000, squared: bool = True,
+                   device="cuda"):
+    """Full-Sinkhorn barycentric matching in f64 on `device`: each x_i ->
+    argmax_j plan_ij, with the squared cdist cost of
+    tci_construct_mandelbrot-v002.py scaled by its mean. Returns (y[match],
+    plan) as numpy arrays."""
+    dev = resolve_device(device)
+    d = _pairwise_dist(torch.as_tensor(_xy(x), dtype=torch.float64, device=dev),
+                       torch.as_tensor(_xy(y), dtype=torch.float64, device=dev))
+    cost = d**2 if squared else d
+    cost = cost / torch.clamp(cost.mean(), min=1e-300)
+    plan = sinkhorn_log(cost, iters=iters, eps=eps).cpu().numpy()
+    match = plan.argmax(axis=1)
+    return np.asarray(y)[match], plan

@@ -15,6 +15,15 @@ import cmtci_torch.pipelines.boundary
 import cmtci_torch.pipelines.equipotential
 import cmtci_torch.pipelines.analysis
 import cmtci_torch.pipelines.variograms
+import cmtci_torch.pipelines.stage1
+import cmtci_torch.pipelines.lucas_boundary
+import cmtci_torch.pipelines.curvature
+import cmtci_torch.geometry.polygon
+import cmtci_torch.geometry.alpha_shape
+import cmtci_torch.geometry.resample
+import cmtci_torch.io.loaders
+import cmtci_torch.transport.sinkhorn
+import cmtci_torch.transport.procrustes
 import cmtci_torch.bench
 import cmtci_torch.sweep_schedules
 import cmtci_torch.kernels.fma_peak
