@@ -11,8 +11,10 @@ Conventions:
     nothing falls back to the CPU);
   * dtypes are passed every time (torch defaults to float32; the analysis
     math is float64 as in the reference);
-  * randomness comes from the caller's ``np.random.RandomState`` stream or
-    an explicit ``torch.Generator``.
+  * randomness comes from the caller's ``np.random.RandomState`` stream, an
+    explicit ``torch.Generator``, or a host draw of
+    ``np.random.default_rng(seed)`` (the spectral bootstrap's resamples, the
+    eigensolvers' start vector), so a CPU run and a card run draw alike.
 """
 
 __version__ = "0.1.0"

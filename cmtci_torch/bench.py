@@ -36,6 +36,10 @@ Keys, each at the reference's configuration (``BenchSizes`` holds them):
   * eigensweep_s, tracker_warm_s, equipotential_s, variograms_s, tci_4x_s:
     wall times of the pipelines on their kernel paths, best of three, each
     with the reference's closing assertion.
+  * coupling_s: the iterative variogram <-> Laplacian coupling on the f32
+    field path over the default stage-1 bus (built before the timed
+    window), best of three warm walls, with the reference's closing
+    assertion (n_iter rows, a finite corr_pot).
 Times of kernels are taken between two CUDA events around a run of launches
 after a warm-up; pipeline times are host-clock walls that end in a device
 synchronize.
@@ -62,7 +66,9 @@ import torch
 from cmtci_torch.kernels import companion, fma_peak
 from cmtci_torch.kernels import mandelbrot_cuda as mc
 from cmtci_torch.pipelines.analysis import TCIConfig, run_tci
+from cmtci_torch.pipelines.coupling import CouplingConfig, run_coupling
 from cmtci_torch.pipelines.equipotential import EquipotentialConfig, run_equipotential
+from cmtci_torch.pipelines.stage1 import Stage1Config, run_stage1
 from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
 from cmtci_torch.pipelines.variograms import VariogramConfig, run_variograms
 from cmtci_torch.stats import pointstats as ps
@@ -74,7 +80,7 @@ DOM = (-2.1, 0.9, -1.5, 1.5)
 DE_ESCAPE_R = 4.0
 
 #: the reference's keys whose pipelines are not ported yet
-NOT_PORTED = ["uniformize_green_s", "uniformize_fem_s", "coupling_s"]
+NOT_PORTED = ["uniformize_green_s", "uniformize_fem_s"]
 #: the reference's ratio keys; each divides by a REFERENCE_* constant of
 #: another machine
 OMITTED = {
@@ -115,6 +121,9 @@ class BenchSizes:
                                                 field_dtype="float32"))
     tci: TCIConfig = field(
         default_factory=lambda: TCIConfig(mandelbrot_grid=2400, de_impl="cuda"))
+    coupling_bus: Stage1Config = field(default_factory=Stage1Config)
+    coupling: CouplingConfig = field(
+        default_factory=lambda: CouplingConfig(field_dtype="float32"))
 
 
 def small_sizes() -> BenchSizes:
@@ -134,7 +143,10 @@ def small_sizes() -> BenchSizes:
                                    grid_nx=24, grid_ny=24, potential_max_iter=60,
                                    m_target=200),
         tci=TCIConfig(construct_ns=(20, 40), mandelbrot_grid=96, mandelbrot_samples=800,
-                      grid_bins=32, de_impl="cuda"))
+                      grid_bins=32, de_impl="cuda"),
+        coupling_bus=Stage1Config(max_n=12, boundary_samples=80),
+        coupling=CouplingConfig(grid_res=48, max_iter_mb=60, win_local_corr=6,
+                                field_dtype="float32"))
 
 
 def _sync(dev: torch.device) -> None:
@@ -498,6 +510,18 @@ def bench_tci_4x(sizes: BenchSizes, dev: torch.device) -> float:
     return best
 
 
+def bench_coupling(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the coupling pipeline on the f32 field path; the
+    stage-1 bus it reads is built outside the timed window."""
+    bus = run_stage1(sizes.coupling_bus, plots=False, device=dev)
+    cfg = sizes.coupling
+    run_coupling(bus["C"], bus["M"], bus["matches"], cfg, device=dev)
+    best, (rows, _) = _best_wall_s(
+        lambda: run_coupling(bus["C"], bus["M"], bus["matches"], cfg, device=dev), 3, dev)
+    assert len(rows) == cfg.n_iter and np.isfinite(rows[-1]["corr_pot"])
+    return best
+
+
 #: (key, function, digits) of the pipeline keys, in the reference's order
 PIPELINE_KEYS = (
     ("eigensweep_s", bench_eigensweep, 3),
@@ -505,6 +529,7 @@ PIPELINE_KEYS = (
     ("equipotential_s", bench_equipotential, 2),
     ("variograms_s", bench_variograms, 2),
     ("tci_4x_s", bench_tci_4x, 2),
+    ("coupling_s", bench_coupling, 2),
 )
 
 

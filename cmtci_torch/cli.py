@@ -1,19 +1,26 @@
 """cmtci-torch command-line driver (the ported subcommands of ``cmtci``).
 
-Ported so far: tracker, boundary, equipotential, tci, variograms, bench, and
-the file bus: stage1, lucas-boundary, construct-boundary, curvature. On a
-CUDA session (``--device cuda``, the default) the dtype/backend knobs default
-to the card's fast paths: tracker field_dtype=float32 and de_impl=cuda
-(K1), boundary backend=cuda (K2), equipotential green_dtype=float32 (K3),
-tci de_impl=cuda (K1), variograms vario_dtype=field_dtype=float32.
+Ported so far: tracker, boundary, equipotential, tci, variograms, bench, the
+file bus (stage1, lucas-boundary, construct-boundary, curvature), the seven
+bus analyses (spectral, multifractal, embeddings, symmetry, spatial-stats,
+report, coupling) and suite, which runs them in one process. On a CUDA
+session (``--device cuda``, the default) the dtype/backend knobs default to
+the card's fast paths: tracker field_dtype=float32 and de_impl=cuda (K1),
+boundary backend=cuda (K2), equipotential green_dtype=float32 (K3), tci
+de_impl=cuda (K1), variograms vario_dtype=field_dtype=float32, symmetry
+scan_dtype=float32, spatial-stats stat_dtype=float32, multifractal
+box_backend=device and box_dtype=float32, embeddings eig_backend=device,
+eig_dtype=float32 and knn_dtype=float32, coupling field and vario dtype
+float32, and suite --stage-paths accel (those same choices for every stage).
 ``--parity`` opts out to the host/f64 paths (for tci, the numpy DE),
 ``--device cpu`` to the f64 plain-torch paths, and an explicit per-flag value
 always wins. ``bench`` forwards its arguments to ``cmtci_torch.bench``.
-``--device cuda`` without a card raises; nothing falls back to the CPU.
-``--no-plots`` skips the figures (matplotlib is then not needed). The
-file-bus subcommands run f64 on the device whatever the session (the
-alpha shapes on the host), so they have no session defaults, and their
-``--parity`` changes nothing, as in the reference.
+``--device cuda`` without a card raises; nothing falls back to the CPU, and
+suite reruns no stage on another path after an exception: the exception
+ends the run. ``--no-plots`` skips the figures (matplotlib is then not
+needed). The file-bus subcommands run f64 on the device whatever the
+session (the alpha shapes on the host), so they have no session defaults,
+and their ``--parity`` changes nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -21,6 +28,10 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+#: the seven bus analyses `suite` chains, in the reference's order
+_SUITE_STAGES = ("spectral", "multifractal", "embeddings", "symmetry",
+                 "spatial-stats", "report", "coupling")
 
 #: per-subcommand (flag, CUDA-session default, host default) triples
 _PLATFORM_FLAGS = {
@@ -31,6 +42,27 @@ _PLATFORM_FLAGS = {
     "tci": (("de_impl", "cuda", "torch"),),
     "variograms": (("vario_dtype", "float32", "float64"),
                    ("field_dtype", "float32", "float64")),
+    "symmetry": (("scan_dtype", "float32", "float64"),),
+    "spatial-stats": (("stat_dtype", "float32", "float64"),),
+    "multifractal": (("box_backend", "device", "host"),
+                     ("box_dtype", "float32", "float64")),
+    "embeddings": (("eig_backend", "device", "scipy"),
+                   ("eig_dtype", "float32", "float64"),
+                   ("knn_dtype", "float32", "float64")),
+    "coupling": (("coupling_field_dtype", "float32", "float64"),
+                 ("coupling_vario_dtype", "float32", "float64")),
+    "suite": (("stage_paths", "accel", "host"),),
+}
+
+#: each stage's knobs under `suite --stage-paths accel`, in the strings the
+#: standalone subcommands' flags take (spectral and report have none)
+_ACCEL_STAGE_OPTS = {
+    "multifractal": {"box_backend": "device", "box_dtype": "float32"},
+    "embeddings": {"eig_backend": "device", "eig_dtype": "float32",
+                   "knn_dtype": "float32"},
+    "symmetry": {"scan_dtype": "float32"},
+    "spatial-stats": {"stat_dtype": "float32"},
+    "coupling": {"field_dtype": "float32", "vario_dtype": "float32"},
 }
 
 #: per-subcommand (flag, --parity default) pairs, where parity is not the
@@ -156,12 +188,200 @@ def _parser():
     p.add_argument("--boundary-samples", type=int, default=600)
     _add_common(p, "accepted as the reference accepts it; changes nothing", plots=True)
 
+    dtypes = ["float64", "float32"]
+    for name in _SUITE_STAGES:
+        p = sub.add_parser(name, help=f"{name} analysis over the stage-1 file bus")
+        p.add_argument("--busdir", default="out_clean", help="stage-1 file-bus directory")
+        if name == "symmetry":
+            p.add_argument("--scan-dtype", choices=dtypes, default=None,
+                           help="dtype of the op table's and the 361-angle best-axis "
+                                "nearest-distance scans (CUDA-session default float32)")
+        if name == "spatial-stats":
+            p.add_argument("--stat-dtype", choices=dtypes, default=None,
+                           help="dtype of the shell-count and Hausdorff pair scans "
+                                "(CUDA-session default float32; exact int64 counts)")
+        if name == "multifractal":
+            p.add_argument("--box-backend", choices=["host", "device"], default=None,
+                           help="device = the count grid and partition sums on the device "
+                                "(CUDA-session default); host = the numpy grouping")
+            p.add_argument("--box-dtype", choices=dtypes, default=None,
+                           help="dtype of the device count grid (CUDA-session default "
+                                "float32)")
+        if name == "embeddings":
+            p.add_argument("--eig-backend", choices=["scipy", "device"], default=None,
+                           help="device = the dense Lanczos on the device (CUDA-session "
+                                "default); scipy = the eigsh oracle")
+            p.add_argument("--eig-dtype", choices=dtypes, default=None,
+                           help="dtype of the device Lanczos (CUDA-session default float32)")
+            p.add_argument("--knn-dtype", choices=dtypes, default=None,
+                           help="float32 = the kNN search with hi/lo coordinates "
+                                "(CUDA-session default)")
+        if name == "coupling":
+            p.add_argument("--field-dtype", dest="coupling_field_dtype", choices=dtypes,
+                           default=None,
+                           help="float32 = both potential grids and the diagnostics in f32 "
+                                "(CUDA-session default; the trajectory is unchanged)")
+            p.add_argument("--vario-dtype", dest="coupling_vario_dtype", choices=dtypes,
+                           default=None,
+                           help="float32 = the point variogram in f32 on the device "
+                                "(CUDA-session default; an f32 trajectory realization)")
+        _add_common(p, "the host/f64 paths whatever the device", plots=True)
+
+    p = sub.add_parser("suite", help="all bus analyses in one process (per-stage "
+                                     "files and times)")
+    p.add_argument("--busdir", default="out_clean", help="stage-1 file-bus directory")
+    p.add_argument("--stages", default="all",
+                   help="comma list from {" + ",".join(_SUITE_STAGES) + "} "
+                        "(default: all seven, in catalog order)")
+    p.add_argument("--stage-paths", choices=["host", "accel"], default=None,
+                   help="accel = every stage's f32/device path (the reference's "
+                        "`suite --device accel`; CUDA-session default); host = the "
+                        "f64 defaults of each subcommand")
+    _add_common(p, "the host/f64 stage paths whatever the device", plots=True)
+
     sub.add_parser("bench", add_help=False,
                    help="the benchmark (python -m cmtci_torch.bench; same arguments)")
     return ap
 
 
-def main(argv=None):
+def _bus_stage_opts_from_args(st, args) -> dict:
+    """The standalone subcommand's flags as a stage-opts dict."""
+    if st == "multifractal":
+        return {"box_backend": args.box_backend, "box_dtype": args.box_dtype}
+    if st == "embeddings":
+        return {"eig_backend": args.eig_backend, "eig_dtype": args.eig_dtype,
+                "knn_dtype": args.knn_dtype}
+    if st == "symmetry":
+        return {"scan_dtype": args.scan_dtype}
+    if st == "spatial-stats":
+        return {"stat_dtype": args.stat_dtype}
+    if st == "coupling":
+        return {"field_dtype": args.coupling_field_dtype,
+                "vario_dtype": args.coupling_vario_dtype}
+    return {}
+
+
+def _run_bus_stage(st, c, m, ca, matches, out_prefix, opts, plots=True,
+                   device="cuda", layers=None) -> dict:
+    """One bus analysis stage: the one dispatch the standalone subcommands
+    and `suite` share (the same pipeline call and files, so a suite stage
+    writes what its subcommand writes). `opts` holds the stage's knobs as
+    the CLI's strings; `layers`, a StageTimer, takes the spans of a stage
+    that times its layers (coupling); returns the values the CLI prints."""
+    import torch
+
+    from cmtci_torch.pipelines import analysis
+    from cmtci_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+
+    def dtype(key):
+        return torch.float32 if opts.get(key) == "float32" else torch.float64
+
+    if st == "spectral":
+        from cmtci_torch.pipelines.spectral import SpectralConfig, run_spectral
+
+        o = run_spectral(c, m, SpectralConfig(), out_prefix, plots=plots, device=dev)
+        return {"power_slopes_bootstrap": o["power_slopes_bootstrap"]}
+    if st == "multifractal":
+        analysis.run_multifractal(c, m, out_prefix=out_prefix,
+                                  box_backend=opts.get("box_backend", "host"),
+                                  box_dtype=dtype("box_dtype"), plots=plots, device=dev)
+        return {}
+    if st == "embeddings":
+        o = analysis.run_embeddings(c, m, out_prefix=out_prefix,
+                                    eig_backend=opts.get("eig_backend", "scipy"),
+                                    eig_dtype=dtype("eig_dtype"), knn_dtype=dtype("knn_dtype"),
+                                    plots=plots, device=dev)
+        return {"spectral_distance": o["spectral_distance"]}
+    if st == "symmetry":
+        o = analysis.run_symmetry(ca, m, matches, out_prefix=out_prefix,
+                                  scan_dtype=dtype("scan_dtype"), device=dev)
+        return {"rows": o["rows"]}
+    if st == "spatial-stats":
+        o = analysis.run_spatial_stats(ca, m, out_prefix=out_prefix,
+                                       stat_dtype=dtype("stat_dtype"), plots=plots, device=dev)
+        return {"hausdorff": o["hausdorff"]}
+    if st == "report":
+        return {"report_row": analysis.run_report(c, m, ca, matches, out_prefix, plots=plots,
+                                                  device=dev)}
+    if st == "coupling":
+        from cmtci_torch.pipelines.coupling import CouplingConfig, run_coupling
+
+        rows, _ = run_coupling(
+            c, m, matches,
+            CouplingConfig(field_dtype=opts.get("field_dtype", "float64"),
+                           vario_dtype=opts.get("vario_dtype", "float64")),
+            out_prefix, plots=plots, device=dev, timer=layers)
+        return {"coupling_rows": rows}
+    raise ValueError(f"unknown bus stage {st!r}")
+
+
+def _load_bus(busdir):
+    """(C, M, C_aligned, matches) of a stage-1 bus; matches is None when
+    matches_indices.csv is missing or unreadable (coupling then raises)."""
+    from cmtci_torch.io.loaders import load_matches, load_points
+
+    c = load_points(f"{busdir}/construct_points.csv")
+    m = load_points(f"{busdir}/mandel_boundary_sample.csv")
+    ca = load_points(f"{busdir}/construct_aligned.csv")
+    try:
+        matches = load_matches(f"{busdir}/matches_indices.csv", len(ca))
+    except (OSError, ValueError):
+        matches = None
+    return c, m, ca, matches
+
+
+def _run_suite(args, layers=None) -> int:
+    """The bus analyses in one process, each stage timed (a device
+    synchronize at both ends), with one JSON summary line. Each stage runs
+    the pipeline call of its subcommand and writes `{out}/{stage}_*`. An
+    exception in a stage ends the run: no stage is rerun on another path.
+    `layers` (a StageTimer) takes the coupling stage's layer spans."""
+    import time
+
+    from cmtci_torch.io.writers import to_jsonable
+    from cmtci_torch.utils.artifacts import StageTimer
+    from cmtci_torch.utils.device import resolve_device
+
+    t0 = time.time()
+    stages = (_SUITE_STAGES if args.stages == "all"
+              else tuple(s.strip() for s in args.stages.split(",") if s.strip()))
+    unknown = [s for s in stages if s not in _SUITE_STAGES]
+    if unknown:
+        raise SystemExit(f"suite: unknown stage(s) {unknown}; choose from "
+                         f"{list(_SUITE_STAGES)}")
+    dev = resolve_device(args.device)
+    accel = args.stage_paths == "accel"
+    c, m, ca, matches = _load_bus(args.busdir)
+    timer = StageTimer(dev)
+    summary: dict = {}
+    for st in stages:
+        with timer.stage(st):
+            o = _run_bus_stage(st, c, m, ca, matches, f"{args.out}/{st}",
+                               _ACCEL_STAGE_OPTS.get(st, {}) if accel else {},
+                               plots=not args.no_plots, device=dev, layers=layers)
+        if st == "spectral" and o["power_slopes_bootstrap"]:
+            summary["power_slope_construct"] = o["power_slopes_bootstrap"][0]["slope"]
+        elif st == "embeddings":
+            summary["spectral_distance"] = o["spectral_distance"]
+        elif st == "symmetry":
+            summary["best_axis_deg"] = o["rows"][-1]["angle_deg"]
+        elif st == "spatial-stats":
+            summary["hausdorff"] = o["hausdorff"]
+        elif st == "report":
+            summary.setdefault("hausdorff", o["report_row"]["hausdorff"])
+        elif st == "coupling":
+            summary["coupling_d_mean"] = o["coupling_rows"][-1]["d_mean"]
+    print(json.dumps(to_jsonable(
+        {"stages": {k: round(v, 3) for k, v in timer.times.items()},
+         "wall_s": round(time.time() - t0, 3), **summary})))
+    return 0
+
+
+def main(argv=None, layers=None):
+    """The CLI. `layers`, a StageTimer, takes the layer spans of `suite`'s and
+    `coupling`'s coupling stage, for a caller in the same process."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["bench"]:
         from cmtci_torch import bench
@@ -254,7 +474,32 @@ def main(argv=None):
         out = run_stage1(Stage1Config(max_n=args.max_n, boundary_samples=args.boundary_samples),
                          args.out, plots=not args.no_plots, device=args.device)
         print(f"stage1: C={out['C'].shape} M={out['M'].shape} -> {args.out}/")
+    elif args.cmd in _SUITE_STAGES:
+        from cmtci_torch.utils.device import resolve_device
+
+        resolve_device(args.device)  # no card: raise before reading the bus
+        c, m, ca, matches = _load_bus(args.busdir)
+        out = _run_bus_stage(args.cmd, c, m, ca, matches, args.out,
+                             _bus_stage_opts_from_args(args.cmd, args),
+                             plots=not args.no_plots, device=args.device, layers=layers)
+        if args.cmd == "spectral":
+            print(json.dumps(out["power_slopes_bootstrap"]))
+        elif args.cmd == "multifractal":
+            print("multifractal done")
+        elif args.cmd == "embeddings":
+            print(f"spectral distance: {out['spectral_distance']}")
+        elif args.cmd == "symmetry":
+            print(json.dumps(out["rows"][-1]))
+        elif args.cmd == "spatial-stats":
+            print(f"hausdorff={out['hausdorff']:.4f}")
+        elif args.cmd == "report":
+            print(json.dumps(out["report_row"]))
+        elif args.cmd == "coupling":
+            print(json.dumps(out["coupling_rows"][-1]))
+    elif args.cmd == "suite":
+        return _run_suite(args, layers)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,6 +1,7 @@
-"""Figure writers of the boundary, equipotential, TCI, stage-1 and curvature
+"""Figure writers of the boundary, equipotential, TCI, stage-1, curvature,
+spectral, multifractal, embeddings, spatial-stats, report and coupling
 pipelines (subset of ``cmtci/io/plots.py``, copied unchanged apart from the
-import).
+imports).
 
 matplotlib is imported inside each function, never at module import: a
 machine without it still runs every pipeline with ``plots=False``
@@ -194,5 +195,158 @@ def plot_field(field, domain, path, title="", cmap="viridis"):
     plt.title(title)
     plt.tight_layout()
     fig.savefig(ensure_dir(path), dpi=150, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_multifractal_compare(res_c, res_m, prefix):
+    """D(q) and f(alpha) comparison plots (multifractal_phase6.py:150-172)."""
+    plt = pyplot()
+    fig = plt.figure(figsize=(8, 5))
+    plt.plot(res_c["q"], res_c["Dq"], "o-", label="Construct D(q)")
+    plt.plot(res_m["q"], res_m["Dq"], "s-", label="Mandel D(q)")
+    plt.xlabel("q")
+    plt.ylabel("D(q)")
+    plt.legend()
+    plt.grid(True)
+    plt.title("Generalized dimensions D(q)")
+    fig.savefig(ensure_dir(f"{prefix}_Dq_compare.png"), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+
+    fig = plt.figure(figsize=(8, 5))
+    plt.plot(res_c["alpha"], res_c["f_alpha"], "o-", label=r"Construct f($\alpha$)")
+    plt.plot(res_m["alpha"], res_m["f_alpha"], "s-", label=r"Mandel f($\alpha$)")
+    plt.xlabel(r"$\alpha$")
+    plt.ylabel(r"$f(\alpha)$")
+    plt.legend()
+    plt.grid(True)
+    plt.title("Singularity spectrum")
+    fig.savefig(f"{prefix}_falpha_compare.png", dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return f"{prefix}_Dq_compare.png", f"{prefix}_falpha_compare.png"
+
+
+def plot_fft_reconstructions(c_pts, m_pts, path, modes=(5, 10, 30, 100),
+                             ffts=None):
+    """Low-mode IFFT reconstruction overlays (spatial_stats_phase4.py:60-78).
+
+    ffts=(f_c, f_m) reuses already-computed boundary FFTs (run_spectral has
+    them in scope); otherwise they are computed here.
+    """
+    import math
+
+    from cmtci_torch.stats import spectral as sp
+
+    plt = pyplot()
+    if ffts is not None:
+        f_c, f_m = ffts
+    else:
+        _, f_c = sp.boundary_fft(c_pts)
+        _, f_m = sp.boundary_fft(m_pts)
+    fig = plt.figure(figsize=(12, 6))
+    nrows = 1 if len(modes) <= 2 else 2
+    ncols = math.ceil(len(modes) / nrows)
+    for i, nm in enumerate(modes, 1):
+        rec_c = sp.reconstruct_low_modes(f_c, nm)
+        rec_m = sp.reconstruct_low_modes(f_m, nm)
+        ax = fig.add_subplot(nrows, ncols, i)
+        ax.plot(rec_c.real, rec_c.imag, label=f"Construct {nm} modes", alpha=0.7)
+        ax.plot(rec_m.real, rec_m.imag, label=f"Mandelbrot {nm} modes", alpha=0.7)
+        ax.set_aspect("equal")
+        ax.legend(fontsize=8)
+        ax.set_title(f"Reconstruction with {nm} modes")
+    fig.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_embedding_scatter(points, vec, path, title=""):
+    """Cloud colored by a diffusion eigenvector (dynamical_embeddings_phase7.py:158-169)."""
+    plt = pyplot()
+    p = _xy(points)
+    fig = plt.figure(figsize=(6, 6))
+    plt.scatter(p[:, 0], p[:, 1], s=6, c=np.asarray(vec), cmap="Spectral", alpha=0.8)
+    plt.title(title)
+    plt.colorbar()
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_eigenvalue_spectra(vals_c, vals_m, path):
+    """Leading-eigenvalue decay comparison (dynamical_embeddings_phase7.py:142-152)."""
+    plt = pyplot()
+    vals_c = np.asarray(vals_c)
+    vals_m = np.asarray(vals_m)
+    fig = plt.figure(figsize=(6, 4))
+    plt.plot(np.arange(1, len(vals_c) + 1), vals_c, "o-", label="Construct")
+    plt.plot(np.arange(1, len(vals_m) + 1), vals_m, "s-", label="Mandelbrot")
+    plt.xlabel("Mode index")
+    plt.ylabel("Eigenvalue (symmetrized kernel)")
+    plt.title("Spectrum (leading eigenvalues)")
+    plt.legend()
+    plt.grid(True)
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_local_correlation_panels(u_c, u_m, corr_map, domain, path):
+    """U_C / U_M / difference / local-r panels (Potentials.py:96-124)."""
+    plt = pyplot()
+    u_c = np.asarray(u_c)
+    u_m = np.asarray(u_m)
+    u_diff = u_c - u_m
+    ext = [domain[0], domain[1], domain[2], domain[3]]
+    fig, axs = plt.subplots(1, 4, figsize=(22, 5))
+    specs = (
+        (u_c, "Logarithmic Potential (Construct)", "viridis", None),
+        (u_m, "Escape Potential (Mandelbrot)", "inferno", None),
+        (u_diff, "Difference (Construct - Mandelbrot)", "coolwarm",
+         (-np.nanmax(np.abs(u_diff)), np.nanmax(np.abs(u_diff)))),
+        (corr_map, "Local Correlation Map", "RdYlGn", (-1, 1)),
+    )
+    for ax, (field, title, cmap, lims) in zip(axs, specs):
+        kw = {} if lims is None else {"vmin": lims[0], "vmax": lims[1]}
+        im = ax.imshow(field, extent=ext, origin="lower", cmap=cmap, **kw)
+        ax.set_title(title)
+        fig.colorbar(im, ax=ax)
+    fig.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_match_distance_hist(distances, path):
+    """Matching-distance histogram (match_analysis_steps1_2.py:28-32)."""
+    plt = pyplot()
+    fig = plt.figure()
+    plt.hist(np.asarray(distances), bins=50)
+    plt.xlabel("Distance between matched points")
+    plt.ylabel("Count")
+    plt.title("Matching Distance Distribution")
+    plt.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_curvature_hotspots(c_pts, m_pts, curv_c, curv_m, path):
+    """Side-by-side log1p-curvature scatters (spatial_stats_phase3b.py:17-42)."""
+    plt = pyplot()
+    c, m = _xy(c_pts), _xy(m_pts)
+    fig = plt.figure(figsize=(12, 5))
+    for i, (p, k, title) in enumerate(
+            ((c, curv_c, "Construct curvature hotspots"),
+             (m, curv_m, "Mandelbrot boundary curvature hotspots")), 1):
+        ax = fig.add_subplot(1, 2, i)
+        sc = ax.scatter(p[:, 0], p[:, 1], c=np.log1p(np.asarray(k)), cmap="plasma", s=6)
+        fig.colorbar(sc, ax=ax, label="log(1+curvature)")
+        ax.set_title(title)
+        ax.set_aspect("equal")
+    fig.suptitle("Curvature overlay: Construct vs Mandelbrot")
+    fig.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
     plt.close(fig)
     return path

@@ -1,11 +1,12 @@
-"""The TCI flow pipeline (``cmtci tci``) on PyTorch.
+"""The analysis pipelines of ``cmtci/pipelines/analysis.py`` on PyTorch: the
+TCI flow (``cmtci tci``) and the bus analyses ``multifractal``,
+``embeddings``, ``symmetry``, ``spatial-stats`` and ``report``.
 
-Port of ``TCIConfig`` and ``run_tci`` from ``cmtci/pipelines/analysis.py``
-(tci_construct_mandelbrot_v002_fixed.py:120-170): the inverse-eigenvalue
-cloud C, the TCI boundary sample M, the kernel-argmax match and Procrustes,
-the defensive Hausdorff / curvature / spectral metrics, the probability
-histograms and the KL trajectory of the TCI flow. The other analyses of that
-module are not ported yet (ROADMAP Queue 1 item 7).
+``run_tci`` ports TCIConfig and run_tci (tci_construct_mandelbrot_v002_fixed.py:
+120-170): the inverse-eigenvalue cloud C, the TCI boundary sample M, the
+kernel-argmax match and Procrustes, the defensive Hausdorff / curvature /
+spectral metrics, the probability histograms and the KL trajectory of the
+TCI flow.
 
 One host stream np.random.RandomState(seed) is consumed in the reference's
 order: the sampler, the matcher's subsample, then the two rng.choice draws
@@ -16,6 +17,13 @@ of the metrics. de_impl picks the boundary sampler:
   * "cuda": the hand-written K1 kernel (its twin on a CPU device), with the
     q25 band and the subsample on the device, plus the f32 matcher and f32
     pca_eccentricity (the reference's "pallas").
+
+The bus analyses read the stage-1 file bus (multifractal_phase6.py,
+dynamical_embeddings_phase7.py, symmetry_phase_bestaxis.py,
+spatial_stats_phase2/3.py, phase5_report.py) and write the reference's files.
+Each dtype argument selects the reference's f32 option (torch.float32) or
+its f64 default; both run on `device`, apart from the host numpy parts the
+reference also keeps on the host.
 """
 
 from __future__ import annotations
@@ -32,8 +40,11 @@ import torch
 from cmtci_torch.io import writers
 from cmtci_torch.kernels import companion, mandelbrot
 from cmtci_torch.stats import curvature as curv
+from cmtci_torch.stats import embeddings as emb
+from cmtci_torch.stats import multifractal as mf
 from cmtci_torch.stats import pointstats as ps
 from cmtci_torch.stats import spectral as sp
+from cmtci_torch.stats import symmetry as sym
 from cmtci_torch.transport import giflow
 from cmtci_torch.transport import histogram as hg
 from cmtci_torch.transport.procrustes import procrustes_align_no_scale
@@ -168,3 +179,163 @@ def run_tci(cfg: TCIConfig, out_json: Optional[str] = None, plots: bool = True,
                                title="Final histogram X_T")
         writers.write_config_meta(f"{prefix}_meta.txt", cfg)
     return out, kls, traj
+
+
+def run_multifractal(c_pts, m_pts, q_values=None, scales=None, out_prefix=None,
+                     box_backend="host", box_dtype=torch.float64, plots=True, device="cuda"):
+    """Both clouds through the box-counting spectrum; CSV per cloud.
+
+    box_backend="device" computes the counts and partition sums in
+    box_dtype on `device`; "host" is the reference's numpy grouping."""
+    dev = resolve_device(device)
+    res_c = mf.multifractal_spectrum(c_pts, q_values, scales, backend=box_backend,
+                                     dtype=box_dtype, device=dev)
+    res_m = mf.multifractal_spectrum(m_pts, q_values, scales, backend=box_backend,
+                                     dtype=box_dtype, device=dev)
+    if out_prefix:
+        for res, name in ((res_c, "construct"), (res_m, "mandel")):
+            out = np.column_stack((res["q"], res["tau"], res["Dq"], res["alpha"], res["f_alpha"]))
+            writers.ensure_dir(f"{out_prefix}_{name}_multifractal.csv")
+            np.savetxt(f"{out_prefix}_{name}_multifractal.csv", out, delimiter=",",
+                       header="q,tau,Dq,alpha,f_alpha", comments="")
+        if plots:
+            from cmtci_torch.io import plots as plot_io
+
+            plot_io.plot_multifractal_compare(res_c, res_m, out_prefix)
+        writers.write_config_meta(f"{out_prefix}_meta.txt", {
+            "q_values": list(np.asarray(res_c["q"])),
+            "scales": list(np.asarray(res_c["scales"])),
+            "n_construct": len(np.asarray(c_pts)), "n_mandel": len(np.asarray(m_pts))})
+    return {"construct": res_c, "mandel": res_m}
+
+
+def run_embeddings(c_pts, m_pts, k_nn=20, n_eigs=8, eps_scale=0.5, out_prefix=None,
+                   eig_backend="scipy", eig_dtype=torch.float64, knn_dtype=torch.float64,
+                   plots=True, device="cuda"):
+    """Diffusion-map embeddings + spectral distance (phase7).
+
+    eig_backend="device" runs the dense Lanczos in eig_dtype on `device`
+    instead of the scipy eigsh parity oracle; knn_dtype=torch.float32 runs the
+    kNN search with hi/lo coordinates."""
+    dev = resolve_device(device)
+    vals_c, vecs_c, sigma_c = emb.diffusion_map(c_pts, k_nn, n_eigs, eps_scale,
+                                                eig_backend=eig_backend, eig_dtype=eig_dtype,
+                                                knn_dtype=knn_dtype, device=dev)
+    vals_m, vecs_m, sigma_m = emb.diffusion_map(m_pts, k_nn, n_eigs, eps_scale,
+                                                eig_backend=eig_backend, eig_dtype=eig_dtype,
+                                                knn_dtype=knn_dtype, device=dev)
+    dist = emb.embedding_spectral_distance(vals_c, vals_m)
+    if out_prefix:
+        for vals, vecs, name in ((vals_c, vecs_c, "construct"), (vals_m, vecs_m, "mandel")):
+            writers.ensure_dir(f"{out_prefix}_eigenvalues_{name}.csv")
+            np.savetxt(f"{out_prefix}_eigenvalues_{name}.csv",
+                       np.column_stack((np.arange(1, len(vals) + 1), vals)),
+                       delimiter=",", header="idx,lambda")
+            np.save(f"{out_prefix}_eigenvectors_{name}.npy", vecs)
+        with open(f"{out_prefix}_spectral_distance.txt", "w") as f:
+            f.write(f"spectral_distance_norm = {dist}\n")
+        if plots:
+            from cmtci_torch.io import plots as plot_io
+
+            plot_io.plot_eigenvalue_spectra(vals_c, vals_m, f"{out_prefix}_spectra_compare.png")
+            for pts, vecs, name in ((c_pts, vecs_c, "construct"), (m_pts, vecs_m, "mandel")):
+                comp = 1 if vecs.shape[1] >= 3 else 0
+                plot_io.plot_embedding_scatter(
+                    pts, vecs[:, comp], f"{out_prefix}_{name}_embedding_vec{comp}.png",
+                    title=f"{name} embedding (colored by eigenvector {comp})")
+        writers.write_config_meta(f"{out_prefix}_meta.txt", {
+            "k_nn": k_nn, "n_eigs": n_eigs, "eps_scale": eps_scale,
+            "sigma_construct": sigma_c, "sigma_mandel": sigma_m})
+    return {"vals_construct": vals_c, "vals_mandel": vals_m,
+            "sigma_construct": sigma_c, "sigma_mandel": sigma_m,
+            "spectral_distance": dist}
+
+
+def run_symmetry(c_aligned, m_pts, matches=None, tol=0.05, out_prefix=None,
+                 scan_dtype=torch.float64, device="cuda"):
+    """Symmetry op table + best axis (symmetry_phase_bestaxis.py)."""
+    rows, best = sym.symmetry_report(c_aligned, m_pts, matches, tol, scan_dtype=scan_dtype,
+                                     device=device)
+    if out_prefix:
+        writers.write_dict_rows_csv(f"{out_prefix}_symmetry_report_bestaxis.csv", rows)
+        writers.write_config_meta(f"{out_prefix}_meta.txt", {
+            "tol": tol, "n_construct": len(np.asarray(c_aligned)),
+            "n_mandel": len(np.asarray(m_pts))})
+    return {"rows": rows, "best": best}
+
+
+def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
+                      stat_dtype=torch.float64, plots=True, device="cuda"):
+    """phase2 + phase3: g(r), Ripley K, Hausdorff, gradient curvature, box dim.
+
+    stat_dtype=torch.float32 runs the three O(n²) pair scans (the shell
+    counts of each cloud and the Hausdorff distance) in f32 on `device`:
+    the counts stay exact int64, a borderline pair can land one bin over."""
+    dev = resolve_device(device)
+    shells_c = ps._shell_counts(c_aligned, r_max, dr, dtype=stat_dtype, device=dev)
+    shells_m = ps._shell_counts(m_pts, r_max, dr, dtype=stat_dtype, device=dev)
+    r_c, g_c = ps.pair_correlation(c_aligned, r_max, dr, _shells=shells_c)
+    r_m, g_m = ps.pair_correlation(m_pts, r_max, dr, _shells=shells_m)
+    _, k_c = ps.ripley_k(c_aligned, r_max, dr, _shells=shells_c)
+    _, k_m = ps.ripley_k(m_pts, r_max, dr, _shells=shells_m)
+    out = {
+        "r": r_c, "g_construct": g_c, "g_mandel": g_m,
+        "K_construct": k_c, "K_mandel": k_m,
+        "hausdorff": ps.hausdorff(c_aligned, m_pts, dtype=stat_dtype, device=dev),
+        "curv_construct": curv.gradient_curvature(np.asarray(c_aligned), device=dev),
+        "curv_mandel": curv.gradient_curvature(np.asarray(m_pts), device=dev),
+    }
+    fd_c, _ = ps.fractal_dimension(c_aligned)
+    fd_m, _ = ps.fractal_dimension(m_pts)
+    out["fractal_dim_construct"] = fd_c
+    out["fractal_dim_mandel"] = fd_m
+    if out_prefix:
+        writers.write_dict_rows_csv(f"{out_prefix}_spatial_stats.csv", [{
+            "hausdorff": out["hausdorff"],
+            "fractal_dim_construct": fd_c, "fractal_dim_mandel": fd_m,
+        }])
+        writers.write_config_meta(f"{out_prefix}_meta.txt", {
+            "r_max": r_max, "dr": dr, "n_construct": len(np.asarray(c_aligned)),
+            "n_mandel": len(np.asarray(m_pts))})
+        if plots:
+            from cmtci_torch.io import plots as plot_io
+
+            plot_io.plot_curvature_hotspots(
+                c_aligned, m_pts, out["curv_construct"], out["curv_mandel"],
+                f"{out_prefix}_curvature_hotspots.png")
+    return out
+
+
+def run_report(c, m, c_aligned, matches, out_prefix=None, plots=True, device="cuda"):
+    """phase5 integrative summary (phase5_report.py:190-217 schema)."""
+    dev = resolve_device(device)
+    row = {"n_construct": len(c), "n_mandel": len(m), "n_aligned": len(c_aligned)}
+    match_d = None
+    if matches is not None and len(matches):
+        ln = min(len(matches), len(c_aligned), len(m))
+        match_d = np.linalg.norm(np.asarray(c_aligned)[:ln] - np.asarray(m)[np.asarray(matches)[:ln]], axis=1)
+        d = match_d
+        row.update(match_min=float(d.min()), match_median=float(np.median(d)),
+                   match_mean=float(d.mean()), match_max=float(d.max()),
+                   match_std=float(d.std()))
+    row["hausdorff"] = ps.hausdorff(c_aligned, m, device=dev)
+    for pts, name in ((c_aligned, "construct"), (m, "mandel")):
+        k = curv.gradient_curvature(np.asarray(pts), device=dev)
+        k = k[np.isfinite(k)]
+        row[f"curv_{name}_median"] = float(np.median(k))
+        row[f"curv_{name}_mean"] = float(np.mean(k))
+        fd, _ = ps.fractal_dimension(pts)
+        row[f"fractal_dim_{name}"] = float(fd)
+    if out_prefix:
+        writers.write_dict_rows_csv(f"{out_prefix}_phase5_summary.csv", [row])
+        writers.write_config_meta(f"{out_prefix}_meta.txt", {
+            "n_construct": len(c), "n_mandel": len(m), "n_aligned": len(c_aligned)})
+        if plots:
+            from cmtci_torch.io import plots as plot_io
+
+            plot_io.plot_alignment(c, m, c_aligned, f"{out_prefix}_matching_visualization.png",
+                                   title="Initial matching visualization")
+            if match_d is not None:
+                plot_io.plot_match_distance_hist(match_d,
+                                                 f"{out_prefix}_match_distance_hist.png")
+    return row

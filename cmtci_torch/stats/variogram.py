@@ -1,5 +1,5 @@
-"""Empirical semivariograms and cross-variograms of grid fields, model fits,
-detrending (the variogram pipeline's subset of ``cmtci/stats/variogram.py``).
+"""Empirical semivariograms and cross-variograms of grid fields and point
+clouds, model fits, detrending (port of ``cmtci/stats/variogram.py``).
 
 Reference behaviour:
   * grid-field semivariogram: subsample <= 15k pixels, all-pairs binned mean
@@ -9,6 +9,9 @@ Reference behaviour:
   * exponential model fit by 200-round coordinate search
     (variograms_construct_mandelbrotv2.py:206-235)
   * total-degree-2 polynomial detrend (:179-204)
+  * the coupling loop's point variogram over all pairs of a cloud and the
+    matched-pair cross-variogram (Iterative_Variogram_Laplacian.py:53-87,
+    Variogram-Mandelbrot-Construct.py:155-178)
 
 As in ``cmtci``, every pair is used (the reference scripts cap each bin at
 max_pairs_per_bin pairs chosen in chunk order, which only bounds CPU cost).
@@ -152,6 +155,144 @@ def three_semivariograms(field_c, field_m, gx, gy, r_bins, m_target: int = 15000
     _, g_x, n_x = cross_semivariogram(field_c, field_m, gx, gy, r_bins, m_target, rng,
                                       chunk, dtype, device)
     return r_c, g_c, g_m, g_x, n_c, n_m, n_x
+
+
+_TRIU_CACHE: dict = {}
+
+
+def _triu_pairs(n: int):
+    """Cached np.triu_indices(n, k=1): the coupling loop asks for the same
+    pairs every iteration; one entry is kept, and only up to about 4M pairs
+    (64 MB of int64 indices), so one large call pins nothing for the life of
+    the process."""
+    hit = _TRIU_CACHE.get(n)
+    if hit is None:
+        pairs = np.triu_indices(n, k=1)
+        if n * (n - 1) // 2 <= 4_000_000:
+            _TRIU_CACHE.clear()
+            _TRIU_CACHE[n] = pairs
+        return pairs
+    return hit
+
+
+def point_variogram(locs, values=None, max_dist=None, nbins: int = 50):
+    """pdist-style variogram on the host in f64 (Iterative_Variogram_Laplacian.py:53-87).
+
+    values=None uses squared pairwise distances as the 'field difference'
+    (the reference's coords-only variant). Returns (centers, gamma, counts).
+    The coupling nudge reads its range, so it stays bitwise the reference's.
+    """
+    locs = np.asarray(locs, dtype=float)
+    n = len(locs)
+    i, j = _triu_pairs(n)
+    d = np.linalg.norm(locs[i] - locs[j], axis=1)
+    sq = d**2 if values is None else (np.asarray(values)[i] - np.asarray(values)[j]) ** 2
+    if max_dist is None:
+        max_dist = 0.5 * d.max() if d.size else 1.0
+    bins = np.linspace(0, max_dist, nbins + 1)
+    centers = 0.5 * (bins[:-1] + bins[1:])
+    gamma = np.full(nbins, np.nan)
+    counts = np.zeros(nbins, dtype=int)
+    which = np.digitize(d, bins) - 1
+    # one stable sort instead of nbins boolean scans: a stable sort keeps
+    # ascending index order inside each bin, so np.mean sees the same values
+    # in the same order as a masked loop would
+    order = np.argsort(which, kind="stable")
+    ws = which[order]
+    sq_sorted = sq[order]
+    starts = np.searchsorted(ws, np.arange(nbins), side="left")
+    stops = np.searchsorted(ws, np.arange(nbins), side="right")
+    for k in range(nbins):
+        lo, hi = starts[k], stops[k]
+        if hi > lo:
+            gamma[k] = 0.5 * np.mean(sq_sorted[lo:hi])
+            counts[k] = hi - lo
+    return centers, gamma, counts
+
+
+def point_variogram_device(locs, values=None, max_dist=None, nbins: int = 50,
+                           chunk: int = 1024, dtype=torch.float64, device="cuda"):
+    """point_variogram's binning of all pairs i < j in `dtype` on `device`
+    (Iterative_Variogram_Laplacian.py:53-87), blocked over rows through
+    masked_bin_reduce: bin k holds edges[k] <= d < edges[k+1], and
+    d == edges[-1] is dropped, as np.digitize(..) - 1 does. With
+    max_dist=None the range is 0.5 x the largest pair distance, found in a
+    first pass in `dtype`; the edges are a linspace in `dtype`. Counts are
+    exact int64, so there is no pair-count ceiling (the reference's int32
+    guard, guard_pair_count_int32, has no counterpart); the sums are f64.
+    Returns (centers, gamma, counts) as f64 / int64 numpy arrays."""
+    locs = np.asarray(locs, dtype=float)
+    n = len(locs)
+    if n < 2:
+        centers = np.linspace(0, max_dist or 1.0, nbins + 1)
+        centers = 0.5 * (centers[:-1] + centers[1:])
+        return centers, np.full(nbins, np.nan), np.zeros(nbins, dtype=int)
+    dev = resolve_device(device)
+    xy = torch.as_tensor(locs, dtype=dtype, device=dev)
+    vals = None if values is None else torch.as_tensor(np.asarray(values), dtype=dtype,
+                                                       device=dev)
+    cols = torch.arange(n, device=dev)
+
+    def blocks():
+        for i in range(0, n, chunk):
+            blk = xy[i : i + chunk]
+            dx = blk[:, 0, None] - xy[None, :, 0]
+            dy = blk[:, 1, None] - xy[None, :, 1]
+            rows = torch.arange(i, i + blk.shape[0], device=dev)
+            yield i, torch.sqrt(dx * dx + dy * dy), cols[None, :] > rows[:, None]
+
+    if max_dist is None:  # the largest d is a value of `dtype`; halving it is exact
+        max_dist = 0.5 * max(float(torch.where(valid, d, float("-inf")).max())
+                             for _, d, valid in blocks())
+    edges = torch.linspace(0.0, max_dist, nbins + 1, dtype=dtype, device=dev)
+    sums = torch.zeros(nbins, dtype=torch.float64, device=dev)
+    counts = torch.zeros(nbins, dtype=torch.int64, device=dev)
+    for i, d, valid in blocks():
+        if vals is None:
+            dv2 = d * d
+        else:
+            dv = vals[i : i + chunk, None] - vals[None, :]
+            dv2 = dv * dv
+        s, c = masked_bin_reduce(d, valid, edges, nbins, dvv=dv2)
+        sums += s
+        counts += c
+    counts = counts.cpu().numpy()
+    sums = sums.cpu().numpy()
+    gamma = np.full(nbins, np.nan)
+    nz = counts > 0
+    gamma[nz] = 0.5 * sums[nz] / counts[nz]
+    centers = (0.5 * (edges[:-1] + edges[1:])).cpu().numpy().astype(np.float64)
+    return centers, gamma, counts
+
+
+def cross_variogram_from_matches(c, m, construct_idx, mandel_idx, nbins: int = 50,
+                                 max_dist=None):
+    """Matched-pair cross-variogram (Variogram-Mandelbrot-Construct.py:155-178).
+
+    Lag = |C[ci] - M[mi]| per matched pair; semivariance = 0.5*mean(|d|²) per
+    lag bin (the reference's matched-pair cross-plot statistic).
+    Returns (centers, gamma, counts).
+    """
+    construct_idx = np.asarray(construct_idx, dtype=int)
+    mandel_idx = np.asarray(mandel_idx, dtype=int)
+    if len(construct_idx) == 0:
+        return np.array([]), np.array([]), np.array([])
+    diffs = np.asarray(c)[construct_idx] - np.asarray(m)[mandel_idx]
+    mags = np.linalg.norm(diffs, axis=1)
+    sq = np.sum(diffs**2, axis=1)
+    if max_dist is None:
+        max_dist = mags.max() if mags.size else 1.0
+    bins = np.linspace(0.0, max_dist, nbins + 1)
+    centers = 0.5 * (bins[:-1] + bins[1:])
+    gamma = np.full(nbins, np.nan)
+    counts = np.zeros(nbins, dtype=int)
+    inds = np.digitize(mags, bins) - 1
+    for k in range(nbins):
+        mask = inds == k
+        if mask.any():
+            gamma[k] = 0.5 * np.mean(sq[mask])
+            counts[k] = mask.sum()
+    return centers, gamma, counts
 
 
 def variogram_range(lags, gamma, pct: float = 0.9):

@@ -20,6 +20,8 @@ from jax.experimental import pallas as pl
 from cmtci_torch import bench
 from cmtci_torch.kernels import fma_peak as fp
 from cmtci_torch.kernels import mandelbrot_cuda as mc
+from cmtci_torch.pipelines.coupling import CouplingConfig
+from cmtci_torch.pipelines.stage1 import Stage1Config
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -254,12 +256,14 @@ def test_bench_sizes_defaults_are_the_reference_configs():
     assert s.equipotential.potential_dtype == "float32"
     assert (s.variograms.vario_dtype, s.variograms.field_dtype) == ("float32", "float32")
     assert (s.tci.mandelbrot_grid, s.tci.de_impl) == (2400, "cuda")
+    assert s.coupling_bus == Stage1Config()
+    assert s.coupling == CouplingConfig(field_dtype="float32")
 
 
 PORTED = ("value", "dwell_tflops", "vpu_peak_tflops", "dwell_mfu", "dwell_mfu_useful",
           "de_tflops", "de_mfu", "escape_grid_res128_mpix_s", "escape_grid_res160_mpix_s",
           "spatial_stats_150k_s", "knn_150k_s", "eigensweep_s", "tracker_warm_s",
-          "equipotential_s", "variograms_s", "tci_4x_s")
+          "equipotential_s", "variograms_s", "tci_4x_s", "coupling_s")
 
 
 @pytest.fixture(scope="module")
@@ -290,8 +294,7 @@ def test_dwell_entry_time_is_a_card_key(small_run):
 
 
 def test_bench_run_names_what_waits_and_what_is_omitted(small_run):
-    assert small_run["not_ported"] == ["uniformize_green_s", "uniformize_fem_s",
-                                       "coupling_s"]
+    assert small_run["not_ported"] == ["uniformize_green_s", "uniformize_fem_s"]
     assert not [k for k in small_run if "_vs_" in k or k.startswith("vs_")]
     omitted = small_run["omitted"]
     assert "vs_baseline" in omitted["keys"] and "tracker_vs_reference" in omitted["keys"]

@@ -18,6 +18,12 @@ import cmtci_torch.pipelines.variograms
 import cmtci_torch.pipelines.stage1
 import cmtci_torch.pipelines.lucas_boundary
 import cmtci_torch.pipelines.curvature
+import cmtci_torch.pipelines.spectral
+import cmtci_torch.pipelines.coupling
+import cmtci_torch.stats.multifractal
+import cmtci_torch.stats.symmetry
+import cmtci_torch.stats.fields
+import cmtci_torch.transport.histogram
 import cmtci_torch.geometry.polygon
 import cmtci_torch.geometry.alpha_shape
 import cmtci_torch.geometry.resample
