@@ -111,8 +111,9 @@ prints no result line):
      5,000-point subset, and the f32 Hausdorff at 150,000 x 150,000 with its
      peak device memory;
  18. cmtci_torch.bench at full size, its JSON on a line of its own: no
-     `_error` key, every ported key present and finite (coupling_s among
-     them), `not_ported` exactly the two waiting keys, no ratio key,
+     `_error` key, every ported key present and finite (coupling_s,
+     uniformize_green_s and uniformize_fem_s among them), `not_ported`
+     empty, no ratio key,
      vpu_peak_tflops no higher than the card's FP32 FMA ceiling,
      dwell_mfu_useful <= dwell_mfu <= 1, and K1, K2, K3, K4 and K7 each
      launched;
@@ -150,7 +151,23 @@ prints no result line):
      table within 0.02 and the best axis's joint score no lower by more
      than 0.02; the f32 Hausdorff within 1e-6; the coupling trajectory
      within 1e-6, corr_pot within 1e-4, corr_lap within 5e-3. No kernel is
-     launched.
+     launched;
+ 21. the conformal maps on the card (no kernel launch): `uniformize-green`
+     at its defaults (n_bdy 2000, 20,000 interior points) on the port's
+     export_lucas_boundary defaults, in f64 (the host lstsq fit, f64 map
+     evaluations on the card) and f32 (the f32 QR fit, f32 evaluations),
+     each timed by stage as the best of 3 warm runs: f64 bdy_mod_median
+     within 1 +- 1e-3 and inverse_err_max <= 1e-12, its diagnostics.csv row
+     within 1e-9 relative of the port's CPU run of the same config (abs
+     1e-12 on inverse_err_* and on the two columns that are 0 by
+     construction, g_bdy_in_median and bdy_resid_median); on the interior
+     points the f32 map's phase and |f| within 1e-3 of f64 at the 99th
+     percentile and f32 bdy_mod_median in (0.99, 1.01). `uniformize-fem`,
+     all 4 levels of the v18 study, with the device solver (dense f64
+     Cholesky on the card) against SuperLU in the same process: K_median,
+     mu_L2, angle_median and the Lucas CR abs_med within rtol 1e-7 and the
+     period mismatch within 1e-9 at every level, K_median falling from L0
+     to L3; each path's warm wall as the best of 2.
 The kernels line gives, per kernel, its launches on its path, max |kernel -
 twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
 (the orbit steps these inputs need times the operations per step of the .cu
@@ -1708,7 +1725,7 @@ BENCH_KEYS = ("value", "dwell_entry_ms", "dwell_tflops", "vpu_peak_tflops", "dwe
               "dwell_mfu_useful", "de_tflops", "de_mfu", "fp32_fma_bound_tflops",
               "escape_grid_res4096_mpix_s", "escape_grid_res8192_mpix_s", "spatial_stats_150k_s",
               "knn_150k_s", "eigensweep_s", "tracker_warm_s", "equipotential_s", "variograms_s",
-              "tci_4x_s", "coupling_s")
+              "uniformize_green_s", "uniformize_fem_s", "tci_4x_s", "coupling_s")
 BENCH_KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "fma_peak")
 
 
@@ -1734,8 +1751,7 @@ def phase_bench(dev):
     for key in BENCH_KEYS:
         check(key in result, f"bench: {key} is missing")
         check(math.isfinite(result[key]) and result[key] > 0, f"bench: {key} = {result[key]!r}")
-    check(result["not_ported"] == ["uniformize_green_s", "uniformize_fem_s"],
-          f"bench: not_ported {result['not_ported']}")
+    check(result["not_ported"] == [], f"bench: not_ported {result['not_ported']}")
     check(not [k for k in result if "_vs_" in k or k.startswith("vs_")],
           "bench printed a ratio key")
     check(result["vpu_peak_tflops"] <= result["fp32_fma_bound_tflops"],
@@ -2229,6 +2245,134 @@ def phase_suite(dev):
     check(sum(_launch.launches.values()) == 0, f"the suite launched a kernel: {_launch.launches}")
 
 
+#: warm runs of each conformal-map path in phase 21; a stage's time is the
+#: best of them
+GREEN_WARM, FEM_WARM = 3, 2
+#: diagnostics.csv columns held by an absolute 1e-12 in phase 21: the inverse
+#: check's errors sit at rounding level, and the two others are 0 by
+#: construction (the g_shift calibration; C's median recompute)
+GREEN_ABS_COLUMNS = ("inverse_err_median", "inverse_err_p90", "inverse_err_max",
+                     "g_bdy_in_median", "bdy_resid_median")
+FEM_KEYS = ("K_median", "mu_L2", "angle_median")
+
+
+def green_rows_close(got: dict, want: dict) -> float:
+    """Largest relative difference of two diagnostics rows over the numeric
+    columns held relatively; fails beyond 1e-9 (abs 1e-12 on
+    GREEN_ABS_COLUMNS)."""
+    check(list(got) == list(want), f"diagnostics columns {list(got)} != {list(want)}")
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, str):
+            check(g == w, f"diagnostics {key}: {g!r} != {w!r}")
+        elif key in GREEN_ABS_COLUMNS:
+            check(abs(g - w) <= 1e-12, f"diagnostics {key}: {g!r} against {w!r} beyond 1e-12")
+        else:
+            rel = abs(g - w) / max(abs(w), 1e-300)
+            check(rel <= 1e-9, f"diagnostics {key}: {g!r} against {w!r}, relative {rel!r}")
+            worst = max(worst, rel)
+    return worst
+
+
+def phase_conformal(dev):
+    """Phase 21: uniformize-green at its defaults in f64 and f32 on the card,
+    f64 against the port's CPU run; uniformize-fem's four levels on the
+    device solver against SuperLU."""
+    import numpy as np
+
+    from cmtci_torch.kernels import _launch
+    from cmtci_torch.pipelines import uniformize_fem as fem_pipe
+    from cmtci_torch.pipelines import uniformize_green as green
+    from cmtci_torch.pipelines.lucas_boundary import LucasBoundaryConfig, export_lucas_boundary
+    from cmtci_torch.utils.artifacts import StageTimer
+
+    reset_launches()
+    pts = export_lucas_boundary(LucasBoundaryConfig(), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for dtype in ("float64", "float32"):
+            cfg = green.GreenUniformizeConfig(map_dtype=dtype)
+            timers = []
+
+            def card_run():
+                timers.append(StageTimer(dev))
+                return green.run_green_uniformization(pts, cfg, f"{tmp}/{dtype}",
+                                                      timer=timers[-1], device=dev)
+
+            wall, out = best_of(card_run, GREEN_WARM)
+            best = {k: min(t.times[k] for t in timers) for k in timers[0].times}
+            runs[dtype] = out
+            diag = out["diagnostics"]
+            print(f"uniformize-green {dtype} ({cfg.n_bdy} boundary nodes, {diag['INTERIOR_N']} "
+                  f"interior points): {wall:.4f} s best of {GREEN_WARM} (walls "
+                  f"{[round(sum(t.times.values()), 4) for t in timers]}); stages (s, best) "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in best.items()))
+            print(f"  bdy_mod median {diag['bdy_mod_median']!r} max {diag['bdy_mod_max']!r}, "
+                  f"inverse_err_max {diag['inverse_err_max']!r}, g_shift {diag['g_shift']!r}")
+        d64, d32 = runs["float64"]["diagnostics"], runs["float32"]["diagnostics"]
+        check(abs(d64["bdy_mod_median"] - 1.0) <= 1e-3,
+              f"f64 bdy_mod_median {d64['bdy_mod_median']!r}")
+        check(d64["inverse_err_max"] <= 1e-12, f"f64 inverse_err_max {d64['inverse_err_max']!r}")
+        check(0.99 < d32["bdy_mod_median"] < 1.01, f"f32 bdy_mod_median {d32['bdy_mod_median']!r}")
+        cpu_s = time.perf_counter()
+        cpu = green.run_green_uniformization(pts, green.GreenUniformizeConfig(), f"{tmp}/cpu",
+                                             device="cpu")
+        cpu_s = time.perf_counter() - cpu_s
+        rows = {side: read_rows(f"{tmp}/{side}/diagnostics.csv")[0]
+                for side in ("float64", "cpu")}
+        check(list(rows["float64"]) == list(rows["cpu"]), "diagnostics.csv columns differ")
+        worst = green_rows_close(d64, cpu["diagnostics"])
+        for key in ("lucas_interior", "disk_points_raw", "cardioid_points"):
+            a = np.load(f"{tmp}/float64/map_state.npz")[key]
+            b = np.load(f"{tmp}/cpu/map_state.npz")[key]
+            check(a.shape == b.shape and np.allclose(a, b, rtol=1e-9, atol=1e-12),
+                  f"map_state {key}: card against CPU {float(np.max(np.abs(a - b)))!r}")
+        z64 = np.load(f"{tmp}/float64/map_state.npz")
+        z32 = np.load(f"{tmp}/float32/map_state.npz")
+        check(np.array_equal(z64["lucas_interior"], z32["lucas_interior"]),
+              "f32 and f64 sampled other interior points")
+        w64, w32 = z64["disk_points_raw"], z32["disk_points_raw"]
+        dphase = float(np.quantile(np.abs(np.angle(w32 / np.where(w64 == 0, 1.0, w64))), 0.99))
+        dmod = float(np.quantile(np.abs(np.abs(w32) - np.abs(w64)), 0.99))
+        check(dphase <= 1e-3 and dmod <= 1e-3,
+              f"f32 against f64: phase p99 {dphase!r}, |f| p99 {dmod!r}")
+        print(f"  f64 on the card against the CPU ({cpu_s:.2f} s): diagnostics within "
+              f"{worst!r} relative, map state within 1e-9; f32 against f64 on the interior "
+              f"points: phase p99 {dphase!r} rad, |f| p99 {dmod!r}")
+
+        fem = {}
+        for solver in ("device", "spsolve"):
+            cfg = fem_pipe.FEMUniformizeConfig(solver=solver)
+            fem_pipe.run_fem_uniformization(cfg, device=dev)  # meshes, operators, factors
+            wall, res = best_of(lambda: fem_pipe.run_fem_uniformization(cfg, device=dev),
+                                FEM_WARM)
+            fem[solver] = res
+            print(f"uniformize-fem, {solver}: {wall:.4f} s best of {FEM_WARM} warm; K_median "
+                  f"{[r['all']['K_median'] for r in res]}")
+        dev_res, ref_res = fem["device"], fem["spsolve"]
+        check(len(dev_res) == len(ref_res) == 4, f"{len(dev_res)} levels")
+        check(dev_res[-1]["all"]["K_median"] < dev_res[0]["all"]["K_median"],
+              "K_median does not fall from L0 to L3")
+        worst = 0.0
+        for got, want in zip(dev_res, ref_res):
+            check(got["tag"] == want["tag"], f"tags {got['tag']} {want['tag']}")
+            pairs = [(got["all"][k], want["all"][k], k) for k in FEM_KEYS]
+            pairs.append((got["cr"]["lucas"]["abs_med"], want["cr"]["lucas"]["abs_med"],
+                          "cr.lucas.abs_med"))
+            for g, w, k in pairs:
+                check(np.isclose(g, w, rtol=1e-7, atol=0.0), f"{want['tag']} {k}: {g!r} {w!r}")
+                worst = max(worst, abs(g - w) / abs(w))
+            for side in ("lucas", "cardioid"):
+                g, w = got["period_mismatch"][side], want["period_mismatch"][side]
+                check(abs(g - w) <= 1e-9, f"{want['tag']} period_mismatch {side}: {g!r} {w!r}")
+        print(f"  device against SuperLU: largest relative difference {worst!r} over "
+              f"{', '.join(FEM_KEYS)} and cr.lucas.abs_med at 4 levels; period mismatch "
+              "within 1e-9")
+    check(sum(_launch.launches.values()) == 0,
+          f"the conformal maps launched a kernel: {_launch.launches}")
+
+
 def main() -> int:
     card = card_line()
     print(card)
@@ -2266,6 +2410,7 @@ def main() -> int:
     bench_launches = timed(18, phase_bench, dev)
     timed(19, phase_bus, dev)
     timed(20, phase_suite, dev)
+    timed(21, phase_conformal, dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]

@@ -36,6 +36,14 @@ Keys, each at the reference's configuration (``BenchSizes`` holds them):
   * eigensweep_s, tracker_warm_s, equipotential_s, variograms_s, tci_4x_s:
     wall times of the pipelines on their kernel paths, best of three, each
     with the reference's closing assertion.
+  * uniformize_green_s: the v40 Riemann-map pipeline at its defaults (n_bdy
+    2000, 20,000 interior points) on the export_lucas_boundary defaults
+    (made before the timed window), f32 on the card (the f32 QR fit, f32
+    map evaluations), f64 on the CPU; best of five, with the reference's
+    assertion 0.99 < bdy_mod_median < 1.01.
+  * uniformize_fem_s: the v18 FEM study, all four refinement levels, with
+    the device solver on the card (SuperLU on the CPU); best of two, with
+    the reference's assertion (every level, K_median falling).
   * coupling_s: the iterative variogram <-> Laplacian coupling on the f32
     field path over the default stage-1 bus (built before the timed
     window), best of three warm walls, with the reference's closing
@@ -45,7 +53,7 @@ after a warm-up; pipeline times are host-clock walls that end in a device
 synchronize.
 
 `not_ported` names the reference's keys whose pipelines the port does not
-have yet. `omitted` names the reference's ratio keys: each divides by a
+have yet (none). `omitted` names the reference's ratio keys: each divides by a
 constant measured on another machine, so the port prints none of them. A key
 that throws is recorded as `<key>_error` and the process exits non-zero.
 """
@@ -68,8 +76,13 @@ from cmtci_torch.kernels import mandelbrot_cuda as mc
 from cmtci_torch.pipelines.analysis import TCIConfig, run_tci
 from cmtci_torch.pipelines.coupling import CouplingConfig, run_coupling
 from cmtci_torch.pipelines.equipotential import EquipotentialConfig, run_equipotential
+from cmtci_torch.pipelines.lucas_boundary import LucasBoundaryConfig, export_lucas_boundary
 from cmtci_torch.pipelines.stage1 import Stage1Config, run_stage1
 from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
+from cmtci_torch.pipelines.uniformize_fem import (REFINEMENT_LEVELS, FEMUniformizeConfig,
+                                                  run_fem_uniformization)
+from cmtci_torch.pipelines.uniformize_green import (GreenUniformizeConfig,
+                                                    run_green_uniformization)
 from cmtci_torch.pipelines.variograms import VariogramConfig, run_variograms
 from cmtci_torch.stats import pointstats as ps
 from cmtci_torch.stats.embeddings import build_sparse_kernel
@@ -80,7 +93,7 @@ DOM = (-2.1, 0.9, -1.5, 1.5)
 DE_ESCAPE_R = 4.0
 
 #: the reference's keys whose pipelines are not ported yet
-NOT_PORTED = ["uniformize_green_s", "uniformize_fem_s"]
+NOT_PORTED = []
 #: the reference's ratio keys; each divides by a REFERENCE_* constant of
 #: another machine
 OMITTED = {
@@ -121,6 +134,12 @@ class BenchSizes:
                                                 field_dtype="float32"))
     tci: TCIConfig = field(
         default_factory=lambda: TCIConfig(mandelbrot_grid=2400, de_impl="cuda"))
+    green_input: LucasBoundaryConfig = field(default_factory=LucasBoundaryConfig)
+    #: map_dtype None: float32 on the card, float64 on the CPU
+    green: GreenUniformizeConfig = field(
+        default_factory=lambda: GreenUniformizeConfig(map_dtype=None))
+    fem: FEMUniformizeConfig = field(default_factory=FEMUniformizeConfig)
+    fem_levels: tuple = REFINEMENT_LEVELS
     coupling_bus: Stage1Config = field(default_factory=Stage1Config)
     coupling: CouplingConfig = field(
         default_factory=lambda: CouplingConfig(field_dtype="float32"))
@@ -144,6 +163,10 @@ def small_sizes() -> BenchSizes:
                                    m_target=200),
         tci=TCIConfig(construct_ns=(20, 40), mandelbrot_grid=96, mandelbrot_samples=800,
                       grid_bins=32, de_impl="cuda"),
+        green_input=LucasBoundaryConfig(n_max=40, n_boundary=300),
+        green=GreenUniformizeConfig(n_bdy=200, interior_n=500, map_dtype=None),
+        fem=FEMUniformizeConfig(n_max=40),
+        fem_levels=REFINEMENT_LEVELS[:2],
         coupling_bus=Stage1Config(max_n=12, boundary_samples=80),
         coupling=CouplingConfig(grid_res=48, max_iter_mb=60, win_local_corr=6,
                                 field_dtype="float32"))
@@ -502,6 +525,32 @@ def bench_variograms(sizes: BenchSizes, dev: torch.device) -> float:
     return best
 
 
+def bench_uniformize_green(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the Riemann-map pipeline, f32 on the card; its input
+    boundary is made outside the timed window."""
+    from dataclasses import replace
+
+    pts = export_lucas_boundary(sizes.green_input, device=dev)
+    cfg = sizes.green
+    if cfg.map_dtype is None:
+        cfg = replace(cfg, map_dtype="float32" if dev.type == "cuda" else "float64")
+    # best of 5: the first run pays the first-use costs of its solvers
+    best, out = _best_wall_s(lambda: run_green_uniformization(pts, cfg, device=dev), 5, dev)
+    assert 0.99 < out["diagnostics"]["bdy_mod_median"] < 1.01
+    return best
+
+
+def bench_uniformize_fem(sizes: BenchSizes, dev: torch.device) -> float:
+    """Warm wall time of the FEM study (the device solver on the card); the
+    second run reuses the memoized meshes and device operators."""
+    best, res = _best_wall_s(
+        lambda: run_fem_uniformization(sizes.fem, levels=sizes.fem_levels, device=dev),
+        2, dev)
+    assert (len(res) == len(sizes.fem_levels)
+            and res[-1]["all"]["K_median"] < res[0]["all"]["K_median"])
+    return best
+
+
 def bench_tci_4x(sizes: BenchSizes, dev: torch.device) -> float:
     """Warm wall time of the TCI pipeline at the 4x grid on the K1 path."""
     best, (out, kls, _) = _best_wall_s(
@@ -528,6 +577,8 @@ PIPELINE_KEYS = (
     ("tracker_warm_s", bench_tracker, 2),
     ("equipotential_s", bench_equipotential, 2),
     ("variograms_s", bench_variograms, 2),
+    ("uniformize_green_s", bench_uniformize_green, 2),
+    ("uniformize_fem_s", bench_uniformize_fem, 2),
     ("tci_4x_s", bench_tci_4x, 2),
     ("coupling_s", bench_coupling, 2),
 )

@@ -3,7 +3,8 @@
 Ported so far: tracker, boundary, equipotential, tci, variograms, bench, the
 file bus (stage1, lucas-boundary, construct-boundary, curvature), the seven
 bus analyses (spectral, multifractal, embeddings, symmetry, spatial-stats,
-report, coupling) and suite, which runs them in one process. On a CUDA
+report, coupling), suite, which runs them in one process, and the two
+conformal maps (uniformize-green, uniformize-fem). On a CUDA
 session (``--device cuda``, the default) the dtype/backend knobs default to
 the card's fast paths: tracker field_dtype=float32 and de_impl=cuda (K1),
 boundary backend=cuda (K2), equipotential green_dtype=float32 (K3), tci
@@ -11,7 +12,10 @@ de_impl=cuda (K1), variograms vario_dtype=field_dtype=float32, symmetry
 scan_dtype=float32, spatial-stats stat_dtype=float32, multifractal
 box_backend=device and box_dtype=float32, embeddings eig_backend=device,
 eig_dtype=float32 and knn_dtype=float32, coupling field and vario dtype
-float32, and suite --stage-paths accel (those same choices for every stage).
+float32, suite --stage-paths accel (those same choices for every stage),
+uniformize-green map_dtype=float32 (the f32 QR fit and f32 map evaluations
+on the card) and uniformize-fem solver=device (the θ-iteration's dense f64
+Cholesky solves on the card; --solver auto).
 ``--parity`` opts out to the host/f64 paths (for tci, the numpy DE),
 ``--device cpu`` to the f64 plain-torch paths, and an explicit per-flag value
 always wins. ``bench`` forwards its arguments to ``cmtci_torch.bench``.
@@ -52,6 +56,8 @@ _PLATFORM_FLAGS = {
     "coupling": (("coupling_field_dtype", "float32", "float64"),
                  ("coupling_vario_dtype", "float32", "float64")),
     "suite": (("stage_paths", "accel", "host"),),
+    "uniformize-green": (("map_dtype", "float32", "float64"),),
+    "uniformize-fem": (("solver", "device", "spsolve"),),
 }
 
 #: each stage's knobs under `suite --stage-paths accel`, in the strings the
@@ -239,6 +245,29 @@ def _parser():
                         "f64 defaults of each subcommand")
     _add_common(p, "the host/f64 stage paths whatever the device", plots=True)
 
+    p = sub.add_parser("uniformize-fem", help="v18 FEM quasiconformal pipeline")
+    p.add_argument("--levels", type=int, default=4, choices=[1, 2, 3, 4],
+                   help="number of refinement levels (the reference v18 runs all 4, L0-L3)")
+    p.add_argument("--solver", choices=["auto", "spsolve", "cg", "device"], default="auto",
+                   help="FEM linear solver: device = the θ-iteration's dense f64 Cholesky "
+                        "solves on the card; cg = torch CG on --device; spsolve = SuperLU on "
+                        "the host; auto = device on a CUDA session, spsolve under --parity "
+                        "or --device cpu")
+    _add_common(p, "the host SuperLU solver whatever the device", plots=True)
+
+    p = sub.add_parser("uniformize-green", help="v40 boundary-integral Riemann map")
+    p.add_argument("--lucas-npy", default=None,
+                   help="lucas_points.npy (else generated by the port's lucas-boundary)")
+    p.add_argument("--n-bdy", type=int, default=2000)
+    p.add_argument("--interior-n", type=int, default=20000)
+    p.add_argument("--map-dtype", choices=["float64", "float32"], default=None,
+                   help="float32 = the f32 QR fit and f32 map evaluations on the card "
+                        "(CUDA-session default); float64 = the host lstsq fit and f64 "
+                        "evaluations")
+    p.add_argument("--cache-dir", default=None,
+                   help="stage artifact cache dir (the fit; keyed by config hash)")
+    _add_common(p, "the host lstsq fit and f64 evaluations whatever the device")
+
     sub.add_parser("bench", add_help=False,
                    help="the benchmark (python -m cmtci_torch.bench; same arguments)")
     return ap
@@ -388,6 +417,8 @@ def main(argv=None, layers=None):
 
         raise SystemExit(bench.main(argv[1:]))
     args = _parser().parse_args(argv)
+    if getattr(args, "solver", None) == "auto":
+        args.solver = None  # resolved below with the session's defaults
     _resolve_platform_defaults(args)
     if args.cmd == "tracker":
         from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker, write_outputs
@@ -498,6 +529,39 @@ def main(argv=None, layers=None):
             print(json.dumps(out["coupling_rows"][-1]))
     elif args.cmd == "suite":
         return _run_suite(args, layers)
+    elif args.cmd == "uniformize-fem":
+        from cmtci_torch.pipelines.uniformize_fem import (REFINEMENT_LEVELS,
+                                                          FEMUniformizeConfig,
+                                                          run_fem_uniformization)
+
+        results = run_fem_uniformization(FEMUniformizeConfig(solver=args.solver), args.out,
+                                         REFINEMENT_LEVELS[: args.levels],
+                                         plots=not args.no_plots, device=args.device)
+        print(json.dumps({"levels": len(results),
+                          "K_median_L0": results[0]["all"]["K_median"]}))
+    elif args.cmd == "uniformize-green":
+        import numpy as np
+
+        from cmtci_torch.pipelines.uniformize_green import (GreenUniformizeConfig,
+                                                            run_green_uniformization)
+        from cmtci_torch.utils.artifacts import StageTimer
+        from cmtci_torch.utils.device import resolve_device
+
+        dev = resolve_device(args.device)
+        if args.lucas_npy:
+            pts = np.load(args.lucas_npy)
+        else:
+            from cmtci_torch.pipelines.lucas_boundary import (LucasBoundaryConfig,
+                                                              export_lucas_boundary)
+
+            pts = export_lucas_boundary(LucasBoundaryConfig(), device=dev)
+        cfg = GreenUniformizeConfig(n_bdy=args.n_bdy, interior_n=args.interior_n,
+                                    map_dtype=args.map_dtype)
+        out = run_green_uniformization(pts, cfg, args.out, verbose=True,
+                                       cache_dir=args.cache_dir, timer=StageTimer(dev),
+                                       device=dev)
+        print(json.dumps({k: v for k, v in out["diagnostics"].items()
+                          if k.startswith(("bdy_mod", "inverse_err"))}))
     return 0
 
 

@@ -1,6 +1,6 @@
 """Figure writers of the boundary, equipotential, TCI, stage-1, curvature,
-spectral, multifractal, embeddings, spatial-stats, report and coupling
-pipelines (subset of ``cmtci/io/plots.py``, copied unchanged apart from the
+spectral, multifractal, embeddings, spatial-stats, report, coupling and
+uniformize-fem pipelines (subset of ``cmtci/io/plots.py``, copied unchanged apart from the
 imports).
 
 matplotlib is imported inside each function, never at module import: a
@@ -291,6 +291,33 @@ def plot_eigenvalue_spectra(vals_c, vals_m, path):
     plt.close(fig)
     return path
 
+
+def plot_k_bins(bins, tag, out_dir):
+    """K-vs-distance-bin medians and counts (lucas_to_cardioid_v18...py:1037-1063).
+
+    bins: list of (lo, hi, K_median, count) rows from qc.binned_median.
+    """
+    if not bins:
+        return []
+    plt = pyplot()
+    mids = [(a + b) / 2.0 for a, b, _, _ in bins]
+    kmed = [k for _, _, k, _ in bins]
+    counts = [n for *_, n in bins]
+    paths = []
+    for ys, ylab, name in ((kmed, "median K in bin", "K_bins"),
+                           (counts, "triangles per bin", "bin_counts")):
+        fig = plt.figure()
+        plt.plot(mids, ys, marker="o")
+        plt.xlabel("boundary-distance bin midpoint (d)")
+        plt.ylabel(ylab)
+        plt.title(f"{'K vs distance bins' if name == 'K_bins' else 'bin counts'} ({tag})")
+        plt.grid(True, alpha=0.3)
+        plt.tight_layout()
+        p = f"{out_dir}/{name}_{tag}.png"
+        fig.savefig(ensure_dir(p), dpi=180, pil_kwargs=_PNG_FAST)
+        plt.close(fig)
+        paths.append(p)
+    return paths
 
 def plot_local_correlation_panels(u_c, u_m, corr_map, domain, path):
     """U_C / U_M / difference / local-r panels (Potentials.py:96-124)."""

@@ -263,7 +263,8 @@ def test_bench_sizes_defaults_are_the_reference_configs():
 PORTED = ("value", "dwell_tflops", "vpu_peak_tflops", "dwell_mfu", "dwell_mfu_useful",
           "de_tflops", "de_mfu", "escape_grid_res128_mpix_s", "escape_grid_res160_mpix_s",
           "spatial_stats_150k_s", "knn_150k_s", "eigensweep_s", "tracker_warm_s",
-          "equipotential_s", "variograms_s", "tci_4x_s", "coupling_s")
+          "equipotential_s", "variograms_s", "uniformize_green_s", "uniformize_fem_s",
+          "tci_4x_s", "coupling_s")
 
 
 @pytest.fixture(scope="module")
@@ -294,7 +295,7 @@ def test_dwell_entry_time_is_a_card_key(small_run):
 
 
 def test_bench_run_names_what_waits_and_what_is_omitted(small_run):
-    assert small_run["not_ported"] == ["uniformize_green_s", "uniformize_fem_s"]
+    assert small_run["not_ported"] == [] == bench.NOT_PORTED
     assert not [k for k in small_run if "_vs_" in k or k.startswith("vs_")]
     omitted = small_run["omitted"]
     assert "vs_baseline" in omitted["keys"] and "tracker_vs_reference" in omitted["keys"]

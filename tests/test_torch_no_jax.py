@@ -20,6 +20,15 @@ import cmtci_torch.pipelines.lucas_boundary
 import cmtci_torch.pipelines.curvature
 import cmtci_torch.pipelines.spectral
 import cmtci_torch.pipelines.coupling
+import cmtci_torch.pipelines.uniformize_green
+import cmtci_torch.pipelines.uniformize_fem
+import cmtci_torch.maps.riemann
+import cmtci_torch.maps.fem
+import cmtci_torch.maps.fem_device
+import cmtci_torch.maps.qc
+import cmtci_torch.geometry.cardioid
+import cmtci_torch.geometry.mesh
+import cmtci_torch.geometry.interp
 import cmtci_torch.stats.multifractal
 import cmtci_torch.stats.symmetry
 import cmtci_torch.stats.fields

@@ -159,9 +159,12 @@ def test_reference_only_flags_rejected(cmd, flag, capsys):
 
 
 def test_help_lists_eighteen_subcommands():
+    """Eighteen with the bus analyses; the conformal maps made it twenty
+    (bench among them; doctor is the reference's one left)."""
     sub = next(a for a in cli._parser()._actions if isinstance(a, argparse._SubParsersAction))
-    assert len(sub.choices) == 18
-    assert set(STAGES) | {"suite"} <= set(sub.choices)
+    assert len(sub.choices) == 20
+    assert set(STAGES) | {"suite", "uniformize-green", "uniformize-fem"} <= set(sub.choices)
+    assert "doctor" not in sub.choices
 
 
 @pytest.mark.parametrize("cmd, device, parity, want", [
