@@ -167,7 +167,29 @@ prints no result line):
      Cholesky on the card) against SuperLU in the same process: K_median,
      mu_L2, angle_median and the Lucas CR abs_med within rtol 1e-7 and the
      period mismatch within 1e-9 at every level, K_median falling from L0
-     to L3; each path's warm wall as the best of 2.
+     to L3; each path's warm wall as the best of 2;
+ 22. multi-device on torch.distributed, doctor and the traces, one after
+     another: the dense tracker (field_dtype float32, de_impl torch) on the
+     single device and on a one-rank NCCL mesh, the rows bitwise equal;
+     `tracker --devices 2` refused on the one card ("needs 2 devices");
+     `doctor --smoke` with no *_error field, 2 K2 launches and the twin's
+     checksum; `tracker --trace-dir` writing a torch.profiler trace a stage
+     with K1's kernel in it; last, a two-rank gloo group with both ranks on
+     cuda:0 (NCCL refuses two ranks on one card; gloo stages through host
+     memory) running each sharded head at its pipeline's size, held to the
+     port's single-device function on the card: compute_dwell at res 2000
+     in f64 and on K2 (each rank launching K2's row entry) and the TCI DE
+     field at 912² in f64 and f32 bitwise, the matcher at 37,820 x 37,820
+     and the mollified histogram at 512 bins bitwise, the shell counts of
+     the default bus bitwise, its point variogram's counts exact and gamma
+     within 1e-12, the Green cloud of n = 2..20 in f64 with k equal and g
+     within 1e-10 and on K3 (a launch a rank) bitwise; no rank holds jax.
+`python3 chip_smoke.py --cards N` on a machine with N cards runs only the
+multi-card check (phase_cards): phase 22's sharded heads, each called twice,
+on an N-rank NCCL group, one card a rank, against the single device, each
+head's warm time on N cards beside its warm time on one, and `tracker
+--devices N` against the single-device tracker.
+
 The kernels line gives, per kernel, its launches on its path, max |kernel -
 twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
 (the orbit steps these inputs need times the operations per step of the .cu
@@ -190,7 +212,8 @@ FMAs, so library_ms is null.
 
 The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
 other grids' times are printed in phase 3; K2's launches are those of the
-boundary run (phase 7) and K7's those of the bench run (phase 18). The last
+boundary run (phase 7) and of doctor --smoke (phase 22, 2), and K7's those
+of the bench run (phase 18). The last
 three lines are the card, a JSON line of the kernels, and {"ok": true,
 "device": {...}}.
 """
@@ -2373,6 +2396,367 @@ def phase_conformal(dev):
           f"the conformal maps launched a kernel: {_launch.launches}")
 
 
+#: phase 22: the dense tracker's last stage, the size the two-rank matcher
+#: and histogram run at (37,820 cloud points against as many M points, 512 bins)
+LAST_STAGE_POINTS, LAST_STAGE_BINS = 37820, 512
+
+
+def _host(v):
+    """numpy of a head's result (tensors, tuples of them, arrays)."""
+    import numpy as np
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if isinstance(v, (tuple, list)):
+        return tuple(_host(a) for a in v)
+    return np.asarray(v)
+
+
+def _timed_heads(heads: dict, repeat: int) -> tuple:
+    """({name: result}, {name: s of the last of `repeat` calls}), each call
+    between two device synchronizes."""
+    import torch
+
+    out, times = {}, {}
+    for name, fn in heads.items():
+        for _ in range(repeat):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = fn()
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+        out[name] = _host(v)
+    return out, times
+
+
+def multidevice_rank(x: dict, repeat: int = 1, mesh=None) -> dict:
+    """Phase 22's calls on one rank of a group: each sharded head at the
+    size its pipeline gives it, on multidevice_inputs' `x`, `repeat` times,
+    with the last call's wall under "times" and this rank's kernel launches
+    under "launches" (parallel.launch imports this function by name on each
+    rank)."""
+    import dataclasses
+
+    import torch
+
+    from cmtci_torch.kernels import _launch
+    from cmtci_torch.parallel import sharded
+    from cmtci_torch.pipelines.boundary import BoundaryConfig, compute_dwell
+    from cmtci_torch.transport.histogram import mollified_histogram
+
+    entered = time.time()
+    f64 = BoundaryConfig(backend="torch")
+    heads = {
+        "dwell64": lambda: compute_dwell(f64, mesh=mesh),
+        "dwell32": lambda: compute_dwell(dataclasses.replace(f64, backend="cuda"), mesh=mesh),
+        **{name: (lambda dt=dt: sharded.sharded_de_tci_field(
+            DOMAIN, GRIDS[-1], mesh, max_iter=MAX_ITER, escape_r=ESCAPE_R, dtype=dt))
+           for name, dt in (("de64", torch.float64), ("de32", torch.float32))},
+        "match": lambda: sharded.sharded_argmax_match(
+            torch.as_tensor(x["c"], dtype=torch.float32),
+            torch.as_tensor(x["m"], dtype=torch.float32), 0.8, mesh),
+        "hist": lambda: mollified_histogram(x["c"][:, 0] + 1j * x["c"][:, 1],
+                                            LAST_STAGE_BINS, DOMAIN, 3.0, mesh=mesh),
+        "shells": lambda: sharded.sharded_shell_counts(x["bus_c"], 1.5, 0.05, mesh),
+        "vario": lambda: sharded.sharded_point_variogram(x["bus_c"], x["bus_d"], nbins=50,
+                                                         mesh=mesh),
+        "green": lambda: sharded.sharded_green_cloud(x["green"], max_iter=2000, mesh=mesh),
+        "green32": lambda: sharded.sharded_green_cloud_f32(x["green"], max_iter=2000,
+                                                           mesh=mesh),
+    }
+    _launch.reset_launches()
+    out, times = _timed_heads(heads, repeat)
+    return {**out, "times": times, "launches": dict(_launch.launches), "entered": entered,
+            "left": time.time()}
+
+
+def single_heads(x: dict, dev, repeat: int = 1) -> tuple:
+    """The single-device counterparts of multidevice_rank's heads on `dev`:
+    ({name: result}, {name: s of the last of `repeat` calls})."""
+    import dataclasses
+
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot as mb
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+    from cmtci_torch.pipelines.boundary import BoundaryConfig, compute_dwell
+    from cmtci_torch.stats import pointstats as ps
+    from cmtci_torch.stats import variogram as vg
+    from cmtci_torch.transport.histogram import mollified_histogram
+    from cmtci_torch.transport.sinkhorn import _match_fused
+
+    f64 = BoundaryConfig(backend="torch")
+
+    def de(dt):
+        cr, ci = mb.complex_grid(DOMAIN, GRIDS[-1], GRIDS[-1], dtype=dt, device=dev)
+        return mb.de_field_tci(cr, ci, max_iter=MAX_ITER, escape_r=ESCAPE_R)[:2]
+
+    heads = {
+        "dwell64": lambda: compute_dwell(f64, device=dev),
+        "dwell32": lambda: compute_dwell(dataclasses.replace(f64, backend="cuda"), device=dev),
+        "de64": lambda: de(torch.float64),
+        "de32": lambda: de(torch.float32),
+        "match": lambda: _match_fused(torch.as_tensor(x["c"], dtype=torch.float32, device=dev),
+                                      torch.as_tensor(x["m"], dtype=torch.float32, device=dev),
+                                      0.8),
+        "hist": lambda: mollified_histogram(x["c"][:, 0] + 1j * x["c"][:, 1],
+                                            LAST_STAGE_BINS, DOMAIN, 3.0),
+        "shells": lambda: ps._shell_counts(x["bus_c"], 1.5, 0.05, device=dev),
+        "vario": lambda: vg.point_variogram_device(x["bus_c"], x["bus_d"], nbins=50,
+                                                   device=dev),
+        "green": lambda: mb.green_potential_compacted(x["green"], max_iter=2000, device=dev),
+        "green32": lambda: mc.green_cloud_f32(x["green"], max_iter=2000, device=dev),
+    }
+    return _timed_heads(heads, repeat)
+
+
+def multidevice_inputs(dev) -> dict:
+    """The inputs of phase 22's heads, made once and passed to every rank:
+    random clouds of the last tracker stage's size in the tracker's domain,
+    the default stage-1 bus's clouds (built on `dev`) with the coupling's
+    first distances, and the inverse-eigenvalue cloud of n = 2..20."""
+    import numpy as np
+
+    from cmtci_torch.kernels import companion
+    from cmtci_torch.pipelines.stage1 import Stage1Config, run_stage1
+
+    rng = np.random.default_rng(22)
+    lo, hi = np.array(DOMAIN[0::2]), np.array(DOMAIN[1::2])
+    bus = run_stage1(Stage1Config(), None, plots=False, device=dev)
+    c, m = np.asarray(bus["C"], float), np.asarray(bus["M"], float)
+    d = np.linalg.norm(c - m[np.asarray(bus["matches"]) % len(m)], axis=1)
+    return {"c": rng.uniform(lo, hi, size=(LAST_STAGE_POINTS, 2)),
+            "m": rng.uniform(lo, hi, size=(LAST_STAGE_POINTS, 2)),
+            "bus_c": c, "bus_d": d,
+            "green": np.concatenate(companion.inverse_cloud_split(list(range(2, 21)),
+                                                                  device=dev))}
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, tuple):
+        return isinstance(b, tuple) and len(a) == len(b) and all(map(_same, a, b))
+    return np.array_equal(a, b, equal_nan=np.asarray(a).dtype.kind in "fc")
+
+
+def check_heads_against_single(got: dict, want: dict, label: str) -> None:
+    """Hold multidevice_rank's results to single_heads' on the same inputs:
+    every head bitwise (the dwell through K2 in f32, the Green cloud through
+    K3 in f32) but the point variogram's gamma (within 1e-12, its counts
+    exact) and the f64 Green cloud's g (within 1e-10, k exact)."""
+    import numpy as np
+
+    for name in ("dwell64", "dwell32", "de64", "de32", "match", "hist", "shells", "green32"):
+        check(_same(got[name], want[name]), f"{label}: {name} differs from the single device")
+    (centers, gamma, counts), (gc, gg, gn) = want["vario"], got["vario"]
+    g_err = float(np.nanmax(np.abs(gg - gamma) / np.abs(gamma)))
+    check(np.array_equal(gn, counts) and np.array_equal(gc, centers) and g_err <= 1e-12,
+          f"{label}: the point variogram differs ({g_err!r})")
+    (g, k, _), (gg, gk, _) = want["green"], got["green"]
+    nz = g != 0
+    green_err = float(np.max(np.abs(gg[nz] - g[nz]) / np.abs(g[nz]))) if nz.any() else 0.0
+    check(np.array_equal(gk, k) and np.array_equal(gg == 0, ~nz) and green_err <= 1e-10,
+          f"{label}: the f64 Green cloud differs ({green_err!r})")
+    print(f"  {label} held to single device: dwell f64 and K2 f32, DE f64/f32, matcher and "
+          f"histogram, shells, K3 Green cloud bitwise; point variogram gamma within "
+          f"{g_err!r}, f64 Green cloud within {green_err!r}")
+
+
+def print_head_times(single: dict, ranks: dict, label: str) -> None:
+    print(f"  head times (s), one card | {label}: " + ", ".join(
+        f"{k} {single[k]:.4f} | {ranks[k]:.4f}" for k in single))
+
+
+def phase_multidevice(dev):
+    """Phase 22: multi-device on torch.distributed on the one card, doctor
+    and the traces, one after another. A one-rank NCCL group runs the dense
+    tracker with field_dtype float32 and de_impl torch, rows bitwise the
+    single-device run's; --devices 2 on the one card is refused; doctor
+    --smoke launches K2 (its launches are counted) and its checksum equals
+    the twin's; tracker --trace-dir writes a torch.profiler trace that holds
+    K1's kernel; last, a two-rank gloo group (both ranks on cuda:0: NCCL
+    refuses two ranks on one card; gloo stages through host memory) runs the
+    sharded heads at their pipelines' sizes, K2's row entry and K3 among
+    them, each held to the port's single-device function on the card.
+    Returns K2's launches."""
+    import contextlib
+    import dataclasses
+    import glob
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from cmtci_torch import cli
+    from cmtci_torch.kernels import _launch
+    from cmtci_torch.kernels import mandelbrot_cuda as mc
+    from cmtci_torch.parallel import launch, sharded
+    from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"  {label}: {wall:.3f} s wall")
+        return out, wall
+
+    # a one-rank NCCL group: the dense tracker, mesh against single device
+    cfg = TrackerConfig(**DENSE, field_dtype="float32", de_impl="torch")
+    reset_launches()
+    single, _ = timed("dense tracker, f32 torch DE, single device",
+                      lambda: run_tracker(cfg, device=dev))
+    mesh = sharded.device_mesh(1, device=dev)
+    check(mesh.backend == "nccl" and mesh.size == 1, f"one-rank mesh {mesh}")
+    meshed, _ = timed("the same on a one-rank NCCL mesh",
+                      lambda: run_tracker(cfg, device=dev, mesh=mesh))
+    dist.destroy_process_group()
+    check(sum(_launch.launches.values()) == 0, f"the torch DE launched {_launch.launches}")
+    strip = [[{**dataclasses.asdict(r), "runtime_sec": 0.0} for r in rows[0]]
+             for rows in (single, meshed)]
+    check(len(strip[0]) == 4 and strip[0] == strip[1],
+          "one-rank NCCL mesh: the tracker rows differ from the single-device run's")
+
+    # --devices 2 on one card is refused, never run on CPU ranks
+    try:
+        cli.main(["tracker", "--devices", "2", "--de-impl", "torch", "--out", "/dev/null"])
+        check(False, "tracker --devices 2 ran on one card")
+    except SystemExit as e:
+        check("needs 2 devices" in str(e), f"tracker --devices 2: {e}")
+        print(f"  tracker --devices 2 refused: {e}")
+
+    # doctor --smoke: K2 on 512², max_iter 200
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(["doctor", "--smoke"]) == 0, "doctor --smoke failed")
+    report = json.loads(buf.getvalue())
+    k2_launches = _launch.launches["dwell"]
+    check(sum(_launch.launches.values()) == k2_launches == 2,
+          f"doctor --smoke launches {_launch.launches}")
+    errors = [k for k in report if k.endswith("_error")]
+    check(not errors, f"doctor: {errors}: {[report[k] for k in errors]}")
+    want = float(mc.dwell_field_torch((-2.1, 0.9, -1.5, 1.5), 512, 512, 200, device=dev)
+                 .sum(dtype=torch.float64))
+    smoke = report["smoke"]
+    check(smoke["checksum"] == want, f"doctor checksum {smoke['checksum']} != {want}")
+    print(f"  doctor --smoke: checksum {smoke['checksum']!r} (twin {want!r}), first call "
+          f"{smoke['compile_and_run_s']} s, warm {smoke['warm_s']} s, {k2_launches} K2 "
+          f"launches; card {report['card']}, nvcc {report['nvcc']}, "
+          f"{len(report['build']['libraries'])} kernel libraries built")
+
+    # tracker --trace-dir: a torch.profiler trace per stage, K1's kernel in it
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["tracker", "--sigma-bins", "3.0", "--t-fixed", "25", "--bins-start", "64",
+                "--bins-max", "64"]
+
+        def quiet(*extra):
+            with contextlib.redirect_stdout(io.StringIO()):
+                return cli.main([*argv, *extra])
+
+        timed("tracker, the same stage untraced", lambda: quiet("--out", f"{tmp}/plain"))
+        reset_launches()
+        check(timed("tracker --trace-dir (one stage, K1)", lambda: quiet(
+            "--trace-dir", f"{tmp}/tr", "--out", f"{tmp}/t"))[0] == 0, "traced tracker")
+        for name in ("plain", "t"):
+            with open(f"{tmp}/{name}.json") as f:
+                print(f"  {name} stage times (s): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in json.load(f)["stage_times"].items()))
+        traces = sorted(glob.glob(f"{tmp}/tr/*.json"))
+        names = set()
+        for t in traces:
+            with open(t) as f:
+                names |= {e.get("name", "") for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel"}
+        k1 = sorted(n for n in names if "tci_de_kernel" in n)
+        check(_launch.launches["tci_de"] == 1 and k1,
+              f"trace: K1 launches {_launch.launches['tci_de']}, kernels {sorted(names)[:8]}")
+        print(f"  {len(traces)} traces ({sum(os.path.getsize(t) for t in traces)} bytes), "
+              f"{len(names)} kernel names, K1 as {k1[0]!r}")
+
+    # a two-rank gloo group on the one card, the heads once on each rank
+    x = multidevice_inputs(dev)
+    t0 = time.time()
+    ranks = launch.run(2, [launch.Call("chip_smoke:multidevice_rank", (x,))],
+                       devices=[dev, dev], threads=1)
+    wall = time.time() - t0
+    got = ranks[0]["results"][0]
+    print(f"  two-rank gloo group on cuda:0: {wall:.3f} s wall; rank 0 reached its call "
+          f"{got['entered'] - t0:.3f} s after the spawn began, left it "
+          f"{got['left'] - t0:.3f} s after")
+    check_ranks(ranks, 1)
+    want, single_times = single_heads(x, dev)
+    check_heads_against_single(got, want, "two gloo ranks on one card")
+    print_head_times(single_times, got["times"], "two gloo ranks on one card, first call")
+    return k2_launches
+
+
+def check_ranks(ranks: list, repeat: int) -> None:
+    """Every rank holds no jax and went through K2's row entry and K3."""
+    for r in ranks:
+        res = r["results"][0]
+        check(r["foreign_modules"] == [], f"rank {r['rank']} holds {r['foreign_modules']}")
+        check(res["launches"]["dwell_rows"] == repeat and res["launches"]["cloud_green"] >= 1,
+              f"rank {r['rank']}: kernel launches {res['launches']}")
+    print("  kernel launches a rank: " + ", ".join(
+        f"rank {r['rank']} K2 rows {r['results'][0]['launches']['dwell_rows']}, K3 "
+        f"{r['results'][0]['launches']['cloud_green']}" for r in ranks))
+
+
+def phase_cards(n: int) -> None:
+    """`python3 chip_smoke.py --cards N`, on a machine with N cards: the
+    sharded heads on an N-rank NCCL group, one card a rank, each called
+    twice, held to the single device on cuda:0, with each head's warm time
+    on N cards beside its warm time on one; then `tracker --devices N` (the
+    CLI spawning its own ranks) against the single-device tracker, rows
+    equal."""
+    import csv
+
+    import torch
+
+    from cmtci_torch import cli
+    from cmtci_torch.kernels import _build
+    from cmtci_torch.parallel import launch
+
+    check(torch.cuda.device_count() >= n, f"--cards {n}: {torch.cuda.device_count()} cards")
+    print(f"{n} cards: {[torch.cuda.get_device_name(i) for i in range(n)]}")
+    dev = torch.device("cuda", 0)
+    for name in ("dwell", "cloud_green"):
+        _build.library(name)  # built once here, not by every rank at once
+    x = multidevice_inputs(dev)
+    want, single_times = single_heads(x, dev, repeat=2)
+    t0 = time.perf_counter()
+    ranks = launch.run(n, [launch.Call("chip_smoke:multidevice_rank", (x, 2))], device="cuda")
+    print(f"  {n} NCCL ranks (spawn and all heads twice): {time.perf_counter() - t0:.3f} s wall")
+    check_ranks(ranks, 2)
+    got = ranks[0]["results"][0]
+    check_heads_against_single(got, want, f"{n} NCCL ranks")
+    print_head_times(single_times, got["times"], f"{n} NCCL ranks, second call")
+    print(json.dumps({"head_times_s": {k: {"one_card": single_times[k], f"{n}_cards":
+                                           got["times"][k]} for k in single_times}}))
+
+    def rows(path):
+        with open(path) as f:
+            return [{k: v for k, v in r.items() if k != "runtime_sec"}
+                    for r in csv.DictReader(f)]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["tracker", "--de-impl", "torch", "--field-dtype", "float32", "--sigma-bins",
+                "3.0", "--t-fixed", "25", "--bins-start", "64", "--bins-max", "128"]
+        walls = []
+        for extra, out in (([], "one"), (["--devices", str(n)], "many")):
+            t0 = time.perf_counter()
+            check(cli.main([*argv, *extra, "--out", f"{tmp}/{out}"]) == 0, f"tracker {extra}")
+            walls.append(time.perf_counter() - t0)
+        check(rows(f"{tmp}/one.csv") == rows(f"{tmp}/many.csv"),
+              f"tracker --devices {n}: rows differ from the single device's")
+        print(f"  tracker (2 stages): one card {walls[0]:.3f} s, --devices {n} "
+              f"{walls[1]:.3f} s (the ranks' spawn included); rows equal")
+
+
 def main() -> int:
     card = card_line()
     print(card)
@@ -2411,6 +2795,7 @@ def main() -> int:
     timed(19, phase_bus, dev)
     timed(20, phase_suite, dev)
     timed(21, phase_conformal, dev)
+    doctor_k2 = timed(22, phase_multidevice, dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
@@ -2419,7 +2804,8 @@ def main() -> int:
         "tci_de": dict(launches=results[1][3], max_abs_err=k1_err, ms=k1_graph_ms,
                        plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
                        chained_ms=k1_ms),
-        "dwell": dict(launches=k2_launches, max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+        "dwell": dict(launches=k2_launches + doctor_k2, max_abs_err=k2_err, ms=k2_ms,
+                      plain_ms=k2_plain,
                       bound_ms=k2_bound, bound_by=k2_by),
         # K3's bound is by operations, but dependent ones: the chain of its
         # longest lane at the FP32 dependent-issue latency (phase 8)
@@ -2443,6 +2829,11 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--cards"]:
+            print(card_line())
+            phase_cards(int(sys.argv[2]))
+            print("cards: ok")
+            sys.exit(0)
         sys.exit(main())
     except Exception as exc:  # report the failed phase and exit non-zero
         import traceback

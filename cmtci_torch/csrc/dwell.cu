@@ -12,8 +12,12 @@
 // the output is the first n with !(|z_{n+1}|^2 <= 4) (so NaN counts as an
 // escape), else max_iter, as a float.
 //
-// Two entry points, both on the one loop escape.cuh:dwell_chunked:
+// Three entry points, all on the one loop escape.cuh:dwell_chunked:
 //   * dwell_launch, the plain kernel, on every pipeline's path.
+//   * dwell_rows_launch, the plain kernel on the rows [row0, row0 + ny) of a
+//     taller grid: ci = ymin + (float)(row0 + row)*dy, so a block of rows is
+//     bitwise those rows of the whole grid (a rank's block under
+//     `--devices N`, parallel/sharded.py:sharded_dwell_field).
 //   * dwell_periodic_launch adds the Pallas kernel's optional Brent
 //     periodicity check (public switch mandelbrot_field(periodicity=True)):
 //     a pixel whose orbit returns bitwise to a checkpoint stops early with
@@ -79,14 +83,14 @@ constexpr int P_WARPS = 4;
 constexpr int P_MIDDLE_OUT = 1;  // rows of blocks from the middle outwards (1)
 
 __global__ void __launch_bounds__(32 * WARPS)
-dwell_kernel(float* __restrict__ out, int nx, int ny, float xmin, float ymin, float dx,
-             float dy, int max_iter) {
+dwell_kernel(float* __restrict__ out, int nx, int ny, int row0, float xmin, float ymin,
+             float dx, float dy, int max_iter) {
     int col, row;
     patch_pixel<PATCH_W, PATCH_H, WARPS, false>(col, row);
     if (col >= nx || row >= ny) return;
 
     const float cr = xmin + (float)col * dx;
-    const float ci = ymin + (float)row * dy;
+    const float ci = ymin + (float)(row0 + row) * dy;
     const int dwell = dwell_chunked<C, false>(cr, ci, max_iter);
     out[(size_t)row * (size_t)nx + (size_t)col] = (float)dwell;
 }
@@ -109,13 +113,18 @@ dwell_periodic_kernel(float* __restrict__ out, int nx, int ny, float xmin, float
 // Launch on `stream` (PyTorch's current stream). Each returns
 // cudaGetLastError() as an int; the caller raises when it is not 0. They
 // allocate nothing and do not synchronize.
-extern "C" int dwell_launch(void* out, int nx, int ny, float xmin, float ymin, float dx,
-                            float dy, int max_iter, void* stream) {
+extern "C" int dwell_rows_launch(void* out, int nx, int ny, int row0, float xmin,
+                                 float ymin, float dx, float dy, int max_iter, void* stream) {
     const int block_cols = WARPS * PATCH_W;
     const dim3 grid((nx + block_cols - 1) / block_cols, (ny + PATCH_H - 1) / PATCH_H);
     dwell_kernel<<<grid, 32 * WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<float*>(out), nx, ny, xmin, ymin, dx, dy, max_iter);
+        static_cast<float*>(out), nx, ny, row0, xmin, ymin, dx, dy, max_iter);
     return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dwell_launch(void* out, int nx, int ny, float xmin, float ymin, float dx,
+                            float dy, int max_iter, void* stream) {
+    return dwell_rows_launch(out, nx, ny, 0, xmin, ymin, dx, dy, max_iter, stream);
 }
 
 extern "C" int dwell_periodic_launch(void* out, int nx, int ny, float xmin, float ymin,

@@ -1,7 +1,8 @@
 """Figure writers of the boundary, equipotential, TCI, stage-1, curvature,
 spectral, multifractal, embeddings, spatial-stats, report, coupling and
-uniformize-fem pipelines (subset of ``cmtci/io/plots.py``, copied unchanged apart from the
-imports).
+uniformize-fem pipelines, and the match, boundary-correspondence and
+variogram figures that no pipeline draws (``cmtci/io/plots.py``, copied
+unchanged apart from the imports).
 
 matplotlib is imported inside each function, never at module import: a
 machine without it still runs every pipeline with ``plots=False``
@@ -167,6 +168,67 @@ def plot_family_kde_overlay(family_g: dict, path, kde_grid_n: int = 800,
     plt.ylabel("density (KDE)")
     plt.title("KDE overlays of g_M(c) for different families (outside)")
     plt.legend()
+    plt.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_matches(c_aligned, m, matches, path, preserved_mask=None):
+    """Match segments, optionally colored by a preservation mask."""
+    plt = pyplot()
+    ca, m = _xy(c_aligned), _xy(m)
+    matches = np.asarray(matches, dtype=int)
+    fig = plt.figure(figsize=(8, 6))
+    plt.scatter(m[:, 0], m[:, 1], s=6, c="red", label="Mandel")
+    plt.scatter(ca[:, 0], ca[:, 1], s=6, c="cyan", alpha=0.7, label="Construct aligned")
+    for i in range(len(matches)):
+        j = matches[i]
+        color, lw, al = ("green", 0.4, 0.7)
+        if preserved_mask is not None and not preserved_mask[i]:
+            color, lw, al = ("gray", 0.2, 0.3)
+        plt.plot([ca[i, 0], m[j, 0]], [ca[i, 1], m[j, 1]], color=color, linewidth=lw, alpha=al)
+    plt.axis("equal")
+    plt.legend()
+    fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_boundary_correspondence(z_bdy, w_bdy, path, title=""):
+    """t-colored boundary correspondence (v40:413-440)."""
+    plt = pyplot()
+    z = np.asarray(z_bdy, dtype=complex).ravel()
+    w = np.asarray(w_bdy, dtype=complex).ravel()
+    t = np.linspace(0.0, 1.0, len(z), endpoint=False)
+    fig = plt.figure(figsize=(10, 4.5))
+    ax1 = fig.add_subplot(1, 2, 1)
+    ax2 = fig.add_subplot(1, 2, 2)
+    ax1.scatter(z.real, z.imag, c=t, s=6, cmap="hsv")
+    ax1.set_title("Domain boundary (t-colored)")
+    ax1.set_aspect("equal", "box")
+    ax2.scatter(w.real, w.imag, c=t, s=6, cmap="hsv")
+    th = np.linspace(0, 2 * np.pi, 800, endpoint=False)
+    ax2.plot(np.cos(th), np.sin(th), "-", linewidth=1)
+    ax2.set_title("Mapped boundary in disk (same t)")
+    ax2.set_aspect("equal", "box")
+    fig.suptitle(title)
+    fig.tight_layout()
+    fig.savefig(ensure_dir(path), dpi=220, pil_kwargs=_PNG_FAST)
+    plt.close(fig)
+    return path
+
+
+def plot_variograms(r, curves: dict, path, title="Semivariograms"):
+    plt = pyplot()
+    fig = plt.figure(figsize=(8, 5.5))
+    for label, g in curves.items():
+        plt.plot(np.asarray(r), np.asarray(g), "o-", label=label, markersize=3)
+    plt.xlabel("lag distance r")
+    plt.ylabel(r"$\hat{\gamma}(r)$")
+    plt.title(title)
+    plt.legend()
+    plt.grid(True, alpha=0.3)
     plt.tight_layout()
     fig.savefig(ensure_dir(path), dpi=200, pil_kwargs=_PNG_FAST)
     plt.close(fig)

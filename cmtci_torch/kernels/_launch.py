@@ -22,6 +22,7 @@ _GRID = [_P, _I, _I, _F, _F, _F, _F, _I]  # out, nx, ny, xmin, ymin, dx, dy, max
 ARGTYPES = {
     "tci_de": [_P, _I, _F, _F, _F, _F, _I, _F, _P],
     "dwell": _GRID + [_P],
+    "dwell_rows": _GRID[:3] + [_I] + _GRID[3:] + [_P],  # row0 after ny
     "dwell_periodic": _GRID + [_P],
     "cloud_green": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     "de_std": _GRID + [_F, _P],
@@ -31,7 +32,7 @@ ARGTYPES = {
 }
 
 #: the csrc/<library>.cu that holds an entry point named otherwise
-LIBRARY = {"dwell_periodic": "dwell"}
+LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell"}
 
 #: kernel launches per entry point, counted where the wrapper launches; read
 #: and reset by callers that need to show a run went through the kernels

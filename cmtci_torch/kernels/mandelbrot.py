@@ -94,7 +94,7 @@ def _green_stage(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter:
 
 
 def green_potential_compacted(points, max_iter: int = 20000, escape_r: float = 2.0,
-                              stage_iters: int = 512, device="cuda"):
+                              stage_iters: int = 512, device="cuda", stage_executor=None):
     """Parameter-plane Green function g_M(c) and Phi(c)
     (lucas_equipotential_test_v3.py:124-162) for a complex cloud in f64 on
     `device`, with compaction of the survivors between stages (the
@@ -105,7 +105,10 @@ def green_potential_compacted(points, max_iter: int = 20000, escape_r: float = 2
     After each `stage_iters` chunk the escaped points' records go to the
     host and the rest are compacted, so the deep interior no longer drags
     every escaped point along. No power-of-two padding: that only let the
-    reference's stages share XLA compiles. Returns (g, k, phi) numpy arrays.
+    reference's stages share XLA compiles. `stage_executor` (default
+    ``_green_stage``) runs each stage with _green_stage's arguments and
+    results: ``parallel.sharded.green_stage_executor`` shards the stage's
+    points over a mesh. Returns (g, k, phi) numpy arrays.
     """
     dev = resolve_device(device)
     if stage_iters < 1:
@@ -125,8 +128,8 @@ def green_potential_compacted(points, max_iter: int = 20000, escape_r: float = 2
     k0 = 0
     while k0 < max_iter and len(idx):
         iters = min(stage_iters, max_iter - k0)
-        zr, zi, esc, gs, ks, lpr, lpi = _green_stage(zr, zi, cr, ci, k0, iters, r2,
-                                                     max_iter)
+        zr, zi, esc, gs, ks, lpr, lpi = (stage_executor or _green_stage)(
+            zr, zi, cr, ci, k0, iters, r2, max_iter)
         esc_h = esc.cpu().numpy()
         if esc_h.any():
             rec = torch.stack([gs[esc], ks[esc].to(f64), lpr[esc], lpi[esc]]).cpu().numpy()
@@ -370,7 +373,8 @@ SAMPLE_IMPLS = ("numpy", "torch", "cuda")
 def sample_boundary_quantile(domain, grid_n: int, n_samples: int, max_iter: int = 250,
                              escape_r: float = 250.0, eps: float = 1e-12,
                              rng: np.random.RandomState | None = None,
-                             dtype=torch.float64, impl: str = "torch", device="cuda"):
+                             dtype=torch.float64, impl: str = "torch", device="cuda",
+                             mesh=None):
     """TCI boundary sampler (tci_construct_mandelbrot_v002_fixed.py:49-59).
 
     Keep escaped points with d <= 25%-quantile of escaped d, then subsample
@@ -383,10 +387,21 @@ def sample_boundary_quantile(domain, grid_n: int, n_samples: int, max_iter: int 
       * impl="cuda": the f32 K1 kernel with the q25 band and the subsample
         on the device, seeded by ONE draw from `rng`
         (mandelbrot_cuda.tci_boundary_sample).
+
+    With impl="torch" and a `mesh` the DE grid's rows are sharded over its
+    ranks (parallel.sharded.sharded_de_tci_field, bitwise the single-device
+    field); the quantile and the subsample stay on the host, so the RNG
+    stream is the single-device one. impl="cuda" is a single-device head and
+    refuses a mesh, as the reference's impl="pallas" does; impl="numpy"
+    ignores it.
     """
     if impl not in SAMPLE_IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {SAMPLE_IMPLS}")
     if impl == "cuda":
+        if mesh is not None:
+            raise ValueError(
+                "impl='cuda' is a single-device kernel head; it cannot be combined "
+                "with mesh= (use impl='torch' for the sharded path)")
         if eps != 1e-12:
             # the kernel's denominator floor is baked in (as in the reference)
             raise ValueError(
@@ -405,6 +420,13 @@ def sample_boundary_quantile(domain, grid_n: int, n_samples: int, max_iter: int 
         esc, d = de_field_tci_numpy(crn + 1j * cin, max_iter=max_iter,
                                     escape_r=escape_r, eps=eps)
         c = crn + 1j * cin
+    elif mesh is not None:
+        from cmtci_torch.parallel.sharded import sharded_de_tci_field
+
+        cr, ci = complex_grid(domain, grid_n, grid_n, dtype=dtype, device=mesh.device)
+        esc, d = sharded_de_tci_field(domain, grid_n, mesh, max_iter=max_iter,
+                                      escape_r=escape_r, eps=eps, dtype=dtype, grid=(cr, ci))
+        c = fetch(cr).astype(np.float64) + 1j * fetch(ci).astype(np.float64)
     else:
         cr, ci = complex_grid(domain, grid_n, grid_n, dtype=dtype, device=device)
         esc, d, _, _ = de_field_tci(cr, ci, max_iter=max_iter, escape_r=escape_r, eps=eps)

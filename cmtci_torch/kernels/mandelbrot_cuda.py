@@ -85,13 +85,15 @@ def _grid_coords(domain, nx: int, ny: int, dev: torch.device):
     return _coords(_params(domain, nx, ny), nx, ny, dev)
 
 
-def _coords(params: np.ndarray, nx: int, ny: int, dev: torch.device):
-    """_grid_coords from f32 (xmin, ymin, dx, dy) params."""
+def _coords(params: np.ndarray, nx: int, ny: int, dev: torch.device, row0: int = 0):
+    """_grid_coords from f32 (xmin, ymin, dx, dy) params; with row0, the
+    grid's rows [row0, row0 + ny) (ymin + (float)(row0 + row)*dy)."""
     f32 = torch.float32
     p = torch.as_tensor(params, device=dev)
     xmin, ymin, dx, dy = p[0], p[1], p[2], p[3]
     cr = (xmin + torch.arange(nx, dtype=f32, device=dev) * dx)[None, :].expand(ny, nx)
-    ci = (ymin + torch.arange(ny, dtype=f32, device=dev) * dy)[:, None].expand(ny, nx)
+    rows = torch.arange(row0, row0 + ny, dtype=f32, device=dev)
+    ci = (ymin + rows * dy)[:, None].expand(ny, nx)
     return cr, ci
 
 
@@ -251,7 +253,7 @@ FIELD_KINDS = {"dwell": "dwell", "de": "de_std", "green": "green_grid"}
 
 def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.device,
                  fill_px: torch.Tensor | None = None,
-                 periodicity: bool = False) -> torch.Tensor:
+                 periodicity: bool = False, row0: int = 0) -> torch.Tensor:
     """Twin of escape.cuh:dwell_chunked over the grid of f32 `params`, the
     loop K2's two entries and K6's fine pass share, step by step. fill_px
     (f32 (ny, nx), optional) is K6's per-pixel fill flag: where it is >= 0
@@ -265,8 +267,10 @@ def _dwell_torch(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch
     kernel moves it at chunk ends only; the schedule does not enter the
     result); a lane still inside whose z equals its checkpoint bitwise stops
     and gets max_iter.
+
+    row0 runs the grid's rows [row0, row0 + ny), as K2's row entry does.
     """
-    cr, ci = _coords(params, nx, ny, dev)
+    cr, ci = _coords(params, nx, ny, dev, row0)
     interior = _interior_mask_torch(cr, ci)
     act = ~interior
     dwell = torch.where(interior, float(max_iter), 0.0).to(torch.float32)
@@ -319,6 +323,25 @@ def _dwell(params: np.ndarray, nx: int, ny: int, max_iter: int, dev: torch.devic
     out = torch.empty((ny, nx), dtype=torch.float32, device=dev)
     _launch("dwell_periodic" if periodicity else "dwell", dev, out.data_ptr(), int(nx),
             int(ny), xmin, ymin, dx, dy, int(max_iter))
+    return out
+
+
+def dwell_rows(domain, nx: int, ny: int, row0: int, rows: int, max_iter: int = 500,
+               device="cuda") -> torch.Tensor:
+    """f32 (rows, nx): the rows [row0, row0 + rows) of mandelbrot_field(domain,
+    nx, ny, max_iter, kind="dwell"), bitwise. A CUDA device launches K2's row
+    entry (dwell_rows_launch), a CPU device runs its twin."""
+    if not 0 <= row0 <= row0 + rows <= ny:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside a grid of {ny} rows")
+    dev = resolve_device(device)
+    params = _params(domain, nx, ny)
+    if dev.type == "cpu":
+        return _dwell_torch(params, nx, rows, max_iter, dev, row0=row0)
+    out = torch.empty((rows, nx), dtype=torch.float32, device=dev)
+    if rows:
+        xmin, ymin, dx, dy = (float(v) for v in params)
+        _launch("dwell_rows", dev, out.data_ptr(), int(nx), int(rows), int(row0), xmin, ymin,
+                dx, dy, int(max_iter))
     return out
 
 

@@ -265,15 +265,22 @@ def run_symmetry(c_aligned, m_pts, matches=None, tol=0.05, out_prefix=None,
 
 
 def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
-                      stat_dtype=torch.float64, plots=True, device="cuda"):
+                      stat_dtype=torch.float64, plots=True, device="cuda", mesh=None):
     """phase2 + phase3: g(r), Ripley K, Hausdorff, gradient curvature, box dim.
 
     stat_dtype=torch.float32 runs the three O(n²) pair scans (the shell
     counts of each cloud and the Hausdorff distance) in f32 on `device`:
-    the counts stay exact int64, a borderline pair can land one bin over."""
-    dev = resolve_device(device)
-    shells_c = ps._shell_counts(c_aligned, r_max, dr, dtype=stat_dtype, device=dev)
-    shells_m = ps._shell_counts(m_pts, r_max, dr, dtype=stat_dtype, device=dev)
+    the counts stay exact int64, a borderline pair can land one bin over.
+    With a `mesh` the shell counts shard over its ranks (bitwise the
+    single-device counts), the rest runs on the rank's device, and only
+    rank 0 writes."""
+    from cmtci_torch.parallel.sharded import is_writer
+
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if not is_writer(mesh):
+        out_prefix = None
+    shells_c = ps._shell_counts(c_aligned, r_max, dr, dtype=stat_dtype, device=dev, mesh=mesh)
+    shells_m = ps._shell_counts(m_pts, r_max, dr, dtype=stat_dtype, device=dev, mesh=mesh)
     r_c, g_c = ps.pair_correlation(c_aligned, r_max, dr, _shells=shells_c)
     r_m, g_m = ps.pair_correlation(m_pts, r_max, dr, _shells=shells_m)
     _, k_c = ps.ripley_k(c_aligned, r_max, dr, _shells=shells_c)

@@ -62,19 +62,31 @@ class CouplingConfig:
 
 def run_coupling(c_pts, m_pts, matches, cfg: CouplingConfig,
                  out_prefix: str | None = None, plots: bool = True, device="cuda",
-                 timer: StageTimer | None = None):
+                 timer: StageTimer | None = None, mesh=None):
     """Returns (summary rows, final nudged cloud). With `out_prefix` writes
     per iteration the variogram CSV and the local-correlation npy (and its
     figure unless plots=False), then the summary CSV and _meta.txt.
     `timer` records the layers u_m (U_M and its Laplacian), variogram (the
     point variogram and its range), u_c, smooth, diagnostics (Laplacian,
     global and local correlations), write and nudge, summed over the
-    iterations."""
+    iterations.
+
+    With a `mesh` the two O(n²)-class stages shard over its ranks, on the
+    ranks' devices: the point variogram (parallel.sharded
+    .sharded_point_variogram: exact counts, f64 sums reduced over the ranks,
+    so its range can move the trajectory by rounding only) and U_C, whose
+    rows are the same meshgrid rows as the single-device grid
+    (sharded_cloud_potential with grid=, bitwise). Only rank 0 writes."""
+    from cmtci_torch.parallel.sharded import (is_writer, sharded_cloud_potential,
+                                              sharded_point_variogram)
+
     if matches is None:
         raise ValueError(
             "coupling requires matches (matches_indices.csv missing or "
             "unreadable in the bus directory — rerun `cmtci-torch stage1`)")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if not is_writer(mesh):
+        out_prefix = None
     timer = timer if timer is not None else StageTimer(dev)
     c = np.asarray(c_pts, dtype=float).copy()
     m = np.asarray(m_pts, dtype=float)
@@ -109,7 +121,11 @@ def run_coupling(c_pts, m_pts, matches, cfg: CouplingConfig,
         with timer.stage("variogram"):
             matched_m = m[matches]
             dists = np.linalg.norm(c - matched_m, axis=1)
-            if vario32:
+            if mesh is not None:
+                lags, gamma, counts = sharded_point_variogram(
+                    c, dists, nbins=cfg.vario_bins, mesh=mesh,
+                    dtype=torch.float32 if vario32 else None)
+            elif vario32:
                 lags, gamma, counts = vg.point_variogram_device(
                     c, dists, nbins=cfg.vario_bins, dtype=torch.float32, device=dev)
             else:
@@ -120,7 +136,11 @@ def run_coupling(c_pts, m_pts, matches, cfg: CouplingConfig,
             0.5, cfg.smooth_factor * (a_est / h) / 2.0
         )
         with timer.stage("u_c"):
-            u_c = cloud_log_potential(gxp, gyp, c, eps=1e-12, sign=1, device=dev)
+            if mesh is not None:
+                u_c = sharded_cloud_potential(None, cfg.grid_res, cfg.grid_res, c, mesh,
+                                              eps=1e-12, sign=1, grid=(gxp, gyp))
+            else:
+                u_c = cloud_log_potential(gxp, gyp, c, eps=1e-12, sign=1, device=dev)
         if f32:
             with timer.stage("smooth"):
                 kernel_np = gaussian_kernel1d(sigma_px)

@@ -53,22 +53,33 @@ class EquipotentialConfig:
 
 
 def batch_potential(cloud: np.ndarray, max_iter: int, escape_radius: float,
-                    cache_dir: str | None = None, dtype: str = "float64", device="cuda"):
+                    cache_dir: str | None = None, dtype: str = "float64", device="cuda",
+                    mesh=None):
     """(g, it, phi) for a complex cloud on `device`. With cache_dir the
     result is stored keyed by (cloud digest, max_iter, R, dtype) and the
     implementation: the port's f64 results differ from the reference's in
-    the last bits, so the two never share an entry."""
+    the last bits, so the two never share an entry. With a `mesh` the
+    points are sharded over its ranks: in f32 each rank runs the K3 head on
+    its block (parallel.sharded.sharded_green_cloud_f32), in f64 each
+    compaction stage's points are split (parallel.sharded.
+    green_stage_executor); only rank 0 stores the cache entry."""
+    from cmtci_torch.parallel.sharded import (green_stage_executor, is_writer,
+                                              sharded_green_cloud_f32)
     if dtype not in POTENTIAL_DTYPES:
         raise ValueError(f"unknown potential dtype {dtype!r}; expected {POTENTIAL_DTYPES}")
 
     def _run():
-        if dtype == "float32":
+        if dtype == "float32" and mesh is not None:
+            g, it, phi = sharded_green_cloud_f32(cloud, max_iter=max_iter,
+                                                 escape_r=escape_radius, mesh=mesh)
+        elif dtype == "float32":
             g, it, phi = mc.green_cloud_f32(cloud, max_iter=max_iter,
                                             escape_r=escape_radius, device=device)
         else:
-            g, it, phi = mb.green_potential_compacted(cloud, max_iter=max_iter,
-                                                      escape_r=escape_radius,
-                                                      device=device)
+            g, it, phi = mb.green_potential_compacted(
+                cloud, max_iter=max_iter, escape_r=escape_radius,
+                device=device if mesh is None else mesh.device,
+                stage_executor=None if mesh is None else green_stage_executor(mesh))
         return {"g": g, "it": it, "phi": phi}
 
     out = artifacts.cached(
@@ -77,6 +88,7 @@ def batch_potential(cloud: np.ndarray, max_iter: int, escape_radius: float,
          "max_iter": max_iter, "escape_r": escape_radius,
          **({"dtype": dtype} if dtype != "float64" else {})},
         _run, cache_dir=cache_dir or ".cmtci_cache", enabled=cache_dir is not None,
+        write=is_writer(mesh),
     )
     return np.asarray(out["g"]), np.asarray(out["it"]), np.asarray(out["phi"])
 
@@ -130,10 +142,16 @@ def cumulative_stats(cfg: EquipotentialConfig, family: str | None = None,
 
 def run_equipotential(cfg: EquipotentialConfig, out_dir: str | None = None,
                       with_per_n: bool = True, cache_dir: str | None = None,
-                      timer=None, plots: bool = True, device="cuda"):
+                      timer=None, plots: bool = True, device="cuda", mesh=None):
     """Full driver on `device`. Returns a dict of results; writes CSV/NPY
-    (and, if `plots`, the density figures) if out_dir."""
-    dev = resolve_device(device)
+    (and, if `plots`, the density figures) if out_dir. With a `mesh` it runs
+    on the rank's device, the Green potential (K3 in f32, the f64 loop)
+    sharded over the ranks (batch_potential), and only rank 0 writes."""
+    from cmtci_torch.parallel.sharded import is_writer
+
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if not is_writer(mesh):
+        out_dir = None
     if out_dir and plots:
         figures.pyplot()  # fail before any stage when matplotlib is missing
     timer = timer if timer is not None else StageTimer(dev)
@@ -160,7 +178,7 @@ def run_equipotential(cfg: EquipotentialConfig, out_dir: str | None = None,
         all_pts = np.concatenate([c_inv, *fam_clouds]) if fam_clouds else c_inv
         g_all, it_all, phi_all = batch_potential(
             all_pts, cfg.max_iter, cfg.escape_radius, cache_dir=cache_dir,
-            dtype=cfg.potential_dtype, device=dev)
+            dtype=cfg.potential_dtype, device=dev, mesh=mesh)
         g, it, phi = (g_all[: len(c_inv)], it_all[: len(c_inv)],
                       phi_all[: len(c_inv)])
     out = {
@@ -190,7 +208,7 @@ def run_equipotential(cfg: EquipotentialConfig, out_dir: str | None = None,
         with timer.stage("stored_curve"):
             g_c, _, _ = batch_potential(c_curve, cfg.max_iter, cfg.escape_radius,
                                         cache_dir=cache_dir, dtype=cfg.potential_dtype,
-                                        device=dev)
+                                        device=dev, mesh=mesh)
             out["curve_summary"] = laws.summarize_g(g_c)
             out["curve_laws"] = laws.compare_reference_laws(g_c[g_c > 0])
             out["curve_g"] = g_c

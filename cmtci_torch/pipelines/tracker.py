@@ -132,7 +132,7 @@ def config_from_reference(d: dict) -> TrackerConfig:
 
 def run_tracker(cfg: TrackerConfig, max_stages: Optional[int] = None,
                 cache_dir: Optional[str] = None, timer: Optional[StageTimer] = None,
-                device="cuda"):
+                device="cuda", mesh=None):
     """Run the resolution-doubling tracker on `device`. Returns (rows, meta).
 
     With `cache_dir`, each stage's products (aligned clouds) and the
@@ -140,7 +140,20 @@ def run_tracker(cfg: TrackerConfig, max_stages: Optional[int] = None,
     identical parameters touch no eigensolve/DE/matcher and the shared RNG
     stream continues where the stage left it. `timer` records per-phase
     wall times (device-synchronized on CUDA).
+
+    With a `mesh` (parallel.sharded.device_mesh) the stage runs on the
+    rank's device with its heavy work sharded over the ranks: the DE grid's
+    rows (de_impl "torch"; the K1 head "cuda" is single-device and refuses a
+    mesh), the matcher's rows and the histograms' points, each bitwise the
+    single-device result, so the rows equal the single-device run's. The
+    host RNG stream, the quantile and Procrustes run alike on every rank.
+    parity=True ignores the mesh (the host numpy oracle path). Every rank
+    reads the stage cache; only rank 0 writes it.
     """
+    from cmtci_torch.parallel.sharded import is_writer
+
+    if mesh is not None:
+        device = mesh.device
     if cfg.de_impl not in DE_IMPLS:
         raise ValueError(f"unknown de_impl {cfg.de_impl!r}; expected one of {DE_IMPLS}")
     if cfg.field_dtype not in ("float32", "float64"):
@@ -161,6 +174,7 @@ def run_tracker(cfg: TrackerConfig, max_stages: Optional[int] = None,
             break
         t0 = time.time()
         ns = list(range(cfg.construct_step, construct_max + 1, cfg.construct_step))
+        stage_mesh = None if cfg.parity else mesh
         stage_cfg = {**dataclasses.asdict(cfg), "stage_bins": bins,
                      "construct_max": construct_max, "grid": grid, "samples": samples,
                      "n_stage": len(rows), "device": dev.type}
@@ -175,19 +189,20 @@ def run_tracker(cfg: TrackerConfig, max_stages: Optional[int] = None,
                     cfg.domain, grid, samples, max_iter=cfg.max_iter,
                     escape_r=cfg.escape_r, eps=cfg.eps, rng=rng,
                     dtype=torch.float32 if f32 else torch.float64,
-                    impl="numpy" if cfg.parity else cfg.de_impl, device=dev)
+                    impl="numpy" if cfg.parity else cfg.de_impl, device=dev,
+                    mesh=stage_mesh)
             with timer.stage(f"bins{bins}_match"):
                 m_match, c_sub = entropic_argmax_match(
                     c_cloud, m_cloud, eps=cfg.sinkhorn_eps, rng=rng,
                     backend="numpy" if cfg.parity else "torch",
-                    dtype=torch.float32 if f32 else None, device=dev)
+                    dtype=torch.float32 if f32 else None, device=dev, mesh=stage_mesh)
             c_aligned = procrustes_align_no_scale(c_sub, m_match, convention="reference")
             return {"c_aligned": c_aligned, "m_aligned": m_match,
                     **artifacts.rng_state_arrays(rng)}
 
         stage_out = artifacts.cached("tracker_stage", stage_cfg, _stage_kernels,
                                      cache_dir=cache_dir or ".cmtci_cache",
-                                     enabled=cache_dir is not None)
+                                     enabled=cache_dir is not None, write=is_writer(mesh))
         artifacts.restore_rng_state(rng, stage_out)
         c_aligned = np.asarray(stage_out["c_aligned"])
         m_aligned = np.asarray(stage_out["m_aligned"])
@@ -196,8 +211,10 @@ def run_tracker(cfg: TrackerConfig, max_stages: Optional[int] = None,
         outside_m = hg.fraction_outside_domain(m_aligned, cfg.domain)
 
         with timer.stage(f"bins{bins}_hist"):
-            p_m = hg.mollified_histogram(m_aligned, bins, cfg.domain, cfg.sigma_bins, cfg.eps)
-            p_c = hg.mollified_histogram(c_aligned, bins, cfg.domain, cfg.sigma_bins, cfg.eps)
+            p_m = hg.mollified_histogram(m_aligned, bins, cfg.domain, cfg.sigma_bins, cfg.eps,
+                                         mesh=stage_mesh)
+            p_c = hg.mollified_histogram(c_aligned, bins, cfg.domain, cfg.sigma_bins, cfg.eps,
+                                         mesh=stage_mesh)
         kl_pm_pc = hg.kl(p_m, p_c, cfg.eps)
 
         # the flow's O(T·bins²) loop runs on the device above 128 bins

@@ -63,16 +63,21 @@ def _norm(u: np.ndarray) -> np.ndarray:
 
 
 def run_variograms(cfg: VariogramConfig, out_csv: str | None = None, timer=None,
-                   device="cuda"):
+                   device="cuda", mesh=None):
     """Run the pipeline on `device`. Returns a dict with r, the three gammas
     and their per-bin pair counts, U_C, U_M and the two cloud sizes (and the
     fits with cfg.fit_model); with `out_csv` writes the CSV and its
     _meta.txt. `timer` records the layers cloud, boundary, potentials and
-    variograms (device-synchronized on CUDA)."""
+    variograms (device-synchronized on CUDA). With a `mesh` it runs on the
+    rank's device, the three binnings sharded over the ranks
+    (stats.variogram.three_semivariograms), and only rank 0 writes."""
+    from cmtci_torch.parallel.sharded import is_writer
     for name in (cfg.vario_dtype, cfg.field_dtype):
         if name not in _DTYPES:
             raise ValueError(f"unknown dtype {name!r}; expected one of {tuple(_DTYPES)}")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if not is_writer(mesh):
+        out_csv = None
     timer = timer if timer is not None else StageTimer(dev)
     rng = np.random.RandomState(cfg.seed)
     fdt = _DTYPES[cfg.field_dtype]
@@ -107,7 +112,7 @@ def run_variograms(cfg: VariogramConfig, out_csv: str | None = None, timer=None,
     with timer.stage("variograms"):
         r_c, g_c, g_m, g_x, n_c, n_m, n_x = vg.three_semivariograms(
             u_c_n, u_m_n, gx, gy, r_bins, cfg.m_target, rng,
-            dtype=_DTYPES[cfg.vario_dtype], device=dev)
+            dtype=_DTYPES[cfg.vario_dtype], device=dev, mesh=mesh)
 
     out = {
         "r": r_c, "gamma_construct": g_c, "gamma_mandelbrot": g_m, "gamma_cross": g_x,

@@ -31,21 +31,22 @@ from cmtci_torch.utils.arrays import as_xy as _xy
 from cmtci_torch.utils.device import resolve_device
 
 
-def _knn(xy, k: int, chunk: int = 2048):
+def _knn(xy, k: int, chunk: int = 2048, rows=None):
     """(distances, indices) of the k nearest neighbours of each row of the
-    (n, 2) tensor xy, self excluded, in xy's dtype on its device."""
-    n = xy.shape[0]
-    dists = torch.empty((n, k), dtype=xy.dtype, device=xy.device)
-    idxs = torch.empty((n, k), dtype=torch.int64, device=xy.device)
-    for i in range(0, n, chunk):
-        blk = xy[i : i + chunk]
+    (n, 2) tensor xy, self excluded, in xy's dtype on its device; rows =
+    (lo, hi) answers only the query rows lo..hi-1 (shape (hi - lo, k))."""
+    lo, hi = (0, xy.shape[0]) if rows is None else rows
+    dists = torch.empty((hi - lo, k), dtype=xy.dtype, device=xy.device)
+    idxs = torch.empty((hi - lo, k), dtype=torch.int64, device=xy.device)
+    for i in range(lo, hi, chunk):
+        blk = xy[i : min(i + chunk, hi)]
         dx = blk[:, 0, None] - xy[None, :, 0]
         dy = blk[:, 1, None] - xy[None, :, 1]
         d2 = dx * dx + dy * dy
         d2.diagonal(offset=i).fill_(float("inf"))  # drop self
         nbr = _knn_indices(d2, k)
-        dists[i : i + chunk] = torch.sqrt(torch.gather(d2, 1, nbr))
-        idxs[i : i + chunk] = nbr
+        dists[i - lo : i - lo + blk.shape[0]] = torch.sqrt(torch.gather(d2, 1, nbr))
+        idxs[i - lo : i - lo + blk.shape[0]] = nbr
     return dists, idxs
 
 
@@ -71,10 +72,12 @@ def _knn_hilo(hi, lo, k: int, chunk: int = 2048):
 
 
 def build_sparse_kernel(points, k: int = 20, eps_scale: float = 0.5,
-                        dtype=torch.float64, device="cuda"):
+                        dtype=None, device="cuda", mesh=None):
     """Symmetric sparse gaussian kNN kernel; returns (K csr, sigma).
 
-    dtype=torch.float64 runs the blocked kNN search exactly. torch.float32
+    dtype=None or torch.float64 runs the blocked kNN search exactly; with a
+    `mesh` that search shards its query rows over the ranks
+    (parallel.sharded.sharded_knn, bitwise per row). torch.float32
     runs the SEARCH with hi/lo two-float coordinates (_knn_hilo) over k+8
     candidates, then re-ranks the candidates by exact f64 distance on the
     host (O(n·k)): the neighbour sets match the f64 path unless a true k-th
@@ -84,11 +87,20 @@ def build_sparse_kernel(points, k: int = 20, eps_scale: float = 0.5,
     an f32 exp underflows to 0 for isolated points, and a zero kernel row
     has no Markov normalization.
     """
-    dev = resolve_device(device)
     xy = _xy(points)
     n = len(xy)
     k = int(k)
-    if dtype == torch.float32 and n > k + 1:
+    if mesh is not None and dtype is not None:
+        raise ValueError(
+            "build_sparse_kernel: mesh and dtype are mutually exclusive — the "
+            "sharded kNN is the f64 multi-device path; the f32 device path is "
+            "single-device (drop one of them)")
+    if mesh is not None:
+        from cmtci_torch.parallel.sharded import sharded_knn
+
+        dists, idxs = sharded_knn(xy, k, mesh)
+    elif dtype == torch.float32 and n > k + 1:
+        dev = resolve_device(device)
         # (n <= k+1 degenerates to the exact scan below: every other point
         # is a neighbour, so there is no search to speed up)
         k_cand = min(k + 8, n - 1)
@@ -101,7 +113,8 @@ def build_sparse_kernel(points, k: int = 20, eps_scale: float = 0.5,
         idxs = np.take_along_axis(cand, order, axis=1)
         dists = np.sqrt(np.take_along_axis(d2, order, axis=1))
     else:
-        dists, idxs = _knn(torch.as_tensor(xy, dtype=torch.float64, device=dev), k)
+        dists, idxs = _knn(torch.as_tensor(xy, dtype=torch.float64,
+                                           device=resolve_device(device)), k)
         dists, idxs = dists.cpu().numpy(), idxs.cpu().numpy()
     sigma = float(np.median(dists.ravel()) * eps_scale)
     if sigma <= 0:
@@ -225,10 +238,11 @@ def spectral_embedding(p, n_eigs: int = 8, backend: str = "scipy", dtype=torch.f
 
 def diffusion_map(points, k: int = 20, n_eigs: int = 8, eps_scale: float = 0.5,
                   eig_backend: str = "scipy", eig_dtype=torch.float64,
-                  knn_dtype=torch.float64, device="cuda"):
-    """Full pipeline: kernel -> Markov -> spectrum. Returns (vals, vecs, sigma)."""
+                  knn_dtype=None, device="cuda", mesh=None):
+    """Full pipeline: kernel -> Markov -> spectrum. Returns (vals, vecs, sigma).
+    `mesh` shards the kNN search (build_sparse_kernel)."""
     kmat, sigma = build_sparse_kernel(points, k=k, eps_scale=eps_scale, dtype=knn_dtype,
-                                      device=device)
+                                      device=device, mesh=mesh)
     p = markov_from_kernel(kmat)
     vals, vecs = spectral_embedding(p, n_eigs=n_eigs, backend=eig_backend, dtype=eig_dtype,
                                     device=device)

@@ -25,15 +25,17 @@ from cmtci_torch.utils.arrays import as_xy as _xy
 from cmtci_torch.utils.device import resolve_device
 
 
-def _pair_hist(xy, r_edges, nbins: int, chunk: int = 1024):
+def _pair_hist(xy, r_edges, nbins: int, chunk: int = 1024, rows=None):
     """int64 histogram of the upper-triangle pairwise distances of xy into
     the r_edges bins (bin k holds r_edges[k] <= d < r_edges[k+1]; values
     >= the last edge are dropped, matching the reference's shell masks). A
-    block of rows meets only the columns from its first row on."""
+    block of rows meets only the columns from its first row on. rows =
+    (lo, hi) restricts the pairs to first indices in [lo, hi)."""
     counts = torch.zeros(nbins, dtype=torch.int64, device=xy.device)
     local = torch.arange(xy.shape[0], device=xy.device)
-    for i in range(0, xy.shape[0], chunk):
-        blk, rest = xy[i : i + chunk], xy[i:]
+    lo, hi = (0, xy.shape[0]) if rows is None else rows
+    for i in range(lo, hi, chunk):
+        blk, rest = xy[i : min(i + chunk, hi)], xy[i:]
         dx = blk[:, 0, None] - rest[None, :, 0]
         dy = blk[:, 1, None] - rest[None, :, 1]
         d = torch.sqrt(dx * dx + dy * dy)
@@ -42,11 +44,17 @@ def _pair_hist(xy, r_edges, nbins: int, chunk: int = 1024):
     return counts
 
 
-def _shell_counts(points, r_max: float, dr: float, dtype=torch.float64, device="cuda"):
+def _shell_counts(points, r_max: float, dr: float, dtype=torch.float64, device="cuda",
+                  mesh=None):
     """(r_vals, shell counts over [r, r+dr), n, rho): one O(N^2) pass shared
     by g(r) and Ripley K, in `dtype` on `device`. The counts are exact in
     either dtype; f32 distances can land a borderline pair one bin over
-    against f64."""
+    against f64. With a `mesh` the pass shards its i-rows over the ranks
+    (parallel.sharded.sharded_shell_counts), on the ranks' devices."""
+    if mesh is not None:
+        from cmtci_torch.parallel.sharded import sharded_shell_counts
+
+        return sharded_shell_counts(points, r_max, dr, mesh, dtype=dtype)
     dev = resolve_device(device)
     xy = _xy(points)
     n = len(xy)

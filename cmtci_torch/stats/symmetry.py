@@ -140,7 +140,7 @@ def _score_angles(points, angles, tol: float, dtype=torch.float64, device="cuda"
 
 
 def best_reflection_axis(points_a, points_b, tol: float = 0.05, n_angles: int = 361,
-                         refine: bool = True, dtype=torch.float64, device="cuda"):
+                         refine: bool = True, dtype=None, device="cuda", mesh=None):
     """Coarse 0..pi scan + bounded refine of the joint preservation score.
 
     Returns dict(angle, frac_a, frac_b, scan_angles, scan_score).
@@ -148,12 +148,30 @@ def best_reflection_axis(points_a, points_b, tol: float = 0.05, n_angles: int = 
     In f64 the refine is scipy's bounded minimize_scalar (xatol 1e-4), each
     evaluation a scan on `device`; in f32 it is two batched grid stages of
     128 angles (±π/36 around the coarse optimum, then around the first
-    stage's peak: a final step of about 2.2e-5 rad).
+    stage's peak: a final step of about 2.2e-5 rad). dtype=None is f64.
+    With a `mesh` the coarse scan's angles are sharded over its ranks
+    (parallel.sharded.sharded_score_angles, bitwise the single-device
+    scores) and the refine runs on the rank's device; the sharded scan is
+    the f64 path, so mesh and dtype are mutually exclusive.
     """
-    dev = resolve_device(device)
     angles = np.linspace(0, np.pi, n_angles)
-    fa = _score_angles(points_a, angles, tol, dtype, dev)
-    fb = _score_angles(points_b, angles, tol, dtype, dev)
+    if mesh is not None and dtype is not None:
+        raise ValueError(
+            "best_reflection_axis: mesh and dtype are mutually exclusive — the "
+            "sharded scan is the f64 multi-device path; the f32 device scan is "
+            "single-device (drop one of them). Mixing them would pick the angle "
+            "at f64 but report f32 fractions.")
+    dtype = torch.float64 if dtype is None else dtype
+    if mesh is not None:
+        from cmtci_torch.parallel.sharded import sharded_score_angles
+
+        dev = mesh.device
+        fa = sharded_score_angles(points_a, angles, tol, mesh)
+        fb = sharded_score_angles(points_b, angles, tol, mesh)
+    else:
+        dev = resolve_device(device)
+        fa = _score_angles(points_a, angles, tol, dtype, dev)
+        fb = _score_angles(points_b, angles, tol, dtype, dev)
     score = fa + fb
     best = float(angles[np.argmax(score)])
 

@@ -57,12 +57,14 @@ def masked_bin_reduce(d, valid, edges, nbins: int, dvv=None):
     return sums, counts
 
 
-def _binned_sq_diff(c1, v1, c2, v2, edges, nbins: int, chunk: int, upper: bool):
+def _binned_sq_diff(c1, v1, c2, v2, edges, nbins: int, chunk: int, upper: bool,
+                    row0: int = 0):
     """Per-bin (f64 sum, int64 count) of (v1_i - v2_j)^2 over pairs, blocked
     over i, on the tensors' device and in their dtype.
 
-    upper=True restricts to j > i (same-set semivariogram, no diagonal);
-    upper=False uses all (i, j) pairs (cross-variogram).
+    upper=True restricts to j > row0 + i (same-set semivariogram, no
+    diagonal; row0 is the index of c1's first row in the set, for a block of
+    rows); upper=False uses all (i, j) pairs (cross-variogram).
     """
     sums = torch.zeros(nbins, dtype=torch.float64, device=c1.device)
     counts = torch.zeros(nbins, dtype=torch.int64, device=c1.device)
@@ -74,7 +76,7 @@ def _binned_sq_diff(c1, v1, c2, v2, edges, nbins: int, chunk: int, upper: bool):
         d = torch.sqrt(dx * dx + dy * dy)
         dv = blk_v[:, None] - v2[None, :]
         if upper:
-            rows = torch.arange(i, i + blk_c.shape[0], device=c1.device)
+            rows = torch.arange(row0 + i, row0 + i + blk_c.shape[0], device=c1.device)
             valid = cols[None, :] > rows[:, None]
         else:
             valid = torch.ones_like(d, dtype=torch.bool)
@@ -142,12 +144,32 @@ def cross_semivariogram(field1, field2, gx, gy, r_bins, m_target: int = 15000, r
 
 
 def three_semivariograms(field_c, field_m, gx, gy, r_bins, m_target: int = 15000,
-                         rng=None, chunk: int = 1024, dtype=torch.float64, device="cuda"):
+                         rng=None, chunk: int = 1024, dtype=torch.float64, device="cuda",
+                         mesh=None):
     """(gamma_C, gamma_M, gamma_cross) of the variogram pipeline. The four
     location subsamples are drawn from `rng` in the reference's order
     (idx_C, idx_M, i1, i2), so the same RandomState gives the reference's
-    locations. Returns (r_centers, gamma_c, gamma_m, gamma_x, counts_c,
-    counts_m, counts_x)."""
+    locations. With a `mesh` the three binnings shard their i-rows over its
+    ranks (parallel.sharded.sharded_binned_sq_diff: counts exactly the
+    single-device ones, f64 sums reduced over the ranks). Returns
+    (r_centers, gamma_c, gamma_m, gamma_x, counts_c, counts_m, counts_x)."""
+    if mesh is not None:
+        from cmtci_torch.parallel.sharded import sharded_binned_sq_diff
+
+        coords = _grid_samples(gx, gy)
+        vc, vm = np.asarray(field_c).ravel(), np.asarray(field_m).ravel()
+        r = rng if rng is not None else np.random
+        m = min(m_target, coords.shape[0])
+        idx_c, idx_m, i1, i2 = (r.choice(coords.shape[0], size=m, replace=False)
+                                for _ in range(4))
+        out = [sharded_binned_sq_diff(coords[a], v1[a], coords[b], v2[b], r_bins, mesh,
+                                      upper=up, chunk=chunk, dtype=dtype)
+               for a, v1, b, v2, up in ((idx_c, vc, idx_c, vc, True),
+                                        (idx_m, vm, idx_m, vm, True),
+                                        (i1, vc, i2, vm, False))]
+        r_bins = np.asarray(r_bins, dtype=float)
+        return (0.5 * (r_bins[:-1] + r_bins[1:]), *(_gamma(s, n) for s, n in out),
+                *(n for _, n in out))
     r_c, g_c, n_c = grid_semivariogram(field_c, gx, gy, r_bins, m_target, rng, chunk,
                                        dtype, device)
     _, g_m, n_m = grid_semivariogram(field_m, gx, gy, r_bins, m_target, rng, chunk,
@@ -221,29 +243,42 @@ def point_variogram_device(locs, values=None, max_dist=None, nbins: int = 50,
     exact int64, so there is no pair-count ceiling (the reference's int32
     guard, guard_pair_count_int32, has no counterpart); the sums are f64.
     Returns (centers, gamma, counts) as f64 / int64 numpy arrays."""
+    return _point_variogram_rows(locs, values, max_dist, nbins, chunk, dtype,
+                                 resolve_device(device))
+
+
+def _point_variogram_rows(locs, values, max_dist, nbins: int, chunk: int, dtype, dev,
+                          rows=None, combine=None):
+    """point_variogram_device over the pairs whose first index lies in
+    rows = (lo, hi) (default: all rows). `combine` (default: none) merges the
+    partial results of the other row ranges: combine("max", t) and
+    combine("sum", t) return the maximum and the sum of a tensor over them."""
     locs = np.asarray(locs, dtype=float)
     n = len(locs)
     if n < 2:
         centers = np.linspace(0, max_dist or 1.0, nbins + 1)
         centers = 0.5 * (centers[:-1] + centers[1:])
         return centers, np.full(nbins, np.nan), np.zeros(nbins, dtype=int)
-    dev = resolve_device(device)
+    lo, hi = (0, n) if rows is None else rows
+    combine = combine or (lambda op, t: t)
     xy = torch.as_tensor(locs, dtype=dtype, device=dev)
     vals = None if values is None else torch.as_tensor(np.asarray(values), dtype=dtype,
                                                        device=dev)
     cols = torch.arange(n, device=dev)
 
     def blocks():
-        for i in range(0, n, chunk):
-            blk = xy[i : i + chunk]
+        for i in range(lo, hi, chunk):
+            blk = xy[i : min(i + chunk, hi)]
             dx = blk[:, 0, None] - xy[None, :, 0]
             dy = blk[:, 1, None] - xy[None, :, 1]
-            rows = torch.arange(i, i + blk.shape[0], device=dev)
-            yield i, torch.sqrt(dx * dx + dy * dy), cols[None, :] > rows[:, None]
+            r = torch.arange(i, i + blk.shape[0], device=dev)
+            yield i, torch.sqrt(dx * dx + dy * dy), cols[None, :] > r[:, None]
 
     if max_dist is None:  # the largest d is a value of `dtype`; halving it is exact
-        max_dist = 0.5 * max(float(torch.where(valid, d, float("-inf")).max())
-                             for _, d, valid in blocks())
+        big = torch.full((), float("-inf"), dtype=dtype, device=dev)
+        for _, d, valid in blocks():
+            big = torch.maximum(big, torch.where(valid, d, float("-inf")).max())
+        max_dist = 0.5 * float(combine("max", big))
     edges = torch.linspace(0.0, max_dist, nbins + 1, dtype=dtype, device=dev)
     sums = torch.zeros(nbins, dtype=torch.float64, device=dev)
     counts = torch.zeros(nbins, dtype=torch.int64, device=dev)
@@ -251,13 +286,13 @@ def point_variogram_device(locs, values=None, max_dist=None, nbins: int = 50,
         if vals is None:
             dv2 = d * d
         else:
-            dv = vals[i : i + chunk, None] - vals[None, :]
+            dv = vals[i : i + d.shape[0], None] - vals[None, :]
             dv2 = dv * dv
         s, c = masked_bin_reduce(d, valid, edges, nbins, dvv=dv2)
         sums += s
         counts += c
-    counts = counts.cpu().numpy()
-    sums = sums.cpu().numpy()
+    counts = combine("sum", counts).cpu().numpy()
+    sums = combine("sum", sums).cpu().numpy()
     gamma = np.full(nbins, np.nan)
     nz = counts > 0
     gamma[nz] = 0.5 * sums[nz] / counts[nz]

@@ -109,12 +109,23 @@ def _sep_correlate_nearest(h: torch.Tensor, kernel: torch.Tensor, radius: int):
     return corr1(corr1(h).T).T
 
 
-def mollified_histogram(cloud, bins: int, domain, sigma_bins: float, eps: float = 1e-12):
-    """gi_assumption_tracker_v3.py:109-125 semantics, on the host."""
+def mollified_histogram(cloud, bins: int, domain, sigma_bins: float, eps: float = 1e-12,
+                        mesh=None):
+    """gi_assumption_tracker_v3.py:109-125 semantics, on the host. With a
+    `mesh` the counts are binned point-sharded over its ranks and summed
+    (parallel.sharded.sharded_histogram): the counts are integers, so the
+    result is bitwise the single-device one; the mollifier runs on the host
+    of every rank."""
     from scipy.ndimage import gaussian_filter
 
     cloud = np.asarray(cloud)
-    h = _histogram2d_np(cloud.real.ravel(), cloud.imag.ravel(), bins, domain)
+    if mesh is not None:
+        from cmtci_torch.parallel.sharded import sharded_histogram
+
+        h = sharded_histogram(cloud.real.ravel(), cloud.imag.ravel(), bins, domain,
+                              mesh).cpu().numpy().astype(float)
+    else:
+        h = _histogram2d_np(cloud.real.ravel(), cloud.imag.ravel(), bins, domain)
     h = np.maximum(h, eps)
     if sigma_bins and sigma_bins > 0:
         h = gaussian_filter(h, float(sigma_bins), mode="nearest")

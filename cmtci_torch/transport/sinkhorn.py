@@ -62,14 +62,17 @@ def _match_fused(a, b, eps: float, chunk: int = 2048):
 
 
 def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torch",
-                          dtype=None, device="cuda"):
+                          dtype=None, device="cuda", mesh=None):
     """Match each x to argmax_j exp(-d/eps). Returns (y[match], x) like the
     reference.
 
     The larger cloud is first subsampled to the smaller's size with `rng`
     (np.random or a RandomState, shared with the caller's stream). `dtype`
     (torch dtype, default float64) is the torch backend's coordinate type on
-    `device`; the numpy backend ignores both.
+    `device`; the numpy backend ignores both. With a `mesh` the torch
+    backend's rows are sharded over its ranks, on the ranks' devices
+    (parallel.sharded.sharded_argmax_match, bitwise the single-device
+    match).
     """
     if backend not in MATCH_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {MATCH_BACKENDS}")
@@ -91,6 +94,12 @@ def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torc
         d = d / d.mean()
         k = np.nan_to_num(np.exp(-d / eps))
         match = np.argmax(k, axis=1)
+    elif mesh is not None:
+        from cmtci_torch.parallel.sharded import sharded_argmax_match
+
+        dt = torch.float64 if dtype is None else dtype
+        match = sharded_argmax_match(torch.as_tensor(ax, dtype=dt),
+                                     torch.as_tensor(by, dtype=dt), eps, mesh)
     else:
         dev = resolve_device(device)
         dt = torch.float64 if dtype is None else dtype

@@ -53,8 +53,10 @@ def restore_rng_state(rng: "np.random.RandomState", blob: dict) -> None:
 
 
 def cached(stage: str, config: dict, fn, cache_dir: str = ".cmtci_cache",
-           enabled: bool = True):
-    """Run fn() -> dict[str, array] with npz caching keyed by (stage, config)."""
+           enabled: bool = True, write: bool = True):
+    """Run fn() -> dict[str, array] with npz caching keyed by (stage, config).
+    write=False reads a stored entry but stores none (the ranks of a mesh
+    other than rank 0)."""
     if not enabled:
         return fn()
     key = config_key({"stage": stage, **config})
@@ -63,6 +65,8 @@ def cached(stage: str, config: dict, fn, cache_dir: str = ".cmtci_cache",
         with np.load(path, allow_pickle=False) as z:
             return {k: z[k] for k in z.files}
     out = fn()
+    if not write:
+        return out
     os.makedirs(cache_dir, exist_ok=True)
     # unique tmp per writer, then an atomic publish
     fd, tmp = tempfile.mkstemp(dir=cache_dir, suffix=".tmp")
@@ -87,22 +91,57 @@ def fetch(x) -> np.ndarray:
 class StageTimer:
     """Per-stage wall times. On a CUDA device each stage boundary
     synchronizes the device, so a stage's time includes the kernels it
-    queued and no other stage's."""
+    queued and no other stage's.
 
-    def __init__(self, device=None):
+    With `trace_dir` each stage also runs under ``torch.profiler`` (host
+    ops, and the card's kernels on a CUDA device) and writes one Chrome
+    trace, ``<trace_dir>/<k>_<stage>.pt.trace.json`` (k counts the traces of
+    this timer), the counterpart of the reference's ``jax.profiler.trace``.
+    A stage inside a traced stage is timed but not traced again. Tracing
+    records what runs; it changes no result."""
+
+    def __init__(self, device=None, trace_dir: str | None = None):
         self.times: dict = {}
         self.device = torch.device(device) if device is not None else None
+        self.trace_dir = trace_dir
+        self.traces: list = []
+        self._tracing = False
 
     def _sync(self):
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _profiler(self):
+        if not self.trace_dir or self._tracing:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device is not None and self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        return profile(activities=acts)
+
     @contextlib.contextmanager
     def stage(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
+        prof = self._profiler()
+        if prof is not None:
+            prof.__enter__()
+            self._tracing = True
         try:
-            yield
-        finally:
             self._sync()
-            self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._sync()
+                self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+        finally:
+            if prof is not None:
+                self._tracing = False
+                prof.__exit__(None, None, None)
+                os.makedirs(self.trace_dir, exist_ok=True)
+                safe = "".join(ch if ch.isalnum() or ch in "-_." else "_" for ch in name)
+                path = os.path.join(self.trace_dir,
+                                    f"{len(self.traces):03d}_{safe}.pt.trace.json")
+                prof.export_chrome_trace(path)
+                self.traces.append(path)

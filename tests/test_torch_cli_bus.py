@@ -76,9 +76,18 @@ def test_bus_chain_against_cmtci_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--trace-dir", "t"], ["--devices", "2"]])
 @pytest.mark.parametrize("cmd", ["stage1", "lucas-boundary", "curvature", "construct-boundary"])
 def test_reference_only_flags_rejected(cmd, flag, capsys):
-    """Flags the port does not have fail in argparse, never accepted and
-    ignored."""
+    """Flags the reference lacks on a subcommand fail in argparse, never
+    accepted and ignored. The reference's own flags are the port's too:
+    --trace-dir on lucas-boundary, and --devices, which these subcommands
+    refuse above 1 (they have no mesh-sharded stage)."""
     extra = ["--input-csv", "x.csv"] if cmd in ("curvature", "construct-boundary") else []
+    if flag[0] == "--devices":
+        with pytest.raises(SystemExit, match="no mesh-sharded stage"):
+            cli.main([cmd, "--device", "cpu", *extra, *flag])
+        return
+    if cmd == "lucas-boundary":
+        assert cli._parser().parse_args([cmd, *flag]).trace_dir == "t"
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main([cmd, "--device", "cpu", *extra, *flag])
     assert exc.value.code == 2

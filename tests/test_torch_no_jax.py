@@ -53,6 +53,10 @@ import cmtci_torch.io.plots
 import cmtci_torch.kernels.mandelbrot_cuda
 import cmtci_torch.kernels._build
 import cmtci_torch.cli
+import cmtci_torch.parallel.sharded
+import cmtci_torch.parallel.distributed
+import cmtci_torch.parallel.launch
+import cmtci_torch.parallel.dryrun
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "cmtci" or m.startswith("cmtci.")
              or m == "matplotlib" or m.startswith("matplotlib."))

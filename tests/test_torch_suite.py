@@ -146,12 +146,23 @@ def test_cuda_without_card_raises(runs, cmd):
                                   ["--mesh-devices", "2"], ["--device", "accel"]])
 @pytest.mark.parametrize("cmd", [*STAGES, "suite"])
 def test_reference_only_flags_rejected(cmd, flag, capsys):
-    """Flags the port does not have fail in argparse, never accepted and
-    ignored; suite's reference --device {host,accel} is --stage-paths here,
-    and --device accel names no torch device."""
+    """Flags the reference lacks on a subcommand fail in argparse, never
+    accepted and ignored; suite's reference --device {host,accel} is
+    --stage-paths here, and --device accel names no torch device. The
+    reference's own flags are the port's too: suite's --trace-dir, and
+    --devices, refused above 1 outside cli._MESH_COMMANDS and, on --device
+    cuda, beyond the cards present (none here)."""
     if flag[0] == "--device":
         with pytest.raises(RuntimeError, match="accel"):
             cli.main([cmd, *flag, "--busdir", "nowhere"])
+        return
+    if flag[0] == "--devices":
+        msg = "needs 2 devices" if cmd in cli._MESH_COMMANDS else "no mesh-sharded stage"
+        with pytest.raises(SystemExit, match=msg):
+            cli.main([cmd, *flag, "--busdir", "nowhere"])
+        return
+    if (cmd, flag[0]) == ("suite", "--trace-dir"):
+        assert cli._parser().parse_args([cmd, *flag]).trace_dir == "t"
         return
     with pytest.raises(SystemExit):
         cli.main([cmd, *flag])
@@ -159,12 +170,12 @@ def test_reference_only_flags_rejected(cmd, flag, capsys):
 
 
 def test_help_lists_eighteen_subcommands():
-    """Eighteen with the bus analyses; the conformal maps made it twenty
-    (bench among them; doctor is the reference's one left)."""
+    """Eighteen with the bus analyses; the conformal maps made it twenty and
+    doctor, the reference's last, twenty-one (bench among them)."""
     sub = next(a for a in cli._parser()._actions if isinstance(a, argparse._SubParsersAction))
-    assert len(sub.choices) == 20
-    assert set(STAGES) | {"suite", "uniformize-green", "uniformize-fem"} <= set(sub.choices)
-    assert "doctor" not in sub.choices
+    assert len(sub.choices) == 21
+    assert set(STAGES) | {"suite", "uniformize-green", "uniformize-fem", "doctor"} <= set(
+        sub.choices)
 
 
 @pytest.mark.parametrize("cmd, device, parity, want", [

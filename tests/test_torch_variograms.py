@@ -268,11 +268,11 @@ def test_cli_variograms(tmp_path, monkeypatch, capsys):
     seen = {}
     real = pv.run_variograms
 
-    def small_run(cfg, out_csv, device):
+    def small_run(cfg, out_csv, device, mesh=None):
         seen["cfg"] = cfg
         import dataclasses
 
-        return real(dataclasses.replace(cfg, **SMALL), out_csv, device=device)
+        return real(dataclasses.replace(cfg, **SMALL), out_csv, device=device, mesh=mesh)
 
     monkeypatch.setattr(pv, "run_variograms", small_run)
     out = str(tmp_path / "run")
