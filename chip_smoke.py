@@ -7,8 +7,8 @@ Phases (each one checks what it computed; any failure exits non-zero and
 prints no result line):
   1. the card (nvidia-smi name and power limit; torch.cuda.is_available());
   2. build every kernel from csrc/ (one nvcc per source, all started
-     together; ctypes), with each build's seconds and ptxas report (a spill
-     fails the run), and the footprints csrc/dwell.cu (both entries),
+     together; ctypes; aberth.cu and orbit.cu among them), with each build's
+     seconds and ptxas report (a spill fails the run), and the footprints csrc/dwell.cu (both entries),
      dwell_ms.cu, de_std.cu, tci_de.cu and green_grid.cu are built with
      against mandelbrot_cuda.DWELL_FOOTPRINT, DWELL_PERIODIC_FOOTPRINT,
      DWELL_MS_FOOTPRINT, DE_FOOTPRINT, TCI_FOOTPRINT and GREEN_FOOTPRINT;
@@ -25,12 +25,13 @@ prints no result line):
      z and dz for the late escapers), the steps the kernel's warps execute
      for them and the bound of each;
   4. the dense Appendix-A tracker (bench.py's config) on the kernel path,
-     twice: 4 rows of the oracle's sizes, finite metrics, one kernel launch
-     per stage, rows within the statistical bounds of the oracle
+     twice: 4 rows of the oracle's sizes, finite metrics, one K1 and one
+     aberth launch per stage and no other, rows within the statistical bounds of the oracle
      tests/data/v3_T25_sigma3_dense.csv, and the same rows both times; then
      the adaptive config (t_fixed -1, sigma_bins 1) once on the kernel path;
   5. the f64 plain-torch tracker path on the card for two stages, at the
-     contracts of tests/test_tracker_regression.py (rel 2e-3 / 5%);
+     contracts of tests/test_tracker_regression.py (rel 2e-3 / 5%), an aberth
+     and an orbit_de_tci launch a stage;
   6. K2 (csrc/dwell.cu) against its twin at 2000 x 2000 and 1001 x 1999, and
      at the other grids the bench launches it on (2048 x 2048 on the bench's
      padded domain, 4096 x 4096 and 8192 x 8192), max_iter 500, and at the
@@ -40,7 +41,7 @@ prints no result line):
      steps the pixels need (interior pixels skip the loop) and the steps the
      kernel's warps execute for them;
   7. run_boundary at the default config (res 2000, max_iter 500) on both
-     backends: one K2 launch on "cuda", none on "torch"; K2 equal to the f64
+     backends: one K2 launch on "cuda", one orbit_dwell on "torch"; K2 equal to the f64
      dwell on >= 99% of pixels; both contours inside their bounds around the
      golden artifacts/mandel_boundary.csv.gz (symmetric Hausdorff);
   8. K3 (csrc/cloud_green.cu) against its twin on the full default cloud
@@ -54,7 +55,7 @@ prints no result line):
      launch; the kernel's time on device-resident inputs, the wrapper's from
      numpy inputs, and the chain bound;
   9. run_equipotential at the CLI defaults with float32 (K3, one launch) and
-     float64 (no launch): f32 against f64 on the card, and f64 against the
+     float64 (an orbit_green launch a stage), four aberth launches each: f32 against f64 on the card, and f64 against the
      reference's numbers in tests/data/equipotential_default_f64.json;
  10. K4 (csrc/de_std.cu) and K5 (csrc/green_grid.cu) at small and ragged
      grids and the iteration counts of phase 3 around each one's schedule:
@@ -79,13 +80,14 @@ prints no result line):
      two-pass times against K2, timed in turns (K2, K6, K6, K2); the fine
      pass's useful and executed steps on its footprint, and its bound at the
      new operations a step beside the earlier design's;
- 12. run_tci on the kernel path (de_impl "cuda", one K1 launch a run) at the
+ 12. run_tci on the kernel path (de_impl "cuda", one K1 and one aberth
+     launch a run) at the
      default 600 x 600 grid and at 2400 x 2400 (BASELINE configs[4]), twice
      each: KL non-increasing, KL_final < 1e-5, Spectral_L2 NaN, and at 2400
      KL_initial within 2% of 17.933 and Hausdorff_before within 10% of 1.725
      (cmtci's f64 values there); layer times of the second run;
- 13. run_tci's f64 parity path (de_impl "numpy") at the default config
-     against tests/data/tci_default_numpy.json;
+ 13. run_tci's f64 parity path (de_impl "numpy", one aberth launch) at the
+     default config against tests/data/tci_default_numpy.json;
  14. K7 (csrc/fma_peak.cu) at the bench's full size, 16,777,216 elements x
      8192 chained FMAs: every element 0x3F800001 and bitwise equal to the
      plain twin at the same size (16,384 eager launches, timed once); its
@@ -102,7 +104,8 @@ prints no result line):
      2000 x 2000 at max_iter 500 and 20,000, with the orbit steps each needs
      (the periodic entry's under its own checkpoint schedule) and executes,
      and the bound at the new operations a step beside the earlier design's;
- 16. run_variograms at the defaults in f32 (twice) and f64: the same counts
+ 16. run_variograms at the defaults in f32 (twice) and f64, an aberth, an
+     orbit_de_std and an orbit_potential launch a run: the same counts
      both times, each self-variogram's total count equal to the number of
      subsample pairs under rmax, f32 gamma within 1e-3 relative of f64;
  17. the 150,000-point statistics: f32 shell counts against f64 on a
@@ -116,9 +119,11 @@ prints no result line):
      empty, no ratio key,
      vpu_peak_tflops no higher than the card's FP32 FMA ceiling,
      dwell_mfu_useful <= dwell_mfu <= 1, and K1, K2, K3, K4 and K7 each
-     launched;
- 19. the file bus at the CLI defaults on the card with plots off (no kernel
-     launch): stage1 (max_n 40, 120 x 80 grid, 200 iterations, 600 samples,
+     launched, and aberth, orbit_de_std and orbit_potential;
+ 19. the file bus at the CLI defaults on the card with plots off (aberth and
+     orbit_de_stage1 launches and Sinkhorn graph replays, nothing else; one
+     stage1 run exactly one of each): stage1 (max_n 40, 120 x 80 grid, 200
+     iterations, 600 samples,
      Sinkhorn eps 1e-2 for 1000 iterations) written to a temporary bus and
      held to the port's own CPU run of the same call (construct_points within
      1e-12, the band's pixels and mandel_boundary_sample.csv equal,
@@ -150,9 +155,9 @@ prints no result line):
      the f32 Lanczos eigenvalues within 4e-3 of eigsh; the symmetry op
      table within 0.02 and the best axis's joint score no lower by more
      than 0.02; the f32 Hausdorff within 1e-6; the coupling trajectory
-     within 1e-6, corr_pot within 1e-4, corr_lap within 5e-3. No kernel is
-     launched;
- 21. the conformal maps on the card (no kernel launch): `uniformize-green`
+     within 1e-6, corr_pot within 1e-4, corr_lap within 5e-3. The launches
+     are aberth, orbit_de_stage1 (the buses) and orbit_potential (U_M);
+ 21. the conformal maps on the card (the clouds' aberth launches only): `uniformize-green`
      at its defaults (n_bdy 2000, 20,000 interior points) on the port's
      export_lucas_boundary defaults, in f64 (the host lstsq fit, f64 map
      evaluations on the card) and f32 (the f32 QR fit, f32 evaluations),
@@ -170,7 +175,8 @@ prints no result line):
      to L3; each path's warm wall as the best of 2;
  22. multi-device on torch.distributed, doctor and the traces, one after
      another: the dense tracker (field_dtype float32, de_impl torch) on the
-     single device and on a one-rank NCCL mesh, the rows bitwise equal;
+     single device and on a one-rank NCCL mesh, the rows bitwise equal, an
+     aberth and an orbit_de_tci launch a stage;
      `tracker --devices 2` refused on the one card ("needs 2 devices");
      `doctor --smoke` with no *_error field, 2 K2 launches and the twin's
      checksum; `tracker --trace-dir` writing a torch.profiler trace a stage
@@ -183,15 +189,37 @@ prints no result line):
      and the mollified histogram at 512 bins bitwise, the shell counts of
      the default bus bitwise, its point variogram's counts exact and gamma
      within 1e-12, the Green cloud of n = 2..20 in f64 with k equal and g
-     within 1e-10 and on K3 (a launch a rank) bitwise; no rank holds jax.
+     within 1e-10 and on K3 (a launch a rank) bitwise; no rank holds jax;
+ 23. the reference's compiled device loops: aberth.cu (one launch a cloud)
+     against its eager twin on the card at every cloud the pipelines build
+     (the tracker's four stages, the fourth the bench's eigensweep and the
+     first run_tci's; the equipotential's four families at n 2..200; stage1;
+     lucas-boundary): every valid root within 1e-12 relative, the parked
+     lanes equal, the step counts within one, with the kernel's time (the
+     launch alone from the start roots), the twin's and the bound over the
+     card and over the one SM of the largest polynomial, and
+     torch.linalg.eigvals on the eigensweep's companion matrices beside it;
+     each orbit.cu entry bitwise its twin (NaN equal to NaN; one launch) at
+     its pipeline's size (the f64 dwell at 2000 x 2000 and 500 steps, the TCI
+     DE at the tracker's grids in f64 and f32 and at 912 x 912 on run_tci's
+     domain, the standard DE on the variograms' 700 x 700 grid at 600 steps in
+     f64 and f32, stage1's 120 x 80 band field at 200 steps, the first and a
+     resumed Green stage on the equipotential's default cloud and the staged
+     green_potential_compacted against the same on the twin, and U_M on
+     coupling's and the variograms' grids in each normalization), at max_iter
+     1 and on ragged grids in f64 and f32, with times and bounds; the
+     Sinkhorn loop's CUDA graph bitwise the eager loop at stage1's shape, one
+     replay a call, its capture, replay and eager times.
 `python3 chip_smoke.py --cards N` on a machine with N cards runs only the
 multi-card check (phase_cards): phase 22's sharded heads, each called twice,
 on an N-rank NCCL group, one card a rank, against the single device, each
 head's warm time on N cards beside its warm time on one, and `tracker
 --devices N` against the single-device tracker.
 
-The kernels line gives, per kernel, its launches on its path, max |kernel -
-twin|, kernel and twin ms, and bound_ms: the larger of the FP32 operations
+The kernels line gives, per kernel, its launches on its path (for the new
+entries one run of the path MAIN_PATH names, their times and bound at the
+largest shape that run gives them, named in `shape`), max |kernel - twin|,
+kernel and twin ms, and bound_ms: the larger of the FP32 operations
 (the orbit steps these inputs need times the operations per step of the .cu
 body; for K1 the z-only steps of all pixels and the z and dz steps of the late
 escapers, each at its own count; for K7 two per FMA) over 67 TFLOP/s and the
@@ -208,7 +236,20 @@ time to start a launch cannot enter (K1 at the tracker's grids is shorter than
 that time), and chained_ms the time of the launches started one by one; K6
 and K2's periodic entry keep the chained time as ms and give graph_ms. No
 single PyTorch call computes an escape-time field or a chain of dependent
-FMAs, so library_ms is null.
+FMAs, so library_ms is null. The new entries: orbit.cu's bound is its
+loop's operations (ORBIT_OPS_PER_STEP on the steps these points need) over
+the H100's 33.5 TFLOP/s FP64 (67 for f32) or its bytes, and max_abs_err the
+largest |kernel - twin| over the entries finite in both, in every case phase
+23 holds (the check itself is bitwise, NaN equal to NaN, whose positions the
+line counts); aberth's bound is the f32 repulsion of the lanes not yet frozen
+(ABERTH_OPS_PER_PAIR a pair term) over the whole card, with bound_one_sm_ms
+that of the largest polynomial on one SM, its max_abs_err the largest
+|kernel - twin| of a root, and its library_ms torch.linalg.eigvals on the
+eigensweep's 61 companion matrices, one call each, summed. The Sinkhorn
+graph has no hand kernel and prints its own line before the card's; its
+bytes are the cost's two reads a step from HBM unless the card's L2 holds
+four arrays of its size (checked on the card), then the cost once and the
+plan once.
 
 The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
 other grids' times are printed in phase 3; K2's launches are those of the
@@ -239,11 +280,37 @@ CONSTRUCT_GOLDEN = os.path.join(ROOT, "artifacts", "construct_boundary.csv.gz")
 CONSTRUCT_SUMMARY = os.path.join(ROOT, "artifacts", "construct_curv_localpoly_summary.txt")
 MANDEL_SUMMARY = os.path.join(ROOT, "artifacts", "mandel_curv_localpoly_summary.txt")
 #: the libraries to build, one csrc/<name>.cu each
-KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak")
+KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak",
+           "aberth", "orbit")
+#: the entry points of csrc/orbit.cu, in the order of the kernels line
+ORBIT_ENTRIES = ("orbit_dwell", "orbit_de_tci", "orbit_de_std", "orbit_de_stage1",
+                 "orbit_green", "orbit_potential")
+#: operations a step of each orbit.cu loop in the loop's dtype, each mul,
+#: add, sub, compare, sqrt and hypot counted once (-fmad=false keeps them
+#: apart): z^2 + c 4 mul 4 add/sub; |z|^2 > r^2 2 mul 1 add 1 compare; the dz
+#: step 6 mul 3 add/sub; sqrt(|z|^2) > R one more; hypot(zr, zi) > R 2
+ORBIT_OPS_PER_STEP = {"orbit_dwell": 12, "orbit_de_tci": 22, "orbit_de_std": 22,
+                      "orbit_de_stage1": 19, "orbit_green": 12, "orbit_potential": 12}
+#: f32 operations a pair term of aberth.cu's repulsion: 2 sub, 2 mul and an add
+#: for |z_i - z_j|^2, a compare, the reciprocal, 2 mul and 2 add into the sums
+ABERTH_OPS_PER_PAIR = 11
+PEAK_FP64 = 33.5e12  # H100 SXM FP64 outside the tensor cores, published, at 700 W
+ABERTH_RTOL = 1e-12
+#: the pipelines' clouds: (label, family, degrees); the tracker's fourth stage
+#: is the bench's eigensweep, its first run_tci's cloud
+ABERTH_CLOUDS = ([(f"tracker stage {i + 1}", "lucas_all_ones", list(range(20, top + 1, 20)))
+                  for i, top in enumerate((300, 480, 760, 1220))]
+                 + [(f"equipotential {f}", f, list(range(2, 201)))
+                    for f in ("lucas_all_ones", "pell_like_all_twos",
+                              "sparser_gap_1_0_1_then_ones", "padovan_like_0_1_then_ones")]
+                 + [("stage1", "lucas_all_ones", list(range(2, 41))),
+                    ("lucas-boundary", "lucas_all_ones", list(range(2, 101)))])
+
+
 #: the entry points of the kernels line, and the source of one named otherwise
-ENTRIES = KERNELS + ("dwell_periodic",)
-SOURCE = {"dwell_periodic": "dwell"}
-#: the TPU kernel each entry point replaces
+ENTRIES = KERNELS[:-2] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES
+SOURCE = {"dwell_periodic": "dwell", **{name: "orbit" for name in ORBIT_ENTRIES}}
+#: the TPU kernel, or the reference's compiled device loop, each entry replaces
 REPLACES = {
     "tci_de": "cmtci/kernels/mandelbrot_pallas.py:276",
     "dwell": "cmtci/kernels/mandelbrot_pallas.py:59",
@@ -253,7 +320,20 @@ REPLACES = {
     "dwell_ms": "cmtci/kernels/mandelbrot_pallas.py:816",
     "fma_peak": "bench.py:238",
     "dwell_periodic": "cmtci/kernels/mandelbrot_pallas.py:94",
+    "aberth": "cmtci/kernels/companion.py:437",
+    "orbit_dwell": "cmtci/kernels/mandelbrot.py:83",
+    "orbit_de_tci": "cmtci/kernels/mandelbrot.py:115",
+    "orbit_de_std": "cmtci/kernels/mandelbrot.py:163",
+    "orbit_de_stage1": "cmtci/kernels/mandelbrot.py:326",
+    "orbit_green": "cmtci/kernels/mandelbrot.py:204",
+    "orbit_potential": "cmtci/kernels/mandelbrot.py:380",
 }
+#: the run (a label of launched()) whose launches the kernels line gives for
+#: each new entry: its main path
+MAIN_PATH = {"aberth": "tracker (dense, second run)", "orbit_dwell": "boundary torch",
+             "orbit_de_tci": "f64 tracker", "orbit_de_std": "run_variograms f64",
+             "orbit_de_stage1": "stage1, one run", "orbit_green": "equipotential float64",
+             "orbit_potential": "run_variograms f64"}
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
 #: FP32 operations a step of the loops K6, K2's periodic entry and K5 ran
 #: before their redesign (one pixel a thread on one-row warps, a compare and
@@ -349,8 +429,36 @@ def cuda_ms(fn, warmup: int, reps: int, chain: int = 1, graph: bool = False) -> 
 
 def reset_launches():
     from cmtci_torch.kernels import _launch
+    from cmtci_torch.transport import sinkhorn
 
     _launch.reset_launches()
+    sinkhorn.replays["sinkhorn_log"] = 0
+
+
+#: the launches each launched() call saw, by its label
+LAUNCHED: dict = {}
+
+
+def launched(label: str, want: dict) -> dict:
+    """The kernel launches since reset_launches(), held to `want` (entry ->
+    count, or None for at least one); an entry `want` does not name must not
+    have launched. Returns the entries that launched, with their counts, and
+    keeps them in LAUNCHED[label]."""
+    from cmtci_torch.kernels import _launch
+
+    got = {k: v for k, v in _launch.launches.items() if v}
+    LAUNCHED[label] = got
+    for k, v in want.items():
+        check(got.get(k, 0) >= 1 if v is None else got.get(k, 0) == v,
+              f"{label}: launches {got}, expected {want}")
+    check(set(got) <= set(want), f"{label}: launches {got}, expected only {want}")
+    return got
+
+
+def sinkhorn_replays() -> int:
+    from cmtci_torch.transport import sinkhorn
+
+    return sinkhorn.replays["sinkhorn_log"]
 
 
 def bound_ms(name: str, steps: int, nbytes: int):
@@ -522,10 +630,10 @@ def phase_kernels(dev):
 
 
 def run_kernel_tracker(dev, label, config):
-    """One kernel-path tracker run; returns (rows, meta, wall, K1 launches)."""
+    """One kernel-path tracker run; returns (rows, meta, wall, K1 launches):
+    one K1 and one aberth launch a stage, nothing else."""
     import torch
 
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
     from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
 
     cfg = TrackerConfig(**config, field_dtype="float32", de_impl="cuda")
@@ -535,11 +643,9 @@ def run_kernel_tracker(dev, label, config):
     rows, meta = run_tracker(cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(mc.launches)
-    check(sum(launches.values()) == launches["tci_de"],
-          f"the tracker launched another kernel than K1: {launches}")
+    launches = launched(f"tracker ({label})", {"tci_de": None, "aberth": len(rows)})
     print(f"tracker ({label}): {len(rows)} rows in {wall:.3f} s wall, "
-          f"{launches['tci_de']} K1 launches")
+          f"{launches['tci_de']} K1 and {launches['aberth']} aberth launches")
     return rows, meta, wall, launches["tci_de"]
 
 
@@ -596,15 +702,15 @@ def phase_tracker(dev, oracle):
 
 
 def phase_f64(dev, oracle):
-    """Phase 5: the f64 plain-torch path on the card, two stages."""
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
+    """Phase 5: the f64 plain-torch path on the card, two stages: an aberth and
+    an orbit_de_tci launch a stage."""
     from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
 
     reset_launches()
     t0 = time.perf_counter()
     rows, _ = run_tracker(TrackerConfig(**DENSE), max_stages=2, device=dev)
     wall = time.perf_counter() - t0
-    check(sum(mc.launches.values()) == 0, f"the f64 torch path launched {mc.launches}")
+    launched("f64 tracker", {"aberth": 2, "orbit_de_tci": 2})
     check(len(rows) == 2 and rows[1].n_construct_pts == 6000, "f64 path: wrong rows")
     for k in CHECK_KEYS:
         got, want = getattr(rows[0], k), float(oracle[0][k])
@@ -713,7 +819,6 @@ def phase_boundary(dev):
     """Phase 7: run_boundary at the default config on both backends."""
     import numpy as np
 
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
     from cmtci_torch.pipelines.boundary import BoundaryConfig, run_boundary
     from cmtci_torch.utils.artifacts import StageTimer
 
@@ -729,17 +834,15 @@ def phase_boundary(dev):
                                    os.path.join(tmp, backend), plots=False, device=dev,
                                    timer=timer)
             wall = time.perf_counter() - t0
-            launches = dict(mc.launches)
-            want = 1 if backend == "cuda" else 0
-            check(launches["dwell"] == want and sum(launches.values()) == want,
-                  f"boundary {backend}: launches {launches}")
+            launches = launched(f"boundary {backend}",
+                                {"dwell": 1} if backend == "cuda" else {"orbit_dwell": 1})
             with open(os.path.join(tmp, f"{backend}_boundary.csv")) as f:
                 check(f.readline().strip() == "x,y", f"boundary {backend}: CSV header")
             h = hausdorff(path, golden)
-            out[backend] = (path, z, launches["dwell"])
+            out[backend] = (path, z, launches.get("dwell", 0))
             print(f"boundary ({backend}): {len(path)} vertices (golden {GOLDEN_VERTICES}), "
                   f"Hausdorff to the golden {h!r} ({h / SPACING:.3f} spacings), "
-                  f"{launches['dwell']} K2 launches, {wall:.3f} s wall; stages (s): "
+                  f"launches {launches}, {wall:.3f} s wall; stages (s): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in timer.times.items()))
             if backend == "torch":
                 check(abs(len(path) - GOLDEN_VERTICES) <= 0.005 * GOLDEN_VERTICES,
@@ -964,7 +1067,6 @@ def run_equip(dev, dtype, tmp):
     import numpy as np
     import torch
 
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
     from cmtci_torch.pipelines.equipotential import EquipotentialConfig, run_equipotential
 
     out_dir = os.path.join(tmp, dtype)
@@ -975,13 +1077,15 @@ def run_equip(dev, dtype, tmp):
     out = run_equipotential(EquipotentialConfig(potential_dtype=dtype), out_dir,
                             cache_dir=cache, plots=False, device=dev)
     wall = time.perf_counter() - t0
-    launches = dict(mc.launches)
-    want = 1 if dtype == "float32" else 0
-    check(launches["cloud_green"] == want and sum(launches.values()) == want,
-          f"equipotential {dtype}: launches {launches}")
+    # a cloud a family; f32 one K3 launch, f64 an orbit_green launch a stage
+    # of at most 512 steps
+    launches = launched(f"equipotential {dtype}",
+                        {"aberth": 4, "cloud_green": 1} if dtype == "float32"
+                        else {"aberth": 4, "orbit_green": None})
+    check(launches.get("orbit_green", 0) <= -(-20000 // 512),
+          f"equipotential {dtype}: {launches} Green stages")
     s = out["summary"]
-    print(f"equipotential ({dtype}): {wall:.3f} s wall, {launches['cloud_green']} K3 "
-          f"launches; lucas count {s['count']}, escaped {s['escaped']}, g_median "
+    print(f"equipotential ({dtype}): {wall:.3f} s wall, launches {launches}; lucas count {s['count']}, escaped {s['escaped']}, g_median "
           f"{s['g_median']!r}, g_mean {s['g_mean']!r}, g_p90 {s['g_p90']!r}; stages (s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in out["stage_times"].items()))
     (npz,) = glob.glob(os.path.join(cache, "green_potential_*.npz"))
@@ -990,7 +1094,7 @@ def run_equip(dev, dtype, tmp):
     g_lucas = np.load(os.path.join(out_dir, "g_lucas.npy"))
     check(np.array_equal(g_all[: g_lucas.size], g_lucas), f"{dtype}: cache and g_lucas differ")
     k_lucas = np.load(os.path.join(out_dir, "it_lucas.npy"))
-    return out, g_all, k_lucas, launches["cloud_green"]
+    return out, g_all, k_lucas, launches.get("cloud_green", 0)
 
 
 def phase_equipotential(dev):
@@ -1336,7 +1440,6 @@ def phase_tci(dev):
     import numpy as np
     import torch
 
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
     from cmtci_torch.pipelines.analysis import TCIConfig, run_tci
     from cmtci_torch.utils.artifacts import StageTimer
 
@@ -1351,9 +1454,7 @@ def phase_tci(dev):
                                   plots=False, timer=timer, device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dict(mc.launches)
-            check(launches["tci_de"] == 1 and sum(launches.values()) == 1,
-                  f"run_tci {grid}: launches {launches}")
+            launches = launched(f"run_tci {grid}", {"tci_de": 1, "aberth": 1})
             launches_k1 = launches["tci_de"]
             label = f"run_tci {grid}x{grid} ({run} run)"
             check(bool(np.all(np.diff(kls) <= 1e-12)), f"{label}: KL not monotone")
@@ -1365,7 +1466,8 @@ def phase_tci(dev):
                 for key, (want, rel) in TCI_4X.items():
                     check(abs(out[key] - want) <= rel * want,
                           f"{label}: {key} {out[key]!r} not within {rel:.0%} of {want}")
-            print(f"{label}: {wall:.3f} s wall, {launches['tci_de']} K1 launch; "
+            print(f"{label}: {wall:.3f} s wall, {launches['tci_de']} K1 and "
+                  f"{launches['aberth']} aberth launch; "
                   f"KL {out['KL_initial']!r} -> {out['KL_final']!r}, Hausdorff "
                   f"{out['Hausdorff_before']!r}, curvature corr {out['Curvature_corr']!r}; "
                   "layers (s): " + ", ".join(f"{k} {v:.4f}" for k, v in timer.times.items()))
@@ -1376,7 +1478,6 @@ def phase_tci_f64(dev):
     """Phase 13: the f64 parity path against the frozen reference numbers."""
     import numpy as np
 
-    from cmtci_torch.kernels import mandelbrot_cuda as mc
     from cmtci_torch.pipelines.analysis import run_tci, tci_config_from_reference
 
     with open(TCI_REF) as f:
@@ -1386,7 +1487,7 @@ def phase_tci_f64(dev):
     t0 = time.perf_counter()
     out, kls, _ = run_tci(cfg, plots=False, device=dev)
     wall = time.perf_counter() - t0
-    check(sum(mc.launches.values()) == 0, f"the numpy path launched {mc.launches}")
+    launched("f64 run_tci", {"aberth": 1})
     want = np.asarray(ref["kls"])
     rel = np.abs(kls - want) / np.abs(want)
     check(rel[0] <= 1e-9, f"KL_initial {kls[0]!r} vs {want[0]!r}")
@@ -1623,29 +1724,29 @@ def phase_variograms(dev):
     import numpy as np
     import torch
 
-    from cmtci_torch.kernels import _launch
     from cmtci_torch.pipelines.variograms import VariogramConfig, run_variograms
 
     gammas = ("gamma_construct", "gamma_mandelbrot", "gamma_cross")
     counts = ("counts_construct", "counts_mandelbrot", "counts_cross")
     runs = {}
-    reset_launches()
     for label, dtype in (("f32 first", "float32"), ("f32 second", "float32"),
                          ("f64", "float64")):
         cfg = VariogramConfig(vario_dtype=dtype, field_dtype=dtype)
         torch.cuda.synchronize()
+        reset_launches()
         t0 = time.perf_counter()
         out = run_variograms(cfg, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[label] = out
+        # the cloud, the boundary proxy's DE field and U_M
+        launched(f"run_variograms {label}", {"aberth": 1, "orbit_de_std": 1,
+                                              "orbit_potential": 1})
         print(f"variograms ({label}): {wall:.3f} s wall, {out['n_construct']} C points, "
               f"{out['n_boundary']} boundary points; layers (s): "
               + ", ".join(f"{k} {v:.4f}" for k, v in out["stage_times"].items()))
         for key in gammas:
             check(bool(np.isfinite(out[key]).all()), f"variograms {label}: {key} not finite")
-    check(sum(_launch.launches.values()) == 0,
-          f"run_variograms launched a kernel: {_launch.launches}")
     for key in counts:
         check(np.array_equal(runs["f32 first"][key], runs["f32 second"][key]),
               f"variograms: {key} differs between two f32 runs")
@@ -1749,7 +1850,12 @@ BENCH_KEYS = ("value", "dwell_entry_ms", "dwell_tflops", "vpu_peak_tflops", "dwe
               "escape_grid_res4096_mpix_s", "escape_grid_res8192_mpix_s", "spatial_stats_150k_s",
               "knn_150k_s", "eigensweep_s", "tracker_warm_s", "equipotential_s", "variograms_s",
               "uniformize_green_s", "uniformize_fem_s", "tci_4x_s", "coupling_s")
-BENCH_KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "fma_peak")
+#: the kernels a bench run must launch: K1 (tracker_warm_s, tci_4x_s), K2, K3
+#: (equipotential_s), K4, K7, aberth (every key with a cloud), and the
+#: orbit.cu entries of variograms_s (the boundary proxy's DE field, U_M) and
+#: coupling_s (U_M)
+BENCH_KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "fma_peak", "aberth",
+                 "orbit_de_std", "orbit_potential")
 
 
 def phase_bench(dev):
@@ -1834,23 +1940,26 @@ def phase_bus(dev):
     import numpy as np
 
     from cmtci_torch.io.loaders import load_points
-    from cmtci_torch.kernels import _launch
     from cmtci_torch.kernels import companion
     from cmtci_torch.pipelines import curvature, lucas_boundary, stage1
     from cmtci_torch.transport.sinkhorn import sinkhorn_log
     from cmtci_torch.utils.artifacts import StageTimer
 
     cfg = stage1.Stage1Config()
-    reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         timers = []
 
         def card_stage1():
             timers.append(StageTimer(dev))
+            reset_launches()
             return stage1.run_stage1(cfg, f"{tmp}/card", plots=False, device=dev,
                                      timer=timers[-1])
 
         wall, out = best_of(card_stage1)
+        # the last run alone: its cloud, its band field and one Sinkhorn replay
+        launched("stage1, one run", {"aberth": 1, "orbit_de_stage1": 1})
+        check(sinkhorn_replays() == 1, f"stage1 replayed {sinkhorn_replays()} Sinkhorn graphs")
+        reset_launches()
         best = min(timers, key=lambda t: sum(t.times.values()))
         print(f"stage1: {wall:.4f} s best of 3 on the card; layers (s) of the best run: "
               + ", ".join(f"{k} {v:.4f}" for k, v in best.times.items()))
@@ -1942,8 +2051,11 @@ def phase_bus(dev):
               "lucas-boundary: the npy is not the returned boundary")
         print(f"lucas-boundary: {lb_s:.4f} s best of 3 ({len(cloud)} cloud points, the cloud "
               f"alone {cloud_s:.4f} s), {xy.shape[0]} points, card against CPU {err_l!r}")
-    check(sum(_launch.launches.values()) == 0,
-          f"the file bus launched a kernel: {_launch.launches}")
+    # after stage1's runs: the clouds, the band field and the Sinkhorn graph;
+    # nothing else
+    got = launched("the file bus", {"aberth": None, "orbit_de_stage1": None})
+    check(sinkhorn_replays() >= 1, "the file bus replayed no Sinkhorn graph")
+    print(f"  launches on the card: {got}, Sinkhorn graph replays {sinkhorn_replays()}")
 
 
 #: the two buses of phase 20: the stage-1 defaults, and the 6x bus (max_n 100,
@@ -2172,7 +2284,6 @@ def phase_suite(dev):
 
     from cmtci_torch.cli import _SUITE_STAGES
     from cmtci_torch.io.loaders import load_points
-    from cmtci_torch.kernels import _launch
     from cmtci_torch.utils.artifacts import StageTimer
 
     reset_launches()
@@ -2265,7 +2376,10 @@ def phase_suite(dev):
                       f"relative difference {worst!r}; summary within 1e-9; spectral CI ends "
                       f"within {ci_err!r} relative "
                       f"({np.array([[r['ci_lo'], r['ci_hi']] for r in ci]).tolist()})")
-    check(sum(_launch.launches.values()) == 0, f"the suite launched a kernel: {_launch.launches}")
+    # the bus's stage1 runs (cloud, band, Sinkhorn) and coupling's U_M
+    got = launched("the suite", {"aberth": None, "orbit_de_stage1": None,
+                                 "orbit_potential": None})
+    print(f"  launches on the card: {got}, Sinkhorn graph replays {sinkhorn_replays()}")
 
 
 #: warm runs of each conformal-map path in phase 21; a stage's time is the
@@ -2304,7 +2418,6 @@ def phase_conformal(dev):
     device solver against SuperLU."""
     import numpy as np
 
-    from cmtci_torch.kernels import _launch
     from cmtci_torch.pipelines import uniformize_fem as fem_pipe
     from cmtci_torch.pipelines import uniformize_green as green
     from cmtci_torch.pipelines.lucas_boundary import LucasBoundaryConfig, export_lucas_boundary
@@ -2392,8 +2505,9 @@ def phase_conformal(dev):
         print(f"  device against SuperLU: largest relative difference {worst!r} over "
               f"{', '.join(FEM_KEYS)} and cr.lucas.abs_med at 4 levels; period mismatch "
               "within 1e-9")
-    check(sum(_launch.launches.values()) == 0,
-          f"the conformal maps launched a kernel: {_launch.launches}")
+    # the Lucas clouds of both maps
+    got = launched("the conformal maps", {"aberth": None})
+    print(f"  launches on the card: {got}")
 
 
 #: phase 22: the dense tracker's last stage, the size the two-rank matcher
@@ -2614,7 +2728,9 @@ def phase_multidevice(dev):
     meshed, _ = timed("the same on a one-rank NCCL mesh",
                       lambda: run_tracker(cfg, device=dev, mesh=mesh))
     dist.destroy_process_group()
-    check(sum(_launch.launches.values()) == 0, f"the torch DE launched {_launch.launches}")
+    # each run: an aberth and an orbit_de_tci launch a stage
+    launched("f32 torch-DE tracker, single and one-rank mesh",
+             {"aberth": 8, "orbit_de_tci": 8})
     strip = [[{**dataclasses.asdict(r), "runtime_sec": 0.0} for r in rows[0]]
              for rows in (single, meshed)]
     check(len(strip[0]) == 4 and strip[0] == strip[1],
@@ -2724,7 +2840,7 @@ def phase_cards(n: int) -> None:
     check(torch.cuda.device_count() >= n, f"--cards {n}: {torch.cuda.device_count()} cards")
     print(f"{n} cards: {[torch.cuda.get_device_name(i) for i in range(n)]}")
     dev = torch.device("cuda", 0)
-    for name in ("dwell", "cloud_green"):
+    for name in ("dwell", "cloud_green", "aberth", "orbit"):
         _build.library(name)  # built once here, not by every rank at once
     x = multidevice_inputs(dev)
     want, single_times = single_heads(x, dev, repeat=2)
@@ -2755,6 +2871,465 @@ def phase_cards(n: int) -> None:
               f"tracker --devices {n}: rows differ from the single device's")
         print(f"  tracker (2 stages): one card {walls[0]:.3f} s, --devices {n} "
               f"{walls[1]:.3f} s (the ranks' spawn included); rows equal")
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equal, NaN equal to NaN, over nested tuples."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return bool(torch.equal(a, b))
+
+
+def aberth_twin(ns, family, dev, **returns):
+    """inverse_cloud_padded's eigenvalues as its CPU path computes them
+    (eigvals_bucketed where the buckets pay, else eigvals_batched), through
+    the eager twin aberth_roots_torch on `dev`."""
+    from cmtci_torch.kernels import companion
+
+    sweep = (companion.eigvals_bucketed if companion._bucketing_pays(ns)
+             else companion.eigvals_batched)
+    return sweep(ns, family, device=dev, roots=companion.aberth_roots_torch, **returns)
+
+
+def loop_aberth(dev):
+    """Phase 23, Aberth: one launch against the eager twin at every cloud the
+    pipelines build; torch.linalg.eigvals beside it. Returns the kernels-line
+    fields."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import companion
+
+    worst_rel = worst_abs = 0.0
+    ms_of = {}
+    sm_rate = PEAK_FP32 / torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, fam, ns in ABERTH_CLOUDS:
+        reset_launches()
+        zr, zi, valid, steps = companion.eigvals_one_launch(ns, fam, device=dev,
+                                                            return_steps=True)
+        torch.cuda.synchronize()
+        launched(f"aberth {label}", {"aberth": 1})
+        wr, wi, wvalid, wsteps, lanes = aberth_twin(ns, fam, dev, return_lane_steps=True)
+        check(bool(torch.equal(valid, wvalid)), f"aberth {label}: valid lanes differ")
+        err = torch.hypot(zr - wr, zi - wi)[valid]
+        rel = float((err / torch.hypot(wr, wi)[valid]).max())
+        check(rel <= ABERTH_RTOL, f"aberth {label}: roots {rel!r} relative from the twin's")
+        check(bool(torch.equal(zr[~valid], wr[~valid]) and torch.equal(zi[~valid], wi[~valid])),
+              f"aberth {label}: the parked lanes differ from the twin's")
+        dsteps = int((steps - wsteps).abs().max())
+        check(dsteps <= 1, f"aberth {label}: step counts differ by {dsteps}")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, float(err.max()))
+        # the launch alone, from the start roots each time
+        plan = companion._one_launch_plan(ns, fam, True, dev)
+        kr, ki, _, go = companion._aberth_prepare(*plan[:6], fam, 200, 1e-13, torch.float32)
+        z0 = (kr.clone(), ki.clone())
+
+        def relaunch():
+            kr.copy_(z0[0])
+            ki.copy_(z0[1])
+            go()
+
+        ms = cuda_ms(relaunch, 2, 10, CHAIN)
+        graph_ms = cuda_ms(relaunch, 2, 10, CHAIN, graph=True)
+        wrapper_ms = cuda_ms(lambda: companion.eigvals_one_launch(ns, fam, device=dev), 1, 5)
+        plain_ms = cuda_ms(lambda: aberth_twin(ns, fam, dev), 0, 1)
+        # the f32 repulsion of the lanes not yet frozen: over the card, and
+        # over the one SM the largest polynomial has
+        pairs = lanes.cpu() * torch.as_tensor(ns)
+        card, by = least_ms(float(pairs.sum()) * ABERTH_OPS_PER_PAIR, 16 * sum(ns) * 2)
+        one_sm = float(pairs.max()) * ABERTH_OPS_PER_PAIR / sm_rate * 1e3
+        ms_of[label] = dict(ms=graph_ms, chained_ms=ms, plain_ms=plain_ms, bound_ms=card,
+                            bound_by=by, bound_one_sm_ms=one_sm, wrapper_ms=wrapper_ms)
+        print(f"aberth {label} (n {ns[0]}..{ns[-1]}, {len(ns)} polynomials): 1 launch, roots "
+              f"within {rel:.3e} relative of the twin, steps {int(steps.min())}.."
+              f"{int(steps.max())} (twin {int(wsteps.min())}..{int(wsteps.max())}, |diff| <= "
+              f"{dsteps}), {int(lanes.sum())} lane updates; kernel {graph_ms:.4f} ms (graph; "
+              f"{ms:.4f} chained), inverse_cloud_padded's eigenvalues {wrapper_ms:.4f} ms, twin "
+              f"{plain_ms:.2f} ms; bound {card:.5f} ms over the card ({by}), {one_sm:.5f} ms "
+              f"on one SM ({'binds' if one_sm > card else 'does not bind'})")
+    print(f"  SM clock {bench.max_sm_clock_mhz(dev)} MHz (max)")
+    return dict(ms_of["tracker stage 4"], max_abs_err=worst_abs, max_rel_err=worst_rel)
+
+
+def eigvals_library(dev) -> dict:
+    """torch.linalg.eigvals on the card on the companion matrices of the
+    eigensweep (n 20..1220), one call a degree, summed: the yardstick of
+    aberth.cu, which the port never calls. On torch's cuSOLVER backend where
+    it has one (2.0 s against the default's 3.0 s at n = 1220 on an H100),
+    each call timed on the host clock ending in a synchronize (the call
+    synchronizes anyway); n = 1220 alone is that call of the sweep."""
+    import torch
+
+    from cmtci_torch.kernels import companion
+
+    sweep = ABERTH_CLOUDS[3][2]
+    mats = {n: torch.as_tensor(companion.companion_matrix(companion.family_top_row(
+        "lucas_all_ones", n)), device=dev) for n in sweep}
+
+    def one(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.linalg.eigvals(mats[n])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    default = torch.backends.cuda.preferred_linalg_library()
+    try:
+        try:
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+        except RuntimeError:  # a torch built without cuSOLVER
+            pass
+        lib = str(torch.backends.cuda.preferred_linalg_library())
+        one(sweep[0])
+        each = {n: one(n) for n in sweep}
+    except RuntimeError as exc:  # a torch built without a CUDA eigensolver: no yardstick
+        print(f"torch.linalg.eigvals on the card failed ({exc}); library_ms null")
+        return dict(library_ms=None)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(default)
+    total = sum(each.values())
+    print(f"torch.linalg.eigvals on the card ({lib}): the eigensweep's {len(sweep)} companion "
+          f"matrices, one call each, {total:.2f} ms in all, n = {sweep[-1]} "
+          f"{each[sweep[-1]]:.2f} ms of it")
+    return dict(library_ms=total, library_1220_ms=each[sweep[-1]])
+
+
+def tci_steps_needed(cr, ci, max_iter: int, escape_r: float) -> int:
+    """The steps orbit_de_tci runs for these points: every step, but a point
+    stops once it escaped and its dz is NaN in both parts."""
+    import torch
+
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(ci)
+    dzr, dzi = torch.ones_like(cr), torch.zeros_like(ci)
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    done = torch.zeros_like(esc)
+    steps = torch.zeros(cr.shape, dtype=torch.int64, device=cr.device)
+    for _ in range(max_iter):
+        steps += ~done
+        tr, ti = 2.0 * zr, 2.0 * zi
+        dzr, dzi = tr * dzr - ti * dzi + 1.0, tr * dzi + ti * dzr
+        zr, zi = zr * zr - zi * zi + cr, zr * zi + zi * zr + ci
+        esc = esc | (torch.sqrt(zr * zr + zi * zi) > escape_r)
+        done = done | (esc & torch.isnan(dzr) & torch.isnan(dzi))
+    return int(steps.sum())
+
+
+def escape_steps_needed(cr, ci, max_iter: int, r2: float) -> int:
+    """The steps a loop that stops at the first |z|^2 > r2 runs: the escape
+    step (1-based) or max_iter, from orbit_potential's loop state."""
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    esc, k, _, _ = mb._potential_loop_cuda(cr, ci, max_iter, r2)
+    return int(torch.where(esc, k.long() + 1, max_iter).sum())
+
+
+def abs_err(a, b) -> tuple:
+    """(max |a - b| over the entries finite in both, the count of positions
+    NaN in both), over nested tuples; integer and bool outputs as integers."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        parts = [abs_err(x, y) for x, y in zip(a, b)]
+        return max(p[0] for p in parts), sum(p[1] for p in parts)
+    if not a.is_floating_point():
+        return (float((a.long() - b.long()).abs().max()) if a.numel() else 0.0), 0
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    err = float((a - b).abs()[fin].max()) if bool(fin.any()) else 0.0
+    return err, int((torch.isnan(a) & torch.isnan(b)).sum())
+
+
+#: per orbit.cu entry, the largest |kernel - twin| (abs_err) over every case
+#: phase 23 held it to, and the NaN positions the two shared
+ORBIT_ERR: dict = {}
+
+
+def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype_ops_peak, loop=None):
+    """One orbit.cu entry against its twin on the card: the public function
+    `kernel` launches once and is bitwise `twin` (NaN equal to NaN); its
+    max |kernel - twin| over the finite entries goes into ORBIT_ERR. With
+    `loop` (the pipeline's size), the times of loop, the launch alone (the
+    epilogue copies a host scalar, which a CUDA graph cannot capture), and
+    of the twin, and the bound."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    got = kernel()
+    torch.cuda.synchronize()
+    launched(f"{name} {label}", {name: 1})
+    want = twin()
+    check(same_bits(got, want), f"{name} {label}: differs from the twin")
+    err, nans = abs_err(got, want)
+    worst, shared = ORBIT_ERR.get(name, (0.0, 0))
+    ORBIT_ERR[name] = (max(worst, err), shared + nans)
+    if loop is None:
+        return None
+    ms = cuda_ms(loop, 3, 10, CHAIN)
+    graph_ms = cuda_ms(loop, 3, 10, CHAIN, graph=True)
+    plain_ms = cuda_ms(twin, 0, 1)
+    t_ops = steps * ORBIT_OPS_PER_STEP[name] / dtype_ops_peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    print(f"{name} {label}: bitwise equal to the twin (max |kernel - twin| {err!r} over the "
+          f"finite entries, {nans} NaN positions in both), 1 launch; kernel {graph_ms:.4f} ms "
+          f"(graph; {ms:.4f} chained), twin {plain_ms:.2f} ms; {steps} steps, bound "
+          f"{bound:.5f} ms ({by})")
+    return dict(ms=graph_ms, chained_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                shape=label)
+
+
+def loop_orbits(dev):
+    """Phase 23, orbit.cu: each entry bitwise its twin at its pipeline's size,
+    at max_iter 1 and on ragged grids; returns the kernels-line fields."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import mandelbrot as mb
+    from cmtci_torch.pipelines import stage1
+    from cmtci_torch.pipelines.analysis import TCIConfig
+    from cmtci_torch.pipelines.coupling import CouplingConfig
+    from cmtci_torch.pipelines.equipotential import EquipotentialConfig
+    from cmtci_torch.pipelines.variograms import VariogramConfig
+
+    f64 = torch.float64
+    out = {}
+
+    def grid(dom, nx, ny, dtype=f64):
+        return mb.complex_grid(dom, nx, ny, dtype=dtype, device=dev)
+
+    def small_cases(name, run):
+        # max_iter 1 and ragged grids on the tracker's domain, f64 and f32
+        for dt in (f64, torch.float32):
+            for (ny, nx), it in (((3, 5), 1), ((1, 7), 2), ((37, 61), 7), ((129, 33), 300)):
+                cr, ci = grid(DOMAIN, nx, ny, dt)
+                k, t = run(cr, ci, it)
+                loop_orbit(name, f"{ny}x{nx} {dt} {it} it.", k, t, 0, 0, 1.0)
+
+    # the boundary's f64 dwell: 2000 x 2000, 500 steps
+    cr, ci = grid(BOUNDARY_DOMAIN, 2000, 2000)
+    d = mb.dwell_grid(cr, ci, 500)
+    steps = int(torch.where(d < 500, d.long() + 1, 500).sum())
+    out["orbit_dwell"] = loop_orbit("orbit_dwell", "2000x2000 f64, 500 it.",
+                                    lambda: mb.dwell_grid(cr, ci, 500),
+                                    lambda: mb.dwell_grid_torch(cr, ci, 500), steps,
+                                    2000 * 2000 * 20, PEAK_FP64,
+                                    loop=lambda: mb._dwell_cuda(cr, ci, 500))
+    small_cases("orbit_dwell", lambda cr, ci, it: (lambda: mb.dwell_grid(cr, ci, it),
+                                                   lambda: mb.dwell_grid_torch(cr, ci, it)))
+
+    # de_field_tci: the tracker's grids in f64 and f32, run_tci's domain at 912
+    tci = TCIConfig()
+    cases = ([(DOMAIN, g, dt) for g in GRIDS for dt in (f64, torch.float32)]
+             + [(tci.domain, 912, f64)])
+    for dom, g, dt in cases:
+        cr, ci = grid(dom, g, g, dt)
+        size = 8 if dt == f64 else 4
+        res = loop_orbit("orbit_de_tci", f"{g}x{g} {dt}"
+                         + (" (run_tci's domain)" if dom != DOMAIN else ""),
+                         lambda: mb.de_field_tci(cr, ci, MAX_ITER, ESCAPE_R),
+                         lambda: mb.de_field_tci_torch(cr, ci, MAX_ITER, ESCAPE_R),
+                         tci_steps_needed(cr, ci, MAX_ITER, ESCAPE_R),
+                         g * g * (2 * size + 1 + 4 * size),
+                         PEAK_FP64 if dt == f64 else PEAK_FP32,
+                         loop=lambda: mb._de_tci_loop_cuda(cr, ci, MAX_ITER, ESCAPE_R))
+        if (dom, g, dt) == (DOMAIN, GRIDS[1], f64):  # the f64 tracker's second stage
+            out["orbit_de_tci"] = res
+    small_cases("orbit_de_tci", lambda cr, ci, it: (lambda: mb.de_field_tci(cr, ci, it),
+                                                    lambda: mb.de_field_tci_torch(cr, ci, it)))
+
+    # de_field_std: the variograms' boundary proxy, 700 x 700, 600 steps
+    vc = VariogramConfig()
+    for dt in (f64, torch.float32):
+        cr, ci = grid(vc.domain, vc.boundary_grid, vc.boundary_grid, dt)
+        size = 8 if dt == f64 else 4
+        res = loop_orbit("orbit_de_std", f"{vc.boundary_grid}^2 {dt}, "
+                         f"{vc.boundary_max_iter} it.",
+                         lambda: mb.de_field_std(cr, ci, vc.boundary_max_iter),
+                         lambda: mb.de_field_std_torch(cr, ci, vc.boundary_max_iter),
+                         escape_steps_needed(cr, ci, vc.boundary_max_iter, 16.0),
+                         cr.numel() * (2 * size + 1 + 4 * size),
+                         PEAK_FP64 if dt == f64 else PEAK_FP32,
+                         loop=lambda: mb._de_latched_loop_cuda(cr, ci, vc.boundary_max_iter, 4.0,
+                                                               False))
+        if dt == f64:
+            out["orbit_de_std"] = res
+    small_cases("orbit_de_std", lambda cr, ci, it: (lambda: mb.de_field_std(cr, ci, it),
+                                                    lambda: mb.de_field_std_torch(cr, ci, it)))
+
+    # de_field_stage1: stage1's band field, 120 x 80, 200 steps
+    sc = stage1.Stage1Config()
+    xs = np.linspace(stage1.BAND_DOMAIN[0], stage1.BAND_DOMAIN[1], sc.nx)
+    ys = np.linspace(stage1.BAND_DOMAIN[2], stage1.BAND_DOMAIN[3], sc.ny)
+    gx, gy = np.meshgrid(xs, ys, indexing="xy")
+    cr, ci = torch.as_tensor(gx, device=dev), torch.as_tensor(gy, device=dev)
+    out["orbit_de_stage1"] = loop_orbit(
+        "orbit_de_stage1", f"{sc.ny}x{sc.nx} f64, {sc.max_iter} it.",
+        lambda: mb.de_field_stage1(cr, ci, sc.max_iter, sc.bailout),
+        lambda: mb.de_field_stage1_torch(cr, ci, sc.max_iter, sc.bailout),
+        escape_steps_needed(cr, ci, sc.max_iter, sc.bailout * sc.bailout),
+        cr.numel() * (16 + 1 + 32), PEAK_FP64,
+        loop=lambda: mb._de_latched_loop_cuda(cr, ci, sc.max_iter, sc.bailout, True))
+    small_cases("orbit_de_stage1",
+                lambda cr, ci, it: (lambda: mb.de_field_stage1(cr, ci, it),
+                                    lambda: mb.de_field_stage1_torch(cr, ci, it)))
+
+    # the Green stages on the equipotential's default cloud: the first stage,
+    # a resumed one, and the staged run against the same run on the twin
+    ec = EquipotentialConfig()
+    pts = default_cloud(dev)
+    pr = torch.as_tensor(pts.real.copy(), device=dev)
+    pi = torch.as_tensor(pts.imag.copy(), device=dev)
+    zero = torch.zeros_like(pr)
+    r2 = ec.escape_radius * ec.escape_radius
+    first = mb._green_stage(zero, zero, pr, pi, 0, 512, r2, ec.max_iter)
+    esc, kk = first[2], first[4]
+    steps = int(torch.where(esc, kk.long(), 512).sum())
+    out["orbit_green"] = loop_orbit(
+        "orbit_green", f"{len(pts)} points f64, the first stage of 512",
+        lambda: mb._green_stage(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
+        lambda: mb._green_stage_torch(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
+        steps, len(pts) * (32 + 32 + 1 + 4 + 16), PEAK_FP64,
+        loop=lambda: mb._green_loop_cuda(zero, zero, pr, pi, 0, 512, r2, ec.max_iter))
+    # the chain of the longest lane: 3 dependent f64 instructions a step (mul,
+    # sub, add) at no fewer cycles than FP32's measured latency
+    clock_hz = bench.max_sm_clock_mhz(dev) * 1e6
+    chain = 512 * 3 * FP32_DEPENDENT_CYCLES / clock_hz * 1e3
+    out["orbit_green"]["bound_chain_ms"] = chain
+    print(f"  orbit_green chain bound: 512 steps x 3 dependent f64 instructions x >= "
+          f"{FP32_DEPENDENT_CYCLES} cycles at {clock_hz / 1e9:.3f} GHz = {chain:.5f} ms")
+    zr1, zi1 = first[0], first[1]
+    loop_orbit("orbit_green", "resumed from the first stage's state, k0 512",
+               lambda: mb._green_stage(zr1, zi1, pr, pi, 512, 512, r2, ec.max_iter),
+               lambda: mb._green_stage_torch(zr1, zi1, pr, pi, 512, 512, r2, ec.max_iter),
+               0, 0, 1.0)
+    small_cases("orbit_green", lambda cr, ci, it: (
+        lambda: mb._green_stage(torch.zeros_like(cr), torch.zeros_like(ci), cr, ci, 0, it, 4.0,
+                                it),
+        lambda: mb._green_stage_torch(torch.zeros_like(cr), torch.zeros_like(ci), cr, ci, 0, it,
+                                      4.0, it)))
+    reset_launches()
+    t0 = time.perf_counter()
+    staged = mb.green_potential_compacted(pts, ec.max_iter, ec.escape_radius, device=dev)
+    staged_s = time.perf_counter() - t0
+    stages = launched("green_potential_compacted", {"orbit_green": None})["orbit_green"]
+    t0 = time.perf_counter()
+    staged_t = mb.green_potential_compacted(pts, ec.max_iter, ec.escape_radius, device=dev,
+                                            stage_executor=mb._green_stage_torch)
+    staged_t_s = time.perf_counter() - t0
+    check(all(np.array_equal(a, b, equal_nan=True) for a, b in zip(staged, staged_t)),
+          "green_potential_compacted: the staged kernel run differs from the twin's")
+    print(f"green_potential_compacted ({len(pts)} points, {ec.max_iter} it.): {stages} stages, "
+          f"one launch each, {staged_s:.3f} s; on the twin {staged_t_s:.3f} s; g, k, phi equal")
+
+    # escape_potential_grid: coupling's U_M (k_plus_1, R 10, 300 steps, on the
+    # default bus's grid) and the variograms' (two_pow_n, R 4, 600 steps), each
+    # in all three normalizations
+    with tempfile.TemporaryDirectory() as tmp:
+        bus = stage1.run_stage1(sc, f"{tmp}/bus", plots=False, device=dev)
+    cc = CouplingConfig()
+    allp = np.vstack([bus["C"], bus["M"]])
+    lo, hi = allp.min(axis=0) - 0.5, allp.max(axis=0) + 0.5
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], cc.grid_res),
+                         np.linspace(lo[1], hi[1], cc.grid_res))
+    um_grids = [("coupling's U_M", torch.as_tensor(gx, device=dev),
+                 torch.as_tensor(gy, device=dev), cc.max_iter_mb, cc.escape_rad, "k_plus_1")]
+    cr, ci = grid(vc.domain, vc.grid_nx, vc.grid_ny)
+    um_grids.append(("the variograms' U_M", cr, ci, vc.potential_max_iter, vc.potential_r,
+                     "two_pow_n"))
+    for label, cr, ci, it, rad, own in um_grids:
+        for norm in mb.POTENTIAL_NORMALIZATIONS:
+            res = loop_orbit(
+                "orbit_potential", f"{label} {tuple(cr.shape)}, {it} it., R {rad}, {norm}",
+                lambda: mb.escape_potential_grid(cr, ci, it, rad, norm),
+                lambda: mb.escape_potential_grid_torch(cr, ci, it, rad, norm),
+                escape_steps_needed(cr, ci, it, rad * rad), cr.numel() * (16 + 8),
+                PEAK_FP64,
+                loop=(lambda: mb._potential_loop_cuda(cr, ci, it, rad * rad)) if norm == own
+                else None)
+            if norm == own and label.startswith("the variograms"):
+                out["orbit_potential"] = res
+    small_cases("orbit_potential", lambda cr, ci, it: (
+        lambda: mb.escape_potential_grid(cr, ci, it, 4.0, "two_pow_k_break"),
+        lambda: mb.escape_potential_grid_torch(cr, ci, it, 4.0, "two_pow_k_break")))
+    for name in ORBIT_ENTRIES:
+        out[name]["max_abs_err"], out[name]["nan_positions_equal"] = ORBIT_ERR[name]
+    return out
+
+
+def loop_sinkhorn(dev):
+    """Phase 23, Sinkhorn: the graph's plan bitwise the eager loop's at
+    stage1's shape; capture, replay and eager times."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch.pipelines import stage1
+    from cmtci_torch.transport import sinkhorn
+
+    cfg = stage1.Stage1Config()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = stage1.run_stage1(cfg, f"{tmp}/bus", plots=False, device=dev)
+    xa = np.hstack([stage1.orientation_features(out["C"], cfg.k_orientation), out["C"]])
+    xb = np.hstack([stage1.orientation_features(out["M"], cfg.k_orientation), out["M"]])
+    cost = stage1.feature_cost(xa, xb, device=dev)
+    iters, eps = stage1.SINKHORN_ITERS, cfg.sinkhorn_reg
+    sinkhorn._GRAPHS.clear()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = sinkhorn.sinkhorn_log(cost, iters, eps)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(sinkhorn_replays() == 1, f"sinkhorn_log replayed {sinkhorn_replays()} graphs")
+    launched("sinkhorn_log", {})
+    want = sinkhorn.sinkhorn_log_torch(cost, iters, eps)
+    check(bool(torch.equal(plan, want)), "sinkhorn_log: the graph's plan differs from the eager one")
+    replay_ms = cuda_ms(lambda: sinkhorn.sinkhorn_log(cost, iters, eps), 1, 5)
+    plain_ms = cuda_ms(lambda: sinkhorn.sinkhorn_log_torch(cost, iters, eps), 0, 3)
+    n, m = cost.shape
+    # each step two logsumexps over n x m: an add, the max, exp of the
+    # difference and the sum an element, counted once each
+    ops = iters * 2 * n * m * 4
+    t_ops = ops / PEAK_FP64 * 1e3
+    # bytes: each step's two logsumexps read the n x m cost. From HBM every
+    # time unless the L2 holds it beside a step's temporaries of its size
+    # (four such arrays): then the cost in and the plan out, once each
+    cost_bytes = n * m * cost.element_size()
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0)
+    resident = 0 < 4 * cost_bytes <= l2
+    every_step_ms = (2 * iters + 1) * cost_bytes / PEAK_BYTES * 1e3
+    t_bytes = 2 * cost_bytes / PEAK_BYTES * 1e3 if resident else every_step_ms
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    print(f"sinkhorn_log ({n} x {m}, {iters} steps, eps {eps}): the graph's plan bitwise the "
+          f"eager loop's; first call (capture and replay) {first_s:.3f} s, replay "
+          f"{replay_ms:.3f} ms (with the cost's copy in and the plan's out), eager "
+          f"{plain_ms:.3f} ms; the cost {cost_bytes} B, the L2 {l2} B: "
+          f"{'resident' if resident else 'not resident'}; bound {bound:.4f} ms ({by}; "
+          f"operations {t_ops:.4f}, bytes {t_bytes:.4f}; every step's reads from HBM "
+          f"{every_step_ms:.4f})")
+    return dict(launches=1, ms=replay_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                l2_resident=resident, bound_every_step_from_hbm_ms=every_step_ms)
+
+
+def phase_loops(dev):
+    """Phase 23: the reference's compiled device loops on the card: aberth.cu
+    at every pipeline cloud (1e-12 relative, steps within one), each orbit.cu
+    entry bitwise at its pipeline's size and around it, the Sinkhorn graph
+    bitwise at stage1's shape. Returns the kernels-line fields of the new
+    entries and the graph's."""
+    aberth = loop_aberth(dev)
+    orbit = loop_orbits(dev)
+    graph = loop_sinkhorn(dev)
+    aberth.update(eigvals_library(dev))
+    return {"aberth": aberth, **orbit}, graph
 
 
 def main() -> int:
@@ -2796,6 +3371,7 @@ def main() -> int:
     timed(20, phase_suite, dev)
     timed(21, phase_conformal, dev)
     doctor_k2 = timed(22, phase_multidevice, dev)
+    loops, graph = timed(23, phase_loops, dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
@@ -2816,11 +3392,15 @@ def main() -> int:
         "dwell_ms": k6,
         "fma_peak": dict(launches=bench_launches["fma_peak"], **k7),
         "dwell_periodic": k2_periodic,
+        **{name: dict(launches=LAUNCHED[MAIN_PATH[name]][name], **loops[name],
+                      library_ms=None) for name in ORBIT_ENTRIES},
+        "aberth": dict(loops["aberth"], launches=LAUNCHED[MAIN_PATH["aberth"]]["aberth"]),
     }
+    print(f"sinkhorn_log's CUDA graph (no hand kernel): {json.dumps(graph)}")
     print(card)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": f"cmtci_torch/csrc/{SOURCE.get(n, n)}.cu",
-         "replaces": REPLACES[n], **kernels[n], "library_ms": None} for n in ENTRIES]}))
+         "replaces": REPLACES[n], "library_ms": None, **kernels[n]} for n in ENTRIES]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

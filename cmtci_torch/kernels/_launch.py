@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_D = ctypes.c_double
 _GRID = [_P, _I, _I, _F, _F, _F, _F, _I]  # out, nx, ny, xmin, ymin, dx, dy, max_iter
 
 #: argument types of each C entry point; the last is the stream
@@ -29,10 +30,23 @@ ARGTYPES = {
     "green_grid": _GRID + [_F, _P],
     "dwell_ms": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P],
     "fma_peak": [_P, _L, _I, _F, _F, _F, _F, _P],
+    # zr, zi, steps, deg, width, closed, coef, coef_stride, batch, lanes,
+    # max_iters, tol2, rep64, the closed form's c0..c3, nc, a, threads, smem
+    "aberth": [_P] * 7 + [_I] * 4 + [_D, _I] + [_D] * 4 + [_I, _D, _I, _I, _P],
+    # the orbit loops: inputs, outputs, n, then each loop's counts and threshold,
+    # is_double
+    "orbit_dwell": [_P, _P, _P, _L, _I, _I, _P],
+    "orbit_de_tci": [_P] * 7 + [_L, _I, _D, _I, _P],
+    "orbit_de_std": [_P] * 7 + [_L, _I, _D, _I, _P],
+    "orbit_de_stage1": [_P] * 7 + [_L, _I, _D, _I, _P],
+    "orbit_green": [_P] * 10 + [_L, _I, _I, _D, _I, _I, _P],
+    "orbit_potential": [_P] * 6 + [_L, _I, _D, _I, _P],
 }
 
 #: the csrc/<library>.cu that holds an entry point named otherwise
-LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell"}
+LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell",
+           **{name: "orbit" for name in ("orbit_dwell", "orbit_de_tci", "orbit_de_std",
+                                         "orbit_de_stage1", "orbit_green", "orbit_potential")}}
 
 #: kernel launches per entry point, counted where the wrapper launches; read
 #: and reset by callers that need to show a run went through the kernels

@@ -5,9 +5,11 @@ matrix with first row (c_1..c_n) are the roots of
 p(x) = x^n - c_1 x^{n-1} - ... - c_n, found by a batched Aberth–Ehrlich
 simultaneous iteration: elementwise f64 work over (batch, lane) tensors with
 validity masks, carried as (re, im) pairs exactly as the reference writes
-it. The reference's ``lax.while_loop`` becomes a Python loop that reads the
-convergence flag with ``.item()`` (with the curve-registered init that is a
-handful of iterations). LAPACK on the host stays the parity oracle
+it. On CUDA tensors the reference's ``lax.while_loop`` is one launch of
+``csrc/aberth.cu`` (one CTA a polynomial, the whole loop inside, each
+polynomial leaving when its lanes are frozen); on CPU tensors it is the
+plain twin ``aberth_roots_torch``, a Python loop that reads the convergence
+flag with ``.item()``. LAPACK on the host stays the parity oracle
 (``backend="lapack"``).
 
 Stability for degrees up to ~1220 comes from the two-branch Newton ratio
@@ -22,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from cmtci_torch.kernels._launch import launch as _launch
 from cmtci_torch.utils import cplx
 from cmtci_torch.utils.device import resolve_device
 
@@ -303,38 +306,49 @@ def _pairwise_repulsion(z, valid, chunk: int):
     return s_r, s_i
 
 
-def aberth_roots(a, deg, max_iters: int = 200, tol: float = 1e-13, chunk: int = 128,
-                 family: str | None = None, repulsion_dtype=torch.float32):
-    """Batched Aberth–Ehrlich root finder on the tensors' device.
+def _circle_init(deg, nl: int, dtype):
+    """Distinct angles on the unit circle with a golden-ratio phase offset."""
+    lane = torch.arange(nl, device=deg.device)[None, :]
+    degf = torch.clamp(deg, min=1)[:, None].to(dtype)
+    theta = 2.0 * math.pi * (lane.to(dtype) + 0.256) / degf + 0.577 / degf
+    return torch.cos(theta), torch.sin(theta)
 
-    a: (B, L+1) ascending coefficients (see poly_coeff_batch); deg: (B,).
-    Returns (re, im, valid): (B, L) roots with valid[b, k] = k < deg[b].
 
-    When `family` names a closed-form family the Newton ratio uses the
-    O(log n) geometric-series form. The pairwise repulsion runs in
-    `repulsion_dtype` (default f32, as in the reference): it only conditions
-    the simultaneous convergence, the fixed point is where the f64 Newton
-    ratio vanishes. Pass repulsion_dtype=None to keep it in a's dtype.
-    """
+def _far(bsz: int, nl: int, dtype, dev):
+    """Where the invalid lanes are parked, so they never interact with valid
+    ones and a downstream reciprocal stays finite."""
+    lane = torch.arange(nl, device=dev)[None, :]
+    lanef = lane.to(dtype) + torch.zeros((bsz, 1), dtype=dtype, device=dev)
+    return 1e9 * torch.cos(lanef), 1e9 * torch.sin(lanef)
+
+
+def _start(a, deg, family):
+    """The start roots of aberth_roots and the valid lanes."""
     bsz, lp1 = a.shape
     nl = lp1 - 1
-    dev = a.device
-    lane = torch.arange(nl, device=dev)[None, :]
-    valid = lane < deg[:, None]
-
+    valid = torch.arange(nl, device=a.device)[None, :] < deg[:, None]
     if family in _CLOSED_FAMILIES:
         z = _curve_init(family, deg, nl, a.dtype)
     else:
-        degf = torch.clamp(deg, min=1)[:, None].to(a.dtype)
-        theta = 2.0 * math.pi * (lane.to(a.dtype) + 0.256) / degf + 0.577 / degf
-        z = (torch.cos(theta), torch.sin(theta))
-    # Park invalid lanes far away so they never interact with valid ones.
-    lanef = lane.to(a.dtype) + torch.zeros((bsz, 1), dtype=a.dtype, device=dev)
-    far = (1e9 * torch.cos(lanef), 1e9 * torch.sin(lanef))
-    z = cplx.where(valid, z, far)
+        z = _circle_init(deg, nl, a.dtype)
+    return cplx.where(valid, z, _far(bsz, nl, a.dtype, a.device)), valid
 
+
+def aberth_roots_torch(a, deg, max_iters: int = 200, tol: float = 1e-13, chunk: int = 128,
+                       family: str | None = None, repulsion_dtype=torch.float32,
+                       return_steps: bool = False, return_lane_steps: bool = False):
+    """Plain twin of aberth_roots: the eager loop on the tensors' device,
+    every polynomial iterated until all are done (the convergence flag read
+    on the host each step). With return_steps, also the (B,) int32 count of
+    the steps each polynomial took until its lanes were all frozen; with
+    return_lane_steps, both that and the (B,) int64 sum over those steps of
+    the lanes not yet frozen (the lane updates aberth.cu computes)."""
+    z, valid = _start(a, deg, family)
     tol2 = tol * tol
     frozen = torch.zeros_like(valid)
+    steps = torch.zeros(deg.shape, dtype=torch.int32, device=a.device)
+    lane_steps = torch.zeros(deg.shape, dtype=torch.int64, device=a.device)
+    row_done = torch.zeros(deg.shape, dtype=torch.bool, device=a.device)
     it = 0
     done = False
     while it < max_iters and not done:
@@ -351,13 +365,123 @@ def aberth_roots(a, deg, max_iters: int = 200, tol: float = 1e-13, chunk: int = 
         denom = cplx.sub(cplx.full_like(z, 1.0), cplx.mul(w, s))
         corr = cplx.div(w, denom)
         moved2 = cplx.abs2(corr)
+        lane_steps += (valid & ~frozen).sum(dim=1)
         # latch convergence permanently (see the reference's aberth_roots)
         frozen = frozen | (moved2 <= tol2 * torch.clamp(cplx.abs2(z), min=1e-30))
         corr = cplx.where(valid & ~frozen, corr, cplx.full_like(z, 0.0))
         z = cplx.sub(z, corr)
-        done = bool(torch.all(torch.where(valid, frozen, True)).item())
+        steps += (~row_done).to(torch.int32)
+        row_done = torch.all(torch.where(valid, frozen, True), dim=1)
+        done = bool(torch.all(row_done).item())
         it += 1
+    if return_lane_steps:
+        return z[0], z[1], valid, steps, lane_steps
+    if return_steps:
+        return z[0], z[1], valid, steps
     return z[0], z[1], valid
+
+
+#: the dynamic shared memory one CTA of csrc/aberth.cu may use on an H100
+#: (227 KB); aberth_roots refuses a polynomial whose lanes do not fit
+ABERTH_SMEM_MAX = 232448
+#: the threads of a CTA (aberth.cu's MAX_THREADS); a thread owns at most 32
+#: lanes, far beyond what shared memory holds
+ABERTH_THREADS = 256
+
+
+def aberth_smem_bytes(ns, widths, closed, f64_repulsion: bool) -> int:
+    """Dynamic shared memory of the largest CTA of an aberth.cu launch: 16 B
+    a lane for the roots, 16 for the next roots, 8 for their f32 copies (not
+    with an f64 repulsion), 8 a coefficient of a row without a closed form."""
+    per_lane = 32 if f64_repulsion else 40
+    return max(per_lane * int(n) + (0 if c else 8 * (int(w) + 1))
+               for n, w, c in zip(ns, widths, closed))
+
+
+def _aberth_prepare(a, deg, ns, z, widths, closed, family, max_iters: int, tol: float,
+                    repulsion_dtype):
+    """The output buffers of one aberth.cu launch (see _aberth_cuda) and the
+    launch: (zr, zi, steps, go), zr and zi holding the start roots until go()
+    launches the kernel on them in place; go is None when there is no
+    polynomial."""
+    dev = a.device
+    if a.dtype != torch.float64:
+        raise TypeError(f"aberth.cu takes float64 coefficients, got {a.dtype}")
+    bsz, lanes = z[0].shape
+    rep64 = repulsion_dtype is None or repulsion_dtype == a.dtype
+    if not rep64 and repulsion_dtype != torch.float32:
+        raise TypeError(f"aberth.cu repulses in float32 or float64, got {repulsion_dtype}")
+    zr = z[0].to(torch.float64).contiguous().clone()
+    zi = z[1].to(torch.float64).contiguous().clone()
+    steps = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    if bsz == 0:
+        return zr, zi, steps, None
+    smem = aberth_smem_bytes(ns, widths, closed, rep64)
+    if smem > ABERTH_SMEM_MAX:
+        raise ValueError(
+            f"aberth.cu: a polynomial of degree {max(ns)} needs {smem} bytes of shared "
+            f"memory, more than one CTA holds ({ABERTH_SMEM_MAX}); use device='cpu'")
+    coeffs, a_const = _CLOSED_FAMILIES.get(family, ((0.0,), 0.0))
+    c = [float(v) for v in coeffs] + [0.0] * (4 - len(coeffs))
+    deg32 = deg.to(device=dev, dtype=torch.int32).contiguous()
+    width32 = torch.as_tensor(np.asarray(widths, dtype=np.int32), device=dev)
+    closed8 = torch.as_tensor(np.asarray(closed, dtype=np.uint8), device=dev)
+    coef = a.contiguous()
+    threads = min(ABERTH_THREADS, max(32, -(-max(ns) // 32) * 32))
+
+    def go():
+        _launch("aberth", dev, zr.data_ptr(), zi.data_ptr(), steps.data_ptr(),
+                deg32.data_ptr(), width32.data_ptr(), closed8.data_ptr(), coef.data_ptr(),
+                int(coef.shape[1]), int(bsz), int(lanes), int(max_iters), float(tol * tol),
+                int(rep64), *c, len(coeffs), float(a_const), int(threads), int(smem))
+
+    return zr, zi, steps, go
+
+
+def _aberth_cuda(a, deg, ns, z, widths, closed, family, max_iters: int, tol: float,
+                 repulsion_dtype):
+    """One launch of csrc/aberth.cu from the start roots z (a pair of (B, L)
+    tensors) for the degrees deg (on the device) and ns (the same on the
+    host), each row b with its twin's padded width widths[b] and the closed
+    form where closed[b]. Returns (zr, zi, steps) on a's device."""
+    zr, zi, steps, go = _aberth_prepare(a, deg, ns, z, widths, closed, family, max_iters, tol,
+                                        repulsion_dtype)
+    if go is not None:
+        go()
+    return zr, zi, steps
+
+
+def aberth_roots(a, deg, max_iters: int = 200, tol: float = 1e-13, chunk: int = 128,
+                 family: str | None = None, repulsion_dtype=torch.float32,
+                 return_steps: bool = False):
+    """Batched Aberth–Ehrlich root finder on the tensors' device.
+
+    a: (B, L+1) ascending coefficients (see poly_coeff_batch); deg: (B,).
+    Returns (re, im, valid): (B, L) roots with valid[b, k] = k < deg[b]; with
+    return_steps also each polynomial's (B,) int32 step count.
+
+    When `family` names a closed-form family the Newton ratio uses the
+    O(log n) geometric-series form. The pairwise repulsion runs in
+    `repulsion_dtype` (default f32, as in the reference): it only conditions
+    the simultaneous convergence, the fixed point is where the f64 Newton
+    ratio vanishes. Pass repulsion_dtype=None to keep it in a's dtype.
+
+    CUDA tensors: one launch of csrc/aberth.cu, nothing read on the host
+    inside the loop; the roots agree with the twin's within the freeze
+    tolerance (not bitwise: the f32 repulsion is summed in another order).
+    CPU tensors: the eager twin aberth_roots_torch (`chunk` sets its blocks).
+    """
+    if a.device.type == "cpu":
+        return aberth_roots_torch(a, deg, max_iters, tol, chunk, family, repulsion_dtype,
+                                  return_steps)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device} (expected cuda or cpu)")
+    z, valid = _start(a, deg, family)
+    bsz, nl = valid.shape
+    zr, zi, steps = _aberth_cuda(a, deg, deg.tolist(), z, [nl] * bsz,
+                                 [family in _CLOSED_FAMILIES] * bsz, family, max_iters, tol,
+                                 repulsion_dtype)
+    return (zr, zi, valid, steps) if return_steps else (zr, zi, valid)
 
 
 def _closed_form_ok(ns, family: str) -> bool:
@@ -373,27 +497,26 @@ def _closed_form_ok(ns, family: str) -> bool:
 
 
 def eigvals_batched(ns, family: str = "lucas_all_ones", max_iters: int = 200,
-                    repulsion_dtype=torch.float32, device="cuda"):
-    """Padded batched companion eigenvalues via Aberth. Returns (re, im, valid)."""
+                    repulsion_dtype=torch.float32, device="cuda", roots=None,
+                    return_steps: bool = False, return_lane_steps: bool = False):
+    """Padded batched companion eigenvalues via Aberth. Returns (re, im, valid).
+
+    `roots` is the root finder (default aberth_roots; aberth_roots_torch runs
+    the eager twin on any device). With return_steps also each row's step
+    count, with return_lane_steps also its lane updates (aberth_roots_torch's).
+    """
     a, deg = poly_coeff_batch(ns, family, device=device)
     fam = family if _closed_form_ok(ns, family) else None
-    return aberth_roots(a, deg, max_iters=max_iters, family=fam,
-                        repulsion_dtype=repulsion_dtype)
+    extra = ({"return_lane_steps": True} if return_lane_steps
+             else {"return_steps": True} if return_steps else {})
+    return (roots or aberth_roots)(a, deg, max_iters=max_iters, family=fam,
+                                   repulsion_dtype=repulsion_dtype, **extra)
 
 
-def eigvals_bucketed(ns, family: str = "lucas_all_ones", max_iters: int = 200,
-                     growth: float = 1.5, min_cap: int = 64,
-                     repulsion_dtype=torch.float32, device="cuda"):
-    """Degree-bucketed batched Aberth sweep (host-orchestrated).
-
-    Same contract as eigvals_batched — (re, im, valid) padded to max(ns),
-    rows in input order — but each polynomial is padded only to its
-    bucket's max degree, so the O(L²) repulsion tracks Σ n² instead of
-    B·n_max², and each bucket stops iterating on its own.
-    """
-    dev = resolve_device(device)
-    ns_list = [int(n) for n in ns]
-    ns_arr = np.asarray(ns_list)
+def _bucket_rows(ns, growth: float = 1.5, min_cap: int = 64) -> list:
+    """The rows of each degree bucket of eigvals_bucketed, in cap order:
+    caps grow geometrically from min_cap to max(ns)."""
+    ns_arr = np.asarray([int(n) for n in ns])
     lmax = int(ns_arr.max())
     caps = []
     c = min_cap
@@ -401,27 +524,99 @@ def eigvals_bucketed(ns, family: str = "lucas_all_ones", max_iters: int = 200,
         caps.append(c)
         c = max(int(np.ceil(c * growth)), c + 1)
     caps.append(lmax)
-
-    # padding lanes parked far away so a downstream reciprocal stays finite
-    zr = torch.full((len(ns_arr), lmax), 1e9, dtype=torch.float64, device=dev)
-    zi = torch.zeros((len(ns_arr), lmax), dtype=torch.float64, device=dev)
-    valid = torch.zeros((len(ns_arr), lmax), dtype=torch.bool, device=dev)
+    rows = []
     lo = 0
     for cap in caps:
         idx = np.where((ns_arr > lo) & (ns_arr <= cap))[0]
         lo = cap
-        if idx.size == 0:
-            continue
+        if idx.size:
+            rows.append(idx)
+    return rows
+
+
+def eigvals_bucketed(ns, family: str = "lucas_all_ones", max_iters: int = 200,
+                     growth: float = 1.5, min_cap: int = 64,
+                     repulsion_dtype=torch.float32, device="cuda", roots=None,
+                     return_steps: bool = False, return_lane_steps: bool = False):
+    """Degree-bucketed batched Aberth sweep (host-orchestrated).
+
+    Same contract as eigvals_batched — (re, im, valid) padded to max(ns),
+    rows in input order, `roots` and the step counts — but each polynomial
+    is padded only to its bucket's max degree, so the O(L²) repulsion tracks
+    Σ n² instead of B·n_max², and each bucket stops iterating on its own.
+    """
+    dev = resolve_device(device)
+    ns_list = [int(n) for n in ns]
+    bsz, lmax = len(ns_list), max(ns_list)
+
+    # padding lanes parked far away so a downstream reciprocal stays finite
+    zr = torch.full((bsz, lmax), 1e9, dtype=torch.float64, device=dev)
+    zi = torch.zeros((bsz, lmax), dtype=torch.float64, device=dev)
+    valid = torch.zeros((bsz, lmax), dtype=torch.bool, device=dev)
+    counts = [torch.zeros(bsz, dtype=dt, device=dev) for dt in (torch.int32, torch.int64)]
+    counts = counts[:2 if return_lane_steps else 1 if return_steps else 0]
+    for idx in _bucket_rows(ns_list, growth, min_cap):
         sub = [ns_list[i] for i in idx]
-        r_zr, r_zi, r_valid = eigvals_batched(sub, family, max_iters=max_iters,
-                                              repulsion_dtype=repulsion_dtype,
-                                              device=dev)
+        r_zr, r_zi, r_valid, *r_counts = eigvals_batched(
+            sub, family, max_iters=max_iters, repulsion_dtype=repulsion_dtype, device=dev,
+            roots=roots, return_steps=return_steps, return_lane_steps=return_lane_steps)
         w = r_zr.shape[1]
         rows = torch.as_tensor(idx, device=dev)
         zr[rows, :w] = r_zr
         zi[rows, :w] = r_zi
         valid[rows, :w] = r_valid
-    return zr, zi, valid
+        for count, r_count in zip(counts, r_counts):
+            count[rows] = r_count
+    return (zr, zi, valid, *counts)
+
+
+def _one_launch_plan(ns, family: str, bucketed: bool, dev):
+    """eigvals_one_launch's arguments of _aberth_cuda for `ns`, with the twin's
+    arithmetic on each row: the padded width, the closed form's eligibility
+    and the start roots of the bucket (or the one batch) eigvals_bucketed
+    (eigvals_batched) puts the row in, and the same padding lanes. Returns
+    (a, deg, ns, z, widths, closed, valid)."""
+    ns_list = [int(n) for n in ns]
+    bsz, lmax = len(ns_list), max(ns_list)
+    if bucketed and _bucketing_pays(ns_list):
+        groups = _bucket_rows(ns_list)
+    else:
+        groups = [np.arange(bsz)]
+    widths = np.zeros(bsz, dtype=np.int64)
+    closed = np.zeros(bsz, dtype=bool)
+    for idx in groups:
+        sub = [ns_list[i] for i in idx]
+        widths[idx] = max(sub)
+        closed[idx] = _closed_form_ok(sub, family)
+    a, deg = poly_coeff_batch(ns_list, family, device=dev)
+    lane = torch.arange(lmax, device=dev)[None, :]
+    valid = lane < deg[:, None]
+    z = _circle_init(deg, lmax, a.dtype)
+    if closed.any():
+        curve = _curve_init(family, deg, lmax, a.dtype)
+        z = cplx.where(torch.as_tensor(closed, device=dev)[:, None], curve, z)
+    # the twin parks a bucket's padding lanes at 1e9 (cos, sin) of the lane,
+    # and fills the lanes past the bucket's width with 1e9 + 0i
+    inside = lane < torch.as_tensor(widths, device=dev)[:, None]
+    far = _far(bsz, lmax, a.dtype, dev)
+    fill = cplx.where(inside, far, (torch.full_like(far[0], 1e9), torch.zeros_like(far[1])))
+    z = cplx.where(valid, z, fill)
+    return a, deg, ns_list, z, widths.tolist(), closed.tolist(), valid
+
+
+def eigvals_one_launch(ns, family: str = "lucas_all_ones", bucketed: bool = True,
+                       max_iters: int = 200, repulsion_dtype=torch.float32, device="cuda",
+                       return_steps: bool = False):
+    """inverse_cloud_padded's eigenvalues on a CUDA device in ONE aberth.cu
+    launch over all of `ns`, each row with the arithmetic of the twin's call
+    tree (_one_launch_plan). Each CTA stops on its own, so the host's
+    buckets buy nothing here. Returns (re, im, valid) padded to max(ns),
+    with return_steps also each row's step count."""
+    dev = resolve_device(device)
+    a, deg, ns_list, z, widths, closed, valid = _one_launch_plan(ns, family, bucketed, dev)
+    zr, zi, steps = _aberth_cuda(a, deg, ns_list, z, widths, closed, family, max_iters, 1e-13,
+                                 repulsion_dtype)
+    return (zr, zi, valid, steps) if return_steps else (zr, zi, valid)
 
 
 def _bucketing_pays(ns) -> bool:
@@ -438,9 +633,15 @@ def _bucketing_pays(ns) -> bool:
 def inverse_cloud_padded(ns, family: str = "lucas_all_ones",
                          bucketed: bool = True, repulsion_dtype=torch.float32,
                          device="cuda"):
-    """Padded inverse-eigenvalue cloud 1/λ on `device`. Returns (re, im, valid)."""
+    """Padded inverse-eigenvalue cloud 1/λ on `device`. Returns (re, im, valid).
+
+    On a CUDA device the eigenvalues are one aberth.cu launch
+    (eigvals_one_launch); on the CPU the twin's buckets or batch."""
     ns = [int(n) for n in ns]
-    if bucketed and _bucketing_pays(ns):
+    if resolve_device(device).type == "cuda":
+        zr, zi, valid = eigvals_one_launch(ns, family, bucketed,
+                                           repulsion_dtype=repulsion_dtype, device=device)
+    elif bucketed and _bucketing_pays(ns):
         zr, zi, valid = eigvals_bucketed(ns, family, repulsion_dtype=repulsion_dtype,
                                          device=device)
     else:

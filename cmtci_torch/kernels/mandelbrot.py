@@ -9,6 +9,13 @@ and the op order is the reference's (``de_field_tci``: dz is updated BEFORE
 z each step, z is latched at the first |z| > escape_r, dz is not latched and
 overflows to inf for early escapers, so d == 0 there).
 
+The per-point loops (the reference's ``fori_loop``s) are split into the loop
+state and an epilogue in torch that both paths share. On CUDA tensors the
+loop is one launch of a ``csrc/orbit.cu`` entry (``_green_stage``: one a
+stage); on CPU tensors it is the plain twin, the eager loop of the
+``*_loop_torch`` functions, which the ``*_torch`` functions run on any
+device. The kernel's loop state is bitwise the twin's. Nothing falls back.
+
 Grids are built from ``np.linspace`` — the oracle's grid. ``jnp.linspace``
 and ``torch.linspace`` each differ from it in the last ulp, and a grid node
 that moves by an ulp can flip a borderline escape.
@@ -19,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cmtci_torch.kernels._launch import launch as _launch
 from cmtci_torch.utils.artifacts import fetch
 from cmtci_torch.utils.device import resolve_device
 
@@ -39,11 +47,43 @@ def _zsq_add_c(zr, zi, cr, ci):
     return zr * zr - zi * zi + cr, zr * zi + zi * zr + ci
 
 
-def dwell_grid(cr, ci, max_iter: int = 500) -> torch.Tensor:
-    """Escape-time dwell counts (mandelbrot_boundary_sample.py:22-30) on the
-    tensors' device and dtype: int32, the first n (0-based) with
-    |z_{n+1}|^2 > 4, else max_iter. Escaped orbits are frozen, as in the
-    reference."""
+def _orbit(entry: str, ins, outs, *scalars):
+    """Launch csrc/orbit.cu's `entry` over the points of `ins` (CUDA tensors of
+    one shape, f32 or f64) into `outs` (fresh tensors of that shape); the
+    scalars follow the point count, then the dtype flag. Returns outs."""
+    first = ins[0]
+    if first.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{entry}: the kernel takes float32 or float64, got {first.dtype}")
+    for t in ins[1:]:
+        if t.device != first.device or t.dtype != first.dtype or t.shape != first.shape:
+            raise ValueError(f"{entry}: inputs differ in device, dtype or shape: "
+                             f"{[(str(a.device), a.dtype, tuple(a.shape)) for a in ins]}")
+    ins = [t.contiguous() for t in ins]
+    n = first.numel()
+    if n:
+        _launch(entry, first.device, *(t.data_ptr() for t in ins),
+                *(t.data_ptr() for t in outs), n, *scalars, int(first.dtype == torch.float64))
+    return outs
+
+
+def _loop(twin, kernel, *args):
+    """twin(*args) when the first argument, a tensor, lies on the CPU;
+    kernel(*args) when it lies on a CUDA device; raise otherwise."""
+    dev = args[0].device
+    if dev.type == "cpu":
+        return twin(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+    return kernel(*args)
+
+
+def _out(like, dtype=None):
+    """A contiguous buffer of like's shape on its device (the kernel's output)."""
+    return torch.empty(like.shape, dtype=dtype or like.dtype, device=like.device)
+
+
+def dwell_grid_torch(cr, ci, max_iter: int = 500) -> torch.Tensor:
+    """Plain twin of dwell_grid: the eager loop, on the tensors' device."""
     zr = torch.zeros_like(cr)
     zi = torch.zeros_like(ci)
     dwell = torch.full(cr.shape, max_iter, dtype=torch.int32, device=cr.device)
@@ -60,16 +100,21 @@ def dwell_grid(cr, ci, max_iter: int = 500) -> torch.Tensor:
     return dwell
 
 
-def _green_stage(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter: int):
-    """Run `iters` Green iterations from state (zr, zi) with k offset k0, on
-    the tensors' device and dtype (the reference's ``_green_stage``).
+def _dwell_cuda(cr, ci, max_iter: int):
+    return _orbit("orbit_dwell", (cr, ci), (_out(cr, torch.int32),), int(max_iter))[0]
 
-    Returns (zr, zi, esc, g, k, lpr, lpi); points that do not escape in this
-    stage carry k = dtype_max_iter and g = lpr = lpi = 0. The loop latches z
-    at the first |z|^2 > r2; g = max(log|z_k| 2^-k, 0) and log phi =
-    (log|z_k|, arg z_k)·2^-k are then evaluated once per point from the
-    latched z, with the same elementwise ops the reference runs at the hit.
-    """
+
+def dwell_grid(cr, ci, max_iter: int = 500) -> torch.Tensor:
+    """Escape-time dwell counts (mandelbrot_boundary_sample.py:22-30) on the
+    tensors' device and dtype: int32, the first n (0-based) with
+    |z_{n+1}|^2 > 4, else max_iter. Escaped orbits are frozen, as in the
+    reference. CUDA: orbit.cu's orbit_dwell; CPU: dwell_grid_torch."""
+    return _loop(dwell_grid_torch, _dwell_cuda, cr, ci, max_iter)
+
+
+def _green_loop_torch(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter: int):
+    """The Green stage's eager loop: (zr, zi, esc, k, lzr, lzi), z latched at
+    the first |z|^2 > r2 (k = k0 + its 1-based step) and zeroed after it."""
     esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
     kk = torch.full(cr.shape, dtype_max_iter, dtype=torch.int32, device=cr.device)
     lzr = torch.zeros_like(cr)
@@ -83,7 +128,18 @@ def _green_stage(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter:
         esc = esc | hit
         zr = torch.where(esc, 0.0, zr)
         zi = torch.where(esc, 0.0, zi)
-    scale = torch.exp2(-kk.to(cr.dtype))
+    return zr, zi, esc, kk, lzr, lzi
+
+
+def _green_loop_cuda(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter: int):
+    outs = (_out(cr), _out(cr), _out(cr, torch.bool), _out(cr, torch.int32), _out(cr),
+            _out(cr))
+    return _orbit("orbit_green", (zr, zi, cr, ci), outs, int(k0), int(iters), float(r2),
+                  int(dtype_max_iter))
+
+
+def _green_epilogue(zr, zi, esc, kk, lzr, lzi):
+    scale = torch.exp2(-kk.to(lzr.dtype))
     logr = 0.5 * torch.log(torch.clamp(lzr * lzr + lzi * lzi, min=1e-300))
     gg = logr * scale
     gg = torch.where(torch.isfinite(gg) & (gg >= 0.0), gg, 0.0)
@@ -91,6 +147,26 @@ def _green_stage(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter:
     lpr = torch.where(esc, logr * scale, 0.0)
     lpi = torch.where(esc, torch.atan2(lzi, lzr) * scale, 0.0)
     return zr, zi, esc, g, kk, lpr, lpi
+
+
+def _green_stage_torch(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter: int):
+    """Plain twin of _green_stage: the eager loop, on the tensors' device."""
+    return _green_epilogue(*_green_loop_torch(zr, zi, cr, ci, k0, iters, r2, dtype_max_iter))
+
+
+def _green_stage(zr, zi, cr, ci, k0: int, iters: int, r2: float, dtype_max_iter: int):
+    """Run `iters` Green iterations from state (zr, zi) with k offset k0, on
+    the tensors' device and dtype (the reference's ``_green_stage``; CUDA:
+    one launch of orbit.cu's orbit_green; CPU: the eager twin).
+
+    Returns (zr, zi, esc, g, k, lpr, lpi); points that do not escape in this
+    stage carry k = dtype_max_iter and g = lpr = lpi = 0. The loop latches z
+    at the first |z|^2 > r2; g = max(log|z_k| 2^-k, 0) and log phi =
+    (log|z_k|, arg z_k)·2^-k are then evaluated once per point from the
+    latched z, with the same elementwise ops the reference runs at the hit.
+    """
+    return _green_epilogue(*_loop(_green_loop_torch, _green_loop_cuda, zr, zi, cr, ci, k0,
+                                  iters, r2, dtype_max_iter))
 
 
 def green_potential_compacted(points, max_iter: int = 20000, escape_r: float = 2.0,
@@ -144,10 +220,9 @@ def green_potential_compacted(points, max_iter: int = 20000, escape_r: float = 2
     return g, kk, phi
 
 
-def de_field_tci(cr, ci, max_iter: int = 250, escape_r: float = 250.0,
-                 eps: float = 1e-12):
-    """TCI distance estimator (tci_construct_mandelbrot_v002_fixed.py:35-47)
-    on the tensors' device and dtype. Returns (esc, d, last_r, last_i)."""
+def _de_tci_loop_torch(cr, ci, max_iter: int, escape_r: float):
+    """de_field_tci's eager loop: (esc, lr, li, dzr, dzi), z latched at the
+    first |z| > escape_r, the FINAL dz."""
     zr = torch.zeros_like(cr)
     zi = torch.zeros_like(ci)
     dzr = torch.ones_like(cr)
@@ -164,6 +239,15 @@ def de_field_tci(cr, ci, max_iter: int = 250, escape_r: float = 250.0,
         lr = torch.where(hit, zr, lr)
         li = torch.where(hit, zi, li)
         esc = esc | hit
+    return esc, lr, li, dzr, dzi
+
+
+def _de_tci_loop_cuda(cr, ci, max_iter: int, escape_r: float):
+    outs = (_out(cr, torch.bool), _out(cr), _out(cr), _out(cr), _out(cr))
+    return _orbit("orbit_de_tci", (cr, ci), outs, int(max_iter), float(escape_r))
+
+
+def _de_tci_epilogue(esc, lr, li, dzr, dzi, eps: float):
     az = torch.hypot(lr, li)
     # 2*z*dz with the latched z and FINAL dz (possibly inf/nan); hypot as
     # numpy's complex abs (no premature overflow)
@@ -176,12 +260,25 @@ def de_field_tci(cr, ci, max_iter: int = 250, escape_r: float = 250.0,
     return esc, d, lr, li
 
 
-def de_field_std(cr, ci, max_iter: int = 500, escape_r: float = 4.0, eps: float = 1e-14):
-    """Standard distance estimator (variograms_construct_mandelbrot.py:61-88)
-    on the tensors' device and dtype: z and dz are latched at the first
-    |z| > escape_r, then the orbit is frozen; num = log(max(|z|, 1))·|z|,
-    den = max(|2 z dz|, eps), non-finite d -> 0. Returns (esc, dist,
-    (lzr, lzi), (ldr, ldi)) like the reference."""
+def de_field_tci_torch(cr, ci, max_iter: int = 250, escape_r: float = 250.0,
+                       eps: float = 1e-12):
+    """Plain twin of de_field_tci: the eager loop, on the tensors' device."""
+    return _de_tci_epilogue(*_de_tci_loop_torch(cr, ci, max_iter, escape_r), eps)
+
+
+def de_field_tci(cr, ci, max_iter: int = 250, escape_r: float = 250.0,
+                 eps: float = 1e-12):
+    """TCI distance estimator (tci_construct_mandelbrot_v002_fixed.py:35-47)
+    on the tensors' device and dtype (CUDA: orbit.cu's orbit_de_tci; CPU:
+    the eager twin). Returns (esc, d, last_r, last_i)."""
+    return _de_tci_epilogue(*_loop(_de_tci_loop_torch, _de_tci_loop_cuda, cr, ci, max_iter,
+                                   escape_r), eps)
+
+
+def _de_latched_loop_torch(cr, ci, max_iter: int, radius: float, by_hypot: bool):
+    """The eager loop of de_field_std (|z| as sqrt of the squares) and
+    de_field_stage1 (by_hypot: torch.hypot): (esc, lzr, lzi, ldr, ldi), z and
+    dz latched at the first |z| > radius, then the orbit frozen."""
     zr = torch.zeros_like(cr)
     zi = torch.zeros_like(ci)
     dzr = torch.ones_like(cr)
@@ -193,7 +290,8 @@ def de_field_std(cr, ci, max_iter: int = 500, escape_r: float = 4.0, eps: float 
         tr, ti = 2.0 * zr, 2.0 * zi
         dzr, dzi = tr * dzr - ti * dzi + 1.0, tr * dzi + ti * dzr
         zr, zi = _zsq_add_c(zr, zi, cr, ci)
-        hit = ~esc & (torch.sqrt(zr * zr + zi * zi) > escape_r)
+        r = torch.hypot(zr, zi) if by_hypot else torch.sqrt(zr * zr + zi * zi)
+        hit = ~esc & (r > radius)
         lzr = torch.where(hit, zr, lzr)
         lzi = torch.where(hit, zi, lzi)
         ldr = torch.where(hit, dzr, ldr)
@@ -203,6 +301,16 @@ def de_field_std(cr, ci, max_iter: int = 500, escape_r: float = 4.0, eps: float 
         zi = torch.where(esc, 0.0, zi)
         dzr = torch.where(esc, 1.0, dzr)
         dzi = torch.where(esc, 0.0, dzi)
+    return esc, lzr, lzi, ldr, ldi
+
+
+def _de_latched_loop_cuda(cr, ci, max_iter: int, radius: float, by_hypot: bool):
+    outs = (_out(cr, torch.bool), _out(cr), _out(cr), _out(cr), _out(cr))
+    return _orbit("orbit_de_stage1" if by_hypot else "orbit_de_std", (cr, ci), outs,
+                  int(max_iter), float(radius))
+
+
+def _de_std_epilogue(esc, lzr, lzi, ldr, ldi, eps: float):
     az = torch.hypot(lzr, lzi)
     pr, pi = 2.0 * (lzr * ldr - lzi * ldi), 2.0 * (lzr * ldi + lzi * ldr)
     num = torch.log(torch.maximum(az, az.new_tensor(1.0))) * az
@@ -210,6 +318,23 @@ def de_field_std(cr, ci, max_iter: int = 500, escape_r: float = 4.0, eps: float 
     dist = torch.where(esc, torch.nan_to_num(num / den, nan=0.0, posinf=0.0, neginf=0.0),
                        torch.zeros_like(az))
     return esc, dist, (lzr, lzi), (ldr, ldi)
+
+
+def de_field_std_torch(cr, ci, max_iter: int = 500, escape_r: float = 4.0,
+                       eps: float = 1e-14):
+    """Plain twin of de_field_std: the eager loop, on the tensors' device."""
+    return _de_std_epilogue(*_de_latched_loop_torch(cr, ci, max_iter, escape_r, False), eps)
+
+
+def de_field_std(cr, ci, max_iter: int = 500, escape_r: float = 4.0, eps: float = 1e-14):
+    """Standard distance estimator (variograms_construct_mandelbrot.py:61-88)
+    on the tensors' device and dtype (CUDA: orbit.cu's orbit_de_std; CPU: the
+    eager twin): z and dz are latched at the first |z| > escape_r, then the
+    orbit is frozen; num = log(max(|z|, 1))·|z|, den = max(|2 z dz|, eps),
+    non-finite d -> 0. Returns (esc, dist, (lzr, lzi), (ldr, ldi)) like the
+    reference."""
+    return _de_std_epilogue(*_loop(_de_latched_loop_torch, _de_latched_loop_cuda, cr, ci,
+                                   max_iter, escape_r, False), eps)
 
 
 def green_potential(cr, ci, max_iter: int = 20000, escape_r: float = 2.0):
@@ -228,33 +353,7 @@ def green_potential(cr, ci, max_iter: int = 20000, escape_r: float = 2.0):
     return g, kk, phi_r, phi_i
 
 
-def de_field_stage1(cr, ci, max_iter: int = 200, bailout: float = 1e6):
-    """Stage-1 distance estimator (construct_stage1_clean.py:50-58) on the
-    tensors' device and dtype: |z|·log|z| / max(|dz|, 1e-16) at the FIRST
-    |z| > bailout (z and dz latched there, then the orbit is frozen), else
-    0. No factor 2 in the denominator, unlike the other DE variants.
-    Returns (esc, d)."""
-    zr = torch.zeros_like(cr)
-    zi = torch.zeros_like(ci)
-    dzr = torch.ones_like(cr)
-    dzi = torch.zeros_like(ci)
-    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
-    lzr, lzi = torch.zeros_like(cr), torch.zeros_like(ci)
-    ldr, ldi = torch.ones_like(cr), torch.zeros_like(ci)
-    for _ in range(max_iter):
-        tr, ti = 2.0 * zr, 2.0 * zi
-        dzr, dzi = tr * dzr - ti * dzi + 1.0, tr * dzi + ti * dzr
-        zr, zi = _zsq_add_c(zr, zi, cr, ci)
-        hit = ~esc & (torch.hypot(zr, zi) > bailout)
-        lzr = torch.where(hit, zr, lzr)
-        lzi = torch.where(hit, zi, lzi)
-        ldr = torch.where(hit, dzr, ldr)
-        ldi = torch.where(hit, dzi, ldi)
-        esc = esc | hit
-        zr = torch.where(esc, 0.0, zr)
-        zi = torch.where(esc, 0.0, zi)
-        dzr = torch.where(esc, 1.0, dzr)
-        dzi = torch.where(esc, 0.0, dzi)
+def _de_stage1_epilogue(esc, lzr, lzi, ldr, ldi):
     az = torch.hypot(lzr, lzi)
     adz = torch.maximum(torch.hypot(ldr, ldi), ldr.new_tensor(1e-16))
     d = torch.where(esc, az * torch.log(torch.maximum(az, az.new_tensor(1e-300))) / adz,
@@ -262,14 +361,95 @@ def de_field_stage1(cr, ci, max_iter: int = 200, bailout: float = 1e6):
     return esc, d
 
 
+def de_field_stage1_torch(cr, ci, max_iter: int = 200, bailout: float = 1e6):
+    """Plain twin of de_field_stage1: the eager loop, on the tensors' device."""
+    return _de_stage1_epilogue(*_de_latched_loop_torch(cr, ci, max_iter, bailout, True))
+
+
+def de_field_stage1(cr, ci, max_iter: int = 200, bailout: float = 1e6):
+    """Stage-1 distance estimator (construct_stage1_clean.py:50-58) on the
+    tensors' device and dtype (CUDA: orbit.cu's orbit_de_stage1; CPU: the
+    eager twin): |z|·log|z| / max(|dz|, 1e-16) at the FIRST |z| > bailout
+    (|z| by hypot; z and dz latched there, then the orbit is frozen), else 0.
+    No factor 2 in the denominator, unlike the other DE variants. Returns
+    (esc, d)."""
+    return _de_stage1_epilogue(*_loop(_de_latched_loop_torch, _de_latched_loop_cuda, cr, ci,
+                                      max_iter, bailout, True))
+
+
 #: escape_potential_grid's normalizations
 POTENTIAL_NORMALIZATIONS = ("two_pow_n", "two_pow_k_break", "k_plus_1")
+
+
+def _check_normalization(normalization: str):
+    if normalization not in POTENTIAL_NORMALIZATIONS:
+        raise ValueError(f"unknown normalization {normalization!r}; expected one of "
+                         f"{POTENTIAL_NORMALIZATIONS}")
+
+
+def _potential_loop_torch(cr, ci, max_iter: int, r2: float):
+    """escape_potential_grid's eager loop: (esc, k, lzr, lzi), k the 0-based
+    step of the first |z|^2 > r2, lz the z there, or the last z of a point
+    that never escapes."""
+    zr = torch.zeros_like(cr)
+    zi = torch.zeros_like(ci)
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    k = torch.zeros(cr.shape, dtype=torch.int32, device=cr.device)
+    lzr, lzi = torch.zeros_like(cr), torch.zeros_like(ci)
+    for i in range(max_iter):
+        zr, zi = _zsq_add_c(zr, zi, cr, ci)
+        hit = ~esc & (zr * zr + zi * zi > r2)
+        k.masked_fill_(hit, i)
+        # the last unescaped z, then the z at the hit
+        lzr = torch.where(esc, lzr, zr)
+        lzi = torch.where(esc, lzi, zi)
+        esc = esc | hit
+        zr = torch.where(esc, 0.0, zr)
+        zi = torch.where(esc, 0.0, zi)
+    return esc, k, lzr, lzi
+
+
+def _potential_loop_cuda(cr, ci, max_iter: int, r2: float):
+    outs = (_out(cr, torch.bool), _out(cr, torch.int32), _out(cr), _out(cr))
+    return _orbit("orbit_potential", (cr, ci), outs, int(max_iter), float(r2))
+
+
+def _potential_epilogue(esc, k, lzr, lzi, max_iter: int, normalization: str):
+    """g from the loop state: log|z_k| over 2^(k+1), 2^k or k+1 at the hit,
+    divided (not multiplied by a reciprocal) as the reference does at each
+    step; "two_pow_k_break" gives a point that never escapes log|z_end| /
+    2^(max_iter-1), 0 where |z_end| == 0."""
+    a2 = lzr * lzr + lzi * lzi
+    logr = 0.5 * torch.log(torch.clamp(a2, min=1e-300))
+    with np.errstate(over="ignore"):
+        pow2 = np.ldexp(1.0, np.arange(max_iter + 1))
+    if normalization == "k_plus_1":
+        div = (k + 1).to(lzr.dtype)
+    else:
+        # cast like a Python scalar: 2^n past the dtype's range is inf
+        p2 = torch.as_tensor(pow2, dtype=lzr.dtype, device=lzr.device)
+        div = p2[(k + 1).clamp(max=max_iter) if normalization == "two_pow_n" else k]
+    g = torch.where(esc, logr / div, torch.zeros_like(logr))
+    if normalization == "two_pow_k_break":
+        tail = logr / float(pow2[max_iter - 1])
+        g = torch.where(esc, g, torch.where(a2 > 0.0, tail, torch.zeros_like(g)))
+    return g
+
+
+def escape_potential_grid_torch(cr, ci, max_iter: int = 500, escape_r: float = 4.0,
+                                normalization: str = "two_pow_n"):
+    """Plain twin of escape_potential_grid: the eager loop, on the tensors'
+    device."""
+    _check_normalization(normalization)
+    state = _potential_loop_torch(cr, ci, max_iter, escape_r * escape_r)
+    return _potential_epilogue(*state, max_iter, normalization)
 
 
 def escape_potential_grid(cr, ci, max_iter: int = 500, escape_r: float = 4.0,
                           normalization: str = "two_pow_n"):
     """Grid escape potential with the reference's three normalizations, on
-    the tensors' device and dtype:
+    the tensors' device and dtype (CUDA: orbit.cu's orbit_potential; CPU: the
+    eager twin):
       * "two_pow_n": g = log|z_n| / 2^n at first escape, n 1-based, else 0
         (variograms_construct_mandelbrot.py:148-166);
       * "two_pow_k_break": Potentials.py:32-47 — k is the 0-based loop index
@@ -279,42 +459,10 @@ def escape_potential_grid(cr, ci, max_iter: int = 500, escape_r: float = 4.0,
         (Laplacian_C-M.py:27-43).
     The powers of two are exact (np.ldexp; inf past the dtype's range, as
     2^n overflows in the reference)."""
-    if normalization not in POTENTIAL_NORMALIZATIONS:
-        raise ValueError(f"unknown normalization {normalization!r}; expected one of "
-                         f"{POTENTIAL_NORMALIZATIONS}")
-    zr = torch.zeros_like(cr)
-    zi = torch.zeros_like(ci)
-    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
-    g = torch.zeros_like(cr)
-    lzr, lzi = torch.zeros_like(cr), torch.zeros_like(ci)
-    r2 = escape_r * escape_r
-    with np.errstate(over="ignore"):
-        pow2 = np.ldexp(1.0, np.arange(max_iter + 1))
-    for i in range(max_iter):
-        zr, zi = _zsq_add_c(zr, zi, cr, ci)
-        a2 = zr * zr + zi * zi
-        hit = ~esc & (a2 > r2)
-        logr = 0.5 * torch.log(torch.clamp(a2, min=1e-300))
-        if normalization == "two_pow_n":
-            val = logr / float(pow2[i + 1])
-        elif normalization == "k_plus_1":
-            val = logr / float(i + 1)
-        else:
-            val = logr / float(pow2[i])
-        g = torch.where(hit, val, g)
-        # the last unescaped z, then the z at the hit
-        lzr = torch.where(hit | esc, lzr, zr)
-        lzi = torch.where(hit | esc, lzi, zi)
-        lzr = torch.where(hit, zr, lzr)
-        lzi = torch.where(hit, zi, lzi)
-        esc = esc | hit
-        zr = torch.where(esc, 0.0, zr)
-        zi = torch.where(esc, 0.0, zi)
-    if normalization == "two_pow_k_break":
-        a2 = lzr * lzr + lzi * lzi
-        tail = 0.5 * torch.log(torch.clamp(a2, min=1e-300)) / float(pow2[max_iter - 1])
-        g = torch.where(esc, g, torch.where(a2 > 0.0, tail, torch.zeros_like(g)))
-    return g
+    _check_normalization(normalization)
+    state = _loop(_potential_loop_torch, _potential_loop_cuda, cr, ci, max_iter,
+                  escape_r * escape_r)
+    return _potential_epilogue(*state, max_iter, normalization)
 
 
 def smooth5(g: torch.Tensor) -> torch.Tensor:

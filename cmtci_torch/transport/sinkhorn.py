@@ -2,7 +2,8 @@
 the full log-domain Sinkhorn (the stage-1 matcher).
 
 Port of ``entropic_argmax_match``, ``sinkhorn_log`` and ``sinkhorn_match``
-from ``cmtci/transport/sinkhorn.py``. The argmax matcher
+from ``cmtci/transport/sinkhorn.py``; on the card ``sinkhorn_log`` replays
+its loop from a CUDA graph. The argmax matcher
 (tci_construct_mandelbrot_v002_fixed.py:62-71 semantics) subsamples the
 larger cloud to the smaller's size with the caller's numpy RNG, scales the
 distance matrix by its mean, K = exp(-M/eps), match = argmax over rows.
@@ -108,12 +109,12 @@ def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torc
     return y[match], x
 
 
-def sinkhorn_log(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05) -> torch.Tensor:
+def sinkhorn_log_torch(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05) -> torch.Tensor:
     """Log-domain Sinkhorn with uniform marginals on the cost's device and
     dtype; returns the plan. The reference's ``lax.scan`` becomes `iters`
     eager steps of two ``torch.logsumexp`` calls, with no host round trip
     inside the loop (tci_construct_mandelbrot-v002.py:60-72 intent, stable
-    for small eps)."""
+    for small eps). The plain twin of sinkhorn_log's CUDA graph."""
     n, m = cost.shape
     log_mu = -math.log(n) * torch.ones(n, dtype=cost.dtype, device=cost.device)
     log_nu = -math.log(m) * torch.ones(m, dtype=cost.dtype, device=cost.device)
@@ -124,6 +125,56 @@ def sinkhorn_log(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05) -> to
         f = eps * (log_mu - torch.logsumexp(mk + g[None, :] / eps, dim=1))
         g = eps * (log_nu - torch.logsumexp(mk + f[:, None] / eps, dim=0))
     return torch.exp(mk + f[:, None] / eps + g[None, :] / eps)
+
+
+#: replays of sinkhorn_log's captured graphs; read and reset by callers that
+#: need to show a run went through a graph
+replays = {"sinkhorn_log": 0}
+#: captured loops, keyed by (device, shape, dtype, iters, eps): (graph, the
+#: cost buffer it reads, the plan it writes); the oldest goes past _GRAPHS_KEPT
+_GRAPHS: dict = {}
+_GRAPHS_KEPT = 8
+
+
+def _captured(cost: torch.Tensor, iters: int, eps: float):
+    key = (cost.device, tuple(cost.shape), cost.dtype, int(iters), float(eps))
+    if key not in _GRAPHS:
+        if len(_GRAPHS) >= _GRAPHS_KEPT:
+            _GRAPHS.pop(next(iter(_GRAPHS)))
+        static = cost.detach().clone(memory_format=torch.contiguous_format)
+        # a warm-up step on a side stream before the capture, as
+        # torch.cuda.graphs asks
+        side = torch.cuda.Stream(cost.device)
+        side.wait_stream(torch.cuda.current_stream(cost.device))
+        with torch.cuda.stream(side):
+            sinkhorn_log_torch(static, 1, eps)
+        torch.cuda.current_stream(cost.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            plan = sinkhorn_log_torch(static, iters, eps)
+        _GRAPHS[key] = (graph, static, plan)
+    return _GRAPHS[key]
+
+
+def sinkhorn_log(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05) -> torch.Tensor:
+    """Log-domain Sinkhorn with uniform marginals on the cost's device and
+    dtype; returns the plan (the reference's ``lax.scan``).
+
+    CPU: the eager twin sinkhorn_log_torch. CUDA: the same `iters` steps
+    captured once per (device, shape, dtype, iters, eps) into a CUDA graph
+    over a static cost buffer and replayed: the same torch kernels on the
+    same inputs, so the plan is bitwise the eager one, without a host launch
+    per op. A capture error raises; nothing falls back."""
+    if cost.device.type == "cpu":
+        return sinkhorn_log_torch(cost, iters, eps)
+    if cost.device.type != "cuda":
+        raise ValueError(f"unsupported device {cost.device} (expected cuda or cpu)")
+    with torch.cuda.device(cost.device):
+        graph, static, plan = _captured(cost, iters, eps)
+        static.copy_(cost)
+        graph.replay()
+        replays["sinkhorn_log"] += 1
+        return plan.clone()
 
 
 def sinkhorn_match(x, y, eps: float = 0.05, iters: int = 1000, squared: bool = True,

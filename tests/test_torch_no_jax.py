@@ -44,6 +44,8 @@ import cmtci_torch.sweep_schedules
 import cmtci_torch.kernels.fma_peak
 import cmtci_torch.kernels.potential
 import cmtci_torch.kernels._launch
+import cmtci_torch.kernels.companion
+import cmtci_torch.kernels.mandelbrot
 import cmtci_torch.stats.variogram
 import cmtci_torch.stats.embeddings
 import cmtci_torch.stats.pointstats
