@@ -55,7 +55,8 @@ prints no result line):
      launch; the kernel's time on device-resident inputs, the wrapper's from
      numpy inputs, and the chain bound;
   9. run_equipotential at the CLI defaults with float32 (K3, one launch) and
-     float64 (an orbit_green launch a stage), four aberth launches each: f32 against f64 on the card, and f64 against the
+     float64 (one orbit_green launch over the whole budget; twice, the
+     second warm), four aberth launches each: f32 against f64 on the card, and f64 against the
      reference's numbers in tests/data/equipotential_default_f64.json;
  10. K4 (csrc/de_std.cu) and K5 (csrc/green_grid.cu) at small and ragged
      grids and the iteration counts of phase 3 around each one's schedule:
@@ -190,22 +191,31 @@ prints no result line):
      the default bus bitwise, its point variogram's counts exact and gamma
      within 1e-12, the Green cloud of n = 2..20 in f64 with k equal and g
      within 1e-10 and on K3 (a launch a rank) bitwise; no rank holds jax;
- 23. the reference's compiled device loops: aberth.cu (one launch a cloud)
-     against its eager twin on the card at every cloud the pipelines build
-     (the tracker's four stages, the fourth the bench's eigensweep and the
-     first run_tci's; the equipotential's four families at n 2..200; stage1;
-     lucas-boundary): every valid root within 1e-12 relative, the parked
-     lanes equal, the step counts within one, with the kernel's time (the
-     launch alone from the start roots), the twin's and the bound over the
-     card and over the one SM of the largest polynomial, and
-     torch.linalg.eigvals on the eigensweep's companion matrices beside it;
+ 23. the reference's compiled device loops: aberth.cu (one launch a cloud,
+     a polynomial of more lanes than a CTA has threads split over a cluster
+     of ABERTH_CLUSTER CTAs) against its eager twin on the card at every
+     cloud the pipelines build (the tracker's four stages, the fourth the
+     bench's eigensweep and the first run_tci's; the equipotential's four
+     families at n 2..200; stage1; lucas-boundary): every valid root within
+     1e-12 relative, the parked lanes equal, the step counts within one, and
+     bitwise aberth.cu built with CLUSTER 1 (one CTA a polynomial, the design
+     before the cluster; built in phase 2), with the kernel's time (the
+     launch alone from the start roots, and the CLUSTER 1 build's), the
+     wrapper's with the plan cached and built anew, the twin's and the bound
+     over the card, over the one SM of the largest polynomial and over its
+     cluster; torch.linalg.eigvals on the eigensweep's companion matrices
+     beside it; last in the phase, after all its timings, at degree 4,843,
+     one above what one CTA held before the cluster, against the twin run on
+     the host;
      each orbit.cu entry bitwise its twin (NaN equal to NaN; one launch) at
      its pipeline's size (the f64 dwell at 2000 x 2000 and 500 steps, the TCI
      DE at the tracker's grids in f64 and f32 and at 912 x 912 on run_tci's
      domain, the standard DE on the variograms' 700 x 700 grid at 600 steps in
      f64 and f32, stage1's 120 x 80 band field at 200 steps, the first and a
-     resumed Green stage on the equipotential's default cloud and the staged
-     green_potential_compacted against the same on the twin, and U_M on
+     resumed Green stage on the equipotential's default cloud, the one
+     launch over its whole budget (green_potential_compacted with one stage,
+     80,395 points x 20,000 steps) against the compacted loop on the twin and on the
+     kernel's stages, with the chain bound of its deepest points, and U_M on
      coupling's and the variograms' grids in each normalization), at max_iter
      1 and on ragged grids in f64 and f32, with times and bounds; the
      Sinkhorn loop's CUDA graph bitwise the eager loop at stage1's shape, one
@@ -243,9 +253,13 @@ largest |kernel - twin| over the entries finite in both, in every case phase
 23 holds (the check itself is bitwise, NaN equal to NaN, whose positions the
 line counts); aberth's bound is the f32 repulsion of the lanes not yet frozen
 (ABERTH_OPS_PER_PAIR a pair term) over the whole card, with bound_one_sm_ms
-that of the largest polynomial on one SM, its max_abs_err the largest
+that of the largest polynomial on one SM and bound_cluster_ms on the SMs of
+its cluster, tracker_ms its four tracker launches summed and cluster1_ms
+the launch with one CTA a polynomial, its max_abs_err the largest
 |kernel - twin| of a root, and its library_ms torch.linalg.eigvals on the
-eigensweep's 61 companion matrices, one call each, summed. The Sinkhorn
+eigensweep's 61 companion matrices, one call each, summed. orbit_green's
+bound_chain_ms is the deepest point's steps x 3 dependent f64 instructions x
+FP64_DEPENDENT_CYCLES at the card's maximum SM clock. The Sinkhorn
 graph has no hand kernel and prints its own line before the card's; its
 bytes are the cost's two reads a step from HBM unless the card's L2 holds
 four arrays of its size (checked on the card), then the cost once and the
@@ -346,6 +360,18 @@ CHAIN = 20
 #: H100 80GB HBM3 by `python -m cmtci_torch.sweep_schedules` (4.05 at 1.92 and
 #: at 1.97 GHz); K3's chain bound is worked out from it
 FP32_DEPENDENT_CYCLES = 4.05
+#: the same for FP64 (DMUL -> DADD), measured by `sweep_schedules --only
+#: probe` on an H100 80GB HBM3 at 700 W (8.02 at 1.96 GHz); orbit_green's chain
+#: bound is worked out from it
+FP64_DEPENDENT_CYCLES = 8.02
+#: a Horner polynomial one degree above the largest one CTA held before the
+#: cluster (40 B a lane and 8 a coefficient in 232,448 B: 4,842)
+ABERTH_ABOVE_ONE_CTA = 4843
+#: aberth.cu's constants rewritten for phase 23's yardstick: one CTA a
+#: polynomial, the design before the cluster (a sweep_schedules variant,
+#: built in phase 2 into build/sweep/smoke-aberth-c1/)
+ABERTH_C1 = {"CLUSTER": 1}
+ABERTH_C1_LIB: list = []
 FIELD_SHAPES = ((2048, 2048), (1001, 1999))  # (ny, nx)
 MS_SHAPE, MS_STRIDE, MS_TILE = (2048, 2048), 8, (32, 256)
 TCI_GRIDS = (600, 2400)
@@ -497,10 +523,15 @@ def phase_build():
 
     from cmtci_torch.kernels import _build
 
+    from cmtci_torch import sweep_schedules as sweep
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+        c1 = ex.submit(sweep.build, "smoke-aberth-c1", "aberth", _build.CSRC, ABERTH_C1)
         list(ex.map(_build.library, KERNELS))
-    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s wall")
+        ABERTH_C1_LIB.append(c1.result()[0])
+    print(f"build: {', '.join(KERNELS)} and aberth with CLUSTER 1 in "
+          f"{time.perf_counter() - t0:.2f} s wall")
     for name in KERNELS:
         print(f"  {name}: nvcc {_build.BUILD_SECONDS[name]:.2f} s")
         for line in _build.build_log(name).splitlines():
@@ -1077,13 +1108,11 @@ def run_equip(dev, dtype, tmp):
     out = run_equipotential(EquipotentialConfig(potential_dtype=dtype), out_dir,
                             cache_dir=cache, plots=False, device=dev)
     wall = time.perf_counter() - t0
-    # a cloud a family; f32 one K3 launch, f64 an orbit_green launch a stage
-    # of at most 512 steps
+    # a cloud a family; f32 one K3 launch, f64 one orbit_green launch over the
+    # whole budget
     launches = launched(f"equipotential {dtype}",
                         {"aberth": 4, "cloud_green": 1} if dtype == "float32"
-                        else {"aberth": 4, "orbit_green": None})
-    check(launches.get("orbit_green", 0) <= -(-20000 // 512),
-          f"equipotential {dtype}: {launches} Green stages")
+                        else {"aberth": 4, "orbit_green": 1})
     s = out["summary"]
     print(f"equipotential ({dtype}): {wall:.3f} s wall, launches {launches}; lucas count {s['count']}, escaped {s['escaped']}, g_median "
           f"{s['g_median']!r}, g_mean {s['g_mean']!r}, g_p90 {s['g_p90']!r}; stages (s): "
@@ -1108,6 +1137,10 @@ def phase_equipotential(dev):
     with tempfile.TemporaryDirectory() as tmp:
         o32, g32, k32, launches = run_equip(dev, "float32", tmp)
         o64, g64, k64, _ = run_equip(dev, "float64", tmp)
+        # again, warm: the first f64 run also pays torch's first calls of the
+        # f64 epilogue's kernels in this process
+        _, g64_warm, _, _ = run_equip(dev, "float64", os.path.join(tmp, "warm"))
+    check(np.array_equal(g64, g64_warm), "f64 equipotential: the warm run's g differs")
     s32, s64 = o32["summary"], o64["summary"]
     n, max_iter = s64["count"], 20000
     check(s32["count"] == n == ref["summary"]["count"], "lucas counts differ")
@@ -2897,64 +2930,153 @@ def aberth_twin(ns, family, dev, **returns):
     return sweep(ns, family, device=dev, roots=companion.aberth_roots_torch, **returns)
 
 
+def aberth_against(label, got, want) -> tuple:
+    """(max relative, max abs error, step difference) of aberth.cu's (zr, zi,
+    valid, steps) against the twin's; the parked lanes equal."""
+    import torch
+
+    zr, zi, valid, steps = got
+    wr, wi, wvalid, wsteps = want[:4]
+    check(bool(torch.equal(valid, wvalid)), f"aberth {label}: valid lanes differ")
+    err = torch.hypot(zr - wr, zi - wi)[valid]
+    rel = float((err / torch.hypot(wr, wi)[valid]).max())
+    check(rel <= ABERTH_RTOL, f"aberth {label}: roots {rel!r} relative from the twin's")
+    check(bool(torch.equal(zr[~valid], wr[~valid]) and torch.equal(zi[~valid], wi[~valid])),
+          f"aberth {label}: the parked lanes differ from the twin's")
+    dsteps = int((steps - wsteps).abs().max())
+    check(dsteps <= 1, f"aberth {label}: step counts differ by {dsteps}")
+    return rel, float(err.max()), dsteps
+
+
+def aberth_above_one_cta(dev):
+    """Phase 23, Aberth at ABERTH_ABOVE_ONE_CTA: one launch against the twin
+    on the host (a card's eager twin would issue about 165,000 launches a
+    step), run after every timing of the phase so that nothing timed shares
+    the host with it. Returns (max abs error, max relative error)."""
+    import torch
+
+    from cmtci_torch.kernels import companion
+
+    zr, zi, valid, steps = companion.eigvals_one_launch(
+        [ABERTH_ABOVE_ONE_CTA], "lucas_all_ones", device=dev, return_steps=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wr, wi, _, wsteps = (t.to(dev) for t in companion.eigvals_batched(
+        [ABERTH_ABOVE_ONE_CTA], "lucas_all_ones", device="cpu",
+        roots=companion.aberth_roots_torch, return_steps=True))
+    twin_s = time.perf_counter() - t0
+    # at this degree a few lanes of the two schedules end on neighbouring roots
+    # (2 pi / n apart): the f32 repulsion's sums differ in their last bits and
+    # the Horner form's rounding is large, so the lanes' paths part. The two
+    # root sets are held at 1e-12: each kernel root's nearest twin root, one
+    # to one
+    z = torch.complex(zr[0], zi[0])
+    w = torch.complex(wr[0], wi[0])
+    dist = (z[:, None] - w[None, :]).abs()
+    near = dist.argmin(dim=1)
+    check(int(torch.unique(near).numel()) == z.numel(),
+          f"degree {ABERTH_ABOVE_ONE_CTA}: the roots do not pair one to one with the twin's")
+    err = float(dist.min(dim=1).values.max())
+    rel = float((dist.min(dim=1).values / w[near].abs()).max())
+    check(rel <= ABERTH_RTOL, f"degree {ABERTH_ABOVE_ONE_CTA}: roots {rel!r} from the twin's")
+    dsteps = int((steps - wsteps).abs().max())
+    check(dsteps <= 1, f"degree {ABERTH_ABOVE_ONE_CTA}: step counts differ by {dsteps}")
+    moved = int((near != torch.arange(z.numel(), device=dev)).sum())
+    limit = companion.aberth_max_degree(False)
+    print(f"aberth degree {ABERTH_ABOVE_ONE_CTA} (Horner form; one CTA took at most 4,842, the "
+          f"cluster of {companion.ABERTH_CLUSTER} takes {limit}): 1 launch; as a set within "
+          f"{rel:.3e} relative of the twin's roots on the host, one to one, {moved} lanes on "
+          f"another lane's root; steps {int(steps[0])} (twin {int(wsteps[0])}); the twin "
+          f"{twin_s:.1f} s on the host ({torch.get_num_threads()} threads)")
+    return err, rel
+
+
 def loop_aberth(dev):
-    """Phase 23, Aberth: one launch against the eager twin at every cloud the
-    pipelines build; torch.linalg.eigvals beside it. Returns the kernels-line
-    fields."""
+    """Phase 23, Aberth at ABERTH_CLOUDS: the launch against the twin,
+    against the build with one CTA a polynomial (ABERTH_C1) bitwise, and its
+    times; the kernels-line fields of the eigensweep (tracker stage 4) with
+    the four tracker launches summed."""
     import torch
 
     from cmtci_torch import bench
+    from cmtci_torch import sweep_schedules as sweep
     from cmtci_torch.kernels import companion
 
     worst_rel = worst_abs = 0.0
     ms_of = {}
-    sm_rate = PEAK_FP32 / torch.cuda.get_device_properties(dev).multi_processor_count
+    props = torch.cuda.get_device_properties(dev)
+    sm_rate = PEAK_FP32 / props.multi_processor_count
     for label, fam, ns in ABERTH_CLOUDS:
         reset_launches()
-        zr, zi, valid, steps = companion.eigvals_one_launch(ns, fam, device=dev,
-                                                            return_steps=True)
+        got = companion.eigvals_one_launch(ns, fam, device=dev, return_steps=True)
         torch.cuda.synchronize()
         launched(f"aberth {label}", {"aberth": 1})
-        wr, wi, wvalid, wsteps, lanes = aberth_twin(ns, fam, dev, return_lane_steps=True)
-        check(bool(torch.equal(valid, wvalid)), f"aberth {label}: valid lanes differ")
-        err = torch.hypot(zr - wr, zi - wi)[valid]
-        rel = float((err / torch.hypot(wr, wi)[valid]).max())
-        check(rel <= ABERTH_RTOL, f"aberth {label}: roots {rel!r} relative from the twin's")
-        check(bool(torch.equal(zr[~valid], wr[~valid]) and torch.equal(zi[~valid], wi[~valid])),
-              f"aberth {label}: the parked lanes differ from the twin's")
-        dsteps = int((steps - wsteps).abs().max())
-        check(dsteps <= 1, f"aberth {label}: step counts differ by {dsteps}")
-        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, float(err.max()))
-        # the launch alone, from the start roots each time
+        want = aberth_twin(ns, fam, dev, return_lane_steps=True)
+        rel, err, dsteps = aberth_against(label, got, want)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        lanes = want[4]
+        # the launch alone, from the start roots each time: the committed
+        # build and the one with one CTA a polynomial, bitwise the same
         plan = companion._one_launch_plan(ns, fam, True, dev)
-        kr, ki, _, go = companion._aberth_prepare(*plan[:6], fam, 200, 1e-13, torch.float32)
+        kr, ki, ks, go = companion._aberth_prepare(*plan[:6], fam, 200, 1e-13, torch.float32)
         z0 = (kr.clone(), ki.clone())
+        c1_args, c1_task = sweep.aberth_variant_args(sweep.launch_args(go), plan, ABERTH_C1,
+                                                     dev)
+        c1_entry = sweep.entry(ABERTH_C1_LIB[0], "aberth")
 
-        def relaunch():
+        def committed(kr=kr, ki=ki, z0=z0, go=go):
             kr.copy_(z0[0])
             ki.copy_(z0[1])
             go()
 
-        ms = cuda_ms(relaunch, 2, 10, CHAIN)
-        graph_ms = cuda_ms(relaunch, 2, 10, CHAIN, graph=True)
+        def one_cta(kr=kr, ki=ki, z0=z0, args=c1_args, task=c1_task):
+            kr.copy_(z0[0])
+            ki.copy_(z0[1])
+            rc = c1_entry(*args, sweep.stream(dev))
+            check(rc == 0, f"aberth with CLUSTER 1 returned cudaError {rc}")
+
+        for name, call in (("the committed launch", committed), ("CLUSTER 1", one_cta)):
+            call()
+            torch.cuda.synchronize()
+            check(bool(torch.equal(kr, got[0]) and torch.equal(ki, got[1])
+                       and torch.equal(ks, got[3])),
+                  f"aberth {label}: {name} differs from eigvals_one_launch's")
+        ms = cuda_ms(committed, 2, 10, CHAIN)
+        graph_ms = cuda_ms(committed, 2, 10, CHAIN, graph=True)
+        c1_ms = cuda_ms(one_cta, 2, 10, CHAIN, graph=True)
         wrapper_ms = cuda_ms(lambda: companion.eigvals_one_launch(ns, fam, device=dev), 1, 5)
+
+        def built_anew():
+            companion._CACHE.clear()
+            companion.eigvals_one_launch(ns, fam, device=dev)
+
+        built_ms = cuda_ms(built_anew, 1, 5)
         plain_ms = cuda_ms(lambda: aberth_twin(ns, fam, dev), 0, 1)
-        # the f32 repulsion of the lanes not yet frozen: over the card, and
-        # over the one SM the largest polynomial has
+        # the f32 repulsion of the lanes not yet frozen: over the card, over
+        # the one SM and over the cluster's SMs of the largest polynomial
         pairs = lanes.cpu() * torch.as_tensor(ns)
         card, by = least_ms(float(pairs.sum()) * ABERTH_OPS_PER_PAIR, 16 * sum(ns) * 2)
         one_sm = float(pairs.max()) * ABERTH_OPS_PER_PAIR / sm_rate * 1e3
-        ms_of[label] = dict(ms=graph_ms, chained_ms=ms, plain_ms=plain_ms, bound_ms=card,
-                            bound_by=by, bound_one_sm_ms=one_sm, wrapper_ms=wrapper_ms)
+        parts = companion.aberth_parts(max(ns))
+        ms_of[label] = dict(ms=graph_ms, chained_ms=ms, cluster1_ms=c1_ms, plain_ms=plain_ms,
+                            bound_ms=card, bound_by=by, bound_one_sm_ms=one_sm,
+                            bound_cluster_ms=one_sm / parts, wrapper_ms=wrapper_ms,
+                            wrapper_built_ms=built_ms, cluster=companion.ABERTH_CLUSTER)
         print(f"aberth {label} (n {ns[0]}..{ns[-1]}, {len(ns)} polynomials): 1 launch, roots "
-              f"within {rel:.3e} relative of the twin, steps {int(steps.min())}.."
-              f"{int(steps.max())} (twin {int(wsteps.min())}..{int(wsteps.max())}, |diff| <= "
-              f"{dsteps}), {int(lanes.sum())} lane updates; kernel {graph_ms:.4f} ms (graph; "
-              f"{ms:.4f} chained), inverse_cloud_padded's eigenvalues {wrapper_ms:.4f} ms, twin "
-              f"{plain_ms:.2f} ms; bound {card:.5f} ms over the card ({by}), {one_sm:.5f} ms "
-              f"on one SM ({'binds' if one_sm > card else 'does not bind'})")
+              f"within {rel:.3e} relative of the twin, steps {int(got[3].min())}.."
+              f"{int(got[3].max())} (twin {int(want[3].min())}..{int(want[3].max())}, |diff| "
+              f"<= {dsteps}), {int(lanes.sum())} lane updates, bitwise the CLUSTER 1 build's; kernel "
+              f"{graph_ms:.4f} ms (graph, {companion.ABERTH_CLUSTER} CTAs a cluster; {ms:.4f} "
+              f"chained), one CTA a polynomial {c1_ms:.4f}; inverse_cloud_padded's eigenvalues "
+              f"{wrapper_ms:.4f} ms with the plan cached, {built_ms:.4f} built anew; twin "
+              f"{plain_ms:.2f} ms; bound {card:.5f} ms over the card ({by}), {one_sm:.5f} ms on "
+              f"one SM, {one_sm / parts:.5f} on the largest polynomial's {parts}")
+    tracker = [ms_of[f"tracker stage {i}"]["ms"] for i in range(1, 5)]
+    print(f"aberth: the tracker's four launches {sum(tracker):.4f} ms in all (graph), one CTA a "
+          f"polynomial {sum(ms_of[f'tracker stage {i}']['cluster1_ms'] for i in range(1, 5)):.4f}")
     print(f"  SM clock {bench.max_sm_clock_mhz(dev)} MHz (max)")
-    return dict(ms_of["tracker stage 4"], max_abs_err=worst_abs, max_rel_err=worst_rel)
+    return dict(ms_of["tracker stage 4"], tracker_ms=sum(tracker), max_abs_err=worst_abs,
+                max_rel_err=worst_rel)
 
 
 def eigvals_library(dev) -> dict:
@@ -3051,13 +3173,14 @@ def abs_err(a, b) -> tuple:
 ORBIT_ERR: dict = {}
 
 
-def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype_ops_peak, loop=None):
+def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype_ops_peak, loop=None,
+               plain_ms=None):
     """One orbit.cu entry against its twin on the card: the public function
     `kernel` launches once and is bitwise `twin` (NaN equal to NaN); its
     max |kernel - twin| over the finite entries goes into ORBIT_ERR. With
     `loop` (the pipeline's size), the times of loop, the launch alone (the
     epilogue copies a host scalar, which a CUDA graph cannot capture), and
-    of the twin, and the bound."""
+    of the twin (plain_ms where the caller timed it), and the bound."""
     import torch
 
     torch.cuda.synchronize()
@@ -3074,7 +3197,7 @@ def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype_ops_peak, loop=No
         return None
     ms = cuda_ms(loop, 3, 10, CHAIN)
     graph_ms = cuda_ms(loop, 3, 10, CHAIN, graph=True)
-    plain_ms = cuda_ms(twin, 0, 1)
+    plain_ms = cuda_ms(twin, 0, 1) if plain_ms is None else plain_ms
     t_ops = steps * ORBIT_OPS_PER_STEP[name] / dtype_ops_peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -3182,8 +3305,10 @@ def loop_orbits(dev):
                 lambda cr, ci, it: (lambda: mb.de_field_stage1(cr, ci, it),
                                     lambda: mb.de_field_stage1_torch(cr, ci, it)))
 
-    # the Green stages on the equipotential's default cloud: the first stage,
-    # a resumed one, and the staged run against the same run on the twin
+    # the Green loop on the equipotential's default cloud: the first and a
+    # resumed stage; then the one launch over the whole budget the f64
+    # equipotential runs, against the compacted loop on the twin and on the
+    # kernel's stages
     ec = EquipotentialConfig()
     pts = default_cloud(dev)
     pr = torch.as_tensor(pts.real.copy(), device=dev)
@@ -3191,21 +3316,10 @@ def loop_orbits(dev):
     zero = torch.zeros_like(pr)
     r2 = ec.escape_radius * ec.escape_radius
     first = mb._green_stage(zero, zero, pr, pi, 0, 512, r2, ec.max_iter)
-    esc, kk = first[2], first[4]
-    steps = int(torch.where(esc, kk.long(), 512).sum())
-    out["orbit_green"] = loop_orbit(
-        "orbit_green", f"{len(pts)} points f64, the first stage of 512",
-        lambda: mb._green_stage(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
-        lambda: mb._green_stage_torch(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
-        steps, len(pts) * (32 + 32 + 1 + 4 + 16), PEAK_FP64,
-        loop=lambda: mb._green_loop_cuda(zero, zero, pr, pi, 0, 512, r2, ec.max_iter))
-    # the chain of the longest lane: 3 dependent f64 instructions a step (mul,
-    # sub, add) at no fewer cycles than FP32's measured latency
-    clock_hz = bench.max_sm_clock_mhz(dev) * 1e6
-    chain = 512 * 3 * FP32_DEPENDENT_CYCLES / clock_hz * 1e3
-    out["orbit_green"]["bound_chain_ms"] = chain
-    print(f"  orbit_green chain bound: 512 steps x 3 dependent f64 instructions x >= "
-          f"{FP32_DEPENDENT_CYCLES} cycles at {clock_hz / 1e9:.3f} GHz = {chain:.5f} ms")
+    loop_orbit("orbit_green", f"{len(pts)} points f64, the first stage of 512",
+               lambda: mb._green_stage(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
+               lambda: mb._green_stage_torch(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
+               0, 0, 1.0)
     zr1, zi1 = first[0], first[1]
     loop_orbit("orbit_green", "resumed from the first stage's state, k0 512",
                lambda: mb._green_stage(zr1, zi1, pr, pi, 512, 512, r2, ec.max_iter),
@@ -3216,19 +3330,54 @@ def loop_orbits(dev):
                                 it),
         lambda: mb._green_stage_torch(torch.zeros_like(cr), torch.zeros_like(ci), cr, ci, 0, it,
                                       4.0, it)))
+
+    def as_tensors(arrays):
+        """(g, k, phi) as tensors, phi as its real and imaginary parts."""
+        g, k, phi = arrays
+        return tuple(torch.as_tensor(a) for a in (g, k, phi.real.copy(), phi.imag.copy()))
+
     reset_launches()
     t0 = time.perf_counter()
     staged = mb.green_potential_compacted(pts, ec.max_iter, ec.escape_radius, device=dev)
     staged_s = time.perf_counter() - t0
     stages = launched("green_potential_compacted", {"orbit_green": None})["orbit_green"]
     t0 = time.perf_counter()
-    staged_t = mb.green_potential_compacted(pts, ec.max_iter, ec.escape_radius, device=dev,
-                                            stage_executor=mb._green_stage_torch)
-    staged_t_s = time.perf_counter() - t0
-    check(all(np.array_equal(a, b, equal_nan=True) for a, b in zip(staged, staged_t)),
+    twin = as_tensors(mb.green_potential_compacted(pts, ec.max_iter, ec.escape_radius,
+                                                   device=dev,
+                                                   stage_executor=mb._green_stage_torch))
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    check(same_bits(as_tensors(staged), twin),
           "green_potential_compacted: the staged kernel run differs from the twin's")
-    print(f"green_potential_compacted ({len(pts)} points, {ec.max_iter} it.): {stages} stages, "
-          f"one launch each, {staged_s:.3f} s; on the twin {staged_t_s:.3f} s; g, k, phi equal")
+    def one_stage():
+        return as_tensors(mb.green_potential_compacted(pts, ec.max_iter, ec.escape_radius,
+                                                       stage_iters=ec.max_iter, device=dev))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    one = one_stage()
+    one_s = time.perf_counter() - t0
+    launched("green_potential_compacted, one stage", {"orbit_green": 1})
+    k = one[1].long()
+    deepest = int(k.max())
+    steps = int(k.sum())
+    res = loop_orbit(
+        "orbit_green", f"{len(pts)} points f64, {ec.max_iter} it., one stage (g, k, phi "
+        "against the compacted twin)", one_stage, lambda: twin, steps, len(pts) * (32 + 32 + 1 + 4 + 16), PEAK_FP64,
+        loop=lambda: mb._green_loop_cuda(zero, zero, pr, pi, 0, ec.max_iter, r2, ec.max_iter),
+        plain_ms=twin_ms)
+    check(same_bits(one, twin), "the one-stage Green potential differs from the compacted twin")
+    # the chain of the deepest point: 3 dependent f64 instructions a step
+    # (mul, sub, add) at FP64's measured latency
+    clock_hz = bench.max_sm_clock_mhz(dev) * 1e6
+    chain = deepest * 3 * FP64_DEPENDENT_CYCLES / clock_hz * 1e3
+    res.update(bound_chain_ms=chain, deepest_steps=deepest, staged_launches=stages,
+               staged_s=staged_s, one_launch_s=one_s)
+    out["orbit_green"] = res
+    print(f"  orbit_green chain bound: {deepest} steps x 3 dependent f64 instructions x "
+          f"{FP64_DEPENDENT_CYCLES} cycles at {clock_hz / 1e9:.3f} GHz = {chain:.5f} ms; "
+          f"one stage {one_s:.4f} s (1 launch, one copy to the host), the "
+          f"compacted loop {staged_s:.4f} s ({stages} launches), on the twin "
+          f"{twin_ms / 1e3:.3f} s; g, k, phi bitwise equal, NaN equal to NaN")
 
     # escape_potential_grid: coupling's U_M (k_plus_1, R 10, 300 steps, on the
     # default bus's grid) and the variograms' (two_pow_n, R 4, 600 steps), each
@@ -3329,6 +3478,9 @@ def phase_loops(dev):
     orbit = loop_orbits(dev)
     graph = loop_sinkhorn(dev)
     aberth.update(eigvals_library(dev))
+    err, rel = aberth_above_one_cta(dev)
+    aberth["max_abs_err"] = max(aberth["max_abs_err"], err)
+    aberth["max_rel_err"] = max(aberth["max_rel_err"], rel)
     return {"aberth": aberth, **orbit}, graph
 
 

@@ -1,5 +1,6 @@
 // Batched Aberth-Ehrlich root finder, the whole iteration in one launch, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): a polynomial too large for one CTA is split over a thread
+// block cluster.
 //
 // Replaces the reference's device loop cmtci/kernels/companion.py:aberth_roots
 // (the lax.while_loop at :437), which the eager port ran as a Python loop that
@@ -9,9 +10,9 @@
 // twin with a per-polynomial exit and the repulsion summed in j's order) to it
 // and to the reference.
 //
-// What it computes, per polynomial b (one CTA) of degree n = deg[b], from the
-// start roots the caller wrote into zr/zi (rows of L lanes; lanes >= n are
-// parked far away and never read or written):
+// What it computes, per polynomial b of degree n = deg[b], from the start
+// roots the caller wrote into zr/zi (rows of L lanes; lanes >= n are parked
+// far away and never read or written):
 //   * each step, for every lane i < n that is not frozen, in the twin's op
 //     order with -fmad=false:
 //       - the f64 Newton ratio w = p(z)/p'(z): the closed form of the family
@@ -20,44 +21,72 @@
 //         Horner form over the row's width[b] + 1 padded coefficients
 //         (_newton_ratio, switch at |z|^2 = 1.5625), then _safe_ratio;
 //       - the repulsion s = sum over j < n with |z_i - z_j|^2 > 0 of
-//         1/(z_i - z_j), in f32 on f32 copies of the roots (f64 with REP64);
+//         1/(z_i - z_j), in f32 on f32 copies of the roots (f64 with REP64),
+//         one term after another in j's order inside the thread that owns i;
 //       - corr = w / (1 - w s) with cplx.div's formula;
 //       - the latch: a lane whose |corr|^2 <= tol^2 max(|z|^2, 1e-30) freezes
 //         for good and keeps its z; every other lane takes z - corr. All
-//         lanes move at once: the new roots go to a second buffer and are
-//         copied over after a barrier.
-//   * the CTA stops when every lane of its polynomial is frozen (a block vote,
-//     __syncthreads_and; nothing is read on the host) or after max_iters
-//     steps, and writes its step count. A frozen lane's correction is zero,
-//     so the reference's global loop leaves a finished polynomial unchanged:
-//     the per-polynomial exit gives the same roots.
+//         lanes move at once: the repulsion reads a copy of the roots of the
+//         step before, and the new roots go to a second copy (double buffer).
+//   * the polynomial stops when every lane is frozen (a vote; nothing is read
+//     on the host) or after max_iters steps, and writes its step count. A
+//     frozen lane's correction is zero, so the reference's global loop leaves
+//     a finished polynomial unchanged: the per-polynomial exit gives the same
+//     roots.
 //
-// What is not bitwise: the twin sums the repulsion with torch.sum over chunks
-// of 128 lanes, this kernel one term after another in j. The f32 sums differ
-// in their last bits; the fixed point is where the f64 Newton ratio vanishes,
-// so the roots agree within the 1e-13 freeze tolerance (held at 1e-12
-// relative) and the step counts within one.
+// The work: each CTA reads its task, (b, parts), from task[]. parts == 1: the
+// CTA holds polynomial b alone. parts == CLUSTER, the cluster's size: the
+// cluster's CTAs share polynomial b, rank r updating the contiguous lanes
+// [r s, (r + 1) s), s = ceil(n / parts). Every CTA keeps a whole copy of the
+// repulsion's roots (two, double-buffered) in its own shared memory; each
+// step a thread writes its lanes' new roots into the next copy of every CTA
+// of the cluster through distributed shared memory (map_shared_rank), each
+// CTA's vote (__syncthreads_and over its lanes) goes to every CTA the same
+// way, and one cluster.sync() a step makes both visible before the next step
+// reads them. A lane's arithmetic does not depend on which thread or CTA owns
+// it, so the cluster gives the one-CTA kernel's roots and step counts
+// bitwise. A cluster whose CTAs each hold their own polynomial (the small
+// ones, packed by the wrapper) never syncs across CTAs.
 //
-// What bounds it on this card: the O(n^2) f32 repulsion of the largest
-// polynomial, alone on one SM (at n = 1220, 1.49 M pair terms a step of about
-// 20 instructions with the correctly rounded reciprocal). Splitting a large
-// polynomial over a cluster of CTAs is left for later. The O(log n) closed
-// form costs a few hundred f64 operations a lane and step.
+// What is not bitwise against the twin: the twin sums the repulsion with
+// torch.sum over chunks of 128 lanes, this kernel one term after another in
+// j. The f32 sums differ in their last bits; the fixed point is where the f64
+// Newton ratio vanishes, so the roots agree within the 1e-13 freeze tolerance
+// (held at 1e-12 relative) and the step counts within one.
 //
-// Shared memory a CTA: 16 B a lane for the roots, 16 for the next roots, 8 for
-// the f32 copies (not with REP64), 8 a coefficient for a Horner row. The
-// wrapper sizes it from the largest row and refuses what one CTA cannot hold
-// (companion.ABERTH_SMEM_MAX).
+// What bounds it on this card: the O(n^2) f32 repulsion, some 20 to 25
+// instructions a pair with the correctly rounded reciprocal, issued by the
+// SMs that hold the largest polynomials. One CTA a polynomial (the design
+// before the cluster) left n = 1220's 1.49 M pair terms a step to one SM;
+// a cluster of 8 spreads them over 8 CTAs, one lane a thread (4.5 times
+// faster at the eigensweep; 16 CTAs gain nothing more, sweep_schedules). The
+// O(log n) closed form costs a few hundred f64 operations a lane and step.
+//
+// Shared memory a CTA: the votes (2 CLUSTER ints, padded to 16 B), two copies
+// of the n roots at 8 B a lane (16 with REP64), 16 B a lane it owns for its
+// f64 roots, 8 a coefficient for a Horner row. The wrapper sizes it from the largest task
+// and refuses what a CTA cannot hold (companion.ABERTH_SMEM_MAX), naming the
+// largest degree it accepts.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -prec-div=true -prec-sqrt=true -shared -Xcompiler -fPIC
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int MAX_THREADS = 256;
+// the CTAs of a cluster (companion.ABERTH_CLUSTER; sweep_schedules builds 1 to
+// 16, and 16 needs cudaFuncAttributeNonPortableClusterSizeAllowed)
+constexpr int CLUSTER = 8;
+// the votes' bytes: two slots of CLUSTER ints, the roots after them aligned
+constexpr int VOTE_BYTES = (2 * CLUSTER * 4 + 15) / 16 * 16;
+// the repulsion's pair terms computed side by side (repulsion())
+constexpr int REP_UNROLL = 2;
 
 // a complex value as a (re, im) pair, rounded op by op as utils/cplx.py
 struct C2 {
@@ -124,7 +153,7 @@ __device__ __forceinline__ void poly_small(const ClosedForm& f, bool reversed, C
 }
 
 // _newton_ratio_closed for one lane; r_sw2 is the row's switch radius squared
-__device__ C2 newton_closed(const ClosedForm& f, int n, double r_sw2, C2 z) {
+__device__ __forceinline__ C2 newton_closed(const ClosedForm& f, int n, double r_sw2, C2 z) {
     const double degf = (double)n;
     C2 num, den;
     if (cabs2(z) > r_sw2) {
@@ -171,7 +200,7 @@ __device__ __forceinline__ void horner(const double* a, int w, bool reverse, C2 
 }
 
 // _newton_ratio for one lane of a row padded to width w
-__device__ C2 newton_horner(const double* a, int w, int n, C2 z) {
+__device__ __forceinline__ C2 newton_horner(const double* a, int w, int n, C2 z) {
     const C2 degf = {(double)n, 0.0};
     C2 num, den;
     if (cabs2(z) > 1.5625) {  // _R_SWITCH2
@@ -191,29 +220,94 @@ __device__ C2 newton_horner(const double* a, int w, int n, C2 z) {
 }
 
 template <bool REP64>
+struct Rep {
+    using T = float2;
+    static __device__ __forceinline__ T of(double r, double i) {
+        return make_float2((float)r, (float)i);
+    }
+};
+template <>
+struct Rep<true> {
+    using T = double2;
+    static __device__ __forceinline__ T of(double r, double i) { return make_double2(r, i); }
+};
+
+// the repulsion of lane i from the n roots of `cur`: the terms of REP_UNROLL
+// roots at a time computed side by side, then added one after another in
+// j's order, so the sums are those of a loop of one term a step, bitwise
+// (sweep_schedules: 1 to 8 side by side within 2% of each other at the
+// eigensweep; 4 spills)
+template <typename V, typename S>
+__device__ __forceinline__ void pair_term(V x, V o, S& tr, S& ti) {
+    const S dr = x.x - o.x;
+    const S di = x.y - o.y;
+    const S d2 = dr * dr + di * di;
+    S inv;
+    if constexpr (sizeof(S) == 4)
+        inv = d2 > 0.0f ? __frcp_rn(d2) : 0.0f;
+    else
+        inv = d2 > 0.0 ? 1.0 / d2 : 0.0;
+    tr = dr * inv;
+    ti = (-di) * inv;
+}
+
+template <typename V>
+__device__ __forceinline__ C2 repulsion(const V* cur, int n, int i) {
+    using S = decltype(V::x);
+    const V x = cur[i];
+    S sr = S(0), si = S(0);
+    int j = 0;
+    for (; j + REP_UNROLL <= n; j += REP_UNROLL) {
+        S tr[REP_UNROLL], ti[REP_UNROLL];
+#pragma unroll
+        for (int u = 0; u < REP_UNROLL; ++u) pair_term(x, cur[j + u], tr[u], ti[u]);
+#pragma unroll
+        for (int u = 0; u < REP_UNROLL; ++u) {
+            sr = sr + tr[u];
+            si = si + ti[u];
+        }
+    }
+    for (; j < n; ++j) {
+        S tr, ti;
+        pair_term(x, cur[j], tr, ti);
+        sr = sr + tr;
+        si = si + ti;
+    }
+    return {(double)sr, (double)si};
+}
+
+template <bool REP64>
 __global__ void __launch_bounds__(MAX_THREADS)
 aberth_kernel(double* __restrict__ zr, double* __restrict__ zi, int* __restrict__ steps,
-              const int* __restrict__ deg, const int* __restrict__ width,
-              const unsigned char* __restrict__ closed, const double* __restrict__ coef,
-              int coef_stride, int lanes, int max_iters, double tol2, ClosedForm fam) {
+              const int* __restrict__ task, const int* __restrict__ deg,
+              const int* __restrict__ width, const unsigned char* __restrict__ closed,
+              const double* __restrict__ coef, int coef_stride, int lanes, int max_iters,
+              double tol2, ClosedForm fam) {
+    using R = typename Rep<REP64>::T;
     extern __shared__ __align__(16) unsigned char smem[];
-    const int b = blockIdx.x;
+    const int b = task[2 * blockIdx.x];
+    const int parts = task[2 * blockIdx.x + 1];
+    if (b < 0) return;  // a spare CTA of a cluster of one-CTA polynomials
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = parts > 1 ? (int)cluster.block_rank() : 0;
     const int n = deg[b];
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
-    double2* z = reinterpret_cast<double2*>(smem);
-    double2* zn = z + n;
-    float2* zf = reinterpret_cast<float2*>(zn + n);
-    double* a = reinterpret_cast<double*>(zf + (REP64 ? 0 : n));
+    const int span = (n + parts - 1) / parts;
+    const int lo = min(n, rank * span);
+    const int hi = min(n, lo + span);
+    int* vote = reinterpret_cast<int*>(smem);  // [2][CLUSTER]
+    R* rep0 = reinterpret_cast<R*>(smem + VOTE_BYTES);
+    R* rep1 = rep0 + n;
+    double2* z = reinterpret_cast<double2*>(rep1 + n);  // this CTA's lanes, from lo
+    double* a = reinterpret_cast<double*>(z + span);
     const bool is_closed = closed[b] != 0;
     const int w = width[b];
     double* row_r = zr + (size_t)b * (size_t)lanes;
     double* row_i = zi + (size_t)b * (size_t)lanes;
 
-    for (int i = tid; i < n; i += nt) {
-        z[i] = make_double2(row_r[i], row_i[i]);
-        if (!REP64) zf[i] = make_float2((float)row_r[i], (float)row_i[i]);
-    }
+    for (int i = tid; i < n; i += nt) rep0[i] = Rep<REP64>::of(row_r[i], row_i[i]);
+    for (int i = lo + tid; i < hi; i += nt) z[i - lo] = make_double2(row_r[i], row_i[i]);
     if (!is_closed) {
         for (int k = tid; k <= w; k += nt) a[k] = coef[(size_t)b * (size_t)coef_stride + k];
     }
@@ -223,115 +317,138 @@ aberth_kernel(double* __restrict__ zr, double* __restrict__ zi, int* __restrict_
         const double r_sw = fmin(pow(10.0, (1.0 / fmax((double)n, 1.0)) * 140.0), 1.25);
         r_sw2 = r_sw * r_sw;
     }
-    __syncthreads();
+    // every CTA of the cluster runs before one writes another's shared memory
+    if (parts > 1)
+        cluster.sync();
+    else
+        __syncthreads();
 
-    // this thread's lanes are tid, tid + nt, ...; bit m of a mask is lane tid + m nt
-    const int mine = tid < n ? (n - tid + nt - 1) / nt : 0;
+    // this thread's lanes are lo + tid, lo + tid + nt, ...; bit m of a mask is
+    // lane lo + tid + m nt
+    const int own = hi - lo;
+    const int mine = tid < own ? (own - tid + nt - 1) / nt : 0;
     const unsigned all = mine >= 32 ? ~0u : (1u << mine) - 1u;
     unsigned frozen = 0u;
     int it = 0;
     while (it < max_iters) {
+        const R* cur = (it & 1) ? rep1 : rep0;
+        R* nxt = (it & 1) ? rep0 : rep1;
         int m = 0;
-        for (int i = tid; i < n; i += nt, ++m) {
-            if ((frozen >> m) & 1u) continue;
-            const C2 zc = {z[i].x, z[i].y};
-            const C2 wr = is_closed ? newton_closed(fam, n, r_sw2, zc)
-                                    : newton_horner(a, w, n, zc);
-            C2 s;
-            if (REP64) {
-                double sr = 0.0, si = 0.0;
-                for (int j = 0; j < n; ++j) {
-                    const double2 o = z[j];
-                    const double dr = zc.r - o.x;
-                    const double di = zc.i - o.y;
-                    const double d2 = dr * dr + di * di;
-                    const double inv = d2 > 0.0 ? 1.0 / d2 : 0.0;
-                    sr = sr + dr * inv;
-                    si = si + (-di) * inv;
+        for (int i = lo + tid; i < hi; i += nt, ++m) {
+            double2& own_z = z[i - lo];
+            if (!((frozen >> m) & 1u)) {
+                const C2 zc = {own_z.x, own_z.y};
+                const C2 wr = is_closed ? newton_closed(fam, n, r_sw2, zc)
+                                        : newton_horner(a, w, n, zc);
+                const C2 s = repulsion(cur, n, i);
+                const C2 denom = csub(C2{1.0, 0.0}, cmul(wr, s));
+                const C2 corr = cdiv(wr, denom);
+                const double moved2 = cabs2(corr);
+                const double az2 = cabs2(zc);
+                // torch.clamp(min=1e-30) keeps a NaN
+                const double floor2 = az2 < 1e-30 ? 1e-30 : az2;
+                if (moved2 <= tol2 * floor2) {
+                    frozen |= 1u << m;
+                } else {
+                    const C2 next = csub(zc, corr);
+                    own_z = make_double2(next.r, next.i);
                 }
-                s = {sr, si};
-            } else {
-                const float xr = zf[i].x, xi = zf[i].y;
-                float sr = 0.0f, si = 0.0f;
-                for (int j = 0; j < n; ++j) {
-                    const float2 o = zf[j];
-                    const float dr = xr - o.x;
-                    const float di = xi - o.y;
-                    const float d2 = dr * dr + di * di;
-                    const float inv = d2 > 0.0f ? __frcp_rn(d2) : 0.0f;
-                    sr = sr + dr * inv;
-                    si = si + (-di) * inv;
-                }
-                s = {(double)sr, (double)si};
             }
-            const C2 denom = csub(C2{1.0, 0.0}, cmul(wr, s));
-            const C2 corr = cdiv(wr, denom);
-            const double moved2 = cabs2(corr);
-            const double az2 = cabs2(zc);
-            // torch.clamp(min=1e-30) keeps a NaN
-            const double floor2 = az2 < 1e-30 ? 1e-30 : az2;
-            if (moved2 <= tol2 * floor2) {
-                frozen |= 1u << m;
+            // only this thread reads its own f64 roots; the copies every CTA
+            // reads are the next step's
+            const R v = Rep<REP64>::of(own_z.x, own_z.y);
+            if (parts > 1) {
+                for (int k = 0; k < parts; ++k) cluster.map_shared_rank(nxt, k)[i] = v;
             } else {
-                const C2 next = csub(zc, corr);
-                zn[i] = make_double2(next.r, next.i);
+                nxt[i] = v;
             }
         }
-        __syncthreads();  // every lane has read the roots of this step
-        m = 0;
-        for (int i = tid; i < n; i += nt, ++m) {
-            if ((frozen >> m) & 1u) continue;
-            z[i] = zn[i];
-            if (!REP64) zf[i] = make_float2((float)zn[i].x, (float)zn[i].y);
-        }
+        int done = __syncthreads_and(frozen == all);
         ++it;
-        if (__syncthreads_and(frozen == all)) break;
+        if (parts > 1) {
+            int* slot = vote + (it & 1) * CLUSTER;
+            if (tid == 0) {
+                for (int k = 0; k < parts; ++k) cluster.map_shared_rank(slot, k)[rank] = done;
+            }
+            cluster.sync();  // the next copies and the votes are everywhere
+            for (int k = 0; k < parts; ++k) done &= slot[k];
+        }
+        if (done) break;
     }
 
-    for (int i = tid; i < n; i += nt) {
-        row_r[i] = z[i].x;
-        row_i[i] = z[i].y;
+    for (int i = lo + tid; i < hi; i += nt) {
+        row_r[i] = z[i - lo].x;
+        row_i[i] = z[i - lo].y;
     }
-    if (tid == 0) steps[b] = it;
+    if (rank == 0 && tid == 0) steps[b] = it;
 }
 
 template <bool REP64>
-int launch(void* zr, void* zi, void* steps, const void* deg, const void* width,
-           const void* closed, const void* coef, int coef_stride, int batch, int lanes,
+int launch(void* zr, void* zi, void* steps, const void* task, const void* deg, const void* width,
+           const void* closed, const void* coef, int coef_stride, int ctas, int lanes,
            int max_iters, double tol2, const ClosedForm& fam, int threads, int smem,
            void* stream) {
-    // above the default 48 KB only (the pipelines' clouds stay below it, so a
-    // launch captured into a CUDA graph makes no other runtime call)
-    if (smem > 48 * 1024)
+    if (ctas % CLUSTER != 0 || threads > MAX_THREADS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // the attribute once, before the first launch that needs it (the
+    // pipelines' clouds stay below 48 KB, so a launch captured into a CUDA
+    // graph makes no other runtime call)
+    static int smem_set = 48 * 1024;
+    if (smem > smem_set) {
         cudaFuncSetAttribute(aberth_kernel<REP64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
-    aberth_kernel<REP64><<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<double*>(zr), static_cast<double*>(zi), static_cast<int*>(steps),
-        static_cast<const int*>(deg), static_cast<const int*>(width),
-        static_cast<const unsigned char*>(closed), static_cast<const double*>(coef),
-        coef_stride, lanes, max_iters, tol2, fam);
-    return static_cast<int>(cudaGetLastError());
+        smem_set = smem;
+    }
+    if constexpr (CLUSTER > 8) {
+        static const cudaError_t non_portable = cudaFuncSetAttribute(
+            aberth_kernel<REP64>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        (void)non_portable;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)ctas);
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(
+        &cfg, aberth_kernel<REP64>, static_cast<double*>(zr), static_cast<double*>(zi),
+        static_cast<int*>(steps), static_cast<const int*>(task), static_cast<const int*>(deg),
+        static_cast<const int*>(width), static_cast<const unsigned char*>(closed),
+        static_cast<const double*>(coef), coef_stride, lanes, max_iters, tol2, fam);
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(rc != cudaSuccess ? rc : last);
 }
 
 }  // namespace
 
-// Launch on `stream` (PyTorch's current stream): one CTA of `threads` threads
-// (<= 256) and `smem` bytes of dynamic shared memory a polynomial. zr, zi:
-// (batch, lanes) f64, the start roots in, the roots out (lanes >= deg[b]
-// untouched); steps: (batch,) int32 out; deg, width: (batch,) int32; closed:
-// (batch,) uint8; coef: (batch, coef_stride) f64 ascending coefficients, read
-// only on rows that are not closed (may be null when every row is). Returns
-// cudaGetLastError() as an int; the caller raises when it is not 0.
-// Allocates nothing and does not synchronize.
-extern "C" int aberth_launch(void* zr, void* zi, void* steps, const void* deg, const void* width,
-                             const void* closed, const void* coef, int coef_stride, int batch,
-                             int lanes, int max_iters, double tol2, int rep64, double c0,
-                             double c1, double c2, double c3, int nc, double a_const,
-                             int threads, int smem, void* stream) {
+// Launch on `stream` (PyTorch's current stream) `ctas` CTAs of `threads`
+// threads (<= MAX_THREADS) and `smem` bytes of dynamic shared memory, in
+// clusters of CLUSTER (ctas a multiple of it, else cudaErrorInvalidValue).
+// task: (ctas, 2) int32, each CTA's polynomial b (-1: none) and the CTAs that
+// share it (1, or CLUSTER for the whole cluster, whose CTAs then name the
+// same b). zr, zi: (batch,
+// lanes) f64, the start roots in, the roots out (lanes >= deg[b] untouched);
+// steps: (batch,) int32 out; deg, width: (batch,) int32; closed: (batch,)
+// uint8; coef: (batch, coef_stride) f64 ascending coefficients, read only on
+// rows that are not closed (may be null when every row is). Returns the
+// launch's error (cudaLaunchKernelEx's, else cudaGetLastError()) as an int;
+// the caller raises when it is not 0. Allocates nothing and does not
+// synchronize.
+extern "C" int aberth_launch(void* zr, void* zi, void* steps, const void* task, const void* deg,
+                             const void* width, const void* closed, const void* coef,
+                             int coef_stride, int ctas, int lanes, int max_iters, double tol2,
+                             int rep64, double c0, double c1, double c2, double c3, int nc,
+                             double a_const, int threads, int smem, void* stream) {
     const ClosedForm fam = {{c0, c1, c2, c3}, nc, a_const};
     if (rep64)
-        return launch<true>(zr, zi, steps, deg, width, closed, coef, coef_stride, batch, lanes,
-                            max_iters, tol2, fam, threads, smem, stream);
-    return launch<false>(zr, zi, steps, deg, width, closed, coef, coef_stride, batch, lanes,
+        return launch<true>(zr, zi, steps, task, deg, width, closed, coef, coef_stride, ctas,
+                            lanes, max_iters, tol2, fam, threads, smem, stream);
+    return launch<false>(zr, zi, steps, task, deg, width, closed, coef, coef_stride, ctas, lanes,
                          max_iters, tol2, fam, threads, smem, stream);
 }

@@ -25,7 +25,12 @@
 // writes can change any more:
 //   * dwell, de_std, de_stage1, green and potential latch their state at the
 //     first escape and freeze the orbit; the thread leaves there (green
-//     writes the zeroed z its twin carries on);
+//     writes the zeroed z its twin carries on). green runs GREEN_CHUNK steps
+//     between two branches and replays a chunk in which its point escaped,
+//     and packs a block's running points into its first warps every
+//     GREEN_EPOCH steps (green_kernel), so that its one launch over the
+//     whole budget of the f64 equipotential runs its deepest points in full
+//     warps, each step a dependent chain of three f64 instructions;
 //   * de_tci reads the FINAL dz, which runs on after the escape to inf and
 //     NaN: the thread runs every step but leaves once the point has escaped
 //     and both parts of dz are NaN, a fixed point of the dz update.
@@ -43,6 +48,10 @@
 namespace {
 
 constexpr int BLOCK = 256;
+// the Green loop's steps between two branches on its escape test, and
+// between two repacks of a block's running points
+constexpr int GREEN_CHUNK = 64;
+constexpr int GREEN_EPOCH = 512;
 
 // _zsq_add_c: z <- z*z + c, both parts from the old z
 template <typename T>
@@ -147,38 +156,129 @@ de_latched_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
     ldi[p] = l_di;
 }
 
+// the Green loop's steps from z: `steps` of them, the test |z|^2 > r2 of
+// each folded into the returned flag (no branch a step, so a step's z update
+// overlaps the test of the step before)
+template <typename T, int STEPS>
+__device__ __forceinline__ bool green_chunk(T& zr, T& zi, T c_r, T c_i, T r2) {
+    bool out = false;
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+        zsq_add_c(zr, zi, c_r, c_i);
+        out = out | (zr * zr + zi * zi > r2);
+    }
+    return out;
+}
+
+// the Green loop of one point from step i up to step `stop` (< iters only at
+// an epoch's end): GREEN_CHUNK steps at a time with the tests folded into a
+// flag; a chunk that flags an escape is run again from its start, a test and
+// a branch a step, and stops at the escape. The same steps in the same op
+// order as a test a step, so the state is bitwise the step-by-step loop's
+// for any r2 (the flag reads every step's test, and a NaN fails it as it
+// fails the step-by-step test). Returns whether the point escaped; then
+// k = k0 + its 1-based step, (l_r, l_i) the latched z and z zeroed.
+template <typename T>
+__device__ __forceinline__ bool green_steps(T& zr, T& zi, int& i, int stop, T c_r, T c_i, T r2,
+                                            int k0, int& k, T& l_r, T& l_i) {
+    for (; i + GREEN_CHUNK <= stop; i += GREEN_CHUNK) {
+        const T sr = zr, si = zi;
+        if (green_chunk<T, GREEN_CHUNK>(zr, zi, c_r, c_i, r2)) {
+            zr = sr;
+            zi = si;
+            stop = i + GREEN_CHUNK;
+            break;
+        }
+    }
+    for (; i < stop; ++i) {
+        zsq_add_c(zr, zi, c_r, c_i);
+        if (zr * zr + zi * zi > r2) {
+            k = k0 + i + 1;
+            l_r = zr;
+            l_i = zi;
+            zr = T(0);
+            zi = T(0);
+            return true;
+        }
+    }
+    return false;
+}
+
 // one stage of the Green loop from the state (zr0, zi0): k is k0 + the 1-based
-// step of the first |z|^2 > r2 (kmax if none), z latched there and zeroed
+// step of the first |z|^2 > r2 (kmax if none), z latched there and zeroed.
+// After every GREEN_EPOCH steps a block moves the points still running into
+// its first threads (a warp ballot and shared memory): the points that never
+// escape (6,471 of the f64 equipotential's 80,395 in 20,000 steps) would
+// otherwise keep a warp each busy at a lane or two, and the FP64 pipes, not
+// their dependent chains, would set the time. A point's arithmetic does not
+// depend on the thread that runs it.
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
 green_kernel(const T* __restrict__ zr0, const T* __restrict__ zi0, const T* __restrict__ cr,
              const T* __restrict__ ci, T* __restrict__ zr_out, T* __restrict__ zi_out,
              unsigned char* __restrict__ esc, int* __restrict__ kk, T* __restrict__ lzr,
              T* __restrict__ lzi, long long n, int k0, int iters, T r2, int kmax) {
-    const long long p = point_index();
-    if (p >= n) return;
-    const T c_r = cr[p], c_i = ci[p];
-    T zr = zr0[p], zi = zi0[p], l_r = T(0), l_i = T(0);
-    int k = kmax;
-    bool e = false;
-    for (int i = 0; i < iters; ++i) {
-        zsq_add_c(zr, zi, c_r, c_i);
-        if (zr * zr + zi * zi > r2) {
-            k = k0 + i + 1;
-            l_r = zr;
-            l_i = zi;
-            e = true;
-            zr = T(0);
-            zi = T(0);
-            break;
-        }
+    __shared__ long long s_p[BLOCK];
+    __shared__ T s_zr[BLOCK], s_zi[BLOCK];
+    __shared__ int s_i[BLOCK];
+    __shared__ int s_live[BLOCK / 32];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    long long p = point_index();
+    bool live = p < n;
+    T c_r = T(0), c_i = T(0), zr = T(0), zi = T(0);
+    int i = 0;
+    if (live) {
+        c_r = cr[p];
+        c_i = ci[p];
+        zr = zr0[p];
+        zi = zi0[p];
     }
-    zr_out[p] = zr;
-    zi_out[p] = zi;
-    esc[p] = e;
-    kk[p] = k;
-    lzr[p] = l_r;
-    lzi[p] = l_i;
+    while (true) {
+        if (live) {
+            int k = kmax;
+            T l_r = T(0), l_i = T(0);
+            const bool e = green_steps(zr, zi, i, min(iters, i + GREEN_EPOCH), c_r, c_i, r2, k0,
+                                       k, l_r, l_i);
+            if (e || i >= iters) {
+                zr_out[p] = zr;
+                zi_out[p] = zi;
+                esc[p] = e;
+                kk[p] = k;
+                lzr[p] = l_r;
+                lzi[p] = l_i;
+                live = false;
+            }
+        }
+        // the block's live points, in order, into its first threads
+        const unsigned mask = __ballot_sync(0xffffffffu, live);
+        if (lane == 0) s_live[warp] = __popc(mask);
+        __syncthreads();
+        int base = 0, total = 0;
+        for (int w = 0; w < BLOCK / 32; ++w) {
+            base += w < warp ? s_live[w] : 0;
+            total += s_live[w];
+        }
+        if (total == 0) break;
+        if (live) {
+            const int slot = base + __popc(mask & ((1u << lane) - 1u));
+            s_p[slot] = p;
+            s_zr[slot] = zr;
+            s_zi[slot] = zi;
+            s_i[slot] = i;
+        }
+        __syncthreads();
+        live = (int)threadIdx.x < total;
+        if (live) {
+            p = s_p[threadIdx.x];
+            zr = s_zr[threadIdx.x];
+            zi = s_zi[threadIdx.x];
+            i = s_i[threadIdx.x];
+            c_r = cr[p];
+            c_i = ci[p];
+        }
+        __syncthreads();
+    }
 }
 
 // escape_potential_grid's loop: k the 0-based step of the first |z|^2 > r2,

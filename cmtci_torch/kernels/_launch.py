@@ -30,9 +30,9 @@ ARGTYPES = {
     "green_grid": _GRID + [_F, _P],
     "dwell_ms": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P],
     "fma_peak": [_P, _L, _I, _F, _F, _F, _F, _P],
-    # zr, zi, steps, deg, width, closed, coef, coef_stride, batch, lanes,
+    # zr, zi, steps, task, deg, width, closed, coef, coef_stride, ctas, lanes,
     # max_iters, tol2, rep64, the closed form's c0..c3, nc, a, threads, smem
-    "aberth": [_P] * 7 + [_I] * 4 + [_D, _I] + [_D] * 4 + [_I, _D, _I, _I, _P],
+    "aberth": [_P] * 8 + [_I] * 4 + [_D, _I] + [_D] * 4 + [_I, _D, _I, _I, _P],
     # the orbit loops: inputs, outputs, n, then each loop's counts and threshold,
     # is_double
     "orbit_dwell": [_P, _P, _P, _L, _I, _I, _P],

@@ -20,6 +20,7 @@ Stability for degrees up to ~1220 comes from the two-branch Newton ratio
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -382,20 +383,77 @@ def aberth_roots_torch(a, deg, max_iters: int = 200, tol: float = 1e-13, chunk: 
 
 
 #: the dynamic shared memory one CTA of csrc/aberth.cu may use on an H100
-#: (227 KB); aberth_roots refuses a polynomial whose lanes do not fit
+#: (227 KB); aberth_roots refuses a polynomial whose CTA does not fit
 ABERTH_SMEM_MAX = 232448
 #: the threads of a CTA (aberth.cu's MAX_THREADS); a thread owns at most 32
-#: lanes, far beyond what shared memory holds
+#: lanes
 ABERTH_THREADS = 256
+#: the CTAs of a thread block cluster that share a polynomial of more lanes
+#: than a CTA has threads (aberth.cu's CLUSTER; sweep_schedules builds 1 to 16)
+ABERTH_CLUSTER = 8
 
 
-def aberth_smem_bytes(ns, widths, closed, f64_repulsion: bool) -> int:
-    """Dynamic shared memory of the largest CTA of an aberth.cu launch: 16 B
-    a lane for the roots, 16 for the next roots, 8 for their f32 copies (not
-    with an f64 repulsion), 8 a coefficient of a row without a closed form."""
-    per_lane = 32 if f64_repulsion else 40
-    return max(per_lane * int(n) + (0 if c else 8 * (int(w) + 1))
+def aberth_parts(n: int, threads: int = ABERTH_THREADS, cluster: int = ABERTH_CLUSTER) -> int:
+    """The CTAs aberth.cu gives a polynomial of degree n: the whole cluster
+    when n is more lanes than a CTA has threads, else one."""
+    return cluster if cluster > 1 and int(n) > threads else 1
+
+
+def aberth_smem_bytes(ns, widths, closed, f64_repulsion: bool, threads: int = ABERTH_THREADS,
+                      cluster: int = ABERTH_CLUSTER) -> int:
+    """Dynamic shared memory of the largest CTA of an aberth.cu launch (a
+    build with `threads` a CTA and `cluster` CTAs a cluster): the votes (two
+    ints a CTA of the cluster, padded to 16 B), two copies of the n roots the
+    repulsion reads (8 B a lane, 16 with an f64 repulsion), 16 B a lane the
+    CTA owns (ceil(n / parts) of them) for its f64 roots, 8 a coefficient of
+    a row without a closed form."""
+    per_copy = 16 if f64_repulsion else 8
+    votes = -(-8 * cluster // 16) * 16
+    return max(votes + 2 * per_copy * int(n)
+               + 16 * -(-int(n) // aberth_parts(n, threads, cluster))
+               + (0 if c else 8 * (int(w) + 1))
                for n, w, c in zip(ns, widths, closed))
+
+
+def aberth_max_degree(f64_repulsion: bool, closed: bool = False, threads: int = ABERTH_THREADS,
+                      cluster: int = ABERTH_CLUSTER) -> int:
+    """The largest degree whose CTA fits ABERTH_SMEM_MAX (a row padded to its
+    own degree; the closed form also needs n < 4096)."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        fits = aberth_smem_bytes([mid], [mid], [closed], f64_repulsion, threads,
+                                 cluster) <= ABERTH_SMEM_MAX
+        lo, hi = (mid, hi) if fits else (lo, mid - 1)
+    return lo
+
+
+def aberth_tasks(ns, threads: int = ABERTH_THREADS, cluster: int = ABERTH_CLUSTER):
+    """aberth.cu's CTAs for the degrees ns: a (ctas, 2) int32 array of (b,
+    parts) rows, a whole cluster for each polynomial aberth_parts splits
+    (largest first), then the others one CTA each, `cluster` to a cluster, a
+    spare CTA (-1, 1) filling the last."""
+    order = sorted(range(len(ns)), key=lambda b: -int(ns[b]))
+    big = [b for b in order if aberth_parts(ns[b], threads, cluster) > 1]
+    small = [b for b in order if aberth_parts(ns[b], threads, cluster) == 1]
+    rows = [(b, cluster) for b in big for _ in range(cluster)]
+    rows += [(b, 1) for b in small] + [(-1, 1)] * (-len(small) % cluster)
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 2)
+
+
+def aberth_launch_shape(ns, threads: int = ABERTH_THREADS, cluster: int = ABERTH_CLUSTER):
+    """(task, block) of an aberth.cu build with `threads` a CTA (its
+    MAX_THREADS) and `cluster` CTAs a cluster (its CLUSTER) for the degrees
+    ns: aberth_tasks' table and the threads the launch gives a CTA, a warp at
+    least and no more than its largest CTA's lanes need. Refuses a shape the
+    kernel cannot run."""
+    if not (1 <= cluster <= 16 and 32 <= threads <= 1024):
+        raise ValueError(f"aberth.cu: cluster {cluster} (1..16), threads {threads} (32..1024)")
+    span = max(-(-int(n) // aberth_parts(n, threads, cluster)) for n in ns)
+    block = min(threads, max(32, -(-span // 32) * 32))
+    if span > 32 * block:
+        raise ValueError(f"aberth.cu: {span} lanes a CTA is more than 32 a thread of {block}")
+    return aberth_tasks(ns, threads, cluster), block
 
 
 def _aberth_prepare(a, deg, ns, z, widths, closed, family, max_iters: int, tol: float,
@@ -418,22 +476,33 @@ def _aberth_prepare(a, deg, ns, z, widths, closed, family, max_iters: int, tol: 
         return zr, zi, steps, None
     smem = aberth_smem_bytes(ns, widths, closed, rep64)
     if smem > ABERTH_SMEM_MAX:
+        limit = aberth_max_degree(rep64)
         raise ValueError(
             f"aberth.cu: a polynomial of degree {max(ns)} needs {smem} bytes of shared "
-            f"memory, more than one CTA holds ({ABERTH_SMEM_MAX}); use device='cpu'")
+            f"memory a CTA ({ABERTH_CLUSTER} CTAs a cluster), more than a CTA holds "
+            f"({ABERTH_SMEM_MAX}); the largest degree it takes is {limit} "
+            f"({'f64' if rep64 else 'f32'} repulsion, Horner form); use device='cpu'")
     coeffs, a_const = _CLOSED_FAMILIES.get(family, ((0.0,), 0.0))
     c = [float(v) for v in coeffs] + [0.0] * (4 - len(coeffs))
+    key = (tuple(int(n) for n in ns), tuple(int(w) for w in widths),
+           tuple(bool(v) for v in closed), str(dev))
+
+    def tables():
+        task, block = aberth_launch_shape(ns)
+        return (torch.as_tensor(task, device=dev), block,
+                torch.as_tensor(np.asarray(widths, dtype=np.int32), device=dev),
+                torch.as_tensor(np.asarray(closed, dtype=np.uint8), device=dev))
+
+    task, block, width32, closed8 = _cached(("tasks",) + key, tables)
     deg32 = deg.to(device=dev, dtype=torch.int32).contiguous()
-    width32 = torch.as_tensor(np.asarray(widths, dtype=np.int32), device=dev)
-    closed8 = torch.as_tensor(np.asarray(closed, dtype=np.uint8), device=dev)
     coef = a.contiguous()
-    threads = min(ABERTH_THREADS, max(32, -(-max(ns) // 32) * 32))
 
     def go():
-        _launch("aberth", dev, zr.data_ptr(), zi.data_ptr(), steps.data_ptr(),
+        _launch("aberth", dev, zr.data_ptr(), zi.data_ptr(), steps.data_ptr(), task.data_ptr(),
                 deg32.data_ptr(), width32.data_ptr(), closed8.data_ptr(), coef.data_ptr(),
-                int(coef.shape[1]), int(bsz), int(lanes), int(max_iters), float(tol * tol),
-                int(rep64), *c, len(coeffs), float(a_const), int(threads), int(smem))
+                int(coef.shape[1]), int(task.shape[0]), int(lanes), int(max_iters),
+                float(tol * tol), int(rep64), *c, len(coeffs), float(a_const), int(block),
+                int(smem))
 
     return zr, zi, steps, go
 
@@ -570,12 +639,13 @@ def eigvals_bucketed(ns, family: str = "lucas_all_ones", max_iters: int = 200,
     return (zr, zi, valid, *counts)
 
 
-def _one_launch_plan(ns, family: str, bucketed: bool, dev):
-    """eigvals_one_launch's arguments of _aberth_cuda for `ns`, with the twin's
-    arithmetic on each row: the padded width, the closed form's eligibility
-    and the start roots of the bucket (or the one batch) eigvals_bucketed
-    (eigvals_batched) puts the row in, and the same padding lanes. Returns
-    (a, deg, ns, z, widths, closed, valid)."""
+def _build_plan(ns, family: str, bucketed: bool, dev):
+    """_one_launch_plan, built anew: eigvals_one_launch's arguments of
+    _aberth_cuda for `ns`, with the twin's arithmetic on each row: the padded
+    width, the closed form's eligibility and the start roots of the bucket
+    (or the one batch) eigvals_bucketed (eigvals_batched) puts the row in,
+    and the same padding lanes. Returns (a, deg, ns, z, widths, closed,
+    valid), ns, widths and closed as tuples."""
     ns_list = [int(n) for n in ns]
     bsz, lmax = len(ns_list), max(ns_list)
     if bucketed and _bucketing_pays(ns_list):
@@ -601,7 +671,34 @@ def _one_launch_plan(ns, family: str, bucketed: bool, dev):
     far = _far(bsz, lmax, a.dtype, dev)
     fill = cplx.where(inside, far, (torch.full_like(far[0], 1e9), torch.zeros_like(far[1])))
     z = cplx.where(valid, z, fill)
-    return a, deg, ns_list, z, widths.tolist(), closed.tolist(), valid
+    return a, deg, tuple(ns_list), z, tuple(widths.tolist()), tuple(closed.tolist()), valid
+
+
+#: the launch plans and tables of the last few dozen distinct sweeps, by key
+_CACHE = OrderedDict()
+_CACHE_SIZE = 64
+
+
+def _cached(key, build):
+    """build() once per key, the least recently used of more than _CACHE_SIZE
+    keys dropped. What it returns is shared: no caller writes into it."""
+    if key in _CACHE:
+        _CACHE.move_to_end(key)
+        return _CACHE[key]
+    value = _CACHE[key] = build()
+    if len(_CACHE) > _CACHE_SIZE:
+        _CACHE.popitem(last=False)
+    return value
+
+
+def _one_launch_plan(ns, family: str, bucketed: bool, dev):
+    """_build_plan's tensors, cached per (ns, family, bucketed, device): a
+    pure function of its arguments. The launch clones the start roots
+    (_aberth_prepare), so the kernel's in-place update never reaches the
+    cache."""
+    ns = tuple(int(n) for n in ns)
+    return _cached(("plan", ns, family, bool(bucketed), str(dev)),
+                   lambda: _build_plan(ns, family, bucketed, dev))
 
 
 def eigvals_one_launch(ns, family: str = "lucas_all_ones", bucketed: bool = True,
@@ -609,13 +706,14 @@ def eigvals_one_launch(ns, family: str = "lucas_all_ones", bucketed: bool = True
                        return_steps: bool = False):
     """inverse_cloud_padded's eigenvalues on a CUDA device in ONE aberth.cu
     launch over all of `ns`, each row with the arithmetic of the twin's call
-    tree (_one_launch_plan). Each CTA stops on its own, so the host's
-    buckets buy nothing here. Returns (re, im, valid) padded to max(ns),
+    tree (_one_launch_plan, cached). Each polynomial stops on its own, so the
+    host's buckets buy nothing here. Returns (re, im, valid) padded to max(ns),
     with return_steps also each row's step count."""
     dev = resolve_device(device)
     a, deg, ns_list, z, widths, closed, valid = _one_launch_plan(ns, family, bucketed, dev)
     zr, zi, steps = _aberth_cuda(a, deg, ns_list, z, widths, closed, family, max_iters, 1e-13,
                                  repulsion_dtype)
+    valid = valid.clone()
     return (zr, zi, valid, steps) if return_steps else (zr, zi, valid)
 
 

@@ -184,7 +184,11 @@ def green_potential_compacted(points, max_iter: int = 20000, escape_r: float = 2
     reference's stages share XLA compiles. `stage_executor` (default
     ``_green_stage``) runs each stage with _green_stage's arguments and
     results: ``parallel.sharded.green_stage_executor`` shards the stage's
-    points over a mesh. Returns (g, k, phi) numpy arrays.
+    points over a mesh. With stage_iters >= max_iter there is one stage: on
+    a card one orbit_green launch over every point (a thread leaves the
+    kernel when its point escapes), read by the host once; z is carried
+    exactly across stages, so the records are bitwise those of any other
+    stage_iters. Returns (g, k, phi) numpy arrays.
     """
     dev = resolve_device(device)
     if stage_iters < 1:

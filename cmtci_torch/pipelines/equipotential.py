@@ -6,10 +6,12 @@ reference-law comparison, per-n and cumulative convergence rows, 4-family
 comparison.
 
 The four families' clouds go through ONE batched potential solve on
-`device`: potential_dtype="float64" is the compaction-staged f64 Green loop
-in torch (mandelbrot.green_potential_compacted), "float32" the hand-written
-K3 kernel (mandelbrot_cuda.green_cloud_f32; its twin on a CPU device). The
-per-n and cumulative rows reuse that solve: g is a per-point quantity.
+`device`: potential_dtype="float64" is the f64 Green loop
+(mandelbrot.green_potential_compacted: on a card one stage, one orbit_green
+launch over the whole budget; on the CPU and on a mesh stages of 512 steps
+with the survivors compacted), "float32" the hand-written K3 kernel
+(mandelbrot_cuda.green_cloud_f32; its twin on a CPU device). The per-n
+and cumulative rows reuse that solve: g is a per-point quantity.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def batch_potential(cloud: np.ndarray, max_iter: int, escape_radius: float,
     points are sharded over its ranks: in f32 each rank runs the K3 head on
     its block (parallel.sharded.sharded_green_cloud_f32), in f64 each
     compaction stage's points are split (parallel.sharded.
-    green_stage_executor); only rank 0 stores the cache entry."""
+    green_stage_executor); only rank 0 stores the cache entry. In f64 on a
+    card without a mesh, one stage of the whole budget (one orbit_green
+    launch; bitwise the staged loop's records) runs it."""
     from cmtci_torch.parallel.sharded import (green_stage_executor, is_writer,
                                               sharded_green_cloud_f32)
     if dtype not in POTENTIAL_DTYPES:
@@ -76,10 +80,12 @@ def batch_potential(cloud: np.ndarray, max_iter: int, escape_radius: float,
             g, it, phi = mc.green_cloud_f32(cloud, max_iter=max_iter,
                                             escape_r=escape_radius, device=device)
         else:
+            one_stage = mesh is None and resolve_device(device).type == "cuda"
             g, it, phi = mb.green_potential_compacted(
                 cloud, max_iter=max_iter, escape_r=escape_radius,
                 device=device if mesh is None else mesh.device,
-                stage_executor=None if mesh is None else green_stage_executor(mesh))
+                stage_executor=None if mesh is None else green_stage_executor(mesh),
+                **({"stage_iters": max(max_iter, 1)} if one_stage else {}))
         return {"g": g, "it": it, "phi": phi}
 
     out = artifacts.cached(

@@ -1,7 +1,8 @@
 """Time schedule variants of K2 (csrc/dwell.cu, dwell_launch), K2's
 periodic entry (dwell_periodic_launch, "k2p"), K3 (csrc/cloud_green.cu), K4
-(csrc/de_std.cu), K1 (csrc/tci_de.cu), K5 (csrc/green_grid.cu) and K6's fine
-pass (csrc/dwell_ms.cu) against the kernels as committed, in turns on one
+(csrc/de_std.cu), K1 (csrc/tci_de.cu), K5 (csrc/green_grid.cu), K6's fine
+pass (csrc/dwell_ms.cu), csrc/aberth.cu ("aberth") and csrc/orbit.cu's
+orbit_green ("green") against the kernels as committed, in turns on one
 card.
 
 Run it on the card from the root of a checkout:
@@ -19,8 +20,23 @@ and not kept: K2 with several orbits a thread, K2 with lane-level refill, K4
 with a replay of the flagged chunk in place of the snapshots, K1 iterating dz
 in every step, K5 with |z|^2 latched in every step), with constants rewritten
 the same way; the directory holds the `.cuh` its sources include. `--only`
-names the sweeps to run (k2, k2p, k3, k4, k1, k5, k6 and probe, the latency
-and wrapper measurements; all by default).
+names the sweeps to run (k2, k2p, k3, k4, k1, k5, k6, aberth, green and
+probe, the latency and wrapper measurements; all by default).
+
+aberth.cu's variants rewrite CLUSTER, the CTAs of a cluster (1: one CTA a
+polynomial, the design before the cluster; 2, 4, 8 and 16), with MAX_THREADS,
+the threads of a CTA (64, 128 and 256), each launched with the task table and
+shared memory companion.aberth_launch_shape and aberth_smem_bytes give that
+build, and REP_UNROLL (the repulsion's pair terms computed side by side, 1 to
+8), at the tracker's four clouds (n 20..300 to 20..1220) and the
+equipotential's lucas cloud (n 2..200), from the cached plan, each held
+bitwise (roots and step counts) to the committed launch first; beside them
+inverse_cloud_padded's eigenvalues with the plan cached and built anew.
+orbit_green's variants rewrite GREEN_CHUNK (1: a branch every step) and
+GREEN_EPOCH (the steps between two repacks of a block's running points;
+20,000: none) and run the one launch of the f64 equipotential, 80,395 points and 20,000 steps,
+each held bitwise to the committed kernel; `--alt parent=DIR` adds the
+orbit.cu of another commit.
 
 Every variant's output is held bitwise to the committed kernel's at every
 shape before it is timed, and the committed kernel's to its plain twin once a
@@ -49,9 +65,10 @@ variant's footprint; for K1 the steps of its two passes, bench.tci_lane_steps;
 for the periodic entry the steps under the variant's own checkpoint schedule,
 bench.periodic_lane_steps).
 
-It also measures the FP32 dependent-issue latency K3's chain floor is worked
-out from: one warp runs a chain of dependent FMUL -> FADD pairs between two
-clock64() reads (a probe kernel held in this file, on no path of the package).
+It also measures the FP32 and FP64 dependent-issue latencies K3's and
+orbit_green's chain floors are worked out from: one warp runs a chain of
+dependent MUL -> ADD pairs between two clock64() reads (a probe kernel held
+in this file, on no path of the package).
 The result is printed, and written as JSON to --out.
 """
 
@@ -158,13 +175,31 @@ K2P_ITERS = (MAX_ITER, 20000)
 #: K6's grid, coarse stride and tile (chip_smoke.py phase 11's)
 K6_SHAPE, K6_STRIDE, K6_TILE = 2048, 8, (32, 256)
 #: the sweeps --only may name
-SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k5", "k6")
+SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green")
+#: aberth.cu's builds: CTAs a cluster, threads a CTA
+ABERTH_CLUSTERS = (1, 2, 4, 8, 16)
+ABERTH_THREADS = (64, 128, 256)
+#: the clouds aberth.cu is timed at: (label, family, degrees)
+ABERTH_CLOUDS = ([(f"tracker stage {i + 1}", "lucas_all_ones", list(range(20, top + 1, 20)))
+                  for i, top in enumerate((300, 480, 760, 1220))]
+                 + [("equipotential lucas_all_ones", "lucas_all_ones", list(range(2, 201)))])
+#: orbit_green's variants: the steps between two branches and between two
+#: repacks of a block's running points
+GREEN_VARIANTS = {**{f"chunk{c}": dict(GREEN_CHUNK=c) for c in (1, 4, 8, 16, 32, 64)},
+                  **{f"epoch{e}": dict(GREEN_EPOCH=e) for e in (64, 128, 256, 1024, 4096,
+                                                               20000)}}
+#: aberth.cu's variants: the CTAs of a cluster and the threads of a CTA, and
+#: the repulsion's pair terms computed side by side
+ABERTH_VARIANTS = {**{f"c{c}_t{t}": dict(CLUSTER=c, MAX_THREADS=t)
+                      for c in ABERTH_CLUSTERS for t in ABERTH_THREADS},
+                   **{f"unroll{u}": dict(REP_UNROLL=u) for u in (1, 2, 4, 8)}}
 #: the schedule constants of a variant that move its step accounting
 FOOT_KEYS = ("C", "PATCH_W", "PATCH_H")
 
 PROBE_SRC = r"""
 #include <cuda_runtime.h>
-__global__ void probe(float* out, long long* cycles, float x, float a, float b, int n) {
+template <typename T>
+__global__ void probe(T* out, long long* cycles, T x, T a, T b, int n) {
     const long long t0 = clock64();
 #pragma unroll 64
     for (int i = 0; i < n; ++i) {
@@ -177,8 +212,14 @@ __global__ void probe(float* out, long long* cycles, float x, float a, float b, 
 }
 extern "C" int probe_launch(void* out, void* cycles, float x, float a, float b, int n,
                             void* stream) {
-    probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    probe<float><<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<float*>(out), static_cast<long long*>(cycles), x, a, b, n);
+    return static_cast<int>(cudaGetLastError());
+}
+extern "C" int probe64_launch(void* out, void* cycles, double x, double a, double b, int n,
+                              void* stream) {
+    probe<double><<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<double*>(out), static_cast<long long*>(cycles), x, a, b, n);
     return static_cast<int>(cudaGetLastError());
 }
 """
@@ -663,32 +704,180 @@ def sweep_k3(dev, alts) -> dict:
     return report
 
 
-def fp32_dependent_latency(dev) -> dict:
-    """Cycles between two dependent FP32 instructions (FMUL -> FADD -> FMUL
-    ...) of one warp alone on its SM, and the clock the chain ran at."""
+def dependent_latency(dev) -> dict:
+    """Cycles between two dependent FP32 (and FP64) instructions (MUL -> ADD
+    -> MUL ...) of one warp alone on its SM, and the clock the chain ran at:
+    {"fp32": {...}, "fp64": {...}}."""
     out_dir = SWEEP_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "probe.cu").write_text(PROBE_SRC)
     so = out_dir / "libprobe.so"
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
                     str(out_dir / "probe.cu")], capture_output=True, text=True, check=True)
-    fn = ctypes.CDLL(str(so)).probe_launch
-    P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    fn.argtypes = [P, P, F, F, F, I, P]
-    fn.restype = I
-    out = torch.empty(32, dtype=torch.float32, device=dev)
-    cyc = torch.empty(32, dtype=torch.int64, device=dev)
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
     n = 1 << 20  # 2^21 dependent instructions
+    result = {}
+    for key, name, ctype, dtype in (("fp32", "probe_launch", ctypes.c_float, torch.float32),
+                                    ("fp64", "probe64_launch", ctypes.c_double,
+                                     torch.float64)):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, ctype, ctype, ctype, I, P]
+        fn.restype = I
+        out = torch.empty(32, dtype=dtype, device=dev)
+        cyc = torch.empty(32, dtype=torch.int64, device=dev)
 
-    def call():
-        rc = fn(out.data_ptr(), cyc.data_ptr(), 1.0, 1.0, 0.0, n, stream(dev))
-        check(rc == 0, f"probe_launch returned cudaError {rc}")
+        def call(fn=fn, out=out, cyc=cyc):
+            rc = fn(out.data_ptr(), cyc.data_ptr(), 1.0, 1.0, 0.0, n, stream(dev))
+            check(rc == 0, f"probe returned cudaError {rc}")
 
-    ms, _, _ = in_turns({"probe": call}, rounds=5, chain=2)["probe"]
-    cycles = float(cyc.max())
-    return {"dependent_instructions": 2 * n, "cycles": cycles,
-            "cycles_per_instruction": cycles / (2 * n), "ms": ms,
-            "ns_per_instruction": ms * 1e6 / (2 * n), "clock_ghz": cycles / (ms * 1e6)}
+        ms, _, _ = in_turns({"probe": call}, rounds=5, chain=2)["probe"]
+        cycles = float(cyc.max())
+        result[key] = {"dependent_instructions": 2 * n, "cycles": cycles,
+                       "cycles_per_instruction": cycles / (2 * n), "ms": ms,
+                       "ns_per_instruction": ms * 1e6 / (2 * n),
+                       "clock_ghz": cycles / (ms * 1e6)}
+    return result
+
+
+def sweep_aberth(dev) -> dict:
+    """aberth.cu's builds of every cluster size and threads a CTA, and of
+    each REP_UNROLL, in turns with the committed launch at each of
+    ABERTH_CLOUDS, from the cached plan; each variant's roots and step
+    counts held bitwise to the committed launch's first. Beside them the
+    wrapper (eigvals_one_launch) with the plan cached and built anew."""
+    import time
+
+    built = build_all("aberth", ABERTH_VARIANTS, [])
+    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "clouds": {}}
+    for label, fam, ns in ABERTH_CLOUDS:
+        plan = companion._one_launch_plan(ns, fam, True, dev)
+        zr, zi, steps, go = companion._aberth_prepare(*plan[:6], fam, 200, 1e-13, torch.float32)
+        z0 = (zr.clone(), zi.clone())
+        args = launch_args(go)
+
+        def committed(go=go):
+            zr.copy_(z0[0])
+            zi.copy_(z0[1])
+            go()
+
+        committed()
+        torch.cuda.synchronize()
+        want = (zr.clone(), zi.clone(), steps.clone())
+        calls = {"committed": committed}
+        for lab, (lib, _) in built.items():
+            vargs, task = aberth_variant_args(args, plan, ABERTH_VARIANTS[lab], dev)
+            fn = entry(lib, "aberth")
+
+            def call(fn=fn, vargs=vargs, task=task):
+                zr.copy_(z0[0])
+                zi.copy_(z0[1])
+                rc = fn(*vargs, stream(dev))
+                check(rc == 0, f"aberth_launch returned cudaError {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            check(torch.equal(zr, want[0]) and torch.equal(zi, want[1])
+                  and torch.equal(steps, want[2]),
+                  f"aberth {lab} differs from the committed launch at {label}")
+            calls[lab] = call
+
+        def wrapper(build):
+            if build:
+                companion._CACHE.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            companion.eigvals_one_launch(ns, fam, device=dev)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        wrapper(False)
+        report["clouds"][label] = {
+            "polynomials": len(ns), "n": [ns[0], ns[-1]],
+            "steps": [int(want[2].min()), int(want[2].max())],
+            "times": in_turns(calls, chain=20),
+            "wrapper_ms": {"cached": statistics.median(wrapper(False) for _ in range(7)),
+                           "built": statistics.median(wrapper(True) for _ in range(7))}}
+    return report
+
+
+def aberth_variant_args(args, plan, consts: dict, dev):
+    """(arguments, task table) of a build of aberth.cu with `consts`
+    rewritten, for the launch whose committed arguments are `args`
+    (launch_args) on the f32-repulsion plan `plan` (_one_launch_plan): the
+    task table, CTAs, threads and shared memory of the build's CLUSTER and
+    MAX_THREADS. Keep the table alive while the arguments are launched."""
+    threads = consts.get("MAX_THREADS", companion.ABERTH_THREADS)
+    cluster = consts.get("CLUSTER", companion.ABERTH_CLUSTER)
+    task, block = companion.aberth_launch_shape(plan[2], threads, cluster)
+    task = torch.as_tensor(task, device=dev)
+    out = list(args)
+    out[3], out[9], out[20] = task.data_ptr(), len(task), block
+    out[21] = companion.aberth_smem_bytes(plan[2], plan[4], plan[5], False, threads, cluster)
+    return out, task
+
+
+def launch_args(go) -> tuple:
+    """The arguments (but the stream) go() hands _launch for its kernel."""
+    got = []
+    original = companion._launch
+    companion._launch = lambda entry, dev, *args: got.append(args)
+    try:
+        go()
+    finally:
+        companion._launch = original
+    return got[0]
+
+
+def equipotential_points(dev) -> np.ndarray:
+    """The equipotential's cloud at the CLI defaults (complex128, all four
+    families, n 2..200), as run_equipotential hands it to the potential."""
+    cfg = EquipotentialConfig()
+    ns = list(range(cfg.n_min, cfg.n_max + 1))
+    return np.concatenate([companion.inverse_cloud(ns, f, tol=cfg.eig_tol, device=dev)
+                           for f in cfg.families])
+
+
+def sweep_green(dev, alts) -> dict:
+    """orbit_green's one launch of the f64 equipotential (every point, the
+    whole budget) for each GREEN_CHUNK and alternative, held bitwise to the
+    committed kernel, in turns."""
+    built = build_all("orbit", GREEN_VARIANTS, alts, tag="green")
+    cfg = EquipotentialConfig()
+    pts = equipotential_points(dev)
+    cr = torch.as_tensor(pts.real.copy(), device=dev)
+    ci = torch.as_tensor(pts.imag.copy(), device=dev)
+    zero = torch.zeros_like(cr)
+    m = cr.numel()
+    r2 = cfg.escape_radius * cfg.escape_radius
+    outs = (torch.empty_like(cr), torch.empty_like(cr), torch.empty(m, dtype=torch.bool,
+                                                                    device=dev),
+            torch.empty(m, dtype=torch.int32, device=dev), torch.empty_like(cr),
+            torch.empty_like(cr))
+    args = (zero.data_ptr(), zero.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+            *(o.data_ptr() for o in outs), m, 0, cfg.max_iter, r2, cfg.max_iter, 1)
+    calls = {"committed": lambda: _launch.launch("orbit_green", dev, *args)}
+    calls["committed"]()
+    torch.cuda.synchronize()
+    want = tuple(o.clone() for o in outs)
+    for lab, (lib, _) in built.items():
+        fn = entry(lib, "orbit_green")
+
+        def call(fn=fn):
+            rc = fn(*args, stream(dev))
+            check(rc == 0, f"orbit_green_launch returned cudaError {rc}")
+
+        for o in outs:
+            o.zero_()
+        call()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(outs, want)),
+              f"orbit_green variant {lab} differs from the committed kernel")
+        calls[lab] = call
+    steps = torch.where(want[2], want[3].long(), cfg.max_iter)
+    return {"ptxas": {lab: p for lab, (_, p) in built.items()}, "points": m,
+            "escaped": int(want[2].sum()), "deepest_steps": int(steps.max()),
+            "steps": int(steps.sum()), "times": in_turns(calls, rounds=5, chain=5)}
 
 
 def wrapper_overhead_us(dev) -> dict:
@@ -735,9 +924,10 @@ def main(argv=None) -> int:
     report = {"card": card}
     print(card)
     if "probe" in only:
-        report["latency"] = fp32_dependent_latency(dev)
+        report["latency"] = dependent_latency(dev)
         report["wrapper_overhead_us"] = wrapper_overhead_us(dev)
-        print("FP32 latency between dependent instructions:", json.dumps(report["latency"]))
+        for key, lat in report["latency"].items():
+            print(f"{key.upper()} latency between dependent instructions:", json.dumps(lat))
         print("host microseconds a K2 call:", json.dumps(report["wrapper_overhead_us"]))
     if "k2" in only:
         report["k2"] = sweep_k2(dev, parse_alts(args.alt, "dwell"))
@@ -803,7 +993,25 @@ def main(argv=None) -> int:
               "(ms replayed from a CUDA graph, useful steps): "
               + ", ".join(f"{it}: {scan['ms'][it]:.4f}, {scan['useful_steps'][it]:.0f}"
                           for it in SCAN_ITERS))
-    for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6"):
+    if "aberth" in only:
+        report["aberth"] = sweep_aberth(dev)
+        for label, cloud in report["aberth"]["clouds"].items():
+            print(f"aberth {label}: {cloud['polynomials']} polynomials, n {cloud['n'][0]}.."
+                  f"{cloud['n'][1]}, steps {cloud['steps'][0]}..{cloud['steps'][1]} (ms per "
+                  "launch: single, chained, replayed from a CUDA graph); eigvals_one_launch "
+                  f"{cloud['wrapper_ms']['cached']:.4f} ms with the plan cached, "
+                  f"{cloud['wrapper_ms']['built']:.4f} built anew:")
+            for lab, (s1, c1, g1) in cloud["times"].items():
+                print(f"  {lab:>10}: {s1:.4f} {c1:.4f} {g1:.4f}")
+    if "green" in only:
+        report["green"] = sweep_green(dev, parse_alts(args.alt, "orbit"))
+        gr = report["green"]
+        print(f"orbit_green, one launch: {gr['points']} points, {gr['escaped']} escape, "
+              f"{gr['steps']} steps, the deepest {gr['deepest_steps']} (ms per launch: "
+              "single, chained, replayed from a CUDA graph):")
+        for lab, (s1, c1, g1) in gr["times"].items():
+            print(f"  {lab:>10}: {s1:.4f} {c1:.4f} {g1:.4f}")
+    for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
     if args.out:

@@ -215,15 +215,20 @@ def test_direct_call_schedule_against_twin(repulsion_dtype):
 
 
 def test_shared_memory_limit_is_named():
-    """One CTA holds a polynomial's lanes in shared memory: the closed form's
-    largest degree (4095) fits the H100's 227 KB, a 6,000-lane Horner row
-    does not and is refused before anything launches."""
+    """A CTA holds two copies of a polynomial's roots and its own lanes in
+    shared memory: the closed form's largest degree (4095) takes a cluster of
+    8 CTAs and fits the H100's 227 KB with room to spare; a Horner row one
+    degree above the largest the layout takes (8,937 with the f32
+    repulsion; 4,842 was one CTA's) is refused before anything launches,
+    and the refusal names that degree."""
     assert companion.ABERTH_SMEM_MAX == 232448
-    assert companion.aberth_smem_bytes([4095], [4095], [True], False) == 163800
-    n = 6000
+    assert companion.aberth_smem_bytes([4095], [4095], [True], False) == 73776
+    limit = companion.aberth_max_degree(False)
+    assert limit == 8937
+    n = limit + 1
     a, deg = companion.poly_coeff_batch([n], "lucas_all_ones", device="cpu")
     z = (torch.zeros((1, n), dtype=torch.float64), torch.zeros((1, n), dtype=torch.float64))
-    with pytest.raises(ValueError, match="232448"):
+    with pytest.raises(ValueError, match=r"232448\).*the largest degree it takes is 8937"):
         companion._aberth_cuda(a, deg, [n], z, [n], [False], None, 200, 1e-13, torch.float32)
 
 
