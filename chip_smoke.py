@@ -7,7 +7,7 @@ Phases (each one checks what it computed; any failure exits non-zero and
 prints no result line):
   1. the card (nvidia-smi name and power limit; torch.cuda.is_available());
   2. build every kernel from csrc/ (one nvcc per source, all started
-     together; ctypes; aberth.cu and orbit.cu among them), with each build's
+     together; ctypes; aberth.cu, orbit.cu and sinkhorn.cu among them), with each build's
      seconds and ptxas report (a spill fails the run), and the footprints csrc/dwell.cu (both entries),
      dwell_ms.cu, de_std.cu, tci_de.cu and green_grid.cu are built with
      against mandelbrot_cuda.DWELL_FOOTPRINT, DWELL_PERIODIC_FOOTPRINT,
@@ -122,8 +122,8 @@ prints no result line):
      dwell_mfu_useful <= dwell_mfu <= 1, and K1, K2, K3, K4 and K7 each
      launched, and aberth, orbit_de_std and orbit_potential;
  19. the file bus at the CLI defaults on the card with plots off (aberth and
-     orbit_de_stage1 launches and Sinkhorn graph replays, nothing else; one
-     stage1 run exactly one of each): stage1 (max_n 40, 120 x 80 grid, 200
+     orbit_de_stage1 and sinkhorn launches, nothing else; one stage1 run
+     exactly one of each): stage1 (max_n 40, 120 x 80 grid, 200
      iterations, 600 samples,
      Sinkhorn eps 1e-2 for 1000 iterations) written to a temporary bus and
      held to the port's own CPU run of the same call (construct_points within
@@ -138,7 +138,7 @@ prints no result line):
      against mandel_curv_localpoly_summary.txt (every value within 1e-8);
      lucas-boundary at the defaults (n 2..100, alpha 4.5, 2000 points) within
      1e-10 of the CPU run. Each subcommand's wall is the best of 3 on the host
-     clock ending in a synchronize, beside the Sinkhorn loop's and the DE
+     clock ending in a synchronize, beside the Sinkhorn kernel's and the DE
      field's alone;
  20. `cmtci-torch suite` (the seven bus analyses in one process, plots off)
      through cmtci_torch.cli.main at two buses built on the card by the
@@ -157,7 +157,8 @@ prints no result line):
      table within 0.02 and the best axis's joint score no lower by more
      than 0.02; the f32 Hausdorff within 1e-6; the coupling trajectory
      within 1e-6, corr_pot within 1e-4, corr_lap within 5e-3. The launches
-     are aberth, orbit_de_stage1 (the buses) and orbit_potential (U_M);
+     are aberth, orbit_de_stage1 and sinkhorn (the buses) and orbit_potential
+     (U_M); each bus's stage1 is also timed alone with its layers, best of 3;
  21. the conformal maps on the card (the clouds' aberth launches only): `uniformize-green`
      at its defaults (n_bdy 2000, 20,000 interior points) on the port's
      export_lucas_boundary defaults, in f64 (the host lstsq fit, f64 map
@@ -217,9 +218,15 @@ prints no result line):
      80,395 points x 20,000 steps) against the compacted loop on the twin and on the
      kernel's stages, with the chain bound of its deepest points, and U_M on
      coupling's and the variograms' grids in each normalization), at max_iter
-     1 and on ragged grids in f64 and f32, with times and bounds; the
-     Sinkhorn loop's CUDA graph bitwise the eager loop at stage1's shape, one
-     replay a call, its capture, replay and eager times.
+     1 and on ragged grids in f64 and f32, with times and bounds;
+     csrc/sinkhorn.cu (one cooperative launch a call) torch.equal its twin
+     sinkhorn_log_torch at stage1's cost at the CLI defaults (819 x 600) on its
+     own plan (resident, one CTA an SM), on 97 and 66 CTAs and forced to
+     stream, and at the 6x bus's cost (5,049 x 2,000, streaming), one launch a
+     call; the kernel's time, the twin's, the graph yardstick's (the
+     torch.logsumexp loop the port ran before the kernel, captured into a CUDA
+     graph, within 1e-10 of the twin, argmax equal) and the barrier floor (the
+     grid barriers alone, sweep_schedules.barrier_floor_ms).
 `python3 chip_smoke.py --cards N` on a machine with N cards runs only the
 multi-card check (phase_cards): phase 22's sharded heads, each called twice,
 on an N-rank NCCL group, one card a rank, against the single device, each
@@ -259,11 +266,16 @@ the launch with one CTA a polynomial, its max_abs_err the largest
 |kernel - twin| of a root, and its library_ms torch.linalg.eigvals on the
 eigensweep's 61 companion matrices, one call each, summed. orbit_green's
 bound_chain_ms is the deepest point's steps x 3 dependent f64 instructions x
-FP64_DEPENDENT_CYCLES at the card's maximum SM clock. The Sinkhorn
-graph has no hand kernel and prints its own line before the card's; its
-bytes are the cost's two reads a step from HBM unless the card's L2 holds
-four arrays of its size (checked on the card), then the cost once and the
-plan once.
+FP64_DEPENDENT_CYCLES at the card's maximum SM clock. sinkhorn's line is
+the CLI defaults' (819 x 600, resident; bus_6x holds the 6x bus's): ms the
+median of 5 single calls, plain_ms the twin's one call, graph_ms the graph
+yardstick's replay; its operations count a term's add, max, add,
+subtraction, exp and sum, each line's log, and the plan's exps, the exp and
+log at their FP64 instructions in the SASS of one each
+(sweep_schedules.exp_log_sass; bound_ops_4_ms at the 4 an element counted
+before), over 33.5 TFLOP/s; its bytes the cost in and the plan out
+(bound_streaming_ms: mk and mkT from HBM every step); barrier_floor_ms the
+2,000 grid barriers alone.
 
 The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
 other grids' times are printed in phase 3; K2's launches are those of the
@@ -295,7 +307,7 @@ CONSTRUCT_SUMMARY = os.path.join(ROOT, "artifacts", "construct_curv_localpoly_su
 MANDEL_SUMMARY = os.path.join(ROOT, "artifacts", "mandel_curv_localpoly_summary.txt")
 #: the libraries to build, one csrc/<name>.cu each
 KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak",
-           "aberth", "orbit")
+           "aberth", "orbit", "sinkhorn")
 #: the entry points of csrc/orbit.cu, in the order of the kernels line
 ORBIT_ENTRIES = ("orbit_dwell", "orbit_de_tci", "orbit_de_std", "orbit_de_stage1",
                  "orbit_green", "orbit_potential")
@@ -322,7 +334,7 @@ ABERTH_CLOUDS = ([(f"tracker stage {i + 1}", "lucas_all_ones", list(range(20, to
 
 
 #: the entry points of the kernels line, and the source of one named otherwise
-ENTRIES = KERNELS[:-2] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES
+ENTRIES = KERNELS[:-3] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES + ("sinkhorn",)
 SOURCE = {"dwell_periodic": "dwell", **{name: "orbit" for name in ORBIT_ENTRIES}}
 #: the TPU kernel, or the reference's compiled device loop, each entry replaces
 REPLACES = {
@@ -341,13 +353,15 @@ REPLACES = {
     "orbit_de_stage1": "cmtci/kernels/mandelbrot.py:326",
     "orbit_green": "cmtci/kernels/mandelbrot.py:204",
     "orbit_potential": "cmtci/kernels/mandelbrot.py:380",
+    "sinkhorn": "cmtci/transport/sinkhorn.py:148",
 }
 #: the run (a label of launched()) whose launches the kernels line gives for
 #: each new entry: its main path
 MAIN_PATH = {"aberth": "tracker (dense, second run)", "orbit_dwell": "boundary torch",
              "orbit_de_tci": "f64 tracker", "orbit_de_std": "run_variograms f64",
              "orbit_de_stage1": "stage1, one run", "orbit_green": "equipotential float64",
-             "orbit_potential": "run_variograms f64"}
+             "orbit_potential": "run_variograms f64",
+             "sinkhorn": "stage1, one run"}
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
 #: FP32 operations a step of the loops K6, K2's periodic entry and K5 ran
 #: before their redesign (one pixel a thread on one-row warps, a compare and
@@ -455,10 +469,8 @@ def cuda_ms(fn, warmup: int, reps: int, chain: int = 1, graph: bool = False) -> 
 
 def reset_launches():
     from cmtci_torch.kernels import _launch
-    from cmtci_torch.transport import sinkhorn
 
     _launch.reset_launches()
-    sinkhorn.replays["sinkhorn_log"] = 0
 
 
 #: the launches each launched() call saw, by its label
@@ -479,12 +491,6 @@ def launched(label: str, want: dict) -> dict:
               f"{label}: launches {got}, expected {want}")
     check(set(got) <= set(want), f"{label}: launches {got}, expected only {want}")
     return got
-
-
-def sinkhorn_replays() -> int:
-    from cmtci_torch.transport import sinkhorn
-
-    return sinkhorn.replays["sinkhorn_log"]
 
 
 def bound_ms(name: str, steps: int, nbytes: int):
@@ -1989,9 +1995,8 @@ def phase_bus(dev):
                                      timer=timers[-1])
 
         wall, out = best_of(card_stage1)
-        # the last run alone: its cloud, its band field and one Sinkhorn replay
-        launched("stage1, one run", {"aberth": 1, "orbit_de_stage1": 1})
-        check(sinkhorn_replays() == 1, f"stage1 replayed {sinkhorn_replays()} Sinkhorn graphs")
+        # the last run alone: its cloud, its band field and its Sinkhorn loop
+        launched("stage1, one run", {"aberth": 1, "orbit_de_stage1": 1, "sinkhorn": 1})
         reset_launches()
         best = min(timers, key=lambda t: sum(t.times.values()))
         print(f"stage1: {wall:.4f} s best of 3 on the card; layers (s) of the best run: "
@@ -2084,11 +2089,10 @@ def phase_bus(dev):
               "lucas-boundary: the npy is not the returned boundary")
         print(f"lucas-boundary: {lb_s:.4f} s best of 3 ({len(cloud)} cloud points, the cloud "
               f"alone {cloud_s:.4f} s), {xy.shape[0]} points, card against CPU {err_l!r}")
-    # after stage1's runs: the clouds, the band field and the Sinkhorn graph;
+    # after stage1's runs: the clouds, the band field and the Sinkhorn loop;
     # nothing else
-    got = launched("the file bus", {"aberth": None, "orbit_de_stage1": None})
-    check(sinkhorn_replays() >= 1, "the file bus replayed no Sinkhorn graph")
-    print(f"  launches on the card: {got}, Sinkhorn graph replays {sinkhorn_replays()}")
+    got = launched("the file bus", {"aberth": None, "orbit_de_stage1": None, "sinkhorn": None})
+    print(f"  launches on the card: {got}")
 
 
 #: the two buses of phase 20: the stage-1 defaults, and the 6x bus (max_n 100,
@@ -2315,8 +2319,10 @@ def phase_suite(dev):
     the CPU's, file for file, the local maps and eigenvectors included."""
     import numpy as np
 
+    from cmtci_torch import sweep_schedules as sweep
     from cmtci_torch.cli import _SUITE_STAGES
     from cmtci_torch.io.loaders import load_points
+    from cmtci_torch.pipelines import stage1
     from cmtci_torch.utils.artifacts import StageTimer
 
     reset_launches()
@@ -2326,6 +2332,19 @@ def phase_suite(dev):
             run_cli(["stage1", "--no-plots", *args, "--out", bus])
             n_c = len(load_points(f"{bus}/construct_aligned.csv"))
             n_m = len(load_points(f"{bus}/mandel_boundary_sample.csv"))
+            # the bus's stage1 alone, with its layers (match: the features on the
+            # host, the cost, the Sinkhorn kernel and the argmax)
+            cfg = stage1.Stage1Config(**sweep.SINKHORN_BUSES[label])
+            timers = []
+
+            def one_stage1():
+                timers.append(StageTimer(dev))
+                stage1.run_stage1(cfg, None, plots=False, device=dev, timer=timers[-1])
+
+            wall, _ = best_of(one_stage1)
+            best = min(timers, key=lambda t: sum(t.times.values()))
+            print(f"stage1, {label} bus: {wall:.4f} s best of 3; layers (s) of the best run: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in best.times.items()))
             lines = {}
             for paths, extra in (("accel", []), ("parity", ["--parity"])):
                 # the default bus's first run of each path warms the process;
@@ -2411,8 +2430,8 @@ def phase_suite(dev):
                       f"({np.array([[r['ci_lo'], r['ci_hi']] for r in ci]).tolist()})")
     # the bus's stage1 runs (cloud, band, Sinkhorn) and coupling's U_M
     got = launched("the suite", {"aberth": None, "orbit_de_stage1": None,
-                                 "orbit_potential": None})
-    print(f"  launches on the card: {got}, Sinkhorn graph replays {sinkhorn_replays()}")
+                                 "orbit_potential": None, "sinkhorn": None})
+    print(f"  launches on the card: {got}")
 
 
 #: warm runs of each conformal-map path in phase 21; a stage's time is the
@@ -3414,74 +3433,109 @@ def loop_orbits(dev):
     return out
 
 
+#: stage1's Sinkhorn at the CLI defaults: the launches phase 23 holds to the
+#: twin beside the plan's own (resident, one CTA an SM): two other grids and
+#: the streaming mode (card_plan's overrides)
+SINKHORN_CASES = (dict(ctas=97), dict(ctas=66), dict(streaming=True),
+                  dict(ctas=97, streaming=True))
+
+
+def sinkhorn_ops(n: int, m: int, iters: int, exp_ops: int, log_ops: int) -> int:
+    """The f64 operations of sinkhorn.cu's loop on an n x m cost, one an
+    instruction: a term of a half step an add and a max, then an add, a
+    subtraction, its exp and an add to the sum; a line its log and 3 more;
+    the plan's element the prologue's product, two adds and an exp."""
+    return (iters * (2 * n * m * (5 + exp_ops) + (n + m) * (log_ops + 3))
+            + n * m * (3 + exp_ops))
+
+
 def loop_sinkhorn(dev):
-    """Phase 23, Sinkhorn: the graph's plan bitwise the eager loop's at
-    stage1's shape; capture, replay and eager times."""
-    import numpy as np
+    """Phase 23, Sinkhorn: csrc/sinkhorn.cu's plan torch.equal its twin's at
+    stage1's two costs (the CLI defaults: the resident plan, two other grids
+    and the streaming mode; the 6x bus: streaming), one launch a call; the
+    kernel's, the twin's and the graph yardstick's times, the barrier floor
+    and the bounds. Returns the kernels-line fields at the defaults."""
     import torch
 
+    from cmtci_torch import sweep_schedules as sweep
     from cmtci_torch.pipelines import stage1
     from cmtci_torch.transport import sinkhorn
 
-    cfg = stage1.Stage1Config()
-    with tempfile.TemporaryDirectory() as tmp:
-        out = stage1.run_stage1(cfg, f"{tmp}/bus", plots=False, device=dev)
-    xa = np.hstack([stage1.orientation_features(out["C"], cfg.k_orientation), out["C"]])
-    xb = np.hstack([stage1.orientation_features(out["M"], cfg.k_orientation), out["M"]])
-    cost = stage1.feature_cost(xa, xb, device=dev)
-    iters, eps = stage1.SINKHORN_ITERS, cfg.sinkhorn_reg
-    sinkhorn._GRAPHS.clear()
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plan = sinkhorn.sinkhorn_log(cost, iters, eps)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    check(sinkhorn_replays() == 1, f"sinkhorn_log replayed {sinkhorn_replays()} graphs")
-    launched("sinkhorn_log", {})
-    want = sinkhorn.sinkhorn_log_torch(cost, iters, eps)
-    check(bool(torch.equal(plan, want)), "sinkhorn_log: the graph's plan differs from the eager one")
-    replay_ms = cuda_ms(lambda: sinkhorn.sinkhorn_log(cost, iters, eps), 1, 5)
-    plain_ms = cuda_ms(lambda: sinkhorn.sinkhorn_log_torch(cost, iters, eps), 0, 3)
-    n, m = cost.shape
-    # each step two logsumexps over n x m: an add, the max, exp of the
-    # difference and the sum an element, counted once each
-    ops = iters * 2 * n * m * 4
-    t_ops = ops / PEAK_FP64 * 1e3
-    # bytes: each step's two logsumexps read the n x m cost. From HBM every
-    # time unless the L2 holds it beside a step's temporaries of its size
-    # (four such arrays): then the cost in and the plan out, once each
-    cost_bytes = n * m * cost.element_size()
-    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0)
-    resident = 0 < 4 * cost_bytes <= l2
-    every_step_ms = (2 * iters + 1) * cost_bytes / PEAK_BYTES * 1e3
-    t_bytes = 2 * cost_bytes / PEAK_BYTES * 1e3 if resident else every_step_ms
-    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    print(f"sinkhorn_log ({n} x {m}, {iters} steps, eps {eps}): the graph's plan bitwise the "
-          f"eager loop's; first call (capture and replay) {first_s:.3f} s, replay "
-          f"{replay_ms:.3f} ms (with the cost's copy in and the plan's out), eager "
-          f"{plain_ms:.3f} ms; the cost {cost_bytes} B, the L2 {l2} B: "
-          f"{'resident' if resident else 'not resident'}; bound {bound:.4f} ms ({by}; "
-          f"operations {t_ops:.4f}, bytes {t_bytes:.4f}; every step's reads from HBM "
-          f"{every_step_ms:.4f})")
-    return dict(launches=1, ms=replay_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                l2_resident=resident, bound_every_step_from_hbm_ms=every_step_ms)
+    sass = sweep.exp_log_sass()
+    print(f"FP64 SASS instructions of one exp and one log: {json.dumps(sass)}")
+    out = {}
+    for label, over in sweep.SINKHORN_BUSES.items():
+        cfg = stage1.Stage1Config(**over)
+        cost = sweep.stage1_cost(cfg, dev)
+        iters, eps = stage1.SINKHORN_ITERS, cfg.sinkhorn_reg
+        n, m = cost.shape
+        t0 = time.perf_counter()
+        want = sinkhorn.sinkhorn_log_torch(cost, iters, eps)
+        torch.cuda.synchronize()
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        plan = sinkhorn.card_plan(dev, n, m)
+        check(plan.resident == (label == "default"),
+              f"sinkhorn {label}: plan {plan} (resident at the defaults only)")
+        err = 0.0
+        for kw in ({},) + (SINKHORN_CASES if label == "default" else ()):
+            reset_launches()
+            got = sinkhorn.sinkhorn_kernel(cost, iters, eps, **kw)
+            torch.cuda.synchronize()
+            launched(f"sinkhorn_kernel {label} {kw}", {"sinkhorn": 1})
+            check(bool(torch.equal(got, want)),
+                  f"sinkhorn {label} {kw} ({sinkhorn.card_plan(dev, n, m, **kw)}): the plan "
+                  f"differs from the twin's by {abs_err(got, want)[0]!r}")
+            err = max(err, abs_err(got, want)[0])
+        check(bool(torch.equal(got.argmax(dim=1), want.argmax(dim=1))), "sinkhorn: argmax")
+        ms = cuda_ms(lambda: sinkhorn.sinkhorn_kernel(cost, iters, eps), 1, 5)
+        stream_ms = (cuda_ms(lambda: sinkhorn.sinkhorn_kernel(cost, iters, eps, streaming=True),
+                             1, 5) if plan.resident else ms)
+        graph, static, gplan = sweep.sinkhorn_graph(cost, iters, eps)
+        graph.replay()
+        torch.cuda.synchronize()
+        rel = float((gplan - want).abs().max() / want.abs().max())
+        same = bool(torch.equal(gplan.argmax(dim=1), want.argmax(dim=1)))
+        check(rel <= 1e-10 and same, f"sinkhorn {label}: the graph yardstick {rel!r} from the "
+                                     f"twin, argmax equal {same}")
+        graph_ms = cuda_ms(graph.replay, 1, 3)
+        del graph, static, gplan
+        floor_ms = sweep.barrier_floor_ms(dev, plan, 2 * iters)
+        ops = sinkhorn_ops(n, m, iters, sass["exp"], sass["log"])
+        t_ops = ops / PEAK_FP64 * 1e3
+        t_ops4 = iters * 2 * n * m * 4 / PEAK_FP64 * 1e3
+        t_bytes = 2 * n * m * 8 / PEAK_BYTES * 1e3
+        t_stream = iters * 2 * n * m * 8 / PEAK_BYTES * 1e3
+        bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        print(f"sinkhorn ({label} bus, {n} x {m}, {iters} steps, eps {eps}; plan {plan}): "
+              f"torch.equal the twin on {1 + len(SINKHORN_CASES) if plan.resident else 1} "
+              f"launches, one a call; kernel {ms:.4f} ms"
+              + (f" (forced to stream {stream_ms:.4f})" if plan.resident else "")
+              + f", twin {twin_ms:.1f} ms, graph yardstick {graph_ms:.4f} ms (within "
+              f"{rel!r} of the twin, argmax equal), barrier floor ({2 * iters} barriers) "
+              f"{floor_ms:.4f} ms; bound {bound:.4f} ms ({by}; operations {t_ops:.4f} at "
+              f"{5 + sass['exp']} an element, {t_ops4:.4f} at 4; bytes in and out "
+              f"{t_bytes:.4f}; mk and mkT from HBM every step {t_stream:.4f})")
+        out[label] = dict(shape=[n, m], resident=plan.resident, ctas=plan.ctas,
+                          max_abs_err=err, ms=ms, plain_ms=twin_ms, graph_ms=graph_ms,
+                          streaming_ms=stream_ms, barrier_floor_ms=floor_ms, bound_ms=bound,
+                          bound_by=by, bound_ops_4_ms=t_ops4, bound_streaming_ms=t_stream)
+    return dict(out["default"], bus_6x=out["6x"],
+                max_abs_err=max(out["default"]["max_abs_err"], out["6x"]["max_abs_err"]))
 
 
 def phase_loops(dev):
     """Phase 23: the reference's compiled device loops on the card: aberth.cu
     at every pipeline cloud (1e-12 relative, steps within one), each orbit.cu
-    entry bitwise at its pipeline's size and around it, the Sinkhorn graph
-    bitwise at stage1's shape. Returns the kernels-line fields of the new
-    entries and the graph's."""
+    entry bitwise at its pipeline's size and around it, sinkhorn.cu bitwise
+    at stage1's two costs. Returns the kernels-line fields of the entries."""
     aberth = loop_aberth(dev)
     orbit = loop_orbits(dev)
-    graph = loop_sinkhorn(dev)
+    sink = loop_sinkhorn(dev)
     aberth.update(eigvals_library(dev))
     err, rel = aberth_above_one_cta(dev)
     aberth["max_abs_err"] = max(aberth["max_abs_err"], err)
     aberth["max_rel_err"] = max(aberth["max_rel_err"], rel)
-    return {"aberth": aberth, **orbit}, graph
+    return {"aberth": aberth, "sinkhorn": sink, **orbit}
 
 
 def main() -> int:
@@ -3523,7 +3577,7 @@ def main() -> int:
     timed(20, phase_suite, dev)
     timed(21, phase_conformal, dev)
     doctor_k2 = timed(22, phase_multidevice, dev)
-    loops, graph = timed(23, phase_loops, dev)
+    loops = timed(23, phase_loops, dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
@@ -3546,9 +3600,9 @@ def main() -> int:
         "dwell_periodic": k2_periodic,
         **{name: dict(launches=LAUNCHED[MAIN_PATH[name]][name], **loops[name],
                       library_ms=None) for name in ORBIT_ENTRIES},
-        "aberth": dict(loops["aberth"], launches=LAUNCHED[MAIN_PATH["aberth"]]["aberth"]),
+        **{name: dict(loops[name], launches=LAUNCHED[MAIN_PATH[name]][name])
+           for name in ("aberth", "sinkhorn")},
     }
-    print(f"sinkhorn_log's CUDA graph (no hand kernel): {json.dumps(graph)}")
     print(card)
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": f"cmtci_torch/csrc/{SOURCE.get(n, n)}.cu",

@@ -41,10 +41,15 @@ ARGTYPES = {
     "orbit_de_stage1": [_P] * 7 + [_L, _I, _D, _I, _P],
     "orbit_green": [_P] * 10 + [_L, _I, _I, _D, _I, _I, _P],
     "orbit_potential": [_P] * 6 + [_L, _I, _D, _I, _P],
+    # cost, mk, mkT, f, g, plan, n, m, iters, eps, inv_eps, log_mu, log_nu,
+    # ctas, resident, smem
+    "sinkhorn": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_I] * 3 + [_P],
+    # the grid barriers alone: ctas, smem, count
+    "sinkhorn_barriers": [_I] * 3 + [_P],
 }
 
 #: the csrc/<library>.cu that holds an entry point named otherwise
-LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell",
+LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell", "sinkhorn_barriers": "sinkhorn",
            **{name: "orbit" for name in ("orbit_dwell", "orbit_de_tci", "orbit_de_std",
                                          "orbit_de_stage1", "orbit_green", "orbit_potential")}}
 

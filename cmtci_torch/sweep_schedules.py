@@ -2,8 +2,8 @@
 periodic entry (dwell_periodic_launch, "k2p"), K3 (csrc/cloud_green.cu), K4
 (csrc/de_std.cu), K1 (csrc/tci_de.cu), K5 (csrc/green_grid.cu), K6's fine
 pass (csrc/dwell_ms.cu), csrc/aberth.cu ("aberth") and csrc/orbit.cu's
-orbit_green ("green") against the kernels as committed, in turns on one
-card.
+orbit_green ("green") and csrc/sinkhorn.cu ("sinkhorn") against the kernels
+as committed, in turns on one card.
 
 Run it on the card from the root of a checkout:
 
@@ -20,8 +20,8 @@ and not kept: K2 with several orbits a thread, K2 with lane-level refill, K4
 with a replay of the flagged chunk in place of the snapshots, K1 iterating dz
 in every step, K5 with |z|^2 latched in every step), with constants rewritten
 the same way; the directory holds the `.cuh` its sources include. `--only`
-names the sweeps to run (k2, k2p, k3, k4, k1, k5, k6, aberth, green and
-probe, the latency and wrapper measurements; all by default).
+names the sweeps to run (k2, k2p, k3, k4, k1, k5, k6, aberth, green,
+sinkhorn and probe, the latency and wrapper measurements; all by default).
 
 aberth.cu's variants rewrite CLUSTER, the CTAs of a cluster (1: one CTA a
 polynomial, the design before the cluster; 2, 4, 8 and 16), with MAX_THREADS,
@@ -32,6 +32,15 @@ build, and REP_UNROLL (the repulsion's pair terms computed side by side, 1 to
 equipotential's lucas cloud (n 2..200), from the cached plan, each held
 bitwise (roots and step counts) to the committed launch first; beside them
 inverse_cloud_padded's eigenvalues with the plan cached and built anew.
+sinkhorn.cu's variants ("sinkhorn") rewrite THREADS (256 to 1024), UNROLL
+(a lane's terms side by side: 1, 4, 8) and CTAS_PER_SM (1, 2), each launched at
+stage1's two costs (the CLI defaults, 819 x 600, resident; the 6x bus,
+5,049 x 1,624, streaming) and held bitwise to the committed kernel, in turns
+with the committed kernel forced to stream and with the loop as the port ran
+it before the kernel (the reference's torch.logsumexp steps, captured once
+into a CUDA graph: the yardstick); beside them the barrier floor (the grid
+barriers alone on the committed grid) and the FP64 SASS instructions of one
+exp and one log (exp_log_sass).
 orbit_green's variants rewrite GREEN_CHUNK (1: a branch every step) and
 GREEN_EPOCH (the steps between two repacks of a block's running points;
 20,000: none) and run the one launch of the f64 equipotential, 80,395 points and 20,000 steps,
@@ -77,6 +86,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -90,9 +100,11 @@ import torch
 from cmtci_torch import bench
 from cmtci_torch.kernels import _build, _launch, companion
 from cmtci_torch.kernels import mandelbrot_cuda as mc
+from cmtci_torch.pipelines import stage1
 from cmtci_torch.pipelines.analysis import TCIConfig
 from cmtci_torch.pipelines.equipotential import EquipotentialConfig
 from cmtci_torch.pipelines.tracker import TrackerConfig
+from cmtci_torch.transport import sinkhorn
 
 SWEEP_DIR = _build.BUILD_DIR.parent / "sweep"
 MAX_ITER = 500
@@ -175,7 +187,7 @@ K2P_ITERS = (MAX_ITER, 20000)
 #: K6's grid, coarse stride and tile (chip_smoke.py phase 11's)
 K6_SHAPE, K6_STRIDE, K6_TILE = 2048, 8, (32, 256)
 #: the sweeps --only may name
-SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green")
+SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green", "sinkhorn")
 #: aberth.cu's builds: CTAs a cluster, threads a CTA
 ABERTH_CLUSTERS = (1, 2, 4, 8, 16)
 ABERTH_THREADS = (64, 128, 256)
@@ -193,6 +205,16 @@ GREEN_VARIANTS = {**{f"chunk{c}": dict(GREEN_CHUNK=c) for c in (1, 4, 8, 16, 32,
 ABERTH_VARIANTS = {**{f"c{c}_t{t}": dict(CLUSTER=c, MAX_THREADS=t)
                       for c in ABERTH_CLUSTERS for t in ABERTH_THREADS},
                    **{f"unroll{u}": dict(REP_UNROLL=u) for u in (1, 2, 4, 8)}}
+#: sinkhorn.cu's variants: the threads of a CTA, a lane's terms side by side
+#: (UNROLL) and the CTAs an SM (at most 1,024 threads an SM)
+SINKHORN_VARIANTS = {f"t{t}_u{u}{'_c2' if c == 2 else ''}": dict(THREADS=t, UNROLL=u,
+                                                                     CTAS_PER_SM=c)
+                     for t in (256, 512, 1024) for u in (1, 4, 8) for c in (1, 2)
+                     if t * c <= 1024}
+#: stage1's two Sinkhorn costs: the CLI defaults (819 x 600) and the 6x bus
+#: (--max-n 100 --boundary-samples 2000: 5,049 x 1,624, every band pixel), as
+#: Stage1Config overrides
+SINKHORN_BUSES = {"default": {}, "6x": dict(max_n=100, boundary_samples=2000)}
 #: the schedule constants of a variant that move its step accounting
 FOOT_KEYS = ("C", "PATCH_W", "PATCH_H")
 
@@ -223,6 +245,19 @@ extern "C" int probe64_launch(void* out, void* cycles, double x, double a, doubl
     return static_cast<int>(cudaGetLastError());
 }
 """
+
+#: one libdevice exp and one log a thread, whose SASS FP64 instructions
+#: exp_log_sass counts (the Sinkhorn bound's operations an element)
+EXP_LOG_SRC = r"""
+extern "C" __global__ void exp_probe(const double* x, double* y) {
+    y[threadIdx.x] = exp(x[threadIdx.x]);
+}
+extern "C" __global__ void log_probe(const double* x, double* y) {
+    y[threadIdx.x] = log(x[threadIdx.x]);
+}
+"""
+#: SASS opcodes counted as FP64 instructions
+FP64_SASS = re.compile(r"\b(D(?:ADD|MUL|FMA|SETP|MNMX|SET)|MUFU\.\w*64\w*|[FI]2[FI]\.\S*64\S*)\b")
 
 
 def check(cond, msg: str) -> None:
@@ -880,6 +915,160 @@ def sweep_green(dev, alts) -> dict:
             "steps": int(steps.sum()), "times": in_turns(calls, rounds=5, chain=5)}
 
 
+def stage1_cost(cfg: stage1.Stage1Config, dev) -> torch.Tensor:
+    """The f64 Sinkhorn cost run_stage1 matches with under `cfg` on `dev`
+    (its cloud and band, their orientation features and coordinates)."""
+    out = stage1.run_stage1(cfg, None, plots=False, device=dev)
+    xa = np.hstack([stage1.orientation_features(out["C"], cfg.k_orientation), out["C"]])
+    xb = np.hstack([stage1.orientation_features(out["M"], cfg.k_orientation), out["M"]])
+    return stage1.feature_cost(xa, xb, device=dev)
+
+
+def logsumexp_loop(cost: torch.Tensor, iters: int, eps: float) -> torch.Tensor:
+    """The Sinkhorn loop as the port ran it before csrc/sinkhorn.cu: the
+    reference's two torch.logsumexp calls a step, divisions by eps (the
+    yardstick sinkhorn_graph captures; its plan is not the kernel's bits)."""
+    n, m = cost.shape
+    log_mu = -math.log(n) * torch.ones(n, dtype=cost.dtype, device=cost.device)
+    log_nu = -math.log(m) * torch.ones(m, dtype=cost.dtype, device=cost.device)
+    mk = -cost / eps
+    f = torch.zeros(n, dtype=cost.dtype, device=cost.device)
+    g = torch.zeros(m, dtype=cost.dtype, device=cost.device)
+    for _ in range(iters):
+        f = eps * (log_mu - torch.logsumexp(mk + g[None, :] / eps, dim=1))
+        g = eps * (log_nu - torch.logsumexp(mk + f[:, None] / eps, dim=0))
+    return torch.exp(mk + f[:, None] / eps + g[None, :] / eps)
+
+
+def sinkhorn_graph(cost: torch.Tensor, iters: int, eps: float):
+    """(graph, static, plan): logsumexp_loop captured once into a CUDA graph
+    over `static`, a copy of `cost` (after a warm-up step on a side stream,
+    as torch.cuda.graphs asks); graph.replay() rewrites plan from static."""
+    static = cost.detach().clone(memory_format=torch.contiguous_format)
+    side = torch.cuda.Stream(cost.device)
+    side.wait_stream(torch.cuda.current_stream(cost.device))
+    with torch.cuda.stream(side):
+        logsumexp_loop(static, 1, eps)
+    torch.cuda.current_stream(cost.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        plan = logsumexp_loop(static, iters, eps)
+    return graph, static, plan
+
+
+def barrier_floor_ms(dev, plan: sinkhorn.SinkhornPlan, count: int, reps: int = 5) -> float:
+    """Median ms of `count` grid barriers and nothing else on the grid of
+    `plan` (sinkhorn_barriers_launch): the floor of a loop of count / 2
+    steps."""
+    def call():
+        _launch.launch("sinkhorn_barriers", dev, plan.ctas, plan.smem, count)
+
+    call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def exp_log_sass() -> dict:
+    """FP64 instructions (FP64_SASS's opcodes) in the SASS of one f64 exp and
+    one log, built with the package's flags: {"exp": n, "log": n,
+    "opcodes": {...}}. A static count: a special case's instructions count
+    once though they rarely run."""
+    out_dir = SWEEP_DIR / "exp_log"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, cubin = out_dir / "exp_log.cu", out_dir / "exp_log.cubin"
+    src.write_text(EXP_LOG_SRC)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", str(cubin), str(src)],
+                   capture_output=True, text=True, check=True)
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cubin)], capture_output=True, text=True,
+                          check=True).stdout
+    result, opcodes = {}, {}
+    for name in ("exp", "log"):
+        body = sass.split(f"Function : {name}_probe")[1].split("Function :")[0]
+        ops = [m.group(1) for m in FP64_SASS.finditer(body)]
+        result[name] = len(ops)
+        opcodes[name] = {op: ops.count(op) for op in sorted(set(ops))}
+    result["opcodes"] = opcodes
+    return result
+
+
+def sweep_sinkhorn(dev) -> dict:
+    """sinkhorn.cu's builds of SINKHORN_VARIANTS in turns with the committed
+    launch and the graph yardstick (sinkhorn_graph) at stage1's two costs
+    (each on its own launch plan: resident at the defaults, streaming at the
+    6x bus; the committed kernel forced to stream at the defaults too), each
+    build's plan held bitwise to the committed one's first; the barrier floor
+    of each committed grid."""
+    built = build_all("sinkhorn", SINKHORN_VARIANTS, [])
+    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "buses": {}}
+    for label, over in SINKHORN_BUSES.items():
+        cfg = stage1.Stage1Config(**over)
+        cost = stage1_cost(cfg, dev)
+        iters, eps = stage1.SINKHORN_ITERS, cfg.sinkhorn_reg
+        n, m = cost.shape
+        plan = sinkhorn.card_plan(dev, n, m)
+        keep = []
+
+        def committed_call(plan):
+            args, out, bufs = sinkhorn.kernel_args(cost, iters, eps, plan)
+            keep.append(bufs)
+            return (lambda: _launch.launch("sinkhorn", dev, *args)), out
+
+        calls, outs = {}, {}
+        calls["committed"], outs["committed"] = committed_call(plan)
+        if plan.resident:
+            calls["streaming"], outs["streaming"] = committed_call(
+                sinkhorn.card_plan(dev, n, m, streaming=True))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        errors = {}
+        for lab, (lib, _) in built.items():
+            consts = SINKHORN_VARIANTS[lab]
+            vplan = sinkhorn.card_plan(dev, n, m, ctas=sms * consts.get("CTAS_PER_SM", 1))
+            args, out, bufs = sinkhorn.kernel_args(cost, iters, eps, vplan)
+            keep.append(bufs)
+            fn = entry(lib, "sinkhorn")
+            rc = fn(*args, stream(dev))
+            if rc != 0:  # a build the card cannot launch (too many threads' registers)
+                errors[lab] = rc
+                continue
+
+            def call(fn=fn, args=args):
+                check(fn(*args, stream(dev)) == 0, "sinkhorn_launch failed")
+
+            calls[lab], outs[lab] = call, out
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        want = outs["committed"]
+        for lab, out in outs.items():
+            check(torch.equal(out, want), f"sinkhorn {lab} differs from the committed kernel")
+        graph, gstatic, gplan = sinkhorn_graph(cost, iters, eps)
+        keep.append(gstatic)
+        graph.replay()
+        torch.cuda.synchronize()
+        calls["graph"] = graph.replay
+        rel = float((gplan - want).abs().max() / want.abs().max())
+        rounds, chain = (5, 3) if label == "default" else (3, 1)
+        report["buses"][label] = {
+            "shape": [n, m], "plan": plan.__dict__, "launch_errors": errors,
+            "graph_max_rel_diff": rel,
+            "graph_argmax_equal": bool(torch.equal(gplan.argmax(1), want.argmax(1))),
+            "barrier_floor_ms": barrier_floor_ms(dev, plan, 2 * iters),
+            "times": in_turns(calls, rounds=rounds, chain=chain, graphs=False)}
+        del graph, gplan
+    return report
+
+
 def wrapper_overhead_us(dev) -> dict:
     """Host microseconds a call of K2 through each layer, on an 8 x 8 grid
     whose kernel takes no time: the raw ctypes entry, _launch.launch, and
@@ -1011,7 +1200,19 @@ def main(argv=None) -> int:
               "single, chained, replayed from a CUDA graph):")
         for lab, (s1, c1, g1) in gr["times"].items():
             print(f"  {lab:>10}: {s1:.4f} {c1:.4f} {g1:.4f}")
-    for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green"):
+    if "sinkhorn" in only:
+        report["sinkhorn"] = sweep_sinkhorn(dev)
+        report["exp_log_sass"] = exp_log_sass()
+        print("FP64 SASS instructions:", json.dumps(report["exp_log_sass"]))
+        for label, bus in report["sinkhorn"]["buses"].items():
+            print(f"sinkhorn, {label} bus, {bus['shape'][0]} x {bus['shape'][1]}, plan "
+                  f"{json.dumps(bus['plan'])}; barrier floor {bus['barrier_floor_ms']:.4f} ms; "
+                  f"graph yardstick within {bus['graph_max_rel_diff']!r} of the kernel, argmax "
+                  f"equal {bus['graph_argmax_equal']}; launch errors {bus['launch_errors']} "
+                  "(ms per call: single, chained):")
+            for lab, (s1, c1, _) in bus["times"].items():
+                print(f"  {lab:>10}: {s1:.4f} {c1:.4f}")
+    for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green", "sinkhorn"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
     if args.out:

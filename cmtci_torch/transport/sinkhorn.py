@@ -2,8 +2,8 @@
 the full log-domain Sinkhorn (the stage-1 matcher).
 
 Port of ``entropic_argmax_match``, ``sinkhorn_log`` and ``sinkhorn_match``
-from ``cmtci/transport/sinkhorn.py``; on the card ``sinkhorn_log`` replays
-its loop from a CUDA graph. The argmax matcher
+from ``cmtci/transport/sinkhorn.py``; on the card ``sinkhorn_log`` runs its
+whole loop as one launch of csrc/sinkhorn.cu. The argmax matcher
 (tci_construct_mandelbrot_v002_fixed.py:62-71 semantics) subsamples the
 larger cloud to the smaller's size with the caller's numpy RNG, scales the
 distance matrix by its mean, K = exp(-M/eps), match = argmax over rows.
@@ -18,10 +18,12 @@ switches to a matrix-product formula with other rounding on large inputs.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from cmtci_torch.kernels import _launch
 from cmtci_torch.utils.arrays import as_xy as _xy
 from cmtci_torch.utils.device import resolve_device
 
@@ -109,72 +111,198 @@ def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torc
     return y[match], x
 
 
+#: lanes of a warp: the partial sums of a logsumexp (csrc/sinkhorn.cu)
+WARP = 32
+#: CTAs a grid slot of each SM (sinkhorn.cu's CTAS_PER_SM)
+SINKHORN_CTAS_PER_SM = 1
+
+
+def warp_sum(e: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 of e (length, width) in csrc/sinkhorn.cu's order: lane
+    l of a warp sums the rows l, l + 32, l + 64, ... in increasing order
+    (from +0.0), and the 32 partial sums fold by a butterfly, acc[:s] +
+    acc[s:2s] for s = 16, 8, 4, 2, 1 (what __shfl_xor_sync leaves in lane
+    0). Returns shape (width,)."""
+    acc = e.new_zeros((WARP, e.shape[1]))
+    for k in range(0, e.shape[0], WARP):
+        chunk = e[k : k + WARP]
+        acc[: chunk.shape[0]] += chunk
+    s = WARP // 2
+    while s:
+        acc = acc[:s] + acc[s : 2 * s]
+        s //= 2
+    return acc[0]
+
+
+def logsumexp_fixed(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over dim 0 of x (length, width), as torch.logsumexp computes
+    it (the max, an infinite one replaced by 0, then log(sum exp(x - max)) +
+    max) with the sum in warp_sum's order."""
+    mx = torch.amax(x, dim=0)
+    mx = mx.masked_fill(mx.abs() == math.inf, 0.0)
+    return torch.log(warp_sum(torch.exp(x - mx))) + mx
+
+
 def sinkhorn_log_torch(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05) -> torch.Tensor:
     """Log-domain Sinkhorn with uniform marginals on the cost's device and
-    dtype; returns the plan. The reference's ``lax.scan`` becomes `iters`
-    eager steps of two ``torch.logsumexp`` calls, with no host round trip
-    inside the loop (tci_construct_mandelbrot-v002.py:60-72 intent, stable
-    for small eps). The plain twin of sinkhorn_log's CUDA graph."""
+    dtype; returns the plan. The reference's ``lax.scan`` of `iters` steps
+    (tci_construct_mandelbrot-v002.py:60-72 intent, stable for small eps),
+    written as csrc/sinkhorn.cu computes it, op for op: every division by eps
+    a product by inv_eps = 1 / eps, each logsumexp logsumexp_fixed over a
+    contiguous dim 0 (the f half step over the transpose of mk, the g half
+    step over mk). The plain twin of sinkhorn_kernel."""
     n, m = cost.shape
+    inv_eps = 1.0 / eps
     log_mu = -math.log(n) * torch.ones(n, dtype=cost.dtype, device=cost.device)
     log_nu = -math.log(m) * torch.ones(m, dtype=cost.dtype, device=cost.device)
-    mk = -cost / eps
+    mk = (-cost) * inv_eps
+    mk_t = mk.T.contiguous()
     f = torch.zeros(n, dtype=cost.dtype, device=cost.device)
     g = torch.zeros(m, dtype=cost.dtype, device=cost.device)
     for _ in range(iters):
-        f = eps * (log_mu - torch.logsumexp(mk + g[None, :] / eps, dim=1))
-        g = eps * (log_nu - torch.logsumexp(mk + f[:, None] / eps, dim=0))
-    return torch.exp(mk + f[:, None] / eps + g[None, :] / eps)
+        f = eps * (log_mu - logsumexp_fixed(mk_t + (g * inv_eps)[:, None]))
+        g = eps * (log_nu - logsumexp_fixed(mk + (f * inv_eps)[:, None]))
+    return torch.exp(mk + (f * inv_eps)[:, None] + (g * inv_eps)[None, :])
 
 
-#: replays of sinkhorn_log's captured graphs; read and reset by callers that
-#: need to show a run went through a graph
-replays = {"sinkhorn_log": 0}
-#: captured loops, keyed by (device, shape, dtype, iters, eps): (graph, the
-#: cost buffer it reads, the plan it writes); the oldest goes past _GRAPHS_KEPT
-_GRAPHS: dict = {}
-_GRAPHS_KEPT = 8
+@dataclass(frozen=True)
+class SinkhornPlan:
+    """How csrc/sinkhorn.cu covers an (n, m) cost: `ctas` CTAs, CTA c owning
+    the rows [c n // ctas, (c + 1) n // ctas) and the columns likewise; at
+    most `row_block` rows and `col_block` columns a CTA; `resident` when
+    every CTA holds its lines of mk in shared memory, else they stream from
+    global scratch; `smem` bytes of dynamic shared memory a CTA."""
+
+    ctas: int
+    resident: bool
+    smem: int
+    row_block: int
+    col_block: int
 
 
-def _captured(cost: torch.Tensor, iters: int, eps: float):
-    key = (cost.device, tuple(cost.shape), cost.dtype, int(iters), float(eps))
-    if key not in _GRAPHS:
-        if len(_GRAPHS) >= _GRAPHS_KEPT:
-            _GRAPHS.pop(next(iter(_GRAPHS)))
-        static = cost.detach().clone(memory_format=torch.contiguous_format)
-        # a warm-up step on a side stream before the capture, as
-        # torch.cuda.graphs asks
-        side = torch.cuda.Stream(cost.device)
-        side.wait_stream(torch.cuda.current_stream(cost.device))
-        with torch.cuda.stream(side):
-            sinkhorn_log_torch(static, 1, eps)
-        torch.cuda.current_stream(cost.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            plan = sinkhorn_log_torch(static, iters, eps)
-        _GRAPHS[key] = (graph, static, plan)
-    return _GRAPHS[key]
+def block(c: int, count: int, ctas: int) -> tuple[int, int]:
+    """[start, stop) of CTA c's lines among `count` over `ctas` CTAs."""
+    return c * count // ctas, (c + 1) * count // ctas
+
+
+def launch_plan(n: int, m: int, sms: int, smem_max: int, ctas: int | None = None,
+                streaming: bool = False) -> SinkhornPlan:
+    """The launch of an (n, m) cost on a card of `sms` SMs whose CTA may
+    opt in to `smem_max` bytes of shared memory: SINKHORN_CTAS_PER_SM a SM
+    (or `ctas`), resident when f, g and a CTA's largest blocks of rows and
+    columns fit, streaming otherwise (or when `streaming`). Raises when f and
+    g alone do not fit."""
+    ctas = sms * SINKHORN_CTAS_PER_SM if ctas is None else int(ctas)
+    if n < 1 or m < 1 or ctas < 1:
+        raise ValueError(f"sinkhorn: a {n} x {m} cost on {ctas} CTAs")
+    rows, cols = -(-n // ctas), -(-m // ctas)
+    vectors = 8 * (n + m)
+    held = vectors + 8 * (rows * m + cols * n)
+    resident = not streaming and held <= smem_max
+    smem = held if resident else vectors
+    if smem > smem_max:
+        raise ValueError(f"sinkhorn: f and g of a {n} x {m} cost take {vectors} B of shared "
+                         f"memory, past the {smem_max} B a CTA may hold (n + m <= "
+                         f"{smem_max // 8})")
+    return SinkhornPlan(ctas, resident, smem, rows, cols)
+
+
+def _ctypes_call(name: str, *args) -> None:
+    """Call sinkhorn.cu's query `name` (sinkhorn_limits, sinkhorn_occupancy);
+    raise on a non-zero cudaError."""
+    import ctypes
+
+    from cmtci_torch.kernels._build import library
+
+    fn = getattr(library("sinkhorn"), name)
+    fn.argtypes = {"sinkhorn_limits": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                   "sinkhorn_occupancy": [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]}[name]
+    fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: cudaError {rc}")
+
+
+#: (SMs, opt-in shared memory a CTA) of each card, read once
+_LIMITS: dict = {}
+
+
+def card_plan(dev: torch.device, n: int, m: int, ctas: int | None = None,
+              streaming: bool = False) -> SinkhornPlan:
+    """launch_plan on `dev`'s SM count and shared memory; raises when the
+    grid cannot be co-resident (another process holding SMs through MPS, or
+    a MIG slice, leaves fewer)."""
+    import ctypes
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _LIMITS:
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(index):
+            _ctypes_call("sinkhorn_limits", index, out)
+        _LIMITS[index] = (out[0], out[1])
+    sms, smem_max = _LIMITS[index]
+    plan = launch_plan(n, m, sms, smem_max, ctas, streaming)
+    per_sm = (ctypes.c_int * 1)()
+    with torch.cuda.device(index):
+        _ctypes_call("sinkhorn_occupancy", int(plan.resident), plan.smem, per_sm)
+    if plan.ctas > per_sm[0] * sms:
+        raise RuntimeError(f"sinkhorn: {plan.ctas} CTAs of {plan.smem} B cannot be co-resident "
+                           f"({per_sm[0]} a SM on {sms} SMs); a cooperative launch needs "
+                           "every CTA resident at once")
+    return plan
+
+
+def kernel_args(cost: torch.Tensor, iters: int, eps: float, plan: SinkhornPlan):
+    """(the arguments of csrc/sinkhorn.cu's sinkhorn_launch but the stream,
+    the plan tensor it writes, the buffers it uses) for a contiguous f64 cost
+    on a card; keep the buffers alive until the launch has run."""
+    n, m = cost.shape
+    dev = cost.device
+    bufs = [torch.empty(n, dtype=cost.dtype, device=dev),
+            torch.empty(m, dtype=cost.dtype, device=dev)]
+    if not plan.resident:
+        bufs += [torch.empty_like(cost), torch.empty((m, n), dtype=cost.dtype, device=dev)]
+    out = torch.empty_like(cost)
+    f, g = bufs[:2]
+    mk, mk_t = (bufs[2].data_ptr(), bufs[3].data_ptr()) if not plan.resident else (0, 0)
+    args = (cost.data_ptr(), mk, mk_t, f.data_ptr(), g.data_ptr(), out.data_ptr(), n, m,
+            int(iters), float(eps), 1.0 / eps, -math.log(n), -math.log(m), plan.ctas,
+            int(plan.resident), plan.smem)
+    return args, out, bufs
+
+
+def sinkhorn_kernel(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05,
+                    ctas: int | None = None, streaming: bool = False) -> torch.Tensor:
+    """The loop of sinkhorn_log_torch as one cooperative launch of
+    csrc/sinkhorn.cu on the cost's card (f64); returns the plan, bitwise the
+    twin's. `ctas` and `streaming` override the launch plan (card_plan); the
+    plan's bits do not depend on them. Raises on any other device or dtype,
+    on a grid that cannot be co-resident and on a failed build or launch."""
+    if cost.device.type != "cuda":
+        raise ValueError(f"sinkhorn_kernel: a {cost.device} tensor (expected cuda)")
+    if cost.dtype != torch.float64 or cost.dim() != 2:
+        raise ValueError(f"sinkhorn_kernel: a {cost.dtype} tensor of {cost.dim()} dims "
+                         "(expected a 2-D float64 cost)")
+    cost = cost.contiguous()
+    plan = card_plan(cost.device, *cost.shape, ctas, streaming)
+    args, out, _ = kernel_args(cost, iters, eps, plan)
+    _launch.launch("sinkhorn", cost.device, *args)
+    return out
 
 
 def sinkhorn_log(cost: torch.Tensor, iters: int = 1000, eps: float = 0.05) -> torch.Tensor:
     """Log-domain Sinkhorn with uniform marginals on the cost's device and
     dtype; returns the plan (the reference's ``lax.scan``).
 
-    CPU: the eager twin sinkhorn_log_torch. CUDA: the same `iters` steps
-    captured once per (device, shape, dtype, iters, eps) into a CUDA graph
-    over a static cost buffer and replayed: the same torch kernels on the
-    same inputs, so the plan is bitwise the eager one, without a host launch
-    per op. A capture error raises; nothing falls back."""
+    CPU: the twin sinkhorn_log_torch. CUDA: one launch of csrc/sinkhorn.cu
+    (sinkhorn_kernel), counted in kernels._launch.launches["sinkhorn"]; a
+    failed build, launch or co-residency check raises, nothing falls back."""
     if cost.device.type == "cpu":
         return sinkhorn_log_torch(cost, iters, eps)
     if cost.device.type != "cuda":
         raise ValueError(f"unsupported device {cost.device} (expected cuda or cpu)")
-    with torch.cuda.device(cost.device):
-        graph, static, plan = _captured(cost, iters, eps)
-        static.copy_(cost)
-        graph.replay()
-        replays["sinkhorn_log"] += 1
-        return plan.clone()
+    return sinkhorn_kernel(cost, iters, eps)
 
 
 def sinkhorn_match(x, y, eps: float = 0.05, iters: int = 1000, squared: bool = True,

@@ -1,6 +1,6 @@
 """The reference's compiled device loops in the port: batched Aberth
 (csrc/aberth.cu), the per-point escape loops (csrc/orbit.cu) and the
-Sinkhorn loop (a CUDA graph on the card), on the CPU.
+Sinkhorn loop (csrc/sinkhorn.cu on the card), on the CPU.
 
 The kernels run only on the card, where chip_smoke.py (phase 23) holds them
 to their twins. Here:
@@ -548,7 +548,6 @@ def test_potential_against_cmtci(grid64, norm, escape_r):
 
 def test_cpu_tensors_launch_nothing():
     _launch.reset_launches()
-    replays = sinkhorn.replays["sinkhorn_log"]
     companion.inverse_cloud_padded(list(range(2, 30)), device="cpu")
     a, deg = companion.poly_coeff_batch([5, 9], device="cpu")
     companion.aberth_roots(a, deg, family="lucas_all_ones")
@@ -562,9 +561,9 @@ def test_cpu_tensors_launch_nothing():
     cost = torch.rand((7, 5), dtype=torch.float64, generator=torch.Generator().manual_seed(0))
     assert torch.equal(sinkhorn.sinkhorn_log(cost, 40, 0.1),
                        sinkhorn.sinkhorn_log_torch(cost, 40, 0.1))
-    assert all(_launch.launches[e] == 0 for e in ("aberth", *ORBIT_ENTRIES))
+    assert all(_launch.launches[e] == 0 for e in ("aberth", *ORBIT_ENTRIES, "sinkhorn"))
     assert sum(_launch.launches.values()) == 0
-    assert sinkhorn.replays["sinkhorn_log"] == replays and not sinkhorn._GRAPHS
+    assert _launch.launches["sinkhorn"] == 0 and not hasattr(sinkhorn, "_GRAPHS")
 
 
 def test_card_paths_raise_without_a_card():
