@@ -221,12 +221,18 @@ prints no result line):
      1 and on ragged grids in f64 and f32, with times and bounds;
      csrc/sinkhorn.cu (one cooperative launch a call) torch.equal its twin
      sinkhorn_log_torch at stage1's cost at the CLI defaults (819 x 600) on its
-     own plan (resident, one CTA an SM), on 97 and 66 CTAs and forced to
-     stream, and at the 6x bus's cost (5,049 x 2,000, streaming), one launch a
-     call; the kernel's time, the twin's, the graph yardstick's (the
-     torch.logsumexp loop the port ran before the kernel, captured into a CUDA
-     graph, within 1e-10 of the twin, argmax equal) and the barrier floor (the
-     grid barriers alone, sweep_schedules.barrier_floor_ms).
+     own plan (resident, one CTA an SM), on 97 and 66 CTAs, each also forced
+     to stream, at 0, 1, 3 and 1,000 steps, and at the 6x bus's cost (5,049 x
+     1,624, streaming), argmax equal, and at ragged costs (lines shorter than
+     a warp, shorter and longer than a CTA, more CTAs than lines) on six
+     grids at 0, 1 and 3 steps; the kernel's time beside the recorded one of
+     the earlier two-pass design (commit faa791d), the bytes its ring stages
+     from HBM a step, the split of a half step
+     (builds cut after each part, in turns with the whole), the twin's time,
+     the graph yardstick's (the torch.logsumexp loop the port ran before the
+     kernel, captured into a CUDA graph, within 1e-10 of the twin, argmax
+     equal) and the barrier floor (the grid barriers alone,
+     sweep_schedules.barrier_floor_ms).
 `python3 chip_smoke.py --cards N` on a machine with N cards runs only the
 multi-card check (phase_cards): phase 22's sharded heads, each called twice,
 on an N-rank NCCL group, one card a rank, against the single device, each
@@ -386,6 +392,10 @@ ABERTH_ABOVE_ONE_CTA = 4843
 #: built in phase 2 into build/sweep/smoke-aberth-c1/)
 ABERTH_C1 = {"CLUSTER": 1}
 ABERTH_C1_LIB: list = []
+#: sinkhorn.cu built to stop every half step after a part (STOP 0 to 3,
+#: sweep_schedules.SINKHORN_STOPS), built in phase 2 into
+#: build/sweep/smoke-sinkhorn-stop<k>/: phase 23's split of a half step
+SINKHORN_STOP_LIBS: dict = {}
 FIELD_SHAPES = ((2048, 2048), (1001, 1999))  # (ny, nx)
 MS_SHAPE, MS_STRIDE, MS_TILE = (2048, 2048), 8, (32, 256)
 TCI_GRIDS = (600, 2400)
@@ -532,11 +542,15 @@ def phase_build():
     from cmtci_torch import sweep_schedules as sweep
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+    with ThreadPoolExecutor(len(KERNELS) + 1 + len(sweep.SINKHORN_STOPS)) as ex:
         c1 = ex.submit(sweep.build, "smoke-aberth-c1", "aberth", _build.CSRC, ABERTH_C1)
+        stops = {k: ex.submit(sweep.build, f"smoke-sinkhorn-stop{k}", "sinkhorn", _build.CSRC,
+                              {"STOP": k}) for k in sweep.SINKHORN_STOPS}
         list(ex.map(_build.library, KERNELS))
         ABERTH_C1_LIB.append(c1.result()[0])
-    print(f"build: {', '.join(KERNELS)} and aberth with CLUSTER 1 in "
+        SINKHORN_STOP_LIBS.update({f"stop{k}": f.result()[0] for k, f in stops.items()})
+    print(f"build: {', '.join(KERNELS)}, aberth with CLUSTER 1 and sinkhorn cut after each "
+          f"part (STOP {', '.join(map(str, sweep.SINKHORN_STOPS))}) in "
           f"{time.perf_counter() - t0:.2f} s wall")
     for name in KERNELS:
         print(f"  {name}: nvcc {_build.BUILD_SECONDS[name]:.2f} s")
@@ -3434,10 +3448,55 @@ def loop_orbits(dev):
 
 
 #: stage1's Sinkhorn at the CLI defaults: the launches phase 23 holds to the
-#: twin beside the plan's own (resident, one CTA an SM): two other grids and
-#: the streaming mode (card_plan's overrides)
+#: twin beside the plan's own (resident, one CTA an SM), at 0, 1, 3 and 1,000
+#: steps: two other grids (97 CTAs in one pass a half step, 66 in two) and the
+#: streaming mode on each (card_plan's overrides)
 SINKHORN_CASES = (dict(ctas=97), dict(ctas=66), dict(streaming=True),
-                  dict(ctas=97, streaming=True))
+                  dict(ctas=97, streaming=True), dict(ctas=66, streaming=True))
+#: ragged costs phase 23 also holds sinkhorn.cu to its twin at, at 0, 1 and 3
+#: steps: lines shorter than a warp, shorter and longer than a CTA's 512
+#: threads, more CTAs than lines; on each of SINKHORN_RAGGED_GRIDS
+SINKHORN_RAGGED = ((5, 3), (31, 45), (45, 31), (3, 530), (530, 3), (37, 1000))
+SINKHORN_RAGGED_GRIDS = (dict(), dict(ctas=4), dict(ctas=1), dict(streaming=True),
+                         dict(ctas=4, streaming=True), dict(ctas=1, streaming=True))
+#: the kernel of commit faa791d (one warp a line, each line read twice) at stage1's two
+#: costs, ms per call on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
+#: section 6): printed beside this run's times
+SINKHORN_TWO_PASS_MS = {"default": 10.160, "6x": 101.877}
+
+
+def sinkhorn_ragged(dev) -> float:
+    """sinkhorn.cu torch.equal its twin at SINKHORN_RAGGED x
+    SINKHORN_RAGGED_GRIDS x 0, 1 and 3 steps, one launch each; returns the
+    largest |kernel - twin|."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch.transport import sinkhorn
+
+    reset_launches()
+    err, count = 0.0, 0
+    for n, m in SINKHORN_RAGGED:
+        rng = np.random.default_rng(n + m)
+        a, b = rng.normal(size=(n, 4)), rng.normal(size=(m, 4))
+        cost = torch.as_tensor(np.sqrt(((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)),
+                               device=dev)
+        for iters in (0, 1, 3):
+            want = sinkhorn.sinkhorn_log_torch(cost, iters, 0.1)
+            for kw in SINKHORN_RAGGED_GRIDS:
+                got = sinkhorn.sinkhorn_kernel(cost, iters, 0.1, **kw)
+                count += 1
+                check(bool(torch.equal(got, want)),
+                      f"sinkhorn {n} x {m}, {iters} steps, {kw} "
+                      f"({sinkhorn.card_plan(dev, n, m, **kw)}): the plan differs from the "
+                      f"twin's by {abs_err(got, want)[0]!r}")
+                err = max(err, abs_err(got, want)[0])
+    torch.cuda.synchronize()
+    launched("sinkhorn, ragged", {"sinkhorn": count})
+    print(f"sinkhorn ragged: torch.equal the twin at {len(SINKHORN_RAGGED)} costs "
+          f"({', '.join(f'{n} x {m}' for n, m in SINKHORN_RAGGED)}) x "
+          f"{len(SINKHORN_RAGGED_GRIDS)} grids x 0, 1, 3 steps, {count} launches")
+    return err
 
 
 def sinkhorn_ops(n: int, m: int, iters: int, exp_ops: int, log_ops: int) -> int:
@@ -3452,12 +3511,15 @@ def sinkhorn_ops(n: int, m: int, iters: int, exp_ops: int, log_ops: int) -> int:
 def loop_sinkhorn(dev):
     """Phase 23, Sinkhorn: csrc/sinkhorn.cu's plan torch.equal its twin's at
     stage1's two costs (the CLI defaults: the resident plan, two other grids
-    and the streaming mode; the 6x bus: streaming), one launch a call; the
-    kernel's, the twin's and the graph yardstick's times, the barrier floor
-    and the bounds. Returns the kernels-line fields at the defaults."""
+    and the streaming mode, at 0, 1, 3 and 1,000 steps; the 6x bus:
+    streaming) and at the ragged costs (sinkhorn_ragged), one launch a call;
+    the kernel's, the twin's and the graph yardstick's times, the bytes
+    staged a step, the split of a half step, the barrier floor and the
+    bounds. Returns the kernels-line fields at the defaults."""
     import torch
 
     from cmtci_torch import sweep_schedules as sweep
+    from cmtci_torch.kernels import _build
     from cmtci_torch.pipelines import stage1
     from cmtci_torch.transport import sinkhorn
 
@@ -3477,6 +3539,7 @@ def loop_sinkhorn(dev):
         check(plan.resident == (label == "default"),
               f"sinkhorn {label}: plan {plan} (resident at the defaults only)")
         err = 0.0
+        short = {it: sinkhorn.sinkhorn_log_torch(cost, it, eps) for it in (0, 1, 3)}
         for kw in ({},) + (SINKHORN_CASES if label == "default" else ()):
             reset_launches()
             got = sinkhorn.sinkhorn_kernel(cost, iters, eps, **kw)
@@ -3486,10 +3549,16 @@ def loop_sinkhorn(dev):
                   f"sinkhorn {label} {kw} ({sinkhorn.card_plan(dev, n, m, **kw)}): the plan "
                   f"differs from the twin's by {abs_err(got, want)[0]!r}")
             err = max(err, abs_err(got, want)[0])
-        check(bool(torch.equal(got.argmax(dim=1), want.argmax(dim=1))), "sinkhorn: argmax")
+            check(bool(torch.equal(got.argmax(dim=1), want.argmax(dim=1))), "sinkhorn: argmax")
+            for it, plan_it in short.items():
+                got = sinkhorn.sinkhorn_kernel(cost, it, eps, **kw)
+                check(bool(torch.equal(got, plan_it)),
+                      f"sinkhorn {label} {kw}, {it} steps: the plan differs from the twin's by "
+                      f"{abs_err(got, plan_it)[0]!r}")
         ms = cuda_ms(lambda: sinkhorn.sinkhorn_kernel(cost, iters, eps), 1, 5)
         stream_ms = (cuda_ms(lambda: sinkhorn.sinkhorn_kernel(cost, iters, eps, streaming=True),
                              1, 5) if plan.resident else ms)
+        stream_plan = sinkhorn.card_plan(dev, n, m, streaming=True)
         graph, static, gplan = sweep.sinkhorn_graph(cost, iters, eps)
         graph.replay()
         torch.cuda.synchronize()
@@ -3497,9 +3566,22 @@ def loop_sinkhorn(dev):
         same = bool(torch.equal(gplan.argmax(dim=1), want.argmax(dim=1)))
         check(rel <= 1e-10 and same, f"sinkhorn {label}: the graph yardstick {rel!r} from the "
                                      f"twin, argmax equal {same}")
-        graph_ms = cuda_ms(graph.replay, 1, 3)
+        # the 6x graph takes 0.4 s a replay: one timed replay after the check's
+        graph_ms = cuda_ms(graph.replay, 1, 3) if label == "default" else cuda_ms(
+            graph.replay, 0, 1)
         del graph, static, gplan
         floor_ms = sweep.barrier_floor_ms(dev, plan, 2 * iters)
+        # the split of a half step: builds cut after each part, in turns with
+        # the whole kernel, on this plan
+        keep = []
+        split = sweep.in_turns(sweep.stop_calls(
+            cost, iters, eps, plan, {**SINKHORN_STOP_LIBS, "whole": _build.library("sinkhorn")},
+            keep), rounds=3, chain=1, graphs=False)
+        del keep
+        labels = list(sweep.SINKHORN_STOPS.values()) + ["+ adds"]
+        cut = [split[f"stop{k}"][0] for k in sweep.SINKHORN_STOPS] + [split["whole"][0]]
+        # what each part adds to the cut before it, as a share of the whole
+        shares = [(c - prev) / cut[-1] for c, prev in zip(cut, [0.0] + cut[:-1])]
         ops = sinkhorn_ops(n, m, iters, sass["exp"], sass["log"])
         t_ops = ops / PEAK_FP64 * 1e3
         t_ops4 = iters * 2 * n * m * 4 / PEAK_FP64 * 1e3
@@ -3508,9 +3590,15 @@ def loop_sinkhorn(dev):
         bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
         print(f"sinkhorn ({label} bus, {n} x {m}, {iters} steps, eps {eps}; plan {plan}): "
               f"torch.equal the twin on {1 + len(SINKHORN_CASES) if plan.resident else 1} "
-              f"launches, one a call; kernel {ms:.4f} ms"
-              + (f" (forced to stream {stream_ms:.4f})" if plan.resident else "")
-              + f", twin {twin_ms:.1f} ms, graph yardstick {graph_ms:.4f} ms (within "
+              f"launches of {iters} steps and as many of 0, 1 and 3, one a call; kernel "
+              f"{ms:.4f} ms (the two-pass kernel of commit faa791d: "
+              f"{SINKHORN_TWO_PASS_MS[label]} ms, PERF.md)"
+              + (f" (forced to stream {stream_ms:.4f}, {stream_plan.staged} B staged a step)"
+                 if plan.resident else f", {plan.staged} B staged from HBM a step")
+              + "; split of a half step, each build cut after a part (ms, single call in "
+              "turns with the whole, and the share of the whole each part adds): "
+              + ", ".join(f"{lab} {c:.4f} ({sh:.3f})" for lab, c, sh in zip(labels, cut, shares))
+              + f"; twin {twin_ms:.1f} ms, graph yardstick {graph_ms:.4f} ms (within "
               f"{rel!r} of the twin, argmax equal), barrier floor ({2 * iters} barriers) "
               f"{floor_ms:.4f} ms; bound {bound:.4f} ms ({by}; operations {t_ops:.4f} at "
               f"{5 + sass['exp']} an element, {t_ops4:.4f} at 4; bytes in and out "
@@ -3518,9 +3606,13 @@ def loop_sinkhorn(dev):
         out[label] = dict(shape=[n, m], resident=plan.resident, ctas=plan.ctas,
                           max_abs_err=err, ms=ms, plain_ms=twin_ms, graph_ms=graph_ms,
                           streaming_ms=stream_ms, barrier_floor_ms=floor_ms, bound_ms=bound,
-                          bound_by=by, bound_ops_4_ms=t_ops4, bound_streaming_ms=t_stream)
+                          bound_by=by, bound_ops_4_ms=t_ops4, bound_streaming_ms=t_stream,
+                          staged_bytes=(stream_plan if plan.resident else plan).staged,
+                          split_ms=dict(zip(labels, cut)))
+    ragged = sinkhorn_ragged(dev)
     return dict(out["default"], bus_6x=out["6x"],
-                max_abs_err=max(out["default"]["max_abs_err"], out["6x"]["max_abs_err"]))
+                max_abs_err=max(out["default"]["max_abs_err"], out["6x"]["max_abs_err"],
+                                ragged))
 
 
 def phase_loops(dev):

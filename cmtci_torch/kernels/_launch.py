@@ -42,8 +42,8 @@ ARGTYPES = {
     "orbit_green": [_P] * 10 + [_L, _I, _I, _D, _I, _I, _P],
     "orbit_potential": [_P] * 6 + [_L, _I, _D, _I, _P],
     # cost, mk, mkT, f, g, plan, n, m, iters, eps, inv_eps, log_mu, log_nu,
-    # ctas, resident, smem
-    "sinkhorn": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_I] * 3 + [_P],
+    # ctas, resident, smem, pass_rows, pass_cols
+    "sinkhorn": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_I] * 5 + [_P],
     # the grid barriers alone: ctas, smem, count
     "sinkhorn_barriers": [_I] * 3 + [_P],
 }

@@ -119,7 +119,9 @@ def run_stage1(cfg: Stage1Config, outdir: str | None = None, plots: bool = True,
                device="cuda", timer: StageTimer | None = None):
     """Returns dict(C, M, C_aligned, matches); writes the file bus if outdir,
     and alignment.png too if `plots`. Stage times (cloud, band, match, align,
-    write) go to `timer`."""
+    write) go to `timer`, and inside match those of its parts: features (the
+    host's orientation features), cost, sinkhorn (the loop) and argmax (the
+    matches to the host; the Sinkhorn matcher only)."""
     dev = resolve_device(device)
     if outdir and plots:
         figures.pyplot()  # fail before the work when matplotlib is missing
@@ -134,19 +136,23 @@ def run_stage1(cfg: Stage1Config, outdir: str | None = None, plots: bool = True,
         m = sample_boundary_band(cfg, rng, device=dev)
 
     with timer.stage("match"):
-        f_c = orientation_features(c, cfg.k_orientation)
-        f_m = orientation_features(m, cfg.k_orientation)
-        xa = np.hstack([f_c, c])
-        xb = np.hstack([f_m, m])
+        with timer.stage("features"):
+            f_c = orientation_features(c, cfg.k_orientation)
+            f_m = orientation_features(m, cfg.k_orientation)
+            xa = np.hstack([f_c, c])
+            xb = np.hstack([f_m, m])
         if len(m) == 0:
             raise ValueError(
                 "stage1: no boundary points in the DE band — adjust "
                 "threshold_low/threshold_high/bailout (both matchers need a "
                 "non-empty Mandelbrot sample)")
         if cfg.matcher == "sinkhorn":
-            plan = sinkhorn_log(feature_cost(xa, xb, device=dev), iters=SINKHORN_ITERS,
-                                eps=cfg.sinkhorn_reg)
-            matches = plan.argmax(dim=1).cpu().numpy()
+            with timer.stage("cost"):
+                cost = feature_cost(xa, xb, device=dev)
+            with timer.stage("sinkhorn"):
+                plan = sinkhorn_log(cost, iters=SINKHORN_ITERS, eps=cfg.sinkhorn_reg)
+            with timer.stage("argmax"):
+                matches = plan.argmax(dim=1).cpu().numpy()
         else:
             matches = greedy_match(xa, xb)
 

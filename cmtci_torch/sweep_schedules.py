@@ -32,15 +32,24 @@ build, and REP_UNROLL (the repulsion's pair terms computed side by side, 1 to
 equipotential's lucas cloud (n 2..200), from the cached plan, each held
 bitwise (roots and step counts) to the committed launch first; beside them
 inverse_cloud_padded's eigenvalues with the plan cached and built anew.
-sinkhorn.cu's variants ("sinkhorn") rewrite THREADS (256 to 1024), UNROLL
-(a lane's terms side by side: 1, 4, 8) and CTAS_PER_SM (1, 2), each launched at
-stage1's two costs (the CLI defaults, 819 x 600, resident; the 6x bus,
-5,049 x 1,624, streaming) and held bitwise to the committed kernel, in turns
-with the committed kernel forced to stream and with the loop as the port ran
-it before the kernel (the reference's torch.logsumexp steps, captured once
-into a CUDA graph: the yardstick); beside them the barrier floor (the grid
-barriers alone on the committed grid) and the FP64 SASS instructions of one
-exp and one log (exp_log_sass).
+sinkhorn.cu's variants ("sinkhorn") rewrite THREADS (256, 1024; up to
+THREADS / 32 lines a streaming pass), RING (4 passes in the streaming ring)
+and UNROLL (the terms a lane takes side by side on a resident line: 4), each
+launched on its own launch plan at stage1's two costs (the CLI defaults,
+819 x 600, resident; the 6x bus, 5,049 x 1,624, streaming) and held bitwise
+to the committed kernel, in turns with the committed kernel forced to
+stream at the defaults, on plans of 1, 2, 4 and 8 lines a pass at the 6x
+bus, and with `--alt` sources: the two-pass design of commit faa791d (one
+warp a line, two passes over it; `git show
+faa791d:cmtci_torch/csrc/sinkhorn.cu`) is recognised by its signature and
+launched on its own plan. Then the split of a half step: builds that cut
+every half step after a part (STOP: the barriers alone, + the vector copy, +
+the maxima, + the exps), in turns with the whole; for the two-pass design
+the same cuts are patched into its text (SINKHORN_TWO_PASS_STOP; its exps
+and adds are one loop); and a TRACE build's clock cycles of each
+part of a half step (thread 0 of CTA 0). Beside them the barrier floor (the
+grid barriers alone on the committed grid), the bytes the ring stages a
+step, and the FP64 SASS instructions of one exp and one log (exp_log_sass).
 orbit_green's variants rewrite GREEN_CHUNK (1: a branch every step) and
 GREEN_EPOCH (the steps between two repacks of a block's running points;
 20,000: none) and run the one launch of the f64 equipotential, 80,395 points and 20,000 steps,
@@ -205,12 +214,21 @@ GREEN_VARIANTS = {**{f"chunk{c}": dict(GREEN_CHUNK=c) for c in (1, 4, 8, 16, 32,
 ABERTH_VARIANTS = {**{f"c{c}_t{t}": dict(CLUSTER=c, MAX_THREADS=t)
                       for c in ABERTH_CLUSTERS for t in ABERTH_THREADS},
                    **{f"unroll{u}": dict(REP_UNROLL=u) for u in (1, 2, 4, 8)}}
-#: sinkhorn.cu's variants: the threads of a CTA, a lane's terms side by side
-#: (UNROLL) and the CTAs an SM (at most 1,024 threads an SM)
-SINKHORN_VARIANTS = {f"t{t}_u{u}{'_c2' if c == 2 else ''}": dict(THREADS=t, UNROLL=u,
-                                                                     CTAS_PER_SM=c)
-                     for t in (256, 512, 1024) for u in (1, 4, 8) for c in (1, 2)
-                     if t * c <= 1024}
+#: sinkhorn.cu's builds: the threads of a CTA (so up to THREADS / 32 lines a
+#: streaming pass), a ring of 4 passes (3 committed), the terms a lane takes
+#: side by side on a resident line (8 committed)
+SINKHORN_VARIANTS = {"t256": dict(THREADS=256), "t1024": dict(THREADS=1024),
+                     "ring4": dict(RING=4), "unroll4": dict(UNROLL=4)}
+#: the committed build launched on streaming plans of at most this many lines
+#: a pass
+SINKHORN_PASSES = (1, 2, 4, 8)
+#: the builds that stop each half step after a part (sinkhorn.cu's STOP):
+#: the split of a half step's time
+SINKHORN_STOPS = {0: "barriers", 1: "+ vector copy", 2: "+ max", 3: "+ exps"}
+#: the parts sinkhorn.cu's TRACE build adds up the cycles of (thread 0 of
+#: CTA 0), in the order it writes them over the plan, then the loop's ns
+SINKHORN_TRACE = ("vector copy", "lines, or a round's exps and adds", "wait for the copy",
+                  "next pass's maxima", "round's barrier", "grid barrier")
 #: stage1's two Sinkhorn costs: the CLI defaults (819 x 600) and the 6x bus
 #: (--max-n 100 --boundary-samples 2000: 5,049 x 1,624, every band pixel), as
 #: Stage1Config overrides
@@ -1002,15 +1020,123 @@ def exp_log_sass() -> dict:
     return result
 
 
-def sweep_sinkhorn(dev) -> dict:
-    """sinkhorn.cu's builds of SINKHORN_VARIANTS in turns with the committed
-    launch and the graph yardstick (sinkhorn_graph) at stage1's two costs
-    (each on its own launch plan: resident at the defaults, streaming at the
-    6x bus; the committed kernel forced to stream at the defaults too), each
-    build's plan held bitwise to the committed one's first; the barrier floor
-    of each committed grid."""
-    built = build_all("sinkhorn", SINKHORN_VARIANTS, [])
-    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "buses": {}}
+#: the ctypes argument types of the sinkhorn_launch of csrc/sinkhorn.cu as
+#: the two-pass design of commit faa791d wrote it (16 arguments, no passes), for
+#: --alt sources of that design
+SINKHORN_TWO_PASS_ARGTYPES = _launch.ARGTYPES["sinkhorn"][:16] + [ctypes.c_void_p]
+#: the lines of the two-pass sinkhorn.cu that a STOP build of it guards, each
+#: found once: the vector copies (STOP >= 1), the line loops (STOP >= 2),
+#: and line_lse's return after the max (STOP < 4)
+SINKHORN_TWO_PASS_STOP = (
+    ("constexpr int UNROLL = 8;\n", "constexpr int UNROLL = 8;\nconstexpr int STOP = 4;\n"),
+    ("        for (int j = threadIdx.x; j < m; j += THREADS)\n            gs[j] = (it == 0",
+     "        if (STOP >= 1)\n        for (int j = threadIdx.x; j < m; j += THREADS)\n"
+     "            gs[j] = (it == 0"),
+    ("        for (int i = threadIdx.x; i < n; i += THREADS) fs[i] = __ldcg",
+     "        if (STOP >= 1) for (int i = threadIdx.x; i < n; i += THREADS) fs[i] = __ldcg"),
+    ("        for (int i = r0 + warp; i < r1; i += WARPS) {",
+     "        if (STOP >= 2) for (int i = r0 + warp; i < r1; i += WARPS) {"),
+    ("        for (int j = c0 + warp; j < c1; j += WARPS) {",
+     "        if (STOP >= 2) for (int j = c0 + warp; j < c1; j += WARPS) {"),
+    ("    if (fabs(mx) == INFINITY) mx = 0.0;\n",
+     "    if (fabs(mx) == INFINITY) mx = 0.0;\n    if (STOP < 4) return mx;\n"))
+
+
+def is_two_pass(src_dir: Path) -> bool:
+    """Whether src_dir/sinkhorn.cu is the two-pass design (a sinkhorn_launch
+    without passes)."""
+    return "int pass_rows" not in (src_dir / "sinkhorn.cu").read_text()
+
+
+def with_two_pass_stop(src_dir: Path, out_dir: Path) -> Path:
+    """A copy of the two-pass sinkhorn.cu in out_dir with a `constexpr int STOP`
+    guarding its parts (SINKHORN_TWO_PASS_STOP); its STOP builds stop after the
+    vector copies (1) or the max (2), 4 runs all."""
+    text = (src_dir / "sinkhorn.cu").read_text()
+    for old, new in SINKHORN_TWO_PASS_STOP:
+        check(text.count(old) == 1, f"the two-pass sinkhorn.cu: {old!r} found {text.count(old)} times")
+        text = text.replace(old, new)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "sinkhorn.cu").write_text(text)
+    return out_dir
+
+
+def two_pass_call(lib, cost: torch.Tensor, iters: int, eps: float, streaming: bool, keep: list):
+    """(call, out): one launch of the two-pass sinkhorn_launch from `lib` on its
+    own plan (one CTA an SM; resident when f, g and a CTA's blocks of rows
+    and columns fit, else mk and mkT unpadded in global scratch)."""
+    dev = cost.device
+    n, m = cost.shape
+    sms, smem_max = sinkhorn.card_limits(dev)
+    rows, cols = -(-n // sms), -(-m // sms)
+    held = 8 * (n + m + rows * m + cols * n)
+    resident = not streaming and held <= smem_max
+    bufs = [torch.zeros(n, dtype=cost.dtype, device=dev),
+            torch.zeros(m, dtype=cost.dtype, device=dev)]
+    if not resident:
+        bufs += [torch.empty_like(cost), torch.empty((m, n), dtype=cost.dtype, device=dev)]
+    out = torch.empty_like(cost)
+    keep.append(bufs)
+    args = (cost.data_ptr(), bufs[2].data_ptr() if not resident else 0,
+            bufs[3].data_ptr() if not resident else 0, bufs[0].data_ptr(), bufs[1].data_ptr(),
+            out.data_ptr(), n, m, iters, float(eps), 1.0 / eps, -math.log(n), -math.log(m), sms,
+            int(resident), held if resident else 8 * (n + m))
+    fn = getattr(lib, "sinkhorn_launch")
+    fn.argtypes = SINKHORN_TWO_PASS_ARGTYPES
+    fn.restype = ctypes.c_int
+
+    def call():
+        check(fn(*args, stream(dev)) == 0, "the two-pass sinkhorn_launch failed")
+
+    return call, out
+
+
+def stop_calls(cost: torch.Tensor, iters: int, eps: float, plan, libs: dict, keep: list) -> dict:
+    """{label: call}: one launch of each sinkhorn.cu library of `libs` (by
+    label: STOP builds, or the committed one) on `plan`, f and g zero at the
+    start (a build cut before the adds writes neither); `keep` holds the
+    buffers. A cut build's plan is not the kernel's."""
+    dev = cost.device
+    calls = {}
+    for label, lib in libs.items():
+        args, _, bufs = sinkhorn.kernel_args(cost, iters, eps, plan)
+        bufs[0].zero_()
+        bufs[1].zero_()
+        keep.append(bufs)
+        fn = entry(lib, "sinkhorn")
+
+        def call(fn=fn, args=args):
+            rc = fn(*args, stream(dev))
+            check(rc == 0, f"sinkhorn_launch returned cudaError {rc}")
+
+        calls[label] = call
+    return calls
+
+
+def sweep_sinkhorn(dev, alts) -> dict:
+    """At stage1's two costs (the defaults, resident; the 6x bus,
+    streaming): the committed kernel in turns with its builds of
+    SINKHORN_VARIANTS, with itself on streaming plans of SINKHORN_PASSES
+    lines a pass (and forced to stream at the defaults), and with the --alt
+    sources (the two-pass design launched through its own signature and
+    plan), every plan held bitwise to the committed one's first; then the
+    split of the half step, the committed kernel's STOP builds in turns with
+    it (and the two-pass design's, with an --alt of it: stops 0 to 2), f and
+    g zero; the TRACE build's cycles a part; the barrier floor of each
+    committed grid."""
+    built = build_all("sinkhorn", SINKHORN_VARIANTS, alts)
+    stops = build_all("sinkhorn", {**{f"stop{k}": dict(STOP=k) for k in SINKHORN_STOPS},
+                                   "trace": dict(TRACE=1)}, [], tag="sinkhorn-split")
+    parents = {lab: d for lab, d, _ in alts if is_two_pass(d)}
+    parent_stops = {}
+    for lab, d in parents.items():
+        patched = with_two_pass_stop(d, SWEEP_DIR / f"sinkhorn-{lab}-stop-src")
+        with ThreadPoolExecutor(3) as ex:
+            libs = ex.map(lambda k: build(f"sinkhorn-{lab}-stop{k}", "sinkhorn", patched,
+                                          dict(STOP=k)), (0, 1, 2))
+            parent_stops.update({(lab, k): b for k, b in zip((0, 1, 2), libs)})
+    report = {"ptxas": {lab: p for lab, (_, p) in {**built, **stops}.items()}, "buses": {}}
+    sms, smem_max = sinkhorn.card_limits(dev)
     for label, over in SINKHORN_BUSES.items():
         cfg = stage1.Stage1Config(**over)
         cost = stage1_cost(cfg, dev)
@@ -1019,32 +1145,44 @@ def sweep_sinkhorn(dev) -> dict:
         plan = sinkhorn.card_plan(dev, n, m)
         keep = []
 
-        def committed_call(plan):
-            args, out, bufs = sinkhorn.kernel_args(cost, iters, eps, plan)
-            keep.append(bufs)
-            return (lambda: _launch.launch("sinkhorn", dev, *args)), out
-
-        calls, outs = {}, {}
-        calls["committed"], outs["committed"] = committed_call(plan)
-        if plan.resident:
-            calls["streaming"], outs["streaming"] = committed_call(
-                sinkhorn.card_plan(dev, n, m, streaming=True))
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        errors = {}
-        for lab, (lib, _) in built.items():
-            consts = SINKHORN_VARIANTS[lab]
-            vplan = sinkhorn.card_plan(dev, n, m, ctas=sms * consts.get("CTAS_PER_SM", 1))
+        def call_on(fn, vplan):
             args, out, bufs = sinkhorn.kernel_args(cost, iters, eps, vplan)
             keep.append(bufs)
-            fn = entry(lib, "sinkhorn")
-            rc = fn(*args, stream(dev))
-            if rc != 0:  # a build the card cannot launch (too many threads' registers)
-                errors[lab] = rc
+
+            def call():
+                rc = fn(*args, stream(dev))
+                check(rc == 0, f"sinkhorn_launch returned cudaError {rc}")
+
+            return call, out
+
+        committed = entry(_build.library("sinkhorn"), "sinkhorn")
+        calls, outs = {}, {}
+        for lab in parents:
+            calls[lab], outs[lab] = two_pass_call(built[lab][0], cost, iters, eps,
+                                              not plan.resident, keep)
+        calls["committed"], outs["committed"] = call_on(committed, plan)
+        if plan.resident:
+            calls["streaming"], outs["streaming"] = call_on(
+                committed, sinkhorn.card_plan(dev, n, m, streaming=True))
+        for k in SINKHORN_PASSES if not plan.resident else ():
+            calls[f"pass{k}"], outs[f"pass{k}"] = call_on(committed, sinkhorn.launch_plan(
+                n, m, sms, smem_max, streaming=True, pass_max=k))
+        errors, plans = {}, {}
+        for lab, (lib, _) in built.items():
+            if lab in parents:
                 continue
-
-            def call(fn=fn, args=args):
-                check(fn(*args, stream(dev)) == 0, "sinkhorn_launch failed")
-
+            consts = SINKHORN_VARIANTS.get(lab, {})
+            vplan = sinkhorn.launch_plan(
+                n, m, sms, smem_max, streaming=not plan.resident,
+                threads=consts.get("THREADS", sinkhorn.SINKHORN_THREADS),
+                depth=consts.get("RING", sinkhorn.SINKHORN_RING))
+            plans[lab] = vplan.__dict__
+            call, out = call_on(entry(lib, "sinkhorn"), vplan)
+            try:
+                call()
+            except RuntimeError as exc:  # a build the card cannot launch
+                errors[lab] = str(exc)
+                continue
             calls[lab], outs[lab] = call, out
         for fn in calls.values():
             fn()
@@ -1052,20 +1190,30 @@ def sweep_sinkhorn(dev) -> dict:
         want = outs["committed"]
         for lab, out in outs.items():
             check(torch.equal(out, want), f"sinkhorn {lab} differs from the committed kernel")
-        graph, gstatic, gplan = sinkhorn_graph(cost, iters, eps)
-        keep.append(gstatic)
-        graph.replay()
+        rounds = 5 if label == "default" else 3
+        times = in_turns(calls, rounds=rounds, chain=1, graphs=False)
+        split = {"committed": calls["committed"],
+                 **stop_calls(cost, iters, eps, plan,
+                              {f"stop{k}": stops[f"stop{k}"][0] for k in SINKHORN_STOPS}, keep)}
+        for lab in parents:
+            split[lab] = calls[lab]
+            for k in (0, 1, 2):
+                split[f"{lab} stop{k}"], _ = two_pass_call(parent_stops[(lab, k)][0], cost, iters,
+                                                       eps, not plan.resident, keep)
+        split_times = in_turns(split, rounds=rounds, chain=1, graphs=False)
+        # the trace build: cycles of each part a half step, and the SM clock
+        args, traced, bufs = sinkhorn.kernel_args(cost, iters, eps, plan)
+        check(entry(stops["trace"][0], "sinkhorn")(*args, stream(dev)) == 0, "trace launch")
         torch.cuda.synchronize()
-        calls["graph"] = graph.replay
-        rel = float((gplan - want).abs().max() / want.abs().max())
-        rounds, chain = (5, 3) if label == "default" else (3, 1)
+        cycles = traced.flatten()[:len(SINKHORN_TRACE) + 1].tolist()
+        trace = {part: c / (2 * iters) for part, c in zip(SINKHORN_TRACE, cycles)}
+        trace["sm_ghz"] = sum(cycles[:-1]) / cycles[-1]
         report["buses"][label] = {
-            "shape": [n, m], "plan": plan.__dict__, "launch_errors": errors,
-            "graph_max_rel_diff": rel,
-            "graph_argmax_equal": bool(torch.equal(gplan.argmax(1), want.argmax(1))),
+            "shape": [n, m], "plan": plan.__dict__, "variant_plans": plans,
+            "launch_errors": errors, "staged_bytes_a_step": plan.staged,
             "barrier_floor_ms": barrier_floor_ms(dev, plan, 2 * iters),
-            "times": in_turns(calls, rounds=rounds, chain=chain, graphs=False)}
-        del graph, gplan
+            "times": times, "split": split_times, "trace_cycles_a_half_step": trace}
+        del keep
     return report
 
 
@@ -1201,17 +1349,20 @@ def main(argv=None) -> int:
         for lab, (s1, c1, g1) in gr["times"].items():
             print(f"  {lab:>10}: {s1:.4f} {c1:.4f} {g1:.4f}")
     if "sinkhorn" in only:
-        report["sinkhorn"] = sweep_sinkhorn(dev)
+        report["sinkhorn"] = sweep_sinkhorn(dev, parse_alts(args.alt, "sinkhorn"))
         report["exp_log_sass"] = exp_log_sass()
         print("FP64 SASS instructions:", json.dumps(report["exp_log_sass"]))
         for label, bus in report["sinkhorn"]["buses"].items():
             print(f"sinkhorn, {label} bus, {bus['shape'][0]} x {bus['shape'][1]}, plan "
-                  f"{json.dumps(bus['plan'])}; barrier floor {bus['barrier_floor_ms']:.4f} ms; "
-                  f"graph yardstick within {bus['graph_max_rel_diff']!r} of the kernel, argmax "
-                  f"equal {bus['graph_argmax_equal']}; launch errors {bus['launch_errors']} "
-                  "(ms per call: single, chained):")
+                  f"{json.dumps(bus['plan'])}; {bus['staged_bytes_a_step']} B staged a step; "
+                  f"barrier floor {bus['barrier_floor_ms']:.4f} ms; launch errors "
+                  f"{bus['launch_errors']} (ms per call: single, chained):")
             for lab, (s1, c1, _) in bus["times"].items():
                 print(f"  {lab:>10}: {s1:.4f} {c1:.4f}")
+            print("  split, each half step cut after a part (ms per call, single): "
+                  + ", ".join(f"{lab} {s1:.4f}" for lab, (s1, _, _) in bus["split"].items()))
+            print("  trace, cycles a half step of thread 0 of CTA 0 (and the SM clock in GHz): "
+                  + json.dumps(bus["trace_cycles_a_half_step"]))
     for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green", "sinkhorn"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))

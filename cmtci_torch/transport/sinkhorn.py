@@ -115,6 +115,10 @@ def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torc
 WARP = 32
 #: CTAs a grid slot of each SM (sinkhorn.cu's CTAS_PER_SM)
 SINKHORN_CTAS_PER_SM = 1
+#: threads a CTA (sinkhorn.cu's THREADS): at most THREADS / WARP lines a pass
+SINKHORN_THREADS = 512
+#: passes the streaming ring holds (sinkhorn.cu's RING, at least 3)
+SINKHORN_RING = 3
 
 
 def warp_sum(e: torch.Tensor) -> torch.Tensor:
@@ -170,14 +174,21 @@ class SinkhornPlan:
     """How csrc/sinkhorn.cu covers an (n, m) cost: `ctas` CTAs, CTA c owning
     the rows [c n // ctas, (c + 1) n // ctas) and the columns likewise; at
     most `row_block` rows and `col_block` columns a CTA; `resident` when
-    every CTA holds its lines of mk in shared memory, else they stream from
-    global scratch; `smem` bytes of dynamic shared memory a CTA."""
+    every CTA holds its lines of mk in shared memory (a warp a line), else
+    they stream from global scratch through a ring of `depth` passes of
+    `pass_rows` and `pass_cols` lines (0 when resident), `staged` bytes
+    copied into shared memory a step (every line of mk and mkT once; 0 when
+    resident); `smem` bytes of dynamic shared memory a CTA."""
 
     ctas: int
     resident: bool
     smem: int
     row_block: int
     col_block: int
+    pass_rows: int
+    pass_cols: int
+    depth: int
+    staged: int
 
 
 def block(c: int, count: int, ctas: int) -> tuple[int, int]:
@@ -185,26 +196,47 @@ def block(c: int, count: int, ctas: int) -> tuple[int, int]:
     return c * count // ctas, (c + 1) * count // ctas
 
 
+def padded(count: int) -> int:
+    """A streamed line's stride in csrc/sinkhorn.cu's scratch and ring:
+    `count` rounded up to even, so that a line spans whole 16 bytes."""
+    return count + count % 2
+
+
 def launch_plan(n: int, m: int, sms: int, smem_max: int, ctas: int | None = None,
-                streaming: bool = False) -> SinkhornPlan:
+                streaming: bool = False, threads: int = SINKHORN_THREADS,
+                depth: int = SINKHORN_RING, pass_max: int | None = None) -> SinkhornPlan:
     """The launch of an (n, m) cost on a card of `sms` SMs whose CTA may
-    opt in to `smem_max` bytes of shared memory: SINKHORN_CTAS_PER_SM a SM
-    (or `ctas`), resident when f, g and a CTA's largest blocks of rows and
-    columns fit, streaming otherwise (or when `streaming`). Raises when f and
-    g alone do not fit."""
+    opt in to `smem_max` bytes of shared memory, for a build of `threads`
+    threads a CTA and a ring of `depth` passes: SINKHORN_CTAS_PER_SM a SM
+    (or `ctas`); a pass of at most threads / WARP lines (or `pass_max`).
+    Resident when f, g and a CTA's largest blocks of rows and columns fit (a
+    warp takes a whole line: no passes, pass_rows and pass_cols 0);
+    streaming otherwise (or when `streaming`), each pass as many lines as
+    `depth` passes of them fit beside f and g. Shared memory
+    also holds three passes' segment maxima (3 threads / WARP keys of 8
+    bytes) and `depth` mbarriers. Raises when f, g and `depth` single lines do not fit."""
     ctas = sms * SINKHORN_CTAS_PER_SM if ctas is None else int(ctas)
     if n < 1 or m < 1 or ctas < 1:
         raise ValueError(f"sinkhorn: a {n} x {m} cost on {ctas} CTAs")
+    if depth < 3:
+        raise ValueError(f"sinkhorn: a ring of {depth} passes (three are read at once)")
+    warps = threads // WARP
+    most = warps if pass_max is None else max(1, min(warps, int(pass_max)))
     rows, cols = -(-n // ctas), -(-m // ctas)
-    vectors = 8 * (n + m)
-    held = vectors + 8 * (rows * m + cols * n)
-    resident = not streaming and held <= smem_max
-    smem = held if resident else vectors
-    if smem > smem_max:
-        raise ValueError(f"sinkhorn: f and g of a {n} x {m} cost take {vectors} B of shared "
-                         f"memory, past the {smem_max} B a CTA may hold (n + m <= "
-                         f"{smem_max // 8})")
-    return SinkhornPlan(ctas, resident, smem, rows, cols)
+    fixed = 8 * (n + m + 3 * warps + depth)
+    held = fixed + 8 * (rows * m + cols * n)
+    if not streaming and held <= smem_max:
+        return SinkhornPlan(ctas, True, held, rows, cols, 0, 0, depth, 0)
+    pr, pc = min(rows, most), min(cols, most)
+    ldm, ldn = padded(m), padded(n)
+    room = (smem_max - fixed) // (8 * depth)
+    pr, pc = min(pr, room // ldm), min(pc, room // ldn)
+    if pr < 1 or pc < 1:
+        raise ValueError(f"sinkhorn: f, g and {depth} lines of a {n} x {m} cost take "
+                         f"{fixed + 8 * depth * max(ldm, ldn)} B of shared memory, past the "
+                         f"{smem_max} B a CTA may hold")
+    smem = fixed + 8 * depth * max(pr * ldm, pc * ldn)
+    return SinkhornPlan(ctas, False, smem, rows, cols, pr, pc, depth, 8 * (n * ldm + m * ldn))
 
 
 def _ctypes_call(name: str, *args) -> None:
@@ -228,11 +260,8 @@ def _ctypes_call(name: str, *args) -> None:
 _LIMITS: dict = {}
 
 
-def card_plan(dev: torch.device, n: int, m: int, ctas: int | None = None,
-              streaming: bool = False) -> SinkhornPlan:
-    """launch_plan on `dev`'s SM count and shared memory; raises when the
-    grid cannot be co-resident (another process holding SMs through MPS, or
-    a MIG slice, leaves fewer)."""
+def card_limits(dev: torch.device) -> tuple[int, int]:
+    """(SMs, the shared memory a CTA may opt in to) of `dev`, read once."""
     import ctypes
 
     index = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -241,8 +270,19 @@ def card_plan(dev: torch.device, n: int, m: int, ctas: int | None = None,
         with torch.cuda.device(index):
             _ctypes_call("sinkhorn_limits", index, out)
         _LIMITS[index] = (out[0], out[1])
-    sms, smem_max = _LIMITS[index]
+    return _LIMITS[index]
+
+
+def card_plan(dev: torch.device, n: int, m: int, ctas: int | None = None,
+              streaming: bool = False) -> SinkhornPlan:
+    """launch_plan on `dev`'s SM count and shared memory; raises when the
+    grid cannot be co-resident (another process holding SMs through MPS, or
+    a MIG slice, leaves fewer)."""
+    import ctypes
+
+    sms, smem_max = card_limits(dev)
     plan = launch_plan(n, m, sms, smem_max, ctas, streaming)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     per_sm = (ctypes.c_int * 1)()
     with torch.cuda.device(index):
         _ctypes_call("sinkhorn_occupancy", int(plan.resident), plan.smem, per_sm)
@@ -262,13 +302,14 @@ def kernel_args(cost: torch.Tensor, iters: int, eps: float, plan: SinkhornPlan):
     bufs = [torch.empty(n, dtype=cost.dtype, device=dev),
             torch.empty(m, dtype=cost.dtype, device=dev)]
     if not plan.resident:
-        bufs += [torch.empty_like(cost), torch.empty((m, n), dtype=cost.dtype, device=dev)]
+        bufs += [torch.empty((n, padded(m)), dtype=cost.dtype, device=dev),
+                 torch.empty((m, padded(n)), dtype=cost.dtype, device=dev)]
     out = torch.empty_like(cost)
     f, g = bufs[:2]
     mk, mk_t = (bufs[2].data_ptr(), bufs[3].data_ptr()) if not plan.resident else (0, 0)
     args = (cost.data_ptr(), mk, mk_t, f.data_ptr(), g.data_ptr(), out.data_ptr(), n, m,
             int(iters), float(eps), 1.0 / eps, -math.log(n), -math.log(m), plan.ctas,
-            int(plan.resident), plan.smem)
+            int(plan.resident), plan.smem, plan.pass_rows, plan.pass_cols)
     return args, out, bufs
 
 

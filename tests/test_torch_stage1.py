@@ -188,6 +188,22 @@ def test_run_stage1_greedy_small_against_cmtci(tmp_path):
                                                                 "meta.txt"))
 
 
+def test_run_stage1_times_the_parts_of_match():
+    """match's four parts are timed inside it: their sum is at most match,
+    and the output is the untimed run's."""
+    from cmtci_torch.utils.artifacts import StageTimer
+
+    cfg = stage1.Stage1Config(max_n=10, nx=50, ny=36, boundary_samples=60)
+    timer = StageTimer("cpu")
+    got = stage1.run_stage1(cfg, plots=False, device="cpu", timer=timer)
+    parts = ("features", "cost", "sinkhorn", "argmax")
+    assert set(timer.times) == {"cloud", "band", "match", "align", *parts}
+    assert sum(timer.times[k] for k in parts) <= timer.times["match"]
+    want = stage1.run_stage1(cfg, plots=False, device="cpu")
+    for key in ("C", "M", "C_aligned", "matches"):
+        np.testing.assert_array_equal(got[key], want[key])
+
+
 def test_sample_boundary_band_stays_in_band():
     """tests/test_stage1_de.py's band check, on the port's field."""
     cfg = stage1.Stage1Config(nx=80, ny=60, boundary_samples=100)
