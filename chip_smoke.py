@@ -218,7 +218,17 @@ prints no result line):
      80,395 points x 20,000 steps) against the compacted loop on the twin and on the
      kernel's stages, with the chain bound of its deepest points, and U_M on
      coupling's and the variograms' grids in each normalization), at max_iter
-     1 and on ragged grids in f64 and f32, with times and bounds;
+     1 and on ragged grids in f64 and f32, with times and bounds; orbit_dwell
+     and orbit_de_tci (redesigned: the f64 analytic interior skipped,
+     branch-free chunks on warp patches of the (ny, nx) grid, de_tci's dz
+     only for the late escapers) also on a row slice, one row as a 1-D
+     input and a 1000 x 1000 f64 grid over the cardioid-bulb junction at
+     2,000 steps, orbit_de_tci's loop state bitwise its contract against
+     the twin's (mandelbrot._de_tci_contract: finite dz at the same
+     escapers) with its second passes, counted on the card, as many as the
+     twin's late escapers, each with the bound on the steps the redesign
+     needs, the FP64 instruction floor, and the earlier count's bound and
+     floor beside them;
      csrc/sinkhorn.cu (one cooperative launch a call) torch.equal its twin
      sinkhorn_log_torch at stage1's cost at the CLI defaults (819 x 600) on its
      own plan (resident, one CTA an SM), on 97 and 66 CTAs, each also forced
@@ -261,7 +271,15 @@ and K2's periodic entry keep the chained time as ms and give graph_ms. No
 single PyTorch call computes an escape-time field or a chain of dependent
 FMAs, so library_ms is null. The new entries: orbit.cu's bound is its
 loop's operations (ORBIT_OPS_PER_STEP on the steps these points need) over
-the H100's 33.5 TFLOP/s FP64 (67 for f32) or its bytes, and max_abs_err the
+the H100's 33.5 TFLOP/s FP64 (67 for f32) or its bytes, floor_ms the same
+operations over the FP64 (FP32) instruction rate, SMs x FP64_LANES
+(FP32_LANES) x the maximum SM clock, each operation one instruction under
+-fmad=false; for orbit_dwell and orbit_de_tci the operations are those
+the redesign needs (CARRIED_STEP_OPS a step outside the f64 interior, up to
+the escape and, for de_tci, on to a non-finite z; LATE_STEP_OPS a (z, dz)
+step of the late escapers' second pass), with bound_before_ms and
+floor_before_ms on the earlier count (every step of every point at
+ORBIT_OPS_PER_STEP); max_abs_err the
 largest |kernel - twin| over the entries finite in both, in every case phase
 23 holds (the check itself is bitwise, NaN equal to NaN, whose positions the
 line counts); aberth's bound is the f32 repulsion of the lanes not yet frozen
@@ -323,6 +341,20 @@ ORBIT_ENTRIES = ("orbit_dwell", "orbit_de_tci", "orbit_de_std", "orbit_de_stage1
 #: step 6 mul 3 add/sub; sqrt(|z|^2) > R one more; hypot(zr, zi) > R 2
 ORBIT_OPS_PER_STEP = {"orbit_dwell": 12, "orbit_de_tci": 22, "orbit_de_std": 22,
                       "orbit_de_stage1": 19, "orbit_green": 12, "orbit_potential": 12}
+#: operations (instructions) a step of the redesigned orbit_dwell and
+#: orbit_de_tci: a carried step with its radius test (3 mul, 5 add/sub, 1
+#: compare), and the late escapers' (z, dz) step, which tests nothing (dz 6
+#: mul 3 add/sub, z 4 mul 4 add/sub)
+CARRIED_STEP_OPS, LATE_STEP_OPS = 9, 17
+#: FP64 and FP32 instructions an SM issues a clock outside the tensor cores:
+#: with -fmad=false every operation is one, so the orbit loops' instruction
+#: floor is their operations over SMs x these x the maximum SM clock (FP64:
+#: about 16.7e12 a second, half the 33.5 TFLOP/s that counts an FMA as two)
+FP64_LANES, FP32_LANES = 64, 128
+#: the cardioid-bulb junction, where the f64 mask's rim meets the parabolic
+#: point c = -3/4; phase 23 holds orbit_dwell and orbit_de_tci there at
+#: 1000 x 1000 and 2,000 steps
+JUNCTION = (-0.80, -0.70, -0.05, 0.05)
 #: f32 operations a pair term of aberth.cu's repulsion: 2 sub, 2 mul and an add
 #: for |z_i - z_j|^2, a compare, the reciprocal, 2 mul and 2 add into the sums
 ABERTH_OPS_PER_PAIR = 11
@@ -3156,8 +3188,9 @@ def eigvals_library(dev) -> dict:
 
 
 def tci_steps_needed(cr, ci, max_iter: int, escape_r: float) -> int:
-    """The steps orbit_de_tci runs for these points: every step, but a point
-    stops once it escaped and its dz is NaN in both parts."""
+    """The steps orbit_de_tci ran for these points before its redesign (the
+    earlier count, kept beside the redesign's): every step, but a point
+    stopped once it escaped and its dz was NaN in both parts."""
     import torch
 
     zr, zi = torch.zeros_like(cr), torch.zeros_like(ci)
@@ -3206,14 +3239,25 @@ def abs_err(a, b) -> tuple:
 ORBIT_ERR: dict = {}
 
 
-def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype_ops_peak, loop=None,
-               plain_ms=None):
+#: instructions a second the card issues outside the tensor cores, by dtype
+#: (SMs x FP64_LANES or FP32_LANES x the maximum SM clock; set by loop_orbits)
+INSTR_PER_S: dict = {}
+
+
+def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype=None, loop=None,
+               plain_ms=None, needed_ops=None):
     """One orbit.cu entry against its twin on the card: the public function
     `kernel` launches once and is bitwise `twin` (NaN equal to NaN); its
     max |kernel - twin| over the finite entries goes into ORBIT_ERR. With
     `loop` (the pipeline's size), the times of loop, the launch alone (the
     epilogue copies a host scalar, which a CUDA graph cannot capture), and
-    of the twin (plain_ms where the caller timed it), and the bound."""
+    of the twin (plain_ms where the caller timed it), and the bound: the
+    loop's operations on `steps` (ORBIT_OPS_PER_STEP each) over the dtype's
+    peak, or the bytes, with the instruction floor (the operations over
+    INSTR_PER_S). For the redesigned entries `needed_ops` are the operations
+    the redesign needs on these inputs: the bound and floor come from them,
+    and the count on `steps` stands beside them as bound_before_ms and
+    floor_before_ms."""
     import torch
 
     torch.cuda.synchronize()
@@ -3221,7 +3265,12 @@ def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype_ops_peak, loop=No
     got = kernel()
     torch.cuda.synchronize()
     launched(f"{name} {label}", {name: 1})
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = twin()
+    stop.record()
+    stop.synchronize()
     check(same_bits(got, want), f"{name} {label}: differs from the twin")
     err, nans = abs_err(got, want)
     worst, shared = ORBIT_ERR.get(name, (0.0, 0))
@@ -3230,16 +3279,65 @@ def loop_orbit(name, label, kernel, twin, steps, nbytes, dtype_ops_peak, loop=No
         return None
     ms = cuda_ms(loop, 3, 10, CHAIN)
     graph_ms = cuda_ms(loop, 3, 10, CHAIN, graph=True)
-    plain_ms = cuda_ms(twin, 0, 1) if plain_ms is None else plain_ms
-    t_ops = steps * ORBIT_OPS_PER_STEP[name] / dtype_ops_peak * 1e3
+    # the twin's one call above, between two CUDA events
+    plain_ms = start.elapsed_time(stop) if plain_ms is None else plain_ms
+    peak = PEAK_FP64 if dtype == torch.float64 else PEAK_FP32
+    ops = steps * ORBIT_OPS_PER_STEP[name]
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    floor = ops / INSTR_PER_S[dtype] * 1e3
+    extra = {}
+    if needed_ops is not None:
+        extra = dict(bound_before_ms=max(ops / peak * 1e3, t_bytes), floor_before_ms=floor,
+                     ops_needed=needed_ops)
+        ops = needed_ops
+        floor = ops / INSTR_PER_S[dtype] * 1e3
+    t_ops = ops / peak * 1e3
     bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     print(f"{name} {label}: bitwise equal to the twin (max |kernel - twin| {err!r} over the "
           f"finite entries, {nans} NaN positions in both), 1 launch; kernel {graph_ms:.4f} ms "
           f"(graph; {ms:.4f} chained), twin {plain_ms:.2f} ms; {steps} steps, bound "
           f"{bound:.5f} ms ({by})")
+    if needed_ops is None:
+        print(f"  {name} instruction floor: {floor:.5f} ms ({ops} instructions)")
+    else:
+        print(f"  {name} redesign: {needed_ops} operations on the steps it needs, bound "
+              f"{bound:.5f} ms ({by}), instruction floor {floor:.5f} ms; on the {steps} steps "
+              f"of the earlier count: bound {extra['bound_before_ms']:.5f} ms, floor "
+              f"{extra['floor_before_ms']:.5f} ms")
     return dict(ms=graph_ms, chained_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                shape=label)
+                floor_ms=floor, shape=label, **extra)
+
+
+def tci_contract(label, cr, ci, it):
+    """orbit_de_tci's loop state bitwise its contract against the twin's
+    (mandelbrot._de_tci_contract: the finite dz at the same escapers), and
+    its second passes, counted on the card, as many as the twin's late
+    escapers. Returns bench.orbit_tci_lane_steps (first, second, late), the
+    twin's de_field_tci outputs and the ms of its one call (CUDA events)."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    count = torch.zeros(1, dtype=torch.int32, device=cr.device)
+    state = mb._de_tci_loop_cuda(cr, ci, it, ESCAPE_R, second_passes=count)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    twin = mb._de_tci_loop_torch(cr, ci, it, ESCAPE_R)
+    public = mb._de_tci_epilogue(*twin, 1e-12)  # de_field_tci_torch's
+    stop.record()
+    stop.synchronize()
+    check(same_bits(state, mb._de_tci_contract(twin, ESCAPE_R)),
+          f"orbit_de_tci {label}: the loop state breaks its contract")
+    fin = state[0] & torch.isfinite(state[3]) & torch.isfinite(state[4])
+    twin_fin = twin[0] & torch.isfinite(twin[3]) & torch.isfinite(twin[4])
+    check(torch.equal(fin, twin_fin), f"orbit_de_tci {label}: finite dz elsewhere than the twin's")
+    first, second, late = bench.orbit_tci_lane_steps(cr, ci, it, ESCAPE_R)
+    check(int(count.item()) == int(late.sum()),
+          f"orbit_de_tci {label}: {int(count.item())} second passes, the twin has "
+          f"{int(late.sum())} late escapers")
+    return first, second, late, public, start.elapsed_time(stop)
 
 
 def loop_orbits(dev):
@@ -3258,6 +3356,10 @@ def loop_orbits(dev):
 
     f64 = torch.float64
     out = {}
+    clock_hz = bench.max_sm_clock_mhz(dev) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    INSTR_PER_S.update({f64: sms * FP64_LANES * clock_hz,
+                        torch.float32: sms * FP32_LANES * clock_hz})
 
     def grid(dom, nx, ny, dtype=f64):
         return mb.complex_grid(dom, nx, ny, dtype=dtype, device=dev)
@@ -3268,39 +3370,90 @@ def loop_orbits(dev):
             for (ny, nx), it in (((3, 5), 1), ((1, 7), 2), ((37, 61), 7), ((129, 33), 300)):
                 cr, ci = grid(DOMAIN, nx, ny, dt)
                 k, t = run(cr, ci, it)
-                loop_orbit(name, f"{ny}x{nx} {dt} {it} it.", k, t, 0, 0, 1.0)
+                loop_orbit(name, f"{ny}x{nx} {dt} {it} it.", k, t, 0, 0)
 
-    # the boundary's f64 dwell: 2000 x 2000, 500 steps
+    def dwell_ops(cr, ci, d, it):
+        """The redesign's operations: a carried step for each step its points
+        need outside the f64 interior."""
+        return int(bench.orbit_dwell_lane_steps(cr, ci, d, it).sum()) * CARRIED_STEP_OPS
+
+    # the boundary's f64 dwell: 2000 x 2000, 500 steps; beside it a row slice,
+    # one row as a 1-D input, and the cardioid-bulb junction at 2,000 steps
+    t_added = time.perf_counter()
     cr, ci = grid(BOUNDARY_DOMAIN, 2000, 2000)
     d = mb.dwell_grid(cr, ci, 500)
     steps = int(torch.where(d < 500, d.long() + 1, 500).sum())
     out["orbit_dwell"] = loop_orbit("orbit_dwell", "2000x2000 f64, 500 it.",
                                     lambda: mb.dwell_grid(cr, ci, 500),
                                     lambda: mb.dwell_grid_torch(cr, ci, 500), steps,
-                                    2000 * 2000 * 20, PEAK_FP64,
-                                    loop=lambda: mb._dwell_cuda(cr, ci, 500))
+                                    2000 * 2000 * 20, f64,
+                                    loop=lambda: mb._dwell_cuda(cr, ci, 500),
+                                    needed_ops=dwell_ops(cr, ci, d, 500))
     small_cases("orbit_dwell", lambda cr, ci, it: (lambda: mb.dwell_grid(cr, ci, it),
                                                    lambda: mb.dwell_grid_torch(cr, ci, it)))
+    for dt in (f64, torch.float32):
+        cr, ci = grid(BOUNDARY_DOMAIN, 2000, 2000, dt)
+        for label, a, b in ((f"rows 700..899 of 2000x2000 {dt}", cr[700:900], ci[700:900]),
+                            (f"row 1000 of 2000x2000 {dt}, 1-D", cr[1000], ci[1000])):
+            loop_orbit("orbit_dwell", label, lambda a=a, b=b: mb.dwell_grid(a, b, 500),
+                       lambda a=a, b=b: mb.dwell_grid_torch(a, b, 500), 0, 0)
+    cr, ci = grid(JUNCTION, 1000, 1000)
+    d = mb.dwell_grid(cr, ci, 2000)
+    loop_orbit("orbit_dwell", "1000x1000 f64 over the cardioid-bulb junction, 2000 it.",
+               lambda: mb.dwell_grid(cr, ci, 2000), lambda: mb.dwell_grid_torch(cr, ci, 2000),
+               int(torch.where(d < 2000, d.long() + 1, 2000).sum()), 1000 * 1000 * 20, f64,
+               loop=lambda: mb._dwell_cuda(cr, ci, 2000), needed_ops=dwell_ops(cr, ci, d, 2000))
+    dwell_added = time.perf_counter() - t_added
 
-    # de_field_tci: the tracker's grids in f64 and f32, run_tci's domain at 912
+    # de_field_tci: the tracker's grids in f64 and f32, run_tci's domain at
+    # 912, then a row slice, one row as a 1-D input and the junction; each
+    # loop state held to its contract, its second passes counted
+    t_added = time.perf_counter()
     tci = TCIConfig()
     cases = ([(DOMAIN, g, dt) for g in GRIDS for dt in (f64, torch.float32)]
              + [(tci.domain, 912, f64)])
+    late_counts = {}
     for dom, g, dt in cases:
         cr, ci = grid(dom, g, g, dt)
         size = 8 if dt == f64 else 4
-        res = loop_orbit("orbit_de_tci", f"{g}x{g} {dt}"
-                         + (" (run_tci's domain)" if dom != DOMAIN else ""),
-                         lambda: mb.de_field_tci(cr, ci, MAX_ITER, ESCAPE_R),
-                         lambda: mb.de_field_tci_torch(cr, ci, MAX_ITER, ESCAPE_R),
+        label = f"{g}x{g} {dt}" + (" (run_tci's domain)" if dom != DOMAIN else "")
+        first, second, late, public, twin_ms = tci_contract(label, cr, ci, MAX_ITER)
+        late_counts[label] = int(late.sum())
+        res = loop_orbit("orbit_de_tci", label,
+                         lambda: mb.de_field_tci(cr, ci, MAX_ITER, ESCAPE_R), lambda: public,
                          tci_steps_needed(cr, ci, MAX_ITER, ESCAPE_R),
-                         g * g * (2 * size + 1 + 4 * size),
-                         PEAK_FP64 if dt == f64 else PEAK_FP32,
-                         loop=lambda: mb._de_tci_loop_cuda(cr, ci, MAX_ITER, ESCAPE_R))
+                         g * g * (2 * size + 1 + 4 * size), dt,
+                         loop=lambda: mb._de_tci_loop_cuda(cr, ci, MAX_ITER, ESCAPE_R),
+                         plain_ms=twin_ms, needed_ops=int(first.sum()) * CARRIED_STEP_OPS
+                         + int(second.sum()) * LATE_STEP_OPS)
+        print(f"  orbit_de_tci {label}: {int(first.sum())} z-only steps outside the mask, "
+              f"{int(late.sum())} late escapers ({int(second.sum())} (z, dz) steps), the "
+              "same count of second passes on the card; finite dz where the twin's")
         if (dom, g, dt) == (DOMAIN, GRIDS[1], f64):  # the f64 tracker's second stage
-            out["orbit_de_tci"] = res
+            out["orbit_de_tci"] = dict(res, late_escapers=late_counts[label])
     small_cases("orbit_de_tci", lambda cr, ci, it: (lambda: mb.de_field_tci(cr, ci, it),
                                                     lambda: mb.de_field_tci_torch(cr, ci, it)))
+    for dt in (f64, torch.float32):
+        for (ny, nx), it in (((3, 5), 1), ((1, 7), 2), ((37, 61), 7), ((129, 33), 300)):
+            tci_contract(f"{ny}x{nx} {dt} {it} it.", *grid(DOMAIN, nx, ny, dt), it)
+        cr, ci = grid(DOMAIN, 912, 912, dt)
+        for label, a, b in ((f"rows 300..399 of 912x912 {dt}", cr[300:400], ci[300:400]),
+                            (f"row 456 of 912x912 {dt}, 1-D", cr[456], ci[456])):
+            public = tci_contract(label, a, b, MAX_ITER)[3]
+            loop_orbit("orbit_de_tci", label,
+                       lambda a=a, b=b: mb.de_field_tci(a, b, MAX_ITER, ESCAPE_R),
+                       lambda public=public: public, 0, 0)
+    cr, ci = grid(JUNCTION, 1000, 1000)
+    label = "1000x1000 f64 over the cardioid-bulb junction, 2000 it."
+    first, second, late, public, twin_ms = tci_contract(label, cr, ci, 2000)
+    loop_orbit("orbit_de_tci", label, lambda: mb.de_field_tci(cr, ci, 2000, ESCAPE_R),
+               lambda: public, tci_steps_needed(cr, ci, 2000, ESCAPE_R), 1000 * 1000 * 49, f64,
+               loop=lambda: mb._de_tci_loop_cuda(cr, ci, 2000, ESCAPE_R), plain_ms=twin_ms,
+               needed_ops=int(first.sum()) * CARRIED_STEP_OPS
+               + int(second.sum()) * LATE_STEP_OPS)
+    tci_added = time.perf_counter() - t_added
+    print(f"phase 23's orbit_dwell cases {dwell_added:.1f} s, orbit_de_tci cases "
+          f"{tci_added:.1f} s wall (checks and timings)")
 
     # de_field_std: the variograms' boundary proxy, 700 x 700, 600 steps
     vc = VariogramConfig()
@@ -3312,8 +3465,7 @@ def loop_orbits(dev):
                          lambda: mb.de_field_std(cr, ci, vc.boundary_max_iter),
                          lambda: mb.de_field_std_torch(cr, ci, vc.boundary_max_iter),
                          escape_steps_needed(cr, ci, vc.boundary_max_iter, 16.0),
-                         cr.numel() * (2 * size + 1 + 4 * size),
-                         PEAK_FP64 if dt == f64 else PEAK_FP32,
+                         cr.numel() * (2 * size + 1 + 4 * size), dt,
                          loop=lambda: mb._de_latched_loop_cuda(cr, ci, vc.boundary_max_iter, 4.0,
                                                                False))
         if dt == f64:
@@ -3332,7 +3484,7 @@ def loop_orbits(dev):
         lambda: mb.de_field_stage1(cr, ci, sc.max_iter, sc.bailout),
         lambda: mb.de_field_stage1_torch(cr, ci, sc.max_iter, sc.bailout),
         escape_steps_needed(cr, ci, sc.max_iter, sc.bailout * sc.bailout),
-        cr.numel() * (16 + 1 + 32), PEAK_FP64,
+        cr.numel() * (16 + 1 + 32), f64,
         loop=lambda: mb._de_latched_loop_cuda(cr, ci, sc.max_iter, sc.bailout, True))
     small_cases("orbit_de_stage1",
                 lambda cr, ci, it: (lambda: mb.de_field_stage1(cr, ci, it),
@@ -3352,12 +3504,12 @@ def loop_orbits(dev):
     loop_orbit("orbit_green", f"{len(pts)} points f64, the first stage of 512",
                lambda: mb._green_stage(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
                lambda: mb._green_stage_torch(zero, zero, pr, pi, 0, 512, r2, ec.max_iter),
-               0, 0, 1.0)
+               0, 0)
     zr1, zi1 = first[0], first[1]
     loop_orbit("orbit_green", "resumed from the first stage's state, k0 512",
                lambda: mb._green_stage(zr1, zi1, pr, pi, 512, 512, r2, ec.max_iter),
                lambda: mb._green_stage_torch(zr1, zi1, pr, pi, 512, 512, r2, ec.max_iter),
-               0, 0, 1.0)
+               0, 0)
     small_cases("orbit_green", lambda cr, ci, it: (
         lambda: mb._green_stage(torch.zeros_like(cr), torch.zeros_like(ci), cr, ci, 0, it, 4.0,
                                 it),
@@ -3395,13 +3547,13 @@ def loop_orbits(dev):
     steps = int(k.sum())
     res = loop_orbit(
         "orbit_green", f"{len(pts)} points f64, {ec.max_iter} it., one stage (g, k, phi "
-        "against the compacted twin)", one_stage, lambda: twin, steps, len(pts) * (32 + 32 + 1 + 4 + 16), PEAK_FP64,
+        "against the compacted twin)", one_stage, lambda: twin, steps,
+        len(pts) * (32 + 32 + 1 + 4 + 16), f64,
         loop=lambda: mb._green_loop_cuda(zero, zero, pr, pi, 0, ec.max_iter, r2, ec.max_iter),
         plain_ms=twin_ms)
     check(same_bits(one, twin), "the one-stage Green potential differs from the compacted twin")
     # the chain of the deepest point: 3 dependent f64 instructions a step
     # (mul, sub, add) at FP64's measured latency
-    clock_hz = bench.max_sm_clock_mhz(dev) * 1e6
     chain = deepest * 3 * FP64_DEPENDENT_CYCLES / clock_hz * 1e3
     res.update(bound_chain_ms=chain, deepest_steps=deepest, staged_launches=stages,
                staged_s=staged_s, one_launch_s=one_s)
@@ -3433,8 +3585,7 @@ def loop_orbits(dev):
                 "orbit_potential", f"{label} {tuple(cr.shape)}, {it} it., R {rad}, {norm}",
                 lambda: mb.escape_potential_grid(cr, ci, it, rad, norm),
                 lambda: mb.escape_potential_grid_torch(cr, ci, it, rad, norm),
-                escape_steps_needed(cr, ci, it, rad * rad), cr.numel() * (16 + 8),
-                PEAK_FP64,
+                escape_steps_needed(cr, ci, it, rad * rad), cr.numel() * (16 + 8), f64,
                 loop=(lambda: mb._potential_loop_cuda(cr, ci, it, rad * rad)) if norm == own
                 else None)
             if norm == own and label.startswith("the variograms"):

@@ -371,6 +371,68 @@ def tci_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, r2: float)
     return first, second
 
 
+def interior_f64_torch(cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """csrc/orbit.cu's interior_f64 on f64 tensors: the points orbit_dwell and
+    orbit_de_tci (for R >= 2) send away without a step, the reference's
+    cardioid and period-2 bulb tests with their 1e-5 margins, in f64, for
+    |cr|, |ci| <= 2."""
+    xm = cr - 0.25
+    q = xm * xm + ci * ci
+    in_cardioid = q * (q + xm) <= 0.25 * ci * ci - 1e-5
+    xp = cr + 1.0
+    in_bulb = xp * xp + ci * ci <= 0.0625 - 1e-5
+    return (cr.abs() <= 2.0) & (ci.abs() <= 2.0) & (in_cardioid | in_bulb)
+
+
+def orbit_dwell_lane_steps(cr: torch.Tensor, ci: torch.Tensor, dwell: torch.Tensor,
+                           max_iter: int) -> torch.Tensor:
+    """Per-lane steps orbit_dwell's points need, from its dwell output: none
+    for an f64 point of the analytic interior, dwell + 1 for an escaper,
+    max_iter for the rest (f32 points are never skipped)."""
+    lane = torch.where(dwell < max_iter, dwell.long() + 1, max(max_iter, 0))
+    if cr.dtype == torch.float64:
+        lane = torch.where(interior_f64_torch(cr, ci), 0, lane)
+    return lane
+
+
+def orbit_tci_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
+                         escape_r: float):
+    """(first, second, late): per-lane steps of orbit_de_tci's two passes
+    (int64, the shape of cr), a test counted after every step. first, the z
+    alone: none for a skipped f64 interior point (R >= 2), else every step up
+    to the first after which the point has escaped and its z is non-finite
+    if that comes within max_iter - 1 steps, else max_iter - 1 for a point
+    that escaped within them and max_iter for the rest. second, the (z, dz)
+    body: max_iter for a late escaper (escaped, z finite after max_iter - 1
+    steps; for R < 2 every escaper), else none. late the late escapers."""
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    t = mb.radius_threshold(float(escape_r), cr.dtype == torch.float64)
+    fast = t >= 4.0
+    run = torch.ones(cr.shape, dtype=torch.bool, device=cr.device)
+    if cr.dtype == torch.float64 and fast:
+        run = ~interior_f64_torch(cr, ci)
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(ci)
+    hit = torch.zeros_like(run)
+    dead_at = torch.full(cr.shape, max_iter, dtype=torch.int64, device=cr.device)
+    for k in range(1, max_iter):
+        zr, zi = zr * zr - zi * zi + cr, zr * zi + zi * zr + ci
+        hit = hit | (zr * zr + zi * zi > t)
+        dead = hit & ~(torch.isfinite(zr) & torch.isfinite(zi)) & (dead_at == max_iter)
+        dead_at = torch.where(dead, k, dead_at)
+    early = hit.clone()
+    if max_iter >= 1:
+        zr, zi = zr * zr - zi * zi + cr, zr * zi + zi * zr + ci
+        hit = hit | (zr * zr + zi * zi > t)
+    hit = hit & run
+    first = torch.where(dead_at < max_iter, dead_at,
+                        torch.where(early, max_iter - 1, max(max_iter, 0)))
+    first = torch.where(run, first, 0)
+    late = hit & (dead_at == max_iter)
+    second = torch.where(hit & (late | (not fast)), max(max_iter, 0), 0)
+    return first, second, late
+
+
 def max_sm_clock_mhz(dev: torch.device) -> float:
     """The card's maximum SM clock in MHz (nvidia-smi's clocks.max.sm). The
     card is named to nvidia-smi by its UUID: torch's index follows

@@ -33,10 +33,10 @@ ARGTYPES = {
     # zr, zi, steps, task, deg, width, closed, coef, coef_stride, ctas, lanes,
     # max_iters, tol2, rep64, the closed form's c0..c3, nc, a, threads, smem
     "aberth": [_P] * 8 + [_I] * 4 + [_D, _I] + [_D] * 4 + [_I, _D, _I, _I, _P],
-    # the orbit loops: inputs, outputs, n, then each loop's counts and threshold,
-    # is_double
-    "orbit_dwell": [_P, _P, _P, _L, _I, _I, _P],
-    "orbit_de_tci": [_P] * 7 + [_L, _I, _D, _I, _P],
+    # the orbit loops: inputs, outputs, n (orbit_dwell, orbit_de_tci: ny, nx),
+    # then each loop's counts and threshold, is_double
+    "orbit_dwell": [_P, _P, _P, _L, _L, _I, _I, _P],
+    "orbit_de_tci": [_P] * 7 + [_L, _L, _I, _D, _P, _I, _P],  # t, then second_passes
     "orbit_de_std": [_P] * 7 + [_L, _I, _D, _I, _P],
     "orbit_de_stage1": [_P] * 7 + [_L, _I, _D, _I, _P],
     "orbit_green": [_P] * 10 + [_L, _I, _I, _D, _I, _I, _P],

@@ -14,7 +14,9 @@ state and an epilogue in torch that both paths share. On CUDA tensors the
 loop is one launch of a ``csrc/orbit.cu`` entry (``_green_stage``: one a
 stage); on CPU tensors it is the plain twin, the eager loop of the
 ``*_loop_torch`` functions, which the ``*_torch`` functions run on any
-device. The kernel's loop state is bitwise the twin's. Nothing falls back.
+device. The kernel's loop state is bitwise the twin's (``de_field_tci``'s
+under the contract ``_de_tci_loop_cuda`` states, which keeps its outputs
+bitwise). Nothing falls back.
 
 Grids are built from ``np.linspace`` — the oracle's grid. ``jnp.linspace``
 and ``torch.linspace`` each differ from it in the last ulp, and a grid node
@@ -22,6 +24,8 @@ that moves by an ulp can flip a borderline escape.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -47,10 +51,11 @@ def _zsq_add_c(zr, zi, cr, ci):
     return zr * zr - zi * zi + cr, zr * zi + zi * zr + ci
 
 
-def _orbit(entry: str, ins, outs, *scalars):
+def _orbit(entry: str, ins, outs, *scalars, grid: bool = False):
     """Launch csrc/orbit.cu's `entry` over the points of `ins` (CUDA tensors of
     one shape, f32 or f64) into `outs` (fresh tensors of that shape); the
-    scalars follow the point count, then the dtype flag. Returns outs."""
+    scalars follow the point count (with `grid`, the (ny, nx) of
+    _grid_shape), then the dtype flag. Returns outs."""
     first = ins[0]
     if first.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{entry}: the kernel takes float32 or float64, got {first.dtype}")
@@ -61,9 +66,20 @@ def _orbit(entry: str, ins, outs, *scalars):
     ins = [t.contiguous() for t in ins]
     n = first.numel()
     if n:
+        size = _grid_shape(first) if grid else (n,)
         _launch(entry, first.device, *(t.data_ptr() for t in ins),
-                *(t.data_ptr() for t in outs), n, *scalars, int(first.dtype == torch.float64))
+                *(t.data_ptr() for t in outs), *size, *scalars,
+                int(first.dtype == torch.float64))
     return outs
+
+
+def _grid_shape(t) -> tuple:
+    """(ny, nx) of t's points laid out row-major as a grid: its last dim
+    across, the others down; a 0-D or 1-D tensor is one row."""
+    if t.dim() < 2:
+        return 1, t.numel()
+    nx = t.shape[-1]
+    return (t.numel() // nx if nx else 0), nx
 
 
 def _loop(twin, kernel, *args):
@@ -101,7 +117,12 @@ def dwell_grid_torch(cr, ci, max_iter: int = 500) -> torch.Tensor:
 
 
 def _dwell_cuda(cr, ci, max_iter: int):
-    return _orbit("orbit_dwell", (cr, ci), (_out(cr, torch.int32),), int(max_iter))[0]
+    """orbit_dwell: bitwise dwell_grid_torch. In f64 the analytic interior
+    (the reference's cardioid and bulb tests with their 1e-5 margins, in
+    f64) writes max_iter without a step: such an orbit never escapes in f64
+    (the argument is in orbit.cu)."""
+    return _orbit("orbit_dwell", (cr, ci), (_out(cr, torch.int32),), int(max_iter),
+                  grid=True)[0]
 
 
 def dwell_grid(cr, ci, max_iter: int = 500) -> torch.Tensor:
@@ -246,9 +267,74 @@ def _de_tci_loop_torch(cr, ci, max_iter: int, escape_r: float):
     return esc, lr, li, dzr, dzi
 
 
-def _de_tci_loop_cuda(cr, ci, max_iter: int, escape_r: float):
+@functools.lru_cache(maxsize=None)
+def radius_threshold(escape_r: float, double: bool) -> float:
+    """The squared threshold t of the radius test sqrt(s) > escape_r in the
+    dtype (f64 if `double`, else f32, escape_r rounded to it as torch rounds
+    a Python scalar): the largest value of the dtype whose correctly
+    rounded square root is <= escape_r, so that for every s of the dtype,
+    NaN and inf included, sqrt(s) > escape_r exactly when s > t (sqrt is
+    correctly rounded, hence monotone). +inf when no s passes (escape_r
+    NaN or +inf), -inf when every s but NaN does (escape_r < 0). Found by
+    bisection over the bit patterns of [0, inf]."""
+    ft, it = (np.float64, np.uint64) if double else (np.float32, np.uint32)
+    with np.errstate(over="ignore"):
+        r = ft(escape_r)  # a radius past the dtype's range rounds to inf
+    if np.isnan(r) or r == np.inf:
+        return float("inf")
+    if r < 0:
+        return float("-inf")
+
+    def value(bits: int):
+        return np.array([bits], dtype=it).view(ft)[0]
+
+    lo, hi = 0, int(np.array([np.inf], dtype=ft).view(it)[0])  # sqrt(0) <= r < sqrt(inf)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if np.sqrt(value(mid)) <= r:
+            lo = mid
+        else:
+            hi = mid
+    return float(value(lo))
+
+
+def _de_tci_loop_cuda(cr, ci, max_iter: int, escape_r: float, second_passes=None):
+    """orbit_de_tci's loop state (esc, lr, li, dzr, dzi). Its contract
+    (argued in orbit.cu): esc, lr and li are _de_tci_loop_torch's bits; at
+    an escaper whose twin's final dz is finite in both parts, dz is the
+    twin's bits; every other point has dz = (NaN, NaN) (points that do not
+    escape, f64 points of the analytic interior, which take no step, and
+    escapers whose z overflowed before step max_iter - 1), except that for
+    escape_r < 2 every escaper gets the twin's final dz, finite or not.
+    _de_tci_epilogue gives the twin's (esc, d, last_r, last_i) from either
+    state: d reads dz only through den, which a non-finite dz makes +inf or
+    NaN, so d is +0.0 both ways; a point that does not escape has d = 0.
+    second_passes (a check's): None, or an int32 tensor of one element on the
+    card, to which each point that runs the second pass adds one."""
     outs = (_out(cr, torch.bool), _out(cr), _out(cr), _out(cr), _out(cr))
-    return _orbit("orbit_de_tci", (cr, ci), outs, int(max_iter), float(escape_r))
+    t = radius_threshold(float(escape_r), cr.dtype == torch.float64)
+    count = None
+    if second_passes is not None:
+        if (second_passes.dtype != torch.int32 or second_passes.device != cr.device
+                or second_passes.numel() < 1):
+            raise ValueError("second_passes: an int32 tensor of one element on "
+                             f"{cr.device}, got {second_passes.dtype} on "
+                             f"{second_passes.device} with {second_passes.numel()} elements")
+        count = second_passes.data_ptr()
+    return _orbit("orbit_de_tci", (cr, ci), outs, int(max_iter), t, count, grid=True)
+
+
+def _de_tci_contract(state, escape_r: float):
+    """The loop state _de_tci_loop_cuda gives under its contract, from the
+    twin's loop state `state` (_de_tci_loop_torch's): the twin's dz kept at
+    the escapers where it is finite in both parts (for escape_r < 2 in the
+    dtype, at every escaper), (NaN, NaN) everywhere else."""
+    esc, lr, li, dzr, dzi = state
+    keep = esc
+    if radius_threshold(float(escape_r), lr.dtype == torch.float64) >= 4.0:
+        keep = esc & torch.isfinite(dzr) & torch.isfinite(dzi)
+    nan = torch.full_like(dzr, float("nan"))
+    return esc, lr, li, torch.where(keep, dzr, nan), torch.where(keep, dzi, nan)
 
 
 def _de_tci_epilogue(esc, lr, li, dzr, dzi, eps: float):

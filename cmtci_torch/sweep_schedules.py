@@ -1,9 +1,10 @@
 """Time schedule variants of K2 (csrc/dwell.cu, dwell_launch), K2's
 periodic entry (dwell_periodic_launch, "k2p"), K3 (csrc/cloud_green.cu), K4
 (csrc/de_std.cu), K1 (csrc/tci_de.cu), K5 (csrc/green_grid.cu), K6's fine
-pass (csrc/dwell_ms.cu), csrc/aberth.cu ("aberth") and csrc/orbit.cu's
-orbit_green ("green") and csrc/sinkhorn.cu ("sinkhorn") against the kernels
-as committed, in turns on one card.
+pass (csrc/dwell_ms.cu), csrc/aberth.cu ("aberth"), csrc/orbit.cu's
+orbit_green ("green") and its orbit_dwell and orbit_de_tci ("orbit") and
+csrc/sinkhorn.cu ("sinkhorn") against the kernels as committed, in turns on
+one card.
 
 Run it on the card from the root of a checkout:
 
@@ -21,7 +22,8 @@ with a replay of the flagged chunk in place of the snapshots, K1 iterating dz
 in every step, K5 with |z|^2 latched in every step), with constants rewritten
 the same way; the directory holds the `.cuh` its sources include. `--only`
 names the sweeps to run (k2, k2p, k3, k4, k1, k5, k6, aberth, green,
-sinkhorn and probe, the latency and wrapper measurements; all by default).
+sinkhorn, orbit and probe, the latency and wrapper measurements; all by
+default).
 
 aberth.cu's variants rewrite CLUSTER, the CTAs of a cluster (1: one CTA a
 polynomial, the design before the cluster; 2, 4, 8 and 16), with MAX_THREADS,
@@ -54,7 +56,11 @@ orbit_green's variants rewrite GREEN_CHUNK (1: a branch every step) and
 GREEN_EPOCH (the steps between two repacks of a block's running points;
 20,000: none) and run the one launch of the f64 equipotential, 80,395 points and 20,000 steps,
 each held bitwise to the committed kernel; `--alt parent=DIR` adds the
-orbit.cu of another commit.
+orbit.cu of another commit. orbit_dwell's and orbit_de_tci's variants
+(ORBIT_VARIANTS: DWELL_C and TCI_C, the patch, SKIP_INTERIOR,
+LATCH_BY_REPLAY, MIDDLE_OUT) and an --alt orbit.cu (one that takes the
+point count n, commit d8d4f7c's, is recognised by its signature) run at
+ORBIT_DWELL_CASES and ORBIT_TCI_CASES (sweep_orbit).
 
 Every variant's output is held bitwise to the committed kernel's at every
 shape before it is timed, and the committed kernel's to its plain twin once a
@@ -196,7 +202,8 @@ K2P_ITERS = (MAX_ITER, 20000)
 #: K6's grid, coarse stride and tile (chip_smoke.py phase 11's)
 K6_SHAPE, K6_STRIDE, K6_TILE = 2048, 8, (32, 256)
 #: the sweeps --only may name
-SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green", "sinkhorn")
+SWEEPS = ("probe", "k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green", "sinkhorn",
+          "orbit")
 #: aberth.cu's builds: CTAs a cluster, threads a CTA
 ABERTH_CLUSTERS = (1, 2, 4, 8, 16)
 ABERTH_THREADS = (64, 128, 256)
@@ -209,6 +216,34 @@ ABERTH_CLOUDS = ([(f"tracker stage {i + 1}", "lucas_all_ones", list(range(20, to
 GREEN_VARIANTS = {**{f"chunk{c}": dict(GREEN_CHUNK=c) for c in (1, 4, 8, 16, 32, 64)},
                   **{f"epoch{e}": dict(GREEN_EPOCH=e) for e in (64, 128, 256, 1024, 4096,
                                                                20000)}}
+#: orbit_dwell's and orbit_de_tci's variants: the steps between two exit
+#: tests (both entries), the warp's patch, the f64 interior iterated, the
+#: first escape's z latched by a select every step (a replay of the flagged
+#: chunk committed), the rows of blocks in order
+ORBIT_VARIANTS = {**{f"c{c}": dict(DWELL_C=c, TCI_C=c) for c in (4, 6, 8)},
+                  "8x4": dict(PATCH_W=8, PATCH_H=4), "row": dict(PATCH_W=32, PATCH_H=1),
+                  "no_skip": dict(SKIP_INTERIOR=0), "select": dict(LATCH_BY_REPLAY=0),
+                  "rows_in_order": dict(MIDDLE_OUT=0)}
+#: the cardioid-bulb junction, a grid of it, and its max_iter
+ORBIT_JUNCTION = (-0.80, -0.70, -0.05, 0.05)
+#: orbit_dwell's cases: (label, domain, n, dtype, max_iter); the first is
+#: the f64 boundary's
+ORBIT_DWELL_CASES = (("boundary 2000^2 f64, 500 it.", bench.DOM, 2000, torch.float64, 500),
+                     ("junction 1000^2 f64, 2000 it.", ORBIT_JUNCTION, 1000, torch.float64,
+                      2000),
+                     ("boundary 2000^2 f32, 500 it.", bench.DOM, 2000, torch.float32, 500))
+#: orbit_de_tci's cases: (label, domain, n, dtype); max_iter and R the
+#: tracker's; the first is the f64 tracker's second stage
+ORBIT_TCI_CASES = (("tracker 690^2 f64", TrackerConfig().domain, 690, torch.float64),
+                   ("run_tci 912^2 f64", TCIConfig().domain, 912, torch.float64),
+                   ("tracker 690^2 f32", TrackerConfig().domain, 690, torch.float32))
+#: the argument types of orbit_dwell and orbit_de_tci in an orbit.cu that
+#: takes the point count n instead of (ny, nx) (commit d8d4f7c and before)
+ORBIT_N_ARGTYPES = {"orbit_dwell": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                            ctypes.c_int, ctypes.c_void_p],
+                    "orbit_de_tci": [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
+                                                             ctypes.c_double, ctypes.c_int,
+                                                             ctypes.c_void_p]}
 #: aberth.cu's variants: the CTAs of a cluster and the threads of a CTA, and
 #: the repulsion's pair terms computed side by side
 ABERTH_VARIANTS = {**{f"c{c}_t{t}": dict(CLUSTER=c, MAX_THREADS=t)
@@ -933,6 +968,138 @@ def sweep_green(dev, alts) -> dict:
             "steps": int(steps.sum()), "times": in_turns(calls, rounds=5, chain=5)}
 
 
+def takes_grid(src_dir: Path) -> bool:
+    """Whether src_dir/orbit.cu's orbit_dwell takes (ny, nx) (else n)."""
+    text = (src_dir / "orbit.cu").read_text()
+    sig = re.search(r'extern "C" int orbit_dwell_launch\(([^)]*)\)', text).group(1)
+    return "long long ny" in sig
+
+
+def orbit_entry(lib, name: str, grid: bool):
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = _launch.ARGTYPES[name] if grid else ORBIT_N_ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sweep_orbit(dev, alts) -> dict:
+    """orbit_dwell and orbit_de_tci: every variant and alternative (with
+    --alt parent=DIR, the orbit.cu of commit d8d4f7c, one thread a point on
+    256-thread blocks, every step with a test and a branch) against the
+    committed kernel at ORBIT_DWELL_CASES and ORBIT_TCI_CASES, in turns.
+    orbit_dwell's outputs are held bitwise to the committed kernel's, the
+    committed kernel's to dwell_grid_torch; orbit_de_tci's (esc, lr, li)
+    and the epilogue's d bitwise to the committed kernel's, dz too for the
+    variants of this source, and the committed kernel's loop state to its
+    contract against _de_tci_loop_torch. Beside each time the ratio of the
+    steps its warps execute to the steps the committed design needs (its
+    lane steps at step granularity, bench.orbit_*_lane_steps), and the
+    steps the twin runs."""
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                               (_build.CSRC / "orbit.cu").read_text())}
+    built = build_all("orbit", ORBIT_VARIANTS, alts, tag="orbit-loops")
+    grid_of = {lab: takes_grid(SWEEP_DIR / f"orbit-loops-{lab}") for lab in built}
+    report = {"ptxas": {lab: p for lab, (_, p) in built.items()}, "dwell": {}, "de_tci": {}}
+
+    def footprint(lab, key):
+        c = {**consts, **(ORBIT_VARIANTS.get(lab) or {})}
+        return {"c": c[key], "patch_w": c["PATCH_W"], "patch_h": c["PATCH_H"]}
+
+    for label, dom, n, dt, it in ORBIT_DWELL_CASES:
+        cr, ci = mb.complex_grid(dom, n, n, dtype=dt, device=dev)
+        want = mb._dwell_cuda(cr, ci, it)
+        check(torch.equal(want, mb.dwell_grid_torch(cr, ci, it)),
+              f"orbit_dwell {label}: the committed kernel differs from its twin")
+        lane = bench.orbit_dwell_lane_steps(cr, ci, want, it)
+        every = torch.where(want < it, want.long() + 1, it)
+        useful = float(lane.sum())
+        ratios = {}
+        for lab in ["committed", *ORBIT_VARIANTS]:
+            skip = (ORBIT_VARIANTS.get(lab) or {}).get("SKIP_INTERIOR", 1)
+            ratios[lab] = bench.warp_executed_steps((lane if skip else every).double(),
+                                                    footprint(lab, "DWELL_C")) / useful
+        out = torch.empty_like(want)
+        is_double = int(dt == torch.float64)
+        ptrs = (cr.data_ptr(), ci.data_ptr(), out.data_ptr())
+        calls = {"committed": lambda ptrs=ptrs, n=n, it=it, is_double=is_double: _launch.launch(
+            "orbit_dwell", dev, *ptrs, n, n, it, is_double)}
+        for lab, (lib, _) in built.items():
+            g = grid_of[lab]
+            fn = orbit_entry(lib, "orbit_dwell", g)
+            size = (n, n) if g else (n * n,)
+
+            def call(fn=fn, ptrs=ptrs, size=size, it=it, is_double=is_double):
+                rc = fn(*ptrs, *size, it, is_double, stream(dev))
+                check(rc == 0, f"orbit_dwell_launch returned cudaError {rc}")
+
+            out.fill_(-7)
+            call()
+            torch.cuda.synchronize()
+            check(torch.equal(out, want), f"orbit_dwell variant {lab} differs at {label}")
+            calls[lab] = call
+        report["dwell"][label] = {"useful_steps": useful, "twin_steps": float(every.sum()),
+                                  "executed_over_useful": ratios, "times": in_turns(calls)}
+
+    trk = TrackerConfig()
+    it, radius = trk.max_iter, trk.escape_r
+    for label, dom, n, dt in ORBIT_TCI_CASES:
+        cr, ci = mb.complex_grid(dom, n, n, dtype=dt, device=dev)
+        want = mb._de_tci_loop_cuda(cr, ci, it, radius)
+        twin = mb._de_tci_loop_torch(cr, ci, it, radius)
+        contract = mb._de_tci_contract(twin, radius)
+        check(sum(same_bits(a.double(), b.double()) for a, b in zip(want, contract)) == 0,
+              f"orbit_de_tci {label}: the committed kernel breaks its contract")
+        want_d = mb._de_tci_epilogue(*want, 1e-12)[1]
+        first, second, late = bench.orbit_tci_lane_steps(cr, ci, it, radius)
+        # without the skip, an interior point runs every step (it never escapes)
+        skipped = (bench.interior_f64_torch(cr, ci) if dt == torch.float64
+                   else torch.zeros_like(late))
+        every_first = torch.where(skipped, it, first)
+        useful = float(first.sum() + second.sum())
+        ratios = {}
+        for lab in ["committed", *ORBIT_VARIANTS]:
+            f = footprint(lab, "TCI_C")
+            skip = (ORBIT_VARIANTS.get(lab) or {}).get("SKIP_INTERIOR", 1)
+            ratios[lab] = (bench.warp_executed_steps((first if skip else every_first).double(),
+                                                     f, it)
+                           + bench.warp_executed_steps(second.double(), dict(f, c=1))) / useful
+        outs = tuple(torch.empty_like(a) for a in want)
+        is_double = int(dt == torch.float64)
+        t = mb.radius_threshold(radius, dt == torch.float64)
+        ptrs = (cr.data_ptr(), ci.data_ptr(), *(o.data_ptr() for o in outs))
+        calls = {"committed": lambda ptrs=ptrs, n=n, t=t, is_double=is_double: _launch.launch(
+            "orbit_de_tci", dev, *ptrs, n, n, it, t, None, is_double)}
+        for lab, (lib, _) in built.items():
+            g = grid_of[lab]
+            fn = orbit_entry(lib, "orbit_de_tci", g)
+            tail = (n, n, it, t, None) if g else (n * n, it, radius)
+
+            def call(fn=fn, ptrs=ptrs, tail=tail, is_double=is_double):
+                rc = fn(*ptrs, *tail, is_double, stream(dev))
+                check(rc == 0, f"orbit_de_tci_launch returned cudaError {rc}")
+
+            for o in outs:
+                o.zero_()
+            call()
+            torch.cuda.synchronize()
+            got_d = mb._de_tci_epilogue(*outs, 1e-12)[1]
+            # an earlier design writes the twin's dz, finite or not: held
+            # through (esc, lr, li) and the epilogue's d
+            pairs = list(zip(outs, want)) if g else list(zip(outs[:3], want[:3]))
+            diff = sum(same_bits(a.double(), b.double()) for a, b in pairs)
+            diff += same_bits(got_d, want_d)
+            check(diff == 0, f"orbit_de_tci variant {lab} differs at {label} ({diff})")
+            calls[lab] = call
+        report["de_tci"][label] = {
+            "useful_steps": useful, "z_steps": float(first.sum()),
+            "late_escapers": int(late.sum()), "late_steps": float(second.sum()),
+            "twin_steps": float(it * cr.numel()), "executed_over_useful": ratios,
+            "times": in_turns(calls)}
+    return report
+
+
 def stage1_cost(cfg: stage1.Stage1Config, dev) -> torch.Tensor:
     """The f64 Sinkhorn cost run_stage1 matches with under `cfg` on `dev`
     (its cloud and band, their orientation features and coordinates)."""
@@ -1348,6 +1515,20 @@ def main(argv=None) -> int:
               "single, chained, replayed from a CUDA graph):")
         for lab, (s1, c1, g1) in gr["times"].items():
             print(f"  {lab:>10}: {s1:.4f} {c1:.4f} {g1:.4f}")
+    if "orbit" in only:
+        report["orbit"] = sweep_orbit(dev, parse_alts(args.alt, "orbit"))
+        for entry_name, cases in (("orbit_dwell", report["orbit"]["dwell"]),
+                                  ("orbit_de_tci", report["orbit"]["de_tci"])):
+            for label, case in cases.items():
+                extra = (f", {case['late_escapers']} late escapers" if "late_escapers" in case
+                         else "")
+                print(f"{entry_name} {label}: {case['useful_steps']:.0f} steps needed, "
+                      f"{case['twin_steps']:.0f} the twin's{extra} (ms per launch: single, "
+                      "chained, replayed from a CUDA graph; executed/needed):")
+                for lab, (s1, c1, g1) in case["times"].items():
+                    ratio = case["executed_over_useful"].get(lab)
+                    print(f"  {lab:>14}: {s1:.4f} {c1:.4f} {g1:.4f}"
+                          + (f"  {ratio:.3f}" if ratio else ""))
     if "sinkhorn" in only:
         report["sinkhorn"] = sweep_sinkhorn(dev, parse_alts(args.alt, "sinkhorn"))
         report["exp_log_sass"] = exp_log_sass()
@@ -1363,7 +1544,8 @@ def main(argv=None) -> int:
                   + ", ".join(f"{lab} {s1:.4f}" for lab, (s1, _, _) in bus["split"].items()))
             print("  trace, cycles a half step of thread 0 of CTA 0 (and the SM clock in GHz): "
                   + json.dumps(bus["trace_cycles_a_half_step"]))
-    for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green", "sinkhorn"):
+    for k in ("k2", "k2p", "k3", "k4", "k1", "k5", "k6", "aberth", "green", "sinkhorn",
+              "orbit"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
     if args.out:

@@ -17,6 +17,7 @@ to their twins. Here:
       without one.
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -232,15 +233,28 @@ def test_shared_memory_limit_is_named():
         companion._aberth_cuda(a, deg, [n], z, [n], [False], None, 200, 1e-13, torch.float32)
 
 
+def _ctype_of(param: str):
+    """The ctypes type a C parameter declaration passes as."""
+    decl = " ".join(param.split())
+    if "*" in decl:
+        return ctypes.c_void_p
+    for c_name, ctype in (("long long", ctypes.c_longlong), ("double", ctypes.c_double),
+                          ("float", ctypes.c_float), ("int", ctypes.c_int)):
+        if decl.startswith(c_name) or decl.startswith("const " + c_name):
+            return ctype
+    raise ValueError(decl)
+
+
 def test_launch_signatures_match_the_sources():
-    """Each entry's ctypes argument list has as many types as its extern "C"
-    function in csrc/ has parameters (ctypes would pass a mismatch
-    silently on the card)."""
+    """Each entry's ctypes argument list is its extern "C" function's in
+    csrc/, parameter for parameter (ctypes would pass a mismatch silently on
+    the card): orbit_dwell's and orbit_de_tci's (ny, nx) as two long longs,
+    orbit_de_tci's threshold a double and its second_passes a pointer."""
     for entry in ("aberth", *ORBIT_ENTRIES):
         src = (CSRC / f"{_launch.LIBRARY.get(entry, entry)}.cu").read_text()
         m = re.search(rf'extern "C" int {entry}_launch\(([^)]*)\)', src)
         assert m, entry
-        assert len(m.group(1).split(",")) == len(_launch.ARGTYPES[entry]), entry
+        assert [_ctype_of(a) for a in m.group(1).split(",")] == _launch.ARGTYPES[entry], entry
 
 
 # ---------------------------------------------------------------------------
