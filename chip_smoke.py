@@ -228,7 +228,18 @@ prints no result line):
      escapers) with its second passes, counted on the card, as many as the
      twin's late escapers, each with the bound on the steps the redesign
      needs, the FP64 instruction floor, and the earlier count's bound and
-     floor beside them;
+     floor beside them; orbit_de_std and orbit_potential (redesigned: the
+     f64 analytic interior skipped, first_escape's chunks on warp patches,
+     de_std's sqrt as a squared threshold and its dz only for the escapers,
+     the potential's skip only under two_pow_n and k_plus_1) also on a
+     14 x 14 grid of special values (NaN, +-inf, huge) and on the junction
+     at 2,000 steps, de_std on all its outputs, the potential's g in all
+     three normalizations and its loop state, with and without the skip,
+     bitwise its contract (mandelbrot._potential_contract: lz NaN at the
+     skipped interior points) on both U_M grids, the junction, the ragged
+     grids and the special values, with the bound and floor on the steps
+     the redesign needs, the earlier count's beside them, and the
+     potential's chain bound;
      csrc/sinkhorn.cu (one cooperative launch a call) torch.equal its twin
      sinkhorn_log_torch at stage1's cost at the CLI defaults (819 x 600) on its
      own plan (resident, one CTA an SM), on 97 and 66 CTAs, each also forced
@@ -274,12 +285,14 @@ loop's operations (ORBIT_OPS_PER_STEP on the steps these points need) over
 the H100's 33.5 TFLOP/s FP64 (67 for f32) or its bytes, floor_ms the same
 operations over the FP64 (FP32) instruction rate, SMs x FP64_LANES
 (FP32_LANES) x the maximum SM clock, each operation one instruction under
--fmad=false; for orbit_dwell and orbit_de_tci the operations are those
-the redesign needs (CARRIED_STEP_OPS a step outside the f64 interior, up to
-the escape and, for de_tci, on to a non-finite z; LATE_STEP_OPS a (z, dz)
-step of the late escapers' second pass), with bound_before_ms and
-floor_before_ms on the earlier count (every step of every point at
-ORBIT_OPS_PER_STEP); max_abs_err the
+-fmad=false; for orbit_dwell, orbit_de_tci, orbit_de_std and
+orbit_potential the operations are those the redesign needs (ops_needed:
+CARRIED_STEP_OPS a step outside the f64 interior, up to the escape and, for
+de_tci, on to a non-finite z; LATE_STEP_OPS a (z, dz) step of de_tci's late
+escapers' second pass, STD_SECOND_STEP_OPS one of de_std's escapers'), with
+bound_before_ms and floor_before_ms on the earlier count (every step a
+point needs, or for de_tci ran, at ORBIT_OPS_PER_STEP); orbit_potential's
+coupling_u_m holds the same numbers for coupling's U_M; max_abs_err the
 largest |kernel - twin| over the entries finite in both, in every case phase
 23 holds (the check itself is bitwise, NaN equal to NaN, whose positions the
 line counts); aberth's bound is the f32 repulsion of the lanes not yet frozen
@@ -289,8 +302,9 @@ its cluster, tracker_ms its four tracker launches summed and cluster1_ms
 the launch with one CTA a polynomial, its max_abs_err the largest
 |kernel - twin| of a root, and its library_ms torch.linalg.eigvals on the
 eigensweep's 61 companion matrices, one call each, summed. orbit_green's
-bound_chain_ms is the deepest point's steps x 3 dependent f64 instructions x
-FP64_DEPENDENT_CYCLES at the card's maximum SM clock. sinkhorn's line is
+and orbit_potential's bound_chain_ms is the deepest point's steps x 3
+dependent f64 instructions x FP64_DEPENDENT_CYCLES at the card's maximum SM
+clock. sinkhorn's line is
 the CLI defaults' (819 x 600, resident; bus_6x holds the 6x bus's): ms the
 median of 5 single calls, plain_ms the twin's one call, graph_ms the graph
 yardstick's replay; its operations count a term's add, max, add,
@@ -346,6 +360,11 @@ ORBIT_OPS_PER_STEP = {"orbit_dwell": 12, "orbit_de_tci": 22, "orbit_de_std": 22,
 #: compare), and the late escapers' (z, dz) step, which tests nothing (dz 6
 #: mul 3 add/sub, z 4 mul 4 add/sub)
 CARRIED_STEP_OPS, LATE_STEP_OPS = 9, 17
+#: operations a step of orbit_de_std's second pass, the escapers' (dz, z)
+#: body without a test: dz 6 mul 3 add/sub, z as a carried step 3 mul 4
+#: add/sub; and a first-pass step that carries dz, with its test (dz's 9
+#: and a carried step's 9)
+STD_SECOND_STEP_OPS, STD_CARRIED_DZ_STEP_OPS = 16, 18
 #: FP64 and FP32 instructions an SM issues a clock outside the tensor cores:
 #: with -fmad=false every operation is one, so the orbit loops' instruction
 #: floor is their operations over SMs x these x the maximum SM clock (FP64:
@@ -3340,6 +3359,51 @@ def tci_contract(label, cr, ci, it):
     return first, second, late, public, start.elapsed_time(stop)
 
 
+def orbit_constants() -> dict:
+    """csrc/orbit.cu's `constexpr int` schedule constants, from its text."""
+    import re
+
+    with open(os.path.join(ROOT, "cmtci_torch", "csrc", "orbit.cu")) as f:
+        return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+def special_grid(dtype, dev):
+    """A 14 x 14 grid of special coordinates on `dev`: NaN, +-inf, huge and
+    tiny values, the set's landmarks and points near the f64 mask's rim, in
+    every pairing of a real and an imaginary part (more rows than a warp's
+    patch, so the compact footprint runs it)."""
+    import numpy as np
+    import torch
+
+    huge = 1e300 if dtype == torch.float64 else 3e38
+    xs = [np.nan, np.inf, -np.inf, huge, -huge, 0.0, -2.0, 0.25, -0.75, -1.25, 1e-300, 2.0,
+          -1.0, 0.2285]
+    ys = [np.nan, np.inf, -np.inf, huge, -huge, 0.0, 1e-3, 0.5, -0.56, 1.0, 2.0, -2.0, 0.1,
+          1e154]
+    gx, gy = np.meshgrid(np.array(xs), np.array(ys))
+    return (torch.as_tensor(gx).to(dtype).to(dev).contiguous(),
+            torch.as_tensor(gy).to(dtype).to(dev).contiguous())
+
+
+def potential_contract(label, cr, ci, it, r2):
+    """orbit_potential's loop state, with the skip and without it, bitwise
+    its contract against the twin's (mandelbrot._potential_contract: the
+    twin's, lz (NaN, NaN) at the skipped f64 interior points), and no
+    escaper among the skipped points."""
+    import torch
+
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    twin = mb._potential_loop_torch(cr, ci, it, r2)
+    for skip in (True, False):
+        state = mb._potential_loop_cuda(cr, ci, it, r2, skip)
+        check(same_bits(state, mb._potential_contract(twin, cr, ci, r2, skip)),
+              f"orbit_potential {label}: the loop state (skip {skip}) breaks its contract")
+    if cr.dtype == torch.float64:
+        check(not bool(twin[0][mb.interior_f64(cr, ci)].any()),
+              f"orbit_potential {label}: an f64 interior point escapes in the twin")
+
+
 def loop_orbits(dev):
     """Phase 23, orbit.cu: each entry bitwise its twin at its pipeline's size,
     at max_iter 1 and on ragged grids; returns the kernels-line fields."""
@@ -3455,7 +3519,23 @@ def loop_orbits(dev):
     print(f"phase 23's orbit_dwell cases {dwell_added:.1f} s, orbit_de_tci cases "
           f"{tci_added:.1f} s wall (checks and timings)")
 
-    # de_field_std: the variograms' boundary proxy, 700 x 700, 600 steps
+    consts = orbit_constants()
+
+    def std_ops(cr, ci, it):
+        """The redesign's operations: a step for each step its points need
+        outside the f64 interior, of z alone (CARRIED_STEP_OPS) with a (z,
+        dz) step (STD_SECOND_STEP_OPS) for each step of the escapers' second
+        pass, or of z and dz (STD_CARRIED_DZ_STEP_OPS) where orbit.cu carries
+        dz in the first pass for the dtype."""
+        first, second = bench.orbit_de_std_lane_steps(cr, ci, it, 4.0)
+        if consts["STD_DZ_CARRIED_F64" if cr.dtype == f64 else "STD_DZ_CARRIED_F32"]:
+            return int(first.sum()) * STD_CARRIED_DZ_STEP_OPS
+        return int(first.sum()) * CARRIED_STEP_OPS + int(second.sum()) * STD_SECOND_STEP_OPS
+
+    # de_field_std: the variograms' boundary proxy, 700 x 700, 600 steps, in
+    # f64 and f32; the ragged grids, a special-values grid and the junction at
+    # 2,000 steps
+    t_added = time.perf_counter()
     vc = VariogramConfig()
     for dt in (f64, torch.float32):
         cr, ci = grid(vc.domain, vc.boundary_grid, vc.boundary_grid, dt)
@@ -3467,11 +3547,25 @@ def loop_orbits(dev):
                          escape_steps_needed(cr, ci, vc.boundary_max_iter, 16.0),
                          cr.numel() * (2 * size + 1 + 4 * size), dt,
                          loop=lambda: mb._de_latched_loop_cuda(cr, ci, vc.boundary_max_iter, 4.0,
-                                                               False))
+                                                               False),
+                         needed_ops=std_ops(cr, ci, vc.boundary_max_iter))
         if dt == f64:
             out["orbit_de_std"] = res
     small_cases("orbit_de_std", lambda cr, ci, it: (lambda: mb.de_field_std(cr, ci, it),
                                                     lambda: mb.de_field_std_torch(cr, ci, it)))
+    for dt in (f64, torch.float32):
+        cr, ci = special_grid(dt, dev)
+        for it in (1, 7, vc.boundary_max_iter):
+            loop_orbit("orbit_de_std", f"special values {tuple(cr.shape)} {dt}, {it} it.",
+                       lambda cr=cr, ci=ci, it=it: mb.de_field_std(cr, ci, it),
+                       lambda cr=cr, ci=ci, it=it: mb.de_field_std_torch(cr, ci, it), 0, 0)
+    cr, ci = grid(JUNCTION, 1000, 1000)
+    loop_orbit("orbit_de_std", "1000x1000 f64 over the cardioid-bulb junction, 2000 it.",
+               lambda: mb.de_field_std(cr, ci, 2000), lambda: mb.de_field_std_torch(cr, ci, 2000),
+               escape_steps_needed(cr, ci, 2000, 16.0), 1000 * 1000 * 49, f64,
+               loop=lambda: mb._de_latched_loop_cuda(cr, ci, 2000, 4.0, False),
+               needed_ops=std_ops(cr, ci, 2000))
+    std_added = time.perf_counter() - t_added
 
     # de_field_stage1: stage1's band field, 120 x 80, 200 steps
     sc = stage1.Stage1Config()
@@ -3565,8 +3659,11 @@ def loop_orbits(dev):
           f"{twin_ms / 1e3:.3f} s; g, k, phi bitwise equal, NaN equal to NaN")
 
     # escape_potential_grid: coupling's U_M (k_plus_1, R 10, 300 steps, on the
-    # default bus's grid) and the variograms' (two_pow_n, R 4, 600 steps), each
-    # in all three normalizations
+    # default bus's grid), the variograms' (two_pow_n, R 4, 600 steps) and the
+    # junction (two_pow_n, R 4, 2,000 steps), each in all three normalizations,
+    # the loop state with and without the skip held to its contract; the
+    # ragged grids and the special-values grid
+    t_added = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         bus = stage1.run_stage1(sc, f"{tmp}/bus", plots=False, device=dev)
     cc = CouplingConfig()
@@ -3579,20 +3676,64 @@ def loop_orbits(dev):
     cr, ci = grid(vc.domain, vc.grid_nx, vc.grid_ny)
     um_grids.append(("the variograms' U_M", cr, ci, vc.potential_max_iter, vc.potential_r,
                      "two_pow_n"))
+    um_grids.append(("the cardioid-bulb junction", *grid(JUNCTION, 1000, 1000), 2000, 4.0,
+                     "two_pow_n"))
+    timed_um = {}
     for label, cr, ci, it, rad, own in um_grids:
+        r2 = rad * rad
+        potential_contract(label, cr, ci, it, r2)
+        skip = mb._skips_interior(own)
+        lane = bench.orbit_potential_lane_steps(cr, ci, it, r2, skip)
         for norm in mb.POTENTIAL_NORMALIZATIONS:
             res = loop_orbit(
                 "orbit_potential", f"{label} {tuple(cr.shape)}, {it} it., R {rad}, {norm}",
                 lambda: mb.escape_potential_grid(cr, ci, it, rad, norm),
                 lambda: mb.escape_potential_grid_torch(cr, ci, it, rad, norm),
-                escape_steps_needed(cr, ci, it, rad * rad), cr.numel() * (16 + 8), f64,
-                loop=(lambda: mb._potential_loop_cuda(cr, ci, it, rad * rad)) if norm == own
-                else None)
-            if norm == own and label.startswith("the variograms"):
-                out["orbit_potential"] = res
+                escape_steps_needed(cr, ci, it, r2), cr.numel() * (16 + 8), f64,
+                loop=(lambda: mb._potential_loop_cuda(cr, ci, it, r2, skip)) if norm == own
+                else None, needed_ops=int(lane.sum()) * CARRIED_STEP_OPS)
+            if norm == own:
+                # the chain of the deepest lane: 3 dependent f64 instructions a
+                # step at FP64's measured latency
+                deepest = int(lane.max())
+                chain = deepest * 3 * FP64_DEPENDENT_CYCLES / clock_hz * 1e3
+                res.update(bound_chain_ms=chain, deepest_steps=deepest)
+                print(f"  orbit_potential {label} chain bound: {deepest} steps x 3 dependent "
+                      f"f64 instructions x {FP64_DEPENDENT_CYCLES} cycles at "
+                      f"{clock_hz / 1e9:.3f} GHz = {chain:.5f} ms; "
+                      f"{int((lane == it).sum())} lanes run all {it} steps")
+                timed_um[label] = res
+    out["orbit_potential"] = dict(timed_um["the variograms' U_M"])
+    out["orbit_potential"]["coupling_u_m"] = {
+        k: timed_um["coupling's U_M"][k] for k in ("shape", "ms", "chained_ms", "plain_ms",
+                                                    "bound_ms", "bound_by", "floor_ms",
+                                                    "bound_chain_ms", "ops_needed",
+                                                    "bound_before_ms", "floor_before_ms")}
     small_cases("orbit_potential", lambda cr, ci, it: (
         lambda: mb.escape_potential_grid(cr, ci, it, 4.0, "two_pow_k_break"),
         lambda: mb.escape_potential_grid_torch(cr, ci, it, 4.0, "two_pow_k_break")))
+    for dt in (f64, torch.float32):
+        for (ny, nx), it in (((3, 5), 1), ((1, 7), 2), ((37, 61), 7), ((129, 33), 600)):
+            cr, ci = grid(DOMAIN, nx, ny, dt)
+            potential_contract(f"{ny}x{nx} {dt} {it} it.", cr, ci, it, 16.0)
+            for norm in ("two_pow_n", "k_plus_1"):
+                loop_orbit("orbit_potential", f"{ny}x{nx} {dt} {it} it., {norm}",
+                           lambda cr=cr, ci=ci, it=it, norm=norm:
+                           mb.escape_potential_grid(cr, ci, it, 4.0, norm),
+                           lambda cr=cr, ci=ci, it=it, norm=norm:
+                           mb.escape_potential_grid_torch(cr, ci, it, 4.0, norm), 0, 0)
+        cr, ci = special_grid(dt, dev)
+        for it in (1, 7, vc.potential_max_iter):
+            potential_contract(f"special values {dt}, {it} it.", cr, ci, it, 16.0)
+            for norm in mb.POTENTIAL_NORMALIZATIONS:
+                loop_orbit("orbit_potential", f"special values {tuple(cr.shape)} {dt}, {it} it., "
+                           f"{norm}", lambda cr=cr, ci=ci, it=it, norm=norm:
+                           mb.escape_potential_grid(cr, ci, it, 4.0, norm),
+                           lambda cr=cr, ci=ci, it=it, norm=norm:
+                           mb.escape_potential_grid_torch(cr, ci, it, 4.0, norm), 0, 0)
+    potential_added = time.perf_counter() - t_added
+    print(f"phase 23's orbit_de_std cases {std_added:.1f} s, orbit_potential cases "
+          f"{potential_added:.1f} s wall (checks and timings, stage1's bus included)")
     for name in ORBIT_ENTRIES:
         out[name]["max_abs_err"], out[name]["nan_positions_equal"] = ORBIT_ERR[name]
     return out

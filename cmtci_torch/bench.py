@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from cmtci_torch.kernels import companion, fma_peak
+from cmtci_torch.kernels import mandelbrot as mb
 from cmtci_torch.kernels import mandelbrot_cuda as mc
 from cmtci_torch.pipelines.analysis import TCIConfig, run_tci
 from cmtci_torch.pipelines.coupling import CouplingConfig, run_coupling
@@ -371,17 +372,9 @@ def tci_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, r2: float)
     return first, second
 
 
-def interior_f64_torch(cr: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
-    """csrc/orbit.cu's interior_f64 on f64 tensors: the points orbit_dwell and
-    orbit_de_tci (for R >= 2) send away without a step, the reference's
-    cardioid and period-2 bulb tests with their 1e-5 margins, in f64, for
-    |cr|, |ci| <= 2."""
-    xm = cr - 0.25
-    q = xm * xm + ci * ci
-    in_cardioid = q * (q + xm) <= 0.25 * ci * ci - 1e-5
-    xp = cr + 1.0
-    in_bulb = xp * xp + ci * ci <= 0.0625 - 1e-5
-    return (cr.abs() <= 2.0) & (ci.abs() <= 2.0) & (in_cardioid | in_bulb)
+#: csrc/orbit.cu's interior_f64 on f64 tensors (the points its redesigned
+#: entries send away without a step)
+interior_f64_torch = mb.interior_f64
 
 
 def orbit_dwell_lane_steps(cr: torch.Tensor, ci: torch.Tensor, dwell: torch.Tensor,
@@ -405,8 +398,6 @@ def orbit_tci_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
     that escaped within them and max_iter for the rest. second, the (z, dz)
     body: max_iter for a late escaper (escaped, z finite after max_iter - 1
     steps; for R < 2 every escaper), else none. late the late escapers."""
-    from cmtci_torch.kernels import mandelbrot as mb
-
     t = mb.radius_threshold(float(escape_r), cr.dtype == torch.float64)
     fast = t >= 4.0
     run = torch.ones(cr.shape, dtype=torch.bool, device=cr.device)
@@ -431,6 +422,35 @@ def orbit_tci_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
     late = hit & (dead_at == max_iter)
     second = torch.where(hit & (late | (not fast)), max(max_iter, 0), 0)
     return first, second, late
+
+
+def orbit_de_std_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
+                            escape_r: float):
+    """(first, second): per-lane steps of orbit_de_std's two passes (int64,
+    the shape of cr). first, z alone: none for a skipped f64 interior point
+    (a squared threshold >= 4), the escape step (1-based) for an escaper,
+    max_iter for the rest. second, the (z, dz) body: the escape step for an
+    escaper, else none. The escape step is the twin's: the first step whose
+    |z|^2 passes the squared threshold (radius_threshold)."""
+    t = mb.radius_threshold(float(escape_r), cr.dtype == torch.float64)
+    esc, k, _, _ = mb._potential_loop_torch(cr, ci, max_iter, t)
+    second = torch.where(esc, k.long() + 1, 0)
+    first = torch.where(esc, second, max(max_iter, 0))
+    if cr.dtype == torch.float64 and t >= 4.0:
+        first = torch.where(mb.interior_f64(cr, ci), 0, first)
+    return first, second
+
+
+def orbit_potential_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, r2: float,
+                               skip_interior: bool) -> torch.Tensor:
+    """Per-lane steps orbit_potential's points need (int64, the shape of
+    cr): none for a skipped f64 interior point (skip_interior, r2 >= 4), the
+    escape step (1-based) for an escaper, max_iter for the rest."""
+    esc, k, _, _ = mb._potential_loop_torch(cr, ci, max_iter, r2)
+    lane = torch.where(esc, k.long() + 1, max(max_iter, 0))
+    if skip_interior and cr.dtype == torch.float64 and r2 >= 4.0:
+        lane = torch.where(mb.interior_f64(cr, ci), 0, lane)
+    return lane
 
 
 def max_sm_clock_mhz(dev: torch.device) -> float:

@@ -15,28 +15,30 @@
 // escape flag and the step or dwell. The epilogue after the loop (hypot, log,
 // exp2, atan2, the clamps, the division by 2^k) is torch code that both
 // paths share, so the kernel is bitwise its twin when its loop state is
-// (orbit_de_tci: where its contract below says so, and the epilogue's d
-// everywhere).
+// (orbit_de_tci and orbit_potential: where their contracts below say so, and
+// the epilogue's d or g everywhere).
 //
 // Bitwise: every step runs in the twin's op order (z^2 + c as
 // zr*zr - zi*zi + cr and zr*zi + zi*zr + ci, dz <- (2 z) dz + 1 before z) with
 // -fmad=false, IEEE division and square root, and the radius tests the twin
-// writes (|z|^2 > r^2; sqrt(|z|^2) > R; hypot(zr, zi) > R, CUDA's hypot being
-// what torch's CUDA kernel calls). The threshold is rounded to the dtype as
+// writes (|z|^2 > r^2; sqrt(|z|^2) > R, as the exact squared threshold
+// |z|^2 > t of de_tci_kernel; hypot(zr, zi) > R, CUDA's hypot being what
+// torch's CUDA kernel calls). The threshold is rounded to the dtype as
 // torch rounds a Python scalar. Two rewrites of a step keep its bits: the
 // squares of one step's radius test are the next step's zr*zr and zi*zi (the
 // same products of the same values), and zr*zi + zi*zr is p + p with
 // p = zr*zi (IEEE multiplication commutes; the sum is the same sum). A thread
 // leaves its loop where nothing it writes can change any more:
-//   * de_std, de_stage1, green and potential latch their state at the first
-//     escape and freeze the orbit; the thread leaves there (green writes the
-//     zeroed z its twin carries on). green runs GREEN_CHUNK steps between two
-//     branches and replays a chunk in which its point escaped, and packs a
-//     block's running points into its first warps every GREEN_EPOCH steps
-//     (green_kernel), so that its one launch over the whole budget of the f64
-//     equipotential runs its deepest points in full warps, each step a
-//     dependent chain of three f64 instructions;
-//   * dwell and de_tci: the designs below (dwell_of, tci_first_pass).
+//   * de_stage1 and green latch their state at the first escape and freeze
+//     the orbit; the thread leaves there (green writes the zeroed z its twin
+//     carries on). green runs GREEN_CHUNK steps between two branches and
+//     replays a chunk in which its point escaped, and packs a block's running
+//     points into its first warps every GREEN_EPOCH steps (green_kernel), so
+//     that its one launch over the whole budget of the f64 equipotential runs
+//     its deepest points in full warps, each step a dependent chain of three
+//     f64 instructions;
+//   * dwell, de_tci, de_std and potential: the designs below (dwell_of,
+//     tci_first_pass, first_escape).
 //
 // What bounds it on this card: the FP64 (or FP32) instruction rate; no point
 // reads another, the bytes are a few loads and stores a point. With
@@ -45,12 +47,14 @@
 // the 33.5 TFLOP/s that counts an FMA as two). The steps are data dependent:
 // a warp runs as long as its slowest point.
 //
-// orbit_dwell and orbit_de_tci run fewer steps and cheaper ones:
+// orbit_dwell, orbit_de_tci, orbit_de_std and orbit_potential run fewer steps
+// and cheaper ones:
 //   * Analytic interior, f64 only (SKIP_INTERIOR). A point that the cardioid
 //     or period-2 bulb test of the reference's _interior_mask
 //     (cmtci/kernels/mandelbrot_pallas.py:148) accepts, evaluated in f64 with
 //     the same 1e-5 margins (interior_f64), takes no step: dwell writes
-//     max_iter, de_tci an unescaped point. The twin runs every step for it,
+//     max_iter, de_tci, de_std and potential an unescaped point (potential
+//     only where its caller asks, below). The twin runs every step for it,
 //     and this is bitwise because such an orbit never escapes in f64: every
 //     accepted c lies a margin inside a hyperbolic component (the fixed
 //     point's multiplier |1 - sqrt(1 - 4c)| < 1, or the 2-cycle's
@@ -59,24 +63,26 @@
 //     f64 steps of 4,000 seeded points just inside the mask's rim, where the
 //     multiplier is nearest 1 and the orbit slowest). A rounding of about 1e-16 a step is
 //     absorbed by the contraction towards the cycle and cannot carry |z|^2
-//     from 1.6 past 4, the dwell's radius, or past any R^2 >= 4 of de_tci
-//     (which skips only then). tests/test_torch_orbit_redesign.py iterates
-//     rim points 5,000 steps; chip_smoke.py holds both entries bitwise to
-//     their twins on a grid over the cardioid-bulb junction at 2,000 steps.
+//     from 1.6 past 4, the dwell's radius, or past any squared threshold
+//     t >= 4 of de_tci, de_std or potential (which skip only then).
+//     tests/test_torch_orbit_redesign.py iterates rim points 5,000 steps;
+//     chip_smoke.py holds the four entries bitwise to their twins (their
+//     contracts) on a grid over the cardioid-bulb junction at 2,000 steps.
 //     f32 points run every step: the argument is made for f64 rounding.
-//   * Branch-free chunks of DWELL_C (TCI_C) steps, as escape.cuh's
-//     dwell_chunked and bare_step run them in f32: the squares carried from
-//     one step's test into the next step's update, p + p, a sticky flag or a
-//     latch, and the exit test once a chunk. A step is 9 FP64 instructions
-//     (3 mul, 5 add/sub, 1 compare) against the twin's 12.
+//   * Branch-free chunks of DWELL_C (TCI_C, STD_C, POT_C) steps, as
+//     escape.cuh's dwell_chunked and bare_step run them in f32: the squares
+//     carried from one step's test into the next step's update, p + p, a
+//     sticky flag or a latch, and the exit test once a chunk. A step is 9
+//     FP64 instructions (3 mul, 5 add/sub, 1 compare) against the twin's 12.
 //   * A compact warp footprint on a 2-D grid: the wrapper passes the (ny, nx)
 //     of the contiguous input (a 1-D input is one row), a warp's 32 threads
-//     tile PATCH_W x PATCH_H points, a block is WARPS patches side by side
-//     along x, and with MIDDLE_OUT the rows of blocks are handed out from the
-//     middle of the grid outwards, so the rows that cross the set start
-//     first. A grid of fewer than PATCH_H rows, or of more rows than 65,535
-//     rows of blocks hold, runs as one row of 32-point warps. No result
-//     depends on the footprint.
+//     tile PATCH_W x PATCH_H points (de_std and potential: their own
+//     patches), a block is WARPS patches side by side along x, and with
+//     MIDDLE_OUT the rows of blocks are handed out from the middle of the
+//     grid outwards, so the rows that cross the set start first. A grid of
+//     fewer rows than a patch, or of more rows than 65,535 rows of blocks
+//     hold, runs as one row of 32-point warps. No result depends on the
+//     footprint.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -prec-div=true -prec-sqrt=true -shared -Xcompiler -fPIC
@@ -93,16 +99,25 @@ constexpr int BLOCK = 256;
 // between two repacks of a block's running points
 constexpr int GREEN_CHUNK = 64;
 constexpr int GREEN_EPOCH = 512;
-// orbit_dwell's and orbit_de_tci's schedule (sweep_schedules rewrites these)
+// orbit_dwell's, orbit_de_tci's, orbit_de_std's and orbit_potential's
+// schedule (sweep_schedules rewrites these)
 constexpr int DWELL_C = 8;          // dwell steps between two exit tests
 constexpr int TCI_C = 6;            // de_tci's first-pass steps between two exit tests
-constexpr int PATCH_W = 4;          // points across a warp's patch
+constexpr int STD_C = 8;            // de_std's first-pass steps between two exit tests
+constexpr int POT_C = 8;            // potential's steps between two exit tests
+constexpr int PATCH_W = 4;          // points across a warp's patch (dwell, de_tci)
 constexpr int PATCH_H = 8;          // points down a warp's patch
+constexpr int ESC_PATCH_W = 8;      // de_std's and potential's patch
+constexpr int ESC_PATCH_H = 4;
 constexpr int WARPS = 4;            // warps a block, side by side along x
+constexpr int POT_WARPS = 2;        // potential's warps a block
 constexpr int MIDDLE_OUT = 1;       // rows of blocks from the middle outwards (1)
 constexpr int SKIP_INTERIOR = 1;    // f64: the analytic interior takes no step (1)
-constexpr int LATCH_BY_REPLAY = 1;  // de_tci: z latched by a replay of the flagged chunk (1)
-                                    // or by a select every step (0)
+constexpr int LATCH_BY_REPLAY = 1;  // de_tci, de_std, potential: the first escape latched by a
+                                    // replay of the flagged chunk (1) or a select every step (0)
+constexpr int STD_DZ_CARRIED_F64 = 1;  // de_std in f64: dz carried in the first pass and
+                                       // latched with z (1) or by a second pass of the escapers (0)
+constexpr int STD_DZ_CARRIED_F32 = 0;  // the same in f32
 
 // _zsq_add_c: z <- z*z + c, both parts from the old z
 template <typename T>
@@ -130,15 +145,15 @@ __device__ __forceinline__ long long point_index() {
 
 // The point of the calling thread on the compact footprint (escape.cuh's
 // patch_pixel with 64-bit columns): p = row * nx + col of a (ny, nx) grid,
-// false past its edge. A warp tiles PW x PH points, a block is WARPS patches
+// false past its edge. A warp tiles PW x PH points, a block is NW patches
 // side by side along x; with MIDDLE_OUT, blockIdx.y is the rank of the row of
 // blocks in the order middle, one below, one above, ...
-template <int PW, int PH>
+template <int PW, int PH, int NW = WARPS>
 __device__ __forceinline__ bool patch_point(long long ny, long long nx, long long& p) {
     static_assert(PW * PH == 32, "a warp's patch is 32 threads");
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const long long col = ((long long)blockIdx.x * WARPS + warp) * PW + lane % PW;
+    const long long col = ((long long)blockIdx.x * NW + warp) * PW + lane % PW;
     int by = blockIdx.y;
     if constexpr (MIDDLE_OUT != 0) {
         const int r = blockIdx.y;
@@ -398,13 +413,131 @@ de_tci_kernel(const T* __restrict__ cr, const T* __restrict__ ci, unsigned char*
     di[p] = d_i;
 }
 
-// de_field_std (RADIUS_BY_HYPOT false: sqrt(|z|^2) > R) and de_field_stage1
-// (true: hypot(zr, zi) > R): z and dz latched at the first escape
-template <typename T, bool RADIUS_BY_HYPOT>
+// A walk from z = 0 (dz = 1) for the first-escape entries: z with its
+// carried squares, and dz when WITH_DZ. step() runs one step in the twin's
+// order (dz <- 2 z dz + 1 from the old z, then z as carried_step) and
+// returns whether the new |z|^2 passes t.
+template <typename T, bool WITH_DZ>
+struct Walk {
+    T zr = T(0), zi = T(0), zr2 = T(0), zi2 = T(0), dzr = T(1), dzi = T(0);
+
+    __device__ __forceinline__ bool step(T cr, T ci, T t) {
+        if constexpr (WITH_DZ) dz_step(zr, zi, dzr, dzi);
+        carried_step(zr, zi, zr2, zi2, cr, ci);
+        return zr2 + zi2 > t;
+    }
+};
+
+// The first escape of walk w within max_iter steps: returns k, its 1-based
+// step, with w the state there; or 0, with w the state after max_iter steps
+// (after none for max_iter <= 0). Chunks of C steps, the tests folded into a
+// flag with one branch a chunk, none past max_iter; with LATCH_BY_REPLAY a
+// flagged chunk is run again from its start one step at a time (green_steps'
+// design without its stages), else the state of the first escape is kept by
+// a select every step. The remaining max_iter mod C steps run one by one.
+// Each step is the same steps in the same op order as a test a step, so the
+// state is bitwise that of a loop that stops at the first test: a NaN |z|^2
+// fails the flag as it fails the test, and the steps a flagged chunk takes
+// past the escape (to inf or NaN) are undone or never read.
+template <int C, typename T, bool WITH_DZ>
+__device__ __forceinline__ int first_escape(Walk<T, WITH_DZ>& w, T cr, T ci, int max_iter, T t) {
+    int n = 0;
+    if constexpr (LATCH_BY_REPLAY != 0) {
+        for (; n + C <= max_iter; n += C) {
+            const Walk<T, WITH_DZ> start = w;
+            bool hit = false;
+#pragma unroll
+            for (int s = 0; s < C; ++s) {
+                const bool h = w.step(cr, ci, t);
+                hit = hit || h;
+            }
+            if (hit) {
+                w = start;  // the flagged chunk again, one step at a time below
+                break;
+            }
+        }
+    } else {
+        Walk<T, WITH_DZ> at;
+        int k = 0;
+        for (; n + C <= max_iter; n += C) {
+#pragma unroll
+            for (int s = 0; s < C; ++s) {
+                const bool first = w.step(cr, ci, t) && k == 0;
+                at.zr = first ? w.zr : at.zr;
+                at.zi = first ? w.zi : at.zi;
+                at.dzr = first ? w.dzr : at.dzr;
+                at.dzi = first ? w.dzi : at.dzi;
+                k = first ? n + s + 1 : k;
+            }
+            if (k != 0) {
+                w = at;
+                return k;
+            }
+        }
+    }
+    for (; n < max_iter; ++n)
+        if (w.step(cr, ci, t)) return n + 1;
+    return 0;
+}
+
+// de_field_std. The twin runs (z, dz) every step and latches both at the
+// first sqrt(|z|^2) > R, then freezes the orbit: (esc, lz, ld), lz = (0, 0)
+// and ld = (1, 0) where it does not escape. Here, bitwise everywhere:
+//   * the radius test as de_tci's squared threshold s > t
+//     (mandelbrot.radius_threshold: sqrt is monotone, NaN fails both tests);
+//   * the f64 analytic interior, for t >= 4 only, takes no step and writes
+//     the twin's unescaped point: it never passes t (the rim argument above);
+//   * a first pass of z alone finds the escape step k (first_escape, STD_C
+//     steps a chunk): the z sequence is the twin's bit for bit (the carried
+//     squares are its zr*zr and zi*zi), so k is the twin's;
+//   * dz either in a second pass that only the escapers take: the twin's
+//     (dz, z) body from z = 0, dz = 1 for exactly k steps, which ends on the
+//     twin's latched z and dz (most escapers leave within a few steps; a
+//     point that never escapes takes no dz step); or carried in the first
+//     pass and latched with z (STD_DZ_CARRIED_F64, _F32). f64 carries it:
+//     with the interior skipped few points run long, and dz's instructions
+//     issue beside z's dependent chain, where a second pass would add its
+//     own chain. f32 takes the second pass: no point is skipped, and every
+//     interior point would carry dz through all max_iter steps (both
+//     measured, PERF.md).
+//   * 8 x 4 patches (ESC_PATCH_*), measured faster here than dwell's 4 x 8.
+template <typename T, int PW, int PH>
+__global__ void __launch_bounds__(32 * WARPS)
+de_std_kernel(const T* __restrict__ cr, const T* __restrict__ ci, unsigned char* __restrict__ esc,
+              T* __restrict__ lzr, T* __restrict__ lzi, T* __restrict__ ldr, T* __restrict__ ldi,
+              long long ny, long long nx, int max_iter, T t) {
+    long long p;
+    if (!patch_point<PW, PH>(ny, nx, p)) return;
+    const T c_r = cr[p], c_i = ci[p];
+    constexpr bool carried =
+        (std::is_same<T, double>::value ? STD_DZ_CARRIED_F64 : STD_DZ_CARRIED_F32) != 0;
+    Walk<T, true> w;
+    int k = 0;
+    if (!(t >= T(4) && skips_interior(c_r, c_i))) {
+        if constexpr (carried) {
+            k = first_escape<STD_C>(w, c_r, c_i, max_iter, t);
+        } else {
+            Walk<T, false> z;
+            k = first_escape<STD_C>(z, c_r, c_i, max_iter, t);
+            for (int s = 0; s < k; ++s) w.step(c_r, c_i, t);
+        }
+    }
+    const bool e = k > 0;
+    esc[p] = e;
+    lzr[p] = e ? w.zr : T(0);
+    lzi[p] = e ? w.zi : T(0);
+    ldr[p] = e ? w.dzr : T(1);
+    ldi[p] = e ? w.dzi : T(0);
+}
+
+// de_field_stage1: z and dz latched at the first hypot(zr, zi) > R (CUDA's
+// hypot, which torch's kernel calls; no exact squared form), one thread a
+// point on 1-D blocks, a test and a branch every step
+template <typename T>
 __global__ void __launch_bounds__(BLOCK)
-de_latched_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
-                  unsigned char* __restrict__ esc, T* __restrict__ lzr, T* __restrict__ lzi,
-                  T* __restrict__ ldr, T* __restrict__ ldi, long long n, int max_iter, T radius) {
+de_stage1_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
+                 unsigned char* __restrict__ esc, T* __restrict__ lzr, T* __restrict__ lzi,
+                 T* __restrict__ ldr, T* __restrict__ ldi, long long n, int max_iter, T radius) {
     const long long p = point_index();
     if (p >= n) return;
     const T c_r = cr[p], c_i = ci[p];
@@ -414,8 +547,7 @@ de_latched_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
     for (int k = 0; k < max_iter; ++k) {
         dz_step(zr, zi, dzr, dzi);
         zsq_add_c(zr, zi, c_r, c_i);
-        const T r = RADIUS_BY_HYPOT ? hypot(zr, zi) : sqrt(zr * zr + zi * zi);
-        if (r > radius) {
+        if (hypot(zr, zi) > radius) {
             l_zr = zr;
             l_zi = zi;
             l_dr = dzr;
@@ -556,31 +688,44 @@ green_kernel(const T* __restrict__ zr0, const T* __restrict__ zi0, const T* __re
     }
 }
 
-// escape_potential_grid's loop: k the 0-based step of the first |z|^2 > r2,
-// lz the z there, or the last z of a point that never escapes
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+// escape_potential_grid's loop. The twin writes (esc, k, lz): k the 0-based
+// step of the first |z|^2 > r2 (0 where none), lz the z there, or the last z
+// of a point that never escapes. Here first_escape (POT_C steps a chunk; its
+// test is the twin's, zr*zr + zi*zi > r2 on the same squares), and, where
+// the caller passes skip (the normalizations whose epilogue writes g = 0 at
+// every point that does not escape: two_pow_n and k_plus_1, not
+// two_pow_k_break, which reads the last z), the f64 analytic interior for
+// r2 >= 4 takes no step. Its contract (mandelbrot._potential_contract):
+// (esc, k) are the twin's bits; lz is the twin's at every escaper and at
+// every point that was not skipped; a skipped point, which the twin never
+// lets escape (the rim argument above), has esc 0, k 0 and lz (NaN, NaN).
+// g is the twin's bits for the normalization that asked for the skip: its
+// epilogue reads lz only where esc. 8 x 4 patches as de_std, in blocks of
+// POT_WARPS warps: the variograms' 256^2 is 512 blocks of 4 warps, all
+// resident at once, and with 4 warps a block its launch read either about
+// 0.016 or 0.024 ms on an H100 from one machine to the next (the boundary's
+// deep lanes crowding some SMs' FP64 pipes, as the blocks happened to
+// fall); with 1 or 2 warps a block it read about 0.016 every time (PERF.md).
+template <typename T, int PW, int PH>
+__global__ void __launch_bounds__(32 * POT_WARPS)
 potential_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
                  unsigned char* __restrict__ esc, int* __restrict__ kk, T* __restrict__ lzr,
-                 T* __restrict__ lzi, long long n, int max_iter, T r2) {
-    const long long p = point_index();
-    if (p >= n) return;
+                 T* __restrict__ lzi, long long ny, long long nx, int max_iter, T r2, int skip) {
+    long long p;
+    if (!patch_point<PW, PH, POT_WARPS>(ny, nx, p)) return;
     const T c_r = cr[p], c_i = ci[p];
-    T zr = T(0), zi = T(0);
+    Walk<T, false> w;
     int k = 0;
-    bool e = false;
-    for (int i = 0; i < max_iter; ++i) {
-        zsq_add_c(zr, zi, c_r, c_i);
-        if (zr * zr + zi * zi > r2) {
-            k = i;
-            e = true;
-            break;
-        }
+    if (skip != 0 && r2 >= T(4) && skips_interior(c_r, c_i)) {
+        w.zr = quiet_nan<T>();
+        w.zi = quiet_nan<T>();
+    } else {
+        k = first_escape<POT_C>(w, c_r, c_i, max_iter, r2);
     }
-    esc[p] = e;
-    kk[p] = k;
-    lzr[p] = zr;
-    lzi[p] = zi;
+    esc[p] = k > 0;
+    kk[p] = k > 0 ? k - 1 : 0;
+    lzr[p] = w.zr;
+    lzi[p] = w.zi;
 }
 
 inline dim3 grid_of(long long n) { return dim3((unsigned)((n + BLOCK - 1) / BLOCK)); }
@@ -590,27 +735,30 @@ inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 }  // namespace
 
 // Each entry launches on `stream` (PyTorch's current stream) over n points
-// (orbit_dwell and orbit_de_tci: ny x nx) in contiguous buffers of the dtype
-// (is_double 1: f64, 0: f32); escape flags are bytes 0/1 (torch.bool), steps
-// int32. A threshold arrives as a double and is rounded to the dtype.
+// (orbit_dwell, orbit_de_tci, orbit_de_std and orbit_potential: ny x nx) in
+// contiguous buffers of the dtype (is_double 1: f64, 0: f32); escape flags
+// are bytes 0/1 (torch.bool), steps int32. A threshold arrives as a double
+// and is rounded to the dtype.
 // Returns cudaGetLastError() as an int; the caller raises when it is not 0.
 // Allocates nothing and does not synchronize.
 
-// orbit_dwell and orbit_de_tci take the (ny, nx) of the points' grid
-// (row-major, ny * nx points). kernel<PATCH_W, PATCH_H> over the compact
-// footprint, or kernel<32, 1> over the points as one row when the grid has
-// fewer than PATCH_H rows or more than the 65,535 rows of blocks a launch
-// can have.
-template <typename Launch>
+// orbit_dwell, orbit_de_tci, orbit_de_std and orbit_potential take the
+// (ny, nx) of the points' grid (row-major, ny * nx points).
+// kernel<PW, PH> over the compact footprint of the entry's patch, NW warps
+// a block (PATCH_* and WARPS; de_std ESC_PATCH_* and WARPS; potential
+// ESC_PATCH_* and POT_WARPS), or kernel<32, 1> over the points as one row
+// when the grid has fewer than PH rows or more than the 65,535 rows of
+// blocks a launch can have.
+template <int PW = PATCH_W, int PH = PATCH_H, int NW = WARPS, typename Launch>
 static void on_footprint(long long ny, long long nx, Launch&& go) {
-    const long long block_rows = (ny + PATCH_H - 1) / PATCH_H;
-    if (ny < PATCH_H || block_rows > 65535) {
+    const long long block_rows = (ny + PH - 1) / PH;
+    if (ny < PH || block_rows > 65535) {
         const long long n = ny * nx;
         go(std::integral_constant<int, 32>(), std::integral_constant<int, 1>(),
-           dim3((unsigned)((n + 32 * WARPS - 1) / (32 * WARPS))), 1LL, n);
+           dim3((unsigned)((n + 32 * NW - 1) / (32 * NW))), 1LL, n);
     } else {
-        const long long cols = (long long)WARPS * PATCH_W;
-        go(std::integral_constant<int, PATCH_W>(), std::integral_constant<int, PATCH_H>(),
+        const long long cols = (long long)NW * PW;
+        go(std::integral_constant<int, PW>(), std::integral_constant<int, PH>(),
            dim3((unsigned)((nx + cols - 1) / cols), (unsigned)block_rows), ny, nx);
     }
 }
@@ -662,33 +810,45 @@ extern "C" int orbit_de_tci_launch(const void* cr, const void* ci, void* esc, vo
     return last_error();
 }
 
-template <bool RADIUS_BY_HYPOT>
-static int de_latched(const void* cr, const void* ci, void* esc, void* lzr, void* lzi, void* ldr,
-                      void* ldi, long long n, int max_iter, double radius, int is_double,
-                      void* stream) {
-    if (is_double)
-        de_latched_kernel<double, RADIUS_BY_HYPOT><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
-            (const double*)cr, (const double*)ci, (unsigned char*)esc, (double*)lzr,
-            (double*)lzi, (double*)ldr, (double*)ldi, n, max_iter, radius);
-    else
-        de_latched_kernel<float, RADIUS_BY_HYPOT><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
-            (const float*)cr, (const float*)ci, (unsigned char*)esc, (float*)lzr, (float*)lzi,
-            (float*)ldr, (float*)ldi, n, max_iter, (float)radius);
-    return last_error();
+// t: de_std's squared threshold (mandelbrot.radius_threshold), a value of
+// the dtype
+template <typename T>
+static void de_std_on(const void* cr, const void* ci, void* esc, void* lzr, void* lzi, void* ldr,
+                      void* ldi, long long ny, long long nx, int max_iter, T t,
+                      cudaStream_t stream) {
+    on_footprint<ESC_PATCH_W, ESC_PATCH_H>(ny, nx, [&](auto pw, auto ph, dim3 grid,
+                                                       long long gy, long long gx) {
+        de_std_kernel<T, decltype(pw)::value, decltype(ph)::value>
+            <<<grid, 32 * WARPS, 0, stream>>>((const T*)cr, (const T*)ci, (unsigned char*)esc,
+                                              (T*)lzr, (T*)lzi, (T*)ldr, (T*)ldi, gy, gx,
+                                              max_iter, t);
+    });
 }
 
 extern "C" int orbit_de_std_launch(const void* cr, const void* ci, void* esc, void* lzr,
-                                   void* lzi, void* ldr, void* ldi, long long n, int max_iter,
-                                   double escape_r, int is_double, void* stream) {
-    return de_latched<false>(cr, ci, esc, lzr, lzi, ldr, ldi, n, max_iter, escape_r, is_double,
-                             stream);
+                                   void* lzi, void* ldr, void* ldi, long long ny, long long nx,
+                                   int max_iter, double t, int is_double, void* stream) {
+    if (is_double)
+        de_std_on<double>(cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter, t,
+                          as_stream(stream));
+    else
+        de_std_on<float>(cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter, (float)t,
+                         as_stream(stream));
+    return last_error();
 }
 
 extern "C" int orbit_de_stage1_launch(const void* cr, const void* ci, void* esc, void* lzr,
                                       void* lzi, void* ldr, void* ldi, long long n, int max_iter,
                                       double bailout, int is_double, void* stream) {
-    return de_latched<true>(cr, ci, esc, lzr, lzi, ldr, ldi, n, max_iter, bailout, is_double,
-                            stream);
+    if (is_double)
+        de_stage1_kernel<double><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
+            (const double*)cr, (const double*)ci, (unsigned char*)esc, (double*)lzr,
+            (double*)lzi, (double*)ldr, (double*)ldi, n, max_iter, bailout);
+    else
+        de_stage1_kernel<float><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
+            (const float*)cr, (const float*)ci, (unsigned char*)esc, (float*)lzr, (float*)lzi,
+            (float*)ldr, (float*)ldi, n, max_iter, (float)bailout);
+    return last_error();
 }
 
 extern "C" int orbit_green_launch(const void* zr0, const void* zi0, const void* cr,
@@ -708,16 +868,30 @@ extern "C" int orbit_green_launch(const void* zr0, const void* zi0, const void* 
     return last_error();
 }
 
+// skip_interior: 1 where the caller's epilogue reads no last z of a point
+// that does not escape (potential_kernel's contract)
+template <typename T>
+static void potential_on(const void* cr, const void* ci, void* esc, void* kk, void* lzr,
+                         void* lzi, long long ny, long long nx, int max_iter, T r2,
+                         int skip_interior, cudaStream_t stream) {
+    on_footprint<ESC_PATCH_W, ESC_PATCH_H, POT_WARPS>(ny, nx, [&](auto pw, auto ph, dim3 grid,
+                                                                  long long gy, long long gx) {
+        potential_kernel<T, decltype(pw)::value, decltype(ph)::value>
+            <<<grid, 32 * POT_WARPS, 0, stream>>>((const T*)cr, (const T*)ci, (unsigned char*)esc,
+                                              (int*)kk, (T*)lzr, (T*)lzi, gy, gx, max_iter, r2,
+                                              skip_interior);
+    });
+}
+
 extern "C" int orbit_potential_launch(const void* cr, const void* ci, void* esc, void* kk,
-                                      void* lzr, void* lzi, long long n, int max_iter, double r2,
-                                      int is_double, void* stream) {
+                                      void* lzr, void* lzi, long long ny, long long nx,
+                                      int max_iter, double r2, int skip_interior, int is_double,
+                                      void* stream) {
     if (is_double)
-        potential_kernel<double><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
-            (const double*)cr, (const double*)ci, (unsigned char*)esc, (int*)kk, (double*)lzr,
-            (double*)lzi, n, max_iter, r2);
+        potential_on<double>(cr, ci, esc, kk, lzr, lzi, ny, nx, max_iter, r2, skip_interior,
+                             as_stream(stream));
     else
-        potential_kernel<float><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
-            (const float*)cr, (const float*)ci, (unsigned char*)esc, (int*)kk, (float*)lzr,
-            (float*)lzi, n, max_iter, (float)r2);
+        potential_on<float>(cr, ci, esc, kk, lzr, lzi, ny, nx, max_iter, (float)r2,
+                            skip_interior, as_stream(stream));
     return last_error();
 }

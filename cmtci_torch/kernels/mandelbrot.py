@@ -15,8 +15,9 @@ loop is one launch of a ``csrc/orbit.cu`` entry (``_green_stage``: one a
 stage); on CPU tensors it is the plain twin, the eager loop of the
 ``*_loop_torch`` functions, which the ``*_torch`` functions run on any
 device. The kernel's loop state is bitwise the twin's (``de_field_tci``'s
-under the contract ``_de_tci_loop_cuda`` states, which keeps its outputs
-bitwise). Nothing falls back.
+and ``escape_potential_grid``'s under the contracts ``_de_tci_loop_cuda``
+and ``_potential_loop_cuda`` state, which keep their outputs bitwise).
+Nothing falls back.
 
 Grids are built from ``np.linspace`` — the oracle's grid. ``jnp.linspace``
 and ``torch.linspace`` each differ from it in the last ulp, and a grid node
@@ -395,9 +396,15 @@ def _de_latched_loop_torch(cr, ci, max_iter: int, radius: float, by_hypot: bool)
 
 
 def _de_latched_loop_cuda(cr, ci, max_iter: int, radius: float, by_hypot: bool):
+    """orbit_de_stage1 (by_hypot) or orbit_de_std: bitwise
+    _de_latched_loop_torch. orbit_de_std takes the squared threshold
+    radius_threshold(radius) and the (ny, nx) of the grid, and skips the f64
+    analytic interior for a threshold >= 4 (the argument is in orbit.cu)."""
     outs = (_out(cr, torch.bool), _out(cr), _out(cr), _out(cr), _out(cr))
-    return _orbit("orbit_de_stage1" if by_hypot else "orbit_de_std", (cr, ci), outs,
-                  int(max_iter), float(radius))
+    if by_hypot:
+        return _orbit("orbit_de_stage1", (cr, ci), outs, int(max_iter), float(radius))
+    t = radius_threshold(float(radius), cr.dtype == torch.float64)
+    return _orbit("orbit_de_std", (cr, ci), outs, int(max_iter), t, grid=True)
 
 
 def _de_std_epilogue(esc, lzr, lzi, ldr, ldi, eps: float):
@@ -499,9 +506,50 @@ def _potential_loop_torch(cr, ci, max_iter: int, r2: float):
     return esc, k, lzr, lzi
 
 
-def _potential_loop_cuda(cr, ci, max_iter: int, r2: float):
+def _potential_loop_cuda(cr, ci, max_iter: int, r2: float, skip_interior: bool = False):
+    """orbit_potential's loop state (esc, k, lzr, lzi) on the (ny, nx) of the
+    grid. With skip_interior, f64 points of the analytic interior take no
+    step for r2 >= 4. Its contract (argued in orbit.cu; _potential_contract):
+    esc and k are _potential_loop_torch's bits, lz too at every escaper and
+    at every point that was not skipped; a skipped point has lz = (NaN, NaN).
+    _potential_epilogue gives the twin's g from either state where it reads
+    lz only at escapers: two_pow_n and k_plus_1, the normalizations that ask
+    for the skip (_skips_interior)."""
     outs = (_out(cr, torch.bool), _out(cr, torch.int32), _out(cr), _out(cr))
-    return _orbit("orbit_potential", (cr, ci), outs, int(max_iter), float(r2))
+    return _orbit("orbit_potential", (cr, ci), outs, int(max_iter), float(r2),
+                  int(bool(skip_interior)), grid=True)
+
+
+def interior_f64(cr, ci) -> torch.Tensor:
+    """csrc/orbit.cu's interior_f64 on f64 tensors: the points the redesigned
+    entries send away without a step, the reference's cardioid and period-2
+    bulb tests with their 1e-5 margins, in f64, for |cr|, |ci| <= 2."""
+    xm = cr - 0.25
+    q = xm * xm + ci * ci
+    in_cardioid = q * (q + xm) <= 0.25 * ci * ci - 1e-5
+    xp = cr + 1.0
+    in_bulb = xp * xp + ci * ci <= 0.0625 - 1e-5
+    return (cr.abs() <= 2.0) & (ci.abs() <= 2.0) & (in_cardioid | in_bulb)
+
+
+def _potential_contract(state, cr, ci, r2: float, skip_interior: bool):
+    """The loop state _potential_loop_cuda gives under its contract, from the
+    twin's loop state `state` (_potential_loop_torch's) on the points
+    (cr, ci): the twin's, with lz = (NaN, NaN) at the points it skips (with
+    skip_interior, in f64, for r2 >= 4: interior_f64)."""
+    esc, k, lzr, lzi = state
+    if not (skip_interior and lzr.dtype == torch.float64 and r2 >= 4.0):
+        return state
+    skipped = interior_f64(cr, ci)
+    nan = torch.full_like(lzr, float("nan"))
+    return esc, k, torch.where(skipped, nan, lzr), torch.where(skipped, nan, lzi)
+
+
+def _skips_interior(normalization: str) -> bool:
+    """Whether escape_potential_grid's kernel may skip the f64 interior: its
+    epilogue writes g = 0 at every point that does not escape, except under
+    two_pow_k_break, which reads the last z there."""
+    return normalization != "two_pow_k_break"
 
 
 def _potential_epilogue(esc, k, lzr, lzi, max_iter: int, normalization: str):
@@ -550,8 +598,9 @@ def escape_potential_grid(cr, ci, max_iter: int = 500, escape_r: float = 4.0,
     The powers of two are exact (np.ldexp; inf past the dtype's range, as
     2^n overflows in the reference)."""
     _check_normalization(normalization)
-    state = _loop(_potential_loop_torch, _potential_loop_cuda, cr, ci, max_iter,
-                  escape_r * escape_r)
+    kernel = functools.partial(_potential_loop_cuda,
+                               skip_interior=_skips_interior(normalization))
+    state = _loop(_potential_loop_torch, kernel, cr, ci, max_iter, escape_r * escape_r)
     return _potential_epilogue(*state, max_iter, normalization)
 
 

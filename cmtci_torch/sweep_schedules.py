@@ -2,9 +2,9 @@
 periodic entry (dwell_periodic_launch, "k2p"), K3 (csrc/cloud_green.cu), K4
 (csrc/de_std.cu), K1 (csrc/tci_de.cu), K5 (csrc/green_grid.cu), K6's fine
 pass (csrc/dwell_ms.cu), csrc/aberth.cu ("aberth"), csrc/orbit.cu's
-orbit_green ("green") and its orbit_dwell and orbit_de_tci ("orbit") and
-csrc/sinkhorn.cu ("sinkhorn") against the kernels as committed, in turns on
-one card.
+orbit_green ("green") and its orbit_dwell, orbit_de_tci, orbit_de_std and
+orbit_potential ("orbit") and csrc/sinkhorn.cu ("sinkhorn") against the
+kernels as committed, in turns on one card.
 
 Run it on the card from the root of a checkout:
 
@@ -60,7 +60,11 @@ orbit.cu of another commit. orbit_dwell's and orbit_de_tci's variants
 (ORBIT_VARIANTS: DWELL_C and TCI_C, the patch, SKIP_INTERIOR,
 LATCH_BY_REPLAY, MIDDLE_OUT) and an --alt orbit.cu (one that takes the
 point count n, commit d8d4f7c's, is recognised by its signature) run at
-ORBIT_DWELL_CASES and ORBIT_TCI_CASES (sweep_orbit).
+ORBIT_DWELL_CASES and ORBIT_TCI_CASES (sweep_orbit); then orbit_de_std's
+and orbit_potential's (ORBIT_VARIO_VARIANTS: STD_C and POT_C, their patch,
+POT_WARPS, SKIP_INTERIOR, LATCH_BY_REPLAY, STD_DZ_CARRIED_*; an --alt whose
+two entries take n, commit 78d1fc6's, recognised the same way) at
+ORBIT_STD_CASES and ORBIT_POTENTIAL_CASES (sweep_orbit_vario).
 
 Every variant's output is held bitwise to the committed kernel's at every
 shape before it is timed, and the committed kernel's to its plain twin once a
@@ -119,6 +123,7 @@ from cmtci_torch.pipelines import stage1
 from cmtci_torch.pipelines.analysis import TCIConfig
 from cmtci_torch.pipelines.equipotential import EquipotentialConfig
 from cmtci_torch.pipelines.tracker import TrackerConfig
+from cmtci_torch.pipelines.variograms import VariogramConfig
 from cmtci_torch.transport import sinkhorn
 
 SWEEP_DIR = _build.BUILD_DIR.parent / "sweep"
@@ -237,13 +242,44 @@ ORBIT_DWELL_CASES = (("boundary 2000^2 f64, 500 it.", bench.DOM, 2000, torch.flo
 ORBIT_TCI_CASES = (("tracker 690^2 f64", TrackerConfig().domain, 690, torch.float64),
                    ("run_tci 912^2 f64", TCIConfig().domain, 912, torch.float64),
                    ("tracker 690^2 f32", TrackerConfig().domain, 690, torch.float32))
-#: the argument types of orbit_dwell and orbit_de_tci in an orbit.cu that
-#: takes the point count n instead of (ny, nx) (commit d8d4f7c and before)
-ORBIT_N_ARGTYPES = {"orbit_dwell": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                                            ctypes.c_int, ctypes.c_void_p],
-                    "orbit_de_tci": [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                                             ctypes.c_double, ctypes.c_int,
-                                                             ctypes.c_void_p]}
+#: orbit_de_std's and orbit_potential's variants: the steps between two
+#: exit tests (both entries; 8 committed), their patch (4 x 8, one row),
+#: the potential's warps a block (1, 4), the f64 interior iterated, the
+#: first escape latched by a select every step (a replay of the flagged
+#: chunk committed), de_std's dz by a second pass of the escapers in f64
+#: and carried in f32 (carried in f64 and a second pass in f32 committed)
+ORBIT_VARIO_VARIANTS = {
+    **{f"c{c}": dict(STD_C=c, POT_C=c) for c in (4, 6, 8)},
+    "4x8": dict(ESC_PATCH_W=4, ESC_PATCH_H=8), "row": dict(ESC_PATCH_W=32, ESC_PATCH_H=1),
+    **{f"pot_warps{w}": dict(POT_WARPS=w) for w in (1, 4)},
+    "no_skip": dict(SKIP_INTERIOR=0), "select": dict(LATCH_BY_REPLAY=0),
+    "dz_second_f64": dict(STD_DZ_CARRIED_F64=0), "dz_carried_f32": dict(STD_DZ_CARRIED_F32=1)}
+#: orbit_de_std's cases: (label, domain, n, dtype, max_iter), R 4; the first
+#: is the variograms' boundary proxy
+ORBIT_STD_CASES = (("variograms 700^2 f64, 600 it.", VariogramConfig().domain, 700,
+                    torch.float64, 600),
+                   ("junction 1000^2 f64, 2000 it.", ORBIT_JUNCTION, 1000, torch.float64, 2000),
+                   ("variograms 700^2 f32, 600 it.", VariogramConfig().domain, 700,
+                    torch.float32, 600))
+#: orbit_potential's cases: (label, grid, max_iter, R, normalization), all
+#: f64; grid "variograms" is the variograms' 256^2 U_M grid, "coupling"
+#: coupling's 300^2 on the default bus's box (coupling_um_grid), "junction"
+#: 1000^2 over ORBIT_JUNCTION
+ORBIT_POTENTIAL_CASES = (("variograms' U_M 256^2 f64, 600 it., R 4", "variograms", 600, 4.0,
+                          "two_pow_n"),
+                         ("coupling's U_M 300^2 f64, 300 it., R 10", "coupling", 300, 10.0,
+                          "k_plus_1"),
+                         ("junction 1000^2 f64, 2000 it., R 4", "junction", 2000, 4.0,
+                          "two_pow_n"))
+_VP, _VL, _VI, _VD = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
+#: the argument types of the orbit.cu entries in a source that takes the
+#: point count n instead of (ny, nx): orbit_dwell and orbit_de_tci up to
+#: commit d8d4f7c, orbit_de_std (with R) and orbit_potential (without the
+#: skip flag) up to commit 78d1fc6
+ORBIT_N_ARGTYPES = {"orbit_dwell": [_VP] * 3 + [_VL, _VI, _VI, _VP],
+                    "orbit_de_tci": [_VP] * 7 + [_VL, _VI, _VD, _VI, _VP],
+                    "orbit_de_std": [_VP] * 7 + [_VL, _VI, _VD, _VI, _VP],
+                    "orbit_potential": [_VP] * 6 + [_VL, _VI, _VD, _VI, _VP]}
 #: aberth.cu's variants: the CTAs of a cluster and the threads of a CTA, and
 #: the repulsion's pair terms computed side by side
 ABERTH_VARIANTS = {**{f"c{c}_t{t}": dict(CLUSTER=c, MAX_THREADS=t)
@@ -968,10 +1004,10 @@ def sweep_green(dev, alts) -> dict:
             "steps": int(steps.sum()), "times": in_turns(calls, rounds=5, chain=5)}
 
 
-def takes_grid(src_dir: Path) -> bool:
-    """Whether src_dir/orbit.cu's orbit_dwell takes (ny, nx) (else n)."""
+def takes_grid(src_dir: Path, entry: str = "orbit_dwell") -> bool:
+    """Whether src_dir/orbit.cu's `entry` takes (ny, nx) (else n)."""
     text = (src_dir / "orbit.cu").read_text()
-    sig = re.search(r'extern "C" int orbit_dwell_launch\(([^)]*)\)', text).group(1)
+    sig = re.search(rf'extern "C" int {entry}_launch\(([^)]*)\)', text).group(1)
     return "long long ny" in sig
 
 
@@ -1095,6 +1131,153 @@ def sweep_orbit(dev, alts) -> dict:
         report["de_tci"][label] = {
             "useful_steps": useful, "z_steps": float(first.sum()),
             "late_escapers": int(late.sum()), "late_steps": float(second.sum()),
+            "twin_steps": float(it * cr.numel()), "executed_over_useful": ratios,
+            "times": in_turns(calls)}
+    report.update(sweep_orbit_vario(dev, alts))
+    return report
+
+
+def coupling_um_grid(dev):
+    """coupling's U_M grid at the defaults: grid_res^2 f64 nodes on the box
+    of the default bus's C and M clouds (run_stage1 at the CLI defaults),
+    0.5 around them, as run_coupling builds it."""
+    import tempfile
+
+    from cmtci_torch.pipelines.coupling import CouplingConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bus = stage1.run_stage1(stage1.Stage1Config(), f"{tmp}/bus", plots=False, device=dev)
+    res = CouplingConfig().grid_res
+    allp = np.vstack([bus["C"], bus["M"]])
+    lo, hi = allp.min(axis=0) - 0.5, allp.max(axis=0) + 0.5
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], res), np.linspace(lo[1], hi[1], res))
+    return torch.as_tensor(gx, device=dev), torch.as_tensor(gy, device=dev)
+
+
+def sweep_orbit_vario(dev, alts) -> dict:
+    """orbit_de_std and orbit_potential: every variant of ORBIT_VARIO_VARIANTS
+    and alternative (with --alt parent=DIR, the orbit.cu of commit 78d1fc6,
+    whose two entries take the point count and run one thread a point on
+    256-thread blocks, a test and a branch every step) against the
+    committed kernel at ORBIT_STD_CASES and ORBIT_POTENTIAL_CASES, in turns.
+    orbit_de_std's outputs are held bitwise to the committed kernel's, the
+    committed kernel's to _de_latched_loop_torch; orbit_potential's loop
+    state to _potential_contract against _potential_loop_torch under the
+    skip it was built and called with (none for the parent and the no_skip
+    build). Beside each time the ratio of the steps its warps execute to the
+    steps the committed design needs (bench.orbit_de_std_lane_steps and
+    orbit_potential_lane_steps; a first pass that carries dz counted as
+    one pass), and the steps the twin runs."""
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                               (_build.CSRC / "orbit.cu").read_text())}
+    built = build_all("orbit", ORBIT_VARIO_VARIANTS, alts, tag="orbit-vario")
+    grid_of = {lab: takes_grid(SWEEP_DIR / f"orbit-vario-{lab}", "orbit_de_std")
+               for lab in built}
+    report = {"ptxas_vario": {lab: p for lab, (_, p) in built.items()}, "de_std": {},
+              "potential": {}}
+    labels = ["committed", *ORBIT_VARIO_VARIANTS]
+
+    def const(lab, key):
+        return {**consts, **(ORBIT_VARIO_VARIANTS.get(lab) or {})}[key]
+
+    def footprint(lab, key):
+        return {"c": const(lab, key), "patch_w": const(lab, "ESC_PATCH_W"),
+                "patch_h": const(lab, "ESC_PATCH_H")}
+
+    for label, dom, n, dt, it in ORBIT_STD_CASES:
+        cr, ci = mb.complex_grid(dom, n, n, dtype=dt, device=dev)
+        want = mb._de_latched_loop_cuda(cr, ci, it, 4.0, False)
+        twin = mb._de_latched_loop_torch(cr, ci, it, 4.0, False)
+        check(sum(same_bits(a.double(), b.double()) for a, b in zip(want, twin)) == 0,
+              f"orbit_de_std {label}: the committed kernel differs from its twin")
+        first, second = bench.orbit_de_std_lane_steps(cr, ci, it, 4.0)
+        skipped = first.new_zeros(first.shape, dtype=torch.bool)
+        if dt == torch.float64:
+            skipped = mb.interior_f64(cr, ci)
+        useful = float(first.sum() + second.sum())
+        ratios = {}
+        for lab in labels:
+            f = footprint(lab, "STD_C")
+            z = torch.where(skipped, it, first) if not const(lab, "SKIP_INTERIOR") else first
+            executed = bench.warp_executed_steps(z.double(), f, it)
+            if not const(lab, "STD_DZ_CARRIED_F64" if dt == torch.float64
+                         else "STD_DZ_CARRIED_F32"):
+                executed += bench.warp_executed_steps(second.double(), dict(f, c=1))
+            ratios[lab] = executed / useful
+        outs = tuple(torch.empty_like(a) for a in want)
+        is_double = int(dt == torch.float64)
+        t = mb.radius_threshold(4.0, dt == torch.float64)
+        ptrs = (cr.data_ptr(), ci.data_ptr(), *(o.data_ptr() for o in outs))
+        calls = {"committed": lambda ptrs=ptrs, n=n, it=it, t=t, is_double=is_double:
+                 _launch.launch("orbit_de_std", dev, *ptrs, n, n, it, t, is_double)}
+        for lab, (lib, _) in built.items():
+            g = grid_of[lab]
+            fn = orbit_entry(lib, "orbit_de_std", g)
+            tail = (n, n, it, t) if g else (n * n, it, 4.0)
+
+            def call(fn=fn, ptrs=ptrs, tail=tail, is_double=is_double):
+                rc = fn(*ptrs, *tail, is_double, stream(dev))
+                check(rc == 0, f"orbit_de_std_launch returned cudaError {rc}")
+
+            for o in outs:
+                o.zero_()
+            call()
+            torch.cuda.synchronize()
+            diff = sum(same_bits(a.double(), b.double()) for a, b in zip(outs, want))
+            check(diff == 0, f"orbit_de_std variant {lab} differs at {label} ({diff})")
+            calls[lab] = call
+        report["de_std"][label] = {
+            "useful_steps": useful, "z_steps": float(first.sum()),
+            "dz_steps": float(second.sum()), "escapers": int((second > 0).sum()),
+            "twin_steps": float(it * cr.numel()), "executed_over_useful": ratios,
+            "times": in_turns(calls)}
+
+    vc = VariogramConfig()
+    grids = {"variograms": mb.complex_grid(vc.domain, vc.grid_nx, vc.grid_ny, device=dev),
+             "coupling": coupling_um_grid(dev),
+             "junction": mb.complex_grid(ORBIT_JUNCTION, 1000, 1000, device=dev)}
+    for label, which, it, rad, norm in ORBIT_POTENTIAL_CASES:
+        cr, ci = grids[which]
+        ny, nx = cr.shape
+        r2 = rad * rad
+        skip = mb._skips_interior(norm)
+        twin = mb._potential_loop_torch(cr, ci, it, r2)
+        want = mb._potential_loop_cuda(cr, ci, it, r2, skip)
+        check(sum(same_bits(a.double(), b.double())
+                  for a, b in zip(want, mb._potential_contract(twin, cr, ci, r2, skip))) == 0,
+              f"orbit_potential {label}: the committed kernel breaks its contract")
+        lane = bench.orbit_potential_lane_steps(cr, ci, it, r2, skip)
+        every = bench.orbit_potential_lane_steps(cr, ci, it, r2, False)
+        useful = float(lane.sum())
+        ratios = {lab: bench.warp_executed_steps(
+            (lane if const(lab, "SKIP_INTERIOR") else every).double(), footprint(lab, "POT_C"),
+            it) / useful for lab in labels}
+        outs = tuple(torch.empty_like(a) for a in want)
+        ptrs = (cr.data_ptr(), ci.data_ptr(), *(o.data_ptr() for o in outs))
+        calls = {"committed": lambda ptrs=ptrs, ny=ny, nx=nx, it=it, r2=r2, skip=skip:
+                 _launch.launch("orbit_potential", dev, *ptrs, ny, nx, it, r2, int(skip), 1)}
+        for lab, (lib, _) in built.items():
+            g = grid_of[lab]
+            fn = orbit_entry(lib, "orbit_potential", g)
+            tail = (ny, nx, it, r2, int(skip)) if g else (ny * nx, it, r2)
+            skips = g and skip and bool(const(lab, "SKIP_INTERIOR"))
+            expect = mb._potential_contract(twin, cr, ci, r2, skips)
+
+            def call(fn=fn, ptrs=ptrs, tail=tail):
+                rc = fn(*ptrs, *tail, 1, stream(dev))
+                check(rc == 0, f"orbit_potential_launch returned cudaError {rc}")
+
+            for o in outs:
+                o.zero_()
+            call()
+            torch.cuda.synchronize()
+            diff = sum(same_bits(a.double(), b.double()) for a, b in zip(outs, expect))
+            check(diff == 0, f"orbit_potential variant {lab} differs at {label} ({diff})")
+            calls[lab] = call
+        report["potential"][label] = {
+            "useful_steps": useful, "deepest_steps": int(lane.max()),
             "twin_steps": float(it * cr.numel()), "executed_over_useful": ratios,
             "times": in_turns(calls)}
     return report
@@ -1518,9 +1701,13 @@ def main(argv=None) -> int:
     if "orbit" in only:
         report["orbit"] = sweep_orbit(dev, parse_alts(args.alt, "orbit"))
         for entry_name, cases in (("orbit_dwell", report["orbit"]["dwell"]),
-                                  ("orbit_de_tci", report["orbit"]["de_tci"])):
+                                  ("orbit_de_tci", report["orbit"]["de_tci"]),
+                                  ("orbit_de_std", report["orbit"]["de_std"]),
+                                  ("orbit_potential", report["orbit"]["potential"])):
             for label, case in cases.items():
                 extra = (f", {case['late_escapers']} late escapers" if "late_escapers" in case
+                         else f", {case['escapers']} escapers" if "escapers" in case
+                         else f", deepest lane {case['deepest_steps']}" if "deepest_steps" in case
                          else "")
                 print(f"{entry_name} {label}: {case['useful_steps']:.0f} steps needed, "
                       f"{case['twin_steps']:.0f} the twin's{extra} (ms per launch: single, "
@@ -1548,6 +1735,8 @@ def main(argv=None) -> int:
               "orbit"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
+    for lab, lines in report.get("orbit", {}).get("ptxas_vario", {}).items():
+        print(f"ptxas orbit-vario {lab}: " + " | ".join(lines))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
