@@ -145,7 +145,7 @@ prints no result line):
      port's stage1: the CLI defaults (819 C_aligned, 600 M) and the 6x bus
      (--max-n 100 --boundary-samples 2000: 5,049 C_aligned, all 1,624 band
      pixels), each on the CUDA-session defaults (every stage's f32/device
-     path) and with --parity, printing each stage's wall as the best of 3
+     path) and with --parity, printing each stage's wall as the best of 2
      warm runs from the suite's JSON line (at the default bus after a
      first, cold run). At the default bus the card's parity run is held to
      the port's CPU run: the summary within 1e-9 and every CSV and text file
@@ -158,12 +158,12 @@ prints no result line):
      than 0.02; the f32 Hausdorff within 1e-6; the coupling trajectory
      within 1e-6, corr_pot within 1e-4, corr_lap within 5e-3. The launches
      are aberth, orbit_de_stage1 and sinkhorn (the buses) and orbit_potential
-     (U_M); each bus's stage1 is also timed alone with its layers, best of 3;
+     (U_M); each bus's stage1 is also timed alone with its layers, best of 2;
  21. the conformal maps on the card (the clouds' aberth launches only): `uniformize-green`
      at its defaults (n_bdy 2000, 20,000 interior points) on the port's
      export_lucas_boundary defaults, in f64 (the host lstsq fit, f64 map
      evaluations on the card) and f32 (the f32 QR fit, f32 evaluations),
-     each timed by stage as the best of 3 warm runs: f64 bdy_mod_median
+     each timed by stage as the best of 2 warm runs: f64 bdy_mod_median
      within 1 +- 1e-3 and inverse_err_max <= 1e-12, its diagnostics.csv row
      within 1e-9 relative of the port's CPU run of the same config (abs
      1e-12 on inverse_err_* and on the two columns that are 0 by
@@ -212,7 +212,7 @@ prints no result line):
      its pipeline's size (the f64 dwell at 2000 x 2000 and 500 steps, the TCI
      DE at the tracker's grids in f64 and f32 and at 912 x 912 on run_tci's
      domain, the standard DE on the variograms' 700 x 700 grid at 600 steps in
-     f64 and f32, stage1's 120 x 80 band field at 200 steps, the first and a
+     f64 and f32, stage1's 80 x 120 band field at 200 steps, the first and a
      resumed Green stage on the equipotential's default cloud, the one
      launch over its whole budget (green_potential_compacted with one stage,
      80,395 points x 20,000 steps) against the compacted loop on the twin and on the
@@ -239,7 +239,15 @@ prints no result line):
      skipped interior points) on both U_M grids, the junction, the ragged
      grids and the special values, with the bound and floor on the steps
      the redesign needs, the earlier count's beside them, and the
-     potential's chain bound;
+     potential's chain bound; orbit_de_stage1 (redesigned: its hypot test
+     through a band around R^2, hypot only inside it, the f64 interior
+     skipped for R >= 2, first_escape's chunks on warp patches) at stage1's
+     80 x 120 in f64 and f32, on the ragged grids, the special values at 1,
+     7 and 200 steps, R 1e-200 and 1e300 (the fallback band: hypot every
+     step) on the special values and a 37 x 61 grid and the junction at
+     2,000 steps, its loop state bitwise the twin's and its calls of hypot,
+     counted on the card, as many as bench.orbit_de_stage1_hypot_calls
+     counts, with the same bounds and its chain bound;
      csrc/sinkhorn.cu (one cooperative launch a call) torch.equal its twin
      sinkhorn_log_torch at stage1's cost at the CLI defaults (819 x 600) on its
      own plan (resident, one CTA an SM), on 97 and 66 CTAs, each also forced
@@ -285,11 +293,13 @@ loop's operations (ORBIT_OPS_PER_STEP on the steps these points need) over
 the H100's 33.5 TFLOP/s FP64 (67 for f32) or its bytes, floor_ms the same
 operations over the FP64 (FP32) instruction rate, SMs x FP64_LANES
 (FP32_LANES) x the maximum SM clock, each operation one instruction under
--fmad=false; for orbit_dwell, orbit_de_tci, orbit_de_std and
-orbit_potential the operations are those the redesign needs (ops_needed:
+-fmad=false; for orbit_dwell, orbit_de_tci, orbit_de_std, orbit_de_stage1
+and orbit_potential the operations are those the redesign needs (ops_needed:
 CARRIED_STEP_OPS a step outside the f64 interior, up to the escape and, for
 de_tci, on to a non-finite z; LATE_STEP_OPS a (z, dz) step of de_tci's late
-escapers' second pass, STD_SECOND_STEP_OPS one of de_std's escapers'), with
+escapers' second pass, STD_SECOND_STEP_OPS one of de_std's escapers',
+STD_CARRIED_DZ_STEP_OPS a step of de_std's or de_stage1's first pass where
+it carries dz), with
 bound_before_ms and floor_before_ms on the earlier count (every step a
 point needs, or for de_tci ran, at ORBIT_OPS_PER_STEP); orbit_potential's
 coupling_u_m holds the same numbers for coupling's U_M; max_abs_err the
@@ -301,10 +311,11 @@ that of the largest polynomial on one SM and bound_cluster_ms on the SMs of
 its cluster, tracker_ms its four tracker launches summed and cluster1_ms
 the launch with one CTA a polynomial, its max_abs_err the largest
 |kernel - twin| of a root, and its library_ms torch.linalg.eigvals on the
-eigensweep's 61 companion matrices, one call each, summed. orbit_green's
-and orbit_potential's bound_chain_ms is the deepest point's steps x 3
-dependent f64 instructions x FP64_DEPENDENT_CYCLES at the card's maximum SM
-clock. sinkhorn's line is
+eigensweep's 61 companion matrices, one call each, summed. orbit_green's,
+orbit_potential's and orbit_de_stage1's bound_chain_ms is the deepest
+point's steps x 3 dependent f64 instructions x FP64_DEPENDENT_CYCLES at the
+card's maximum SM clock; orbit_de_stage1's hypot_calls its calls of hypot
+there (the band's). sinkhorn's line is
 the CLI defaults' (819 x 600, resident; bus_6x holds the 6x bus's): ms the
 median of 5 single calls, plain_ms the twin's one call, graph_ms the graph
 yardstick's replay; its operations count a term's add, max, add,
@@ -350,11 +361,14 @@ KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms",
 ORBIT_ENTRIES = ("orbit_dwell", "orbit_de_tci", "orbit_de_std", "orbit_de_stage1",
                  "orbit_green", "orbit_potential")
 #: operations a step of each orbit.cu loop in the loop's dtype, each mul,
-#: add, sub, compare, sqrt and hypot counted once (-fmad=false keeps them
-#: apart): z^2 + c 4 mul 4 add/sub; |z|^2 > r^2 2 mul 1 add 1 compare; the dz
-#: step 6 mul 3 add/sub; sqrt(|z|^2) > R one more; hypot(zr, zi) > R 2
+#: add, sub, compare and sqrt counted once (-fmad=false keeps them apart):
+#: z^2 + c 4 mul 4 add/sub; |z|^2 > r^2 2 mul 1 add 1 compare; the dz step 6
+#: mul 3 add/sub; sqrt(|z|^2) > R one more; orbit_de_stage1 what its
+#: redesigned step executes, a (dz, z) step on the carried squares with the
+#: band's flag: dz 6 mul 3 add/sub, z 3 mul 4 add/sub, |z|^2 1 add, 1 compare (the
+#: hypot, counted as 2 before, runs only inside the band)
 ORBIT_OPS_PER_STEP = {"orbit_dwell": 12, "orbit_de_tci": 22, "orbit_de_std": 22,
-                      "orbit_de_stage1": 19, "orbit_green": 12, "orbit_potential": 12}
+                      "orbit_de_stage1": 18, "orbit_green": 12, "orbit_potential": 12}
 #: operations (instructions) a step of the redesigned orbit_dwell and
 #: orbit_de_tci: a carried step with its radius test (3 mul, 5 add/sub, 1
 #: compare), and the late escapers' (z, dz) step, which tests nothing (dz 6
@@ -2163,10 +2177,11 @@ def phase_bus(dev):
 #: the two buses of phase 20: the stage-1 defaults, and the 6x bus (max_n 100,
 #: 2000 boundary samples: the 5,049-point cloud and all 1,624 band pixels)
 SUITE_BUSES = (("default", []), ("6x", ["--max-n", "100", "--boundary-samples", "2000"]))
-#: warm suite runs a bus and a path, after a first one; a stage's wall is the
-#: best of them. The 6x bus's parity suite runs once: its coupling stage is
-#: host bound (its walls swing with the host) and takes most of the phase
-SUITE_WARM = 3
+#: warm suite runs a bus and a path, after a first one, and runs of each
+#: bus's stage1 alone; a stage's wall is the best of them. The 6x bus's
+#: parity suite runs once: its coupling stage is host bound (its walls swing
+#: with the host) and takes most of the phase
+SUITE_WARM = 2
 
 
 def run_cli(argv, layers=None) -> str:
@@ -2406,9 +2421,10 @@ def phase_suite(dev):
                 timers.append(StageTimer(dev))
                 stage1.run_stage1(cfg, None, plots=False, device=dev, timer=timers[-1])
 
-            wall, _ = best_of(one_stage1)
+            wall, _ = best_of(one_stage1, SUITE_WARM)
             best = min(timers, key=lambda t: sum(t.times.values()))
-            print(f"stage1, {label} bus: {wall:.4f} s best of 3; layers (s) of the best run: "
+            print(f"stage1, {label} bus: {wall:.4f} s best of {SUITE_WARM}; layers (s) of the "
+                  "best run: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in best.times.items()))
             lines = {}
             for paths, extra in (("accel", []), ("parity", ["--parity"])):
@@ -2501,7 +2517,7 @@ def phase_suite(dev):
 
 #: warm runs of each conformal-map path in phase 21; a stage's time is the
 #: best of them
-GREEN_WARM, FEM_WARM = 3, 2
+GREEN_WARM, FEM_WARM = 2, 2
 #: diagnostics.csv columns held by an absolute 1e-12 in phase 21: the inverse
 #: check's errors sit at rounding level, and the two others are 0 by
 #: construction (the g_shift calibration; C's median recompute)
@@ -3359,6 +3375,35 @@ def tci_contract(label, cr, ci, it):
     return first, second, late, public, start.elapsed_time(stop)
 
 
+def stage1_state(label, cr, ci, it, radius):
+    """orbit_de_stage1's loop state bitwise the twin's
+    (_de_latched_loop_torch by hypot, NaN equal to NaN), and its calls of
+    hypot, counted on the card, as many as the committed schedule makes
+    (bench.orbit_de_stage1_hypot_calls). Returns the count, the twin's
+    de_field_stage1 outputs and the ms of its one call (CUDA events)."""
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    count = torch.zeros(1, dtype=torch.int32, device=cr.device)
+    state = mb._de_latched_loop_cuda(cr, ci, it, radius, True, hypot_calls=count)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    twin = mb._de_latched_loop_torch(cr, ci, it, radius, True)
+    public = mb._de_stage1_epilogue(*twin)  # de_field_stage1_torch's
+    stop.record()
+    stop.synchronize()
+    check(same_bits(state, twin), f"orbit_de_stage1 {label}: the loop state differs from the "
+          "twin's")
+    want = int(bench.orbit_de_stage1_hypot_calls(cr, ci, it, radius).sum())
+    calls = int(count.item())
+    check(calls == want, f"orbit_de_stage1 {label}: {calls} calls of hypot, the schedule "
+          f"makes {want}")
+    return calls, public, start.elapsed_time(stop)
+
+
 def orbit_constants() -> dict:
     """csrc/orbit.cu's `constexpr int` schedule constants, from its text."""
     import re
@@ -3567,22 +3612,72 @@ def loop_orbits(dev):
                needed_ops=std_ops(cr, ci, 2000))
     std_added = time.perf_counter() - t_added
 
-    # de_field_stage1: stage1's band field, 120 x 80, 200 steps
+    def s1_ops(cr, ci, it, radius):
+        """The redesign's operations (as std_ops, on orbit_de_stage1's
+        steps and S1_DZ_CARRIED_*) and the deepest lane's steps: the first
+        pass's, with the second pass's where dz takes one."""
+        first, second = bench.orbit_de_stage1_lane_steps(cr, ci, it, radius)
+        if consts["S1_DZ_CARRIED_F64" if cr.dtype == f64 else "S1_DZ_CARRIED_F32"]:
+            return int(first.sum()) * STD_CARRIED_DZ_STEP_OPS, int(first.max())
+        return (int(first.sum()) * CARRIED_STEP_OPS + int(second.sum()) * STD_SECOND_STEP_OPS,
+                int((first + second).max()))
+
+    # de_field_stage1: stage1's band field, 80 x 120, 200 steps, R 1e6, in
+    # f64 (the kernels line's) and f32; the ragged grids, the special-values
+    # grid, two radii outside the band's range and the junction at 2,000
+    # steps, each loop state held to the twin's and its hypot calls counted
+    t_added = time.perf_counter()
     sc = stage1.Stage1Config()
     xs = np.linspace(stage1.BAND_DOMAIN[0], stage1.BAND_DOMAIN[1], sc.nx)
     ys = np.linspace(stage1.BAND_DOMAIN[2], stage1.BAND_DOMAIN[3], sc.ny)
     gx, gy = np.meshgrid(xs, ys, indexing="xy")
-    cr, ci = torch.as_tensor(gx, device=dev), torch.as_tensor(gy, device=dev)
-    out["orbit_de_stage1"] = loop_orbit(
-        "orbit_de_stage1", f"{sc.ny}x{sc.nx} f64, {sc.max_iter} it.",
-        lambda: mb.de_field_stage1(cr, ci, sc.max_iter, sc.bailout),
-        lambda: mb.de_field_stage1_torch(cr, ci, sc.max_iter, sc.bailout),
-        escape_steps_needed(cr, ci, sc.max_iter, sc.bailout * sc.bailout),
-        cr.numel() * (16 + 1 + 32), f64,
-        loop=lambda: mb._de_latched_loop_cuda(cr, ci, sc.max_iter, sc.bailout, True))
-    small_cases("orbit_de_stage1",
-                lambda cr, ci, it: (lambda: mb.de_field_stage1(cr, ci, it),
-                                    lambda: mb.de_field_stage1_torch(cr, ci, it)))
+    timed = [(f"{sc.ny}x{sc.nx} {dt}, {sc.max_iter} it., R {sc.bailout:g}",
+              torch.as_tensor(gx, device=dev).to(dt), torch.as_tensor(gy, device=dev).to(dt),
+              sc.max_iter) for dt in (f64, torch.float32)]
+    timed.append(("1000x1000 f64 over the cardioid-bulb junction, 2000 it., R 1e+06",
+                  *grid(JUNCTION, 1000, 1000), 2000))
+    for label, cr, ci, it in timed:
+        calls, public, twin_ms = stage1_state(label, cr, ci, it, sc.bailout)
+        ops, deepest = s1_ops(cr, ci, it, sc.bailout)
+        size = 8 if cr.dtype == f64 else 4
+        res = loop_orbit("orbit_de_stage1", label,
+                         lambda cr=cr, ci=ci, it=it: mb.de_field_stage1(cr, ci, it, sc.bailout),
+                         lambda public=public: public,
+                         escape_steps_needed(cr, ci, it, sc.bailout * sc.bailout),
+                         cr.numel() * (2 * size + 1 + 4 * size), cr.dtype,
+                         loop=lambda cr=cr, ci=ci, it=it: mb._de_latched_loop_cuda(
+                             cr, ci, it, sc.bailout, True),
+                         plain_ms=twin_ms, needed_ops=ops)
+        # the chain of the deepest lane: 3 dependent instructions a step at
+        # the dtype's measured latency
+        cycles = FP64_DEPENDENT_CYCLES if cr.dtype == f64 else FP32_DEPENDENT_CYCLES
+        chain = deepest * 3 * cycles / clock_hz * 1e3
+        res.update(bound_chain_ms=chain, deepest_steps=deepest, hypot_calls=calls)
+        print(f"  orbit_de_stage1 {label} chain bound: {deepest} steps x 3 dependent "
+              f"instructions x {cycles} cycles at {clock_hz / 1e9:.3f} GHz = {chain:.5f} ms; "
+              f"{calls} calls of hypot, the schedule's count")
+        if label == timed[0][0]:
+            out["orbit_de_stage1"] = res
+    for dt in (f64, torch.float32):
+        for (ny, nx), it in (((3, 5), 1), ((1, 7), 2), ((37, 61), 7), ((129, 33), 300)):
+            label = f"{ny}x{nx} {dt} {it} it."
+            cr, ci = grid(DOMAIN, nx, ny, dt)
+            public = stage1_state(label, cr, ci, it, sc.bailout)[1]
+            loop_orbit("orbit_de_stage1", label, lambda cr=cr, ci=ci, it=it:
+                       mb.de_field_stage1(cr, ci, it, sc.bailout),
+                       lambda public=public: public, 0, 0)
+        sg = special_grid(dt, dev)
+        small = grid(DOMAIN, 61, 37, dt)
+        for (cr, ci), what, it, rad in ([(sg, "special values", it, sc.bailout)
+                                         for it in (1, 7, sc.max_iter)]
+                                        + [(g, what, it, rad) for rad in (1e-200, 1e300)
+                                           for g, what, it in ((sg, "special values", 7),
+                                                               (small, "37x61", 60))]):
+            label = f"{what} {tuple(cr.shape)} {dt}, {it} it., R {rad:g}"
+            public = stage1_state(label, cr, ci, it, rad)[1]
+            loop_orbit("orbit_de_stage1", label, lambda cr=cr, ci=ci, it=it, rad=rad:
+                       mb.de_field_stage1(cr, ci, it, rad), lambda public=public: public, 0, 0)
+    stage1_added = time.perf_counter() - t_added
 
     # the Green loop on the equipotential's default cloud: the first and a
     # resumed stage; then the one launch over the whole budget the f64
@@ -3732,8 +3827,9 @@ def loop_orbits(dev):
                            lambda cr=cr, ci=ci, it=it, norm=norm:
                            mb.escape_potential_grid_torch(cr, ci, it, 4.0, norm), 0, 0)
     potential_added = time.perf_counter() - t_added
-    print(f"phase 23's orbit_de_std cases {std_added:.1f} s, orbit_potential cases "
-          f"{potential_added:.1f} s wall (checks and timings, stage1's bus included)")
+    print(f"phase 23's orbit_de_std cases {std_added:.1f} s, orbit_de_stage1 cases "
+          f"{stage1_added:.1f} s, orbit_potential cases {potential_added:.1f} s wall (checks "
+          "and timings, stage1's bus included)")
     for name in ORBIT_ENTRIES:
         out[name]["max_abs_err"], out[name]["nan_positions_equal"] = ORBIT_ERR[name]
     return out

@@ -441,6 +441,64 @@ def orbit_de_std_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
     return first, second
 
 
+def _stage1_walk(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, bailout: float):
+    """de_field_stage1's z walk on every point, frozen at its escape: yields
+    (step, s, escaped) after each step, s the |z|^2 of the carried squares
+    (zr*zr + zi*zi) and escaped whether hypot(zr, zi) passed the radius at
+    this step or before, as the twin tests it."""
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(ci)
+    esc = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    for step in range(1, max_iter + 1):
+        zr, zi = (torch.where(esc, zr, zr * zr - zi * zi + cr),
+                  torch.where(esc, zi, zr * zi + zi * zr + ci))
+        esc = esc | (torch.hypot(zr, zi) > bailout)
+        yield step, zr * zr + zi * zi, esc
+
+
+def _stage1_skipped(cr: torch.Tensor, ci: torch.Tensor, bailout: float) -> torch.Tensor:
+    """The points orbit_de_stage1 sends away without a step: the f64
+    analytic interior, for a radius >= 2."""
+    if cr.dtype != torch.float64 or not np.float64(bailout) >= 2.0:
+        return torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    return mb.interior_f64(cr, ci)
+
+
+def orbit_de_stage1_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
+                               bailout: float):
+    """(first, second): per-lane steps of orbit_de_stage1's two passes
+    (int64, the shape of cr), as orbit_de_std_lane_steps counts de_std's.
+    first, z alone: none for a skipped f64 interior point (R >= 2), the
+    escape step (1-based) for an escaper, max_iter for the rest. second, the
+    (z, dz) body: the escape step for an escaper, else none. The escape step
+    is the twin's: the first step whose hypot(zr, zi) passes R."""
+    k = torch.zeros(cr.shape, dtype=torch.int64, device=cr.device)
+    for step, _, esc in _stage1_walk(cr, ci, max_iter, bailout):
+        k = torch.where(esc & (k == 0), step, k)
+    second = k
+    first = torch.where(k > 0, k, max(max_iter, 0))
+    first = torch.where(_stage1_skipped(cr, ci, bailout), 0, first)
+    return first, second
+
+
+def orbit_de_stage1_hypot_calls(cr: torch.Tensor, ci: torch.Tensor, max_iter: int,
+                                bailout: float) -> torch.Tensor:
+    """Per-lane calls of hypot in orbit_de_stage1 as committed (int64, the
+    shape of cr): the steps up to the escape (or max_iter) whose s lies
+    inside the band or is NaN (mandelbrot.hypot_band), none for a skipped
+    point. Only an exact test calls hypot, and it does for such an s; the
+    chunks test the flag !(s < t_lo), which such a step raises, so the chunk
+    that holds the first of them is run again one step at a time, and every
+    step after it, up to the escape: each of these steps meets an exact
+    test, whatever the chunk length."""
+    lo, hi = mb.hypot_band(float(bailout), cr.dtype == torch.float64)
+    calls = torch.zeros(cr.shape, dtype=torch.int64, device=cr.device)
+    done = torch.zeros(cr.shape, dtype=torch.bool, device=cr.device)
+    for _, s, esc in _stage1_walk(cr, ci, max_iter, bailout):
+        calls += ~done & ~(s < lo) & ~(s > hi)
+        done = done | esc
+    return torch.where(_stage1_skipped(cr, ci, bailout), 0, calls)
+
+
 def orbit_potential_lane_steps(cr: torch.Tensor, ci: torch.Tensor, max_iter: int, r2: float,
                                skip_interior: bool) -> torch.Tensor:
     """Per-lane steps orbit_potential's points need (int64, the shape of

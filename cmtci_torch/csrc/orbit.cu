@@ -29,16 +29,46 @@
 // same products of the same values), and zr*zi + zi*zr is p + p with
 // p = zr*zi (IEEE multiplication commutes; the sum is the same sum). A thread
 // leaves its loop where nothing it writes can change any more:
-//   * de_stage1 and green latch their state at the first escape and freeze
-//     the orbit; the thread leaves there (green writes the zeroed z its twin
-//     carries on). green runs GREEN_CHUNK steps between two branches and
-//     replays a chunk in which its point escaped, and packs a block's running
-//     points into its first warps every GREEN_EPOCH steps (green_kernel), so
-//     that its one launch over the whole budget of the f64 equipotential runs
-//     its deepest points in full warps, each step a dependent chain of three
-//     f64 instructions;
-//   * dwell, de_tci, de_std and potential: the designs below (dwell_of,
-//     tci_first_pass, first_escape).
+//   * green latches its state at the first escape and freezes the orbit; the
+//     thread leaves there and writes the zeroed z its twin carries on. It
+//     runs GREEN_CHUNK steps between two branches and replays a chunk in
+//     which its point escaped, and packs a block's running points into its
+//     first warps every GREEN_EPOCH steps (green_kernel), so that its one
+//     launch over the whole budget of the f64 equipotential runs its deepest
+//     points in full warps, each step a dependent chain of three f64
+//     instructions;
+//   * dwell, de_tci, de_std, de_stage1 and potential: the designs below
+//     (dwell_of, tci_first_pass, first_escape).
+//
+// de_stage1's radius test hypot(zr, zi) > R as a band around R^2
+// (HypotBand, mandelbrot.hypot_band). hypot is not a function of the rounded
+// |z|^2, so no single squared threshold is exact; a band is. Let x, y be
+// the dtype's zr and zi, h = sqrt(x^2 + y^2) exactly, and s = x*x + y*y as
+// the carried squares give it (each product and the sum rounded to nearest,
+// -fmad=false). With u the unit roundoff (2^-53 in f64, 2^-24 in f32) and no
+// overflow, |s - h^2| <= 3u h^2 + 3 eta, eta the largest error of a product
+// that underflows (half the smallest subnormal). CUDA's Math API documents
+// hypot to 2 ulp and hypotf to 3 ulp, so H = hypot(x, y) is within
+// e h of h with e < 2^-50 (f64), 2^-20 (f32). The wrapper passes
+// t_hi >= R^2 (1 + d) and t_lo <= R^2 (1 - d) in the dtype, rounded outwards
+// from the exact R^2 of the dtype's R, with the half-width d = 2^-30 (f64),
+// 2^-12 (f32): orders of magnitude above 3u + e, so that nothing hinges on
+// the exact ulp counts. Then:
+//   * 3 eta (eta 2^-1075, 2^-150) is below d R^2 / 8 for R >= 2^-400 (f64),
+//     2^-40 (f32), and R^2 (1 + d) stays finite for R <= 2^400, 2^40;
+//   * s > t_hi then gives h > R (1 + d/3), and H >= h (1 - e) > R: hypot
+//     passes;
+//   * s < t_lo gives h < R (1 - d/3), and H <= h (1 + e) < R: hypot fails
+//     (R is a value of the dtype, so H > R is the real comparison);
+//   * overflow: a square or the sum that rounds to +inf means h^2 above
+//     about 2^1023 (2^127), so H > R; an infinite x or y gives s = +inf
+//     (or NaN with a NaN part) and hypot +inf, which passes;
+//   * a NaN s fails both comparisons and takes hypot itself, as hypot(inf,
+//     NaN) = +inf escapes in the twin and hypot(NaN, y) = NaN does not.
+// Outside that range of R, and for a NaN, infinite, zero or negative R, the
+// band is (-inf, +inf): every step takes hypot, as a test a step would. On
+// stage1's grid no step of a point still running comes within 1.33e-3 of R^2
+// (relative), so at the defaults no step calls hypot.
 //
 // What bounds it on this card: the FP64 (or FP32) instruction rate; no point
 // reads another, the bytes are a few loads and stores a point. With
@@ -47,15 +77,16 @@
 // the 33.5 TFLOP/s that counts an FMA as two). The steps are data dependent:
 // a warp runs as long as its slowest point.
 //
-// orbit_dwell, orbit_de_tci, orbit_de_std and orbit_potential run fewer steps
-// and cheaper ones:
+// orbit_dwell, orbit_de_tci, orbit_de_std, orbit_de_stage1 and
+// orbit_potential run fewer steps and cheaper ones:
 //   * Analytic interior, f64 only (SKIP_INTERIOR). A point that the cardioid
 //     or period-2 bulb test of the reference's _interior_mask
 //     (cmtci/kernels/mandelbrot_pallas.py:148) accepts, evaluated in f64 with
 //     the same 1e-5 margins (interior_f64), takes no step: dwell writes
-//     max_iter, de_tci, de_std and potential an unescaped point (potential
-//     only where its caller asks, below). The twin runs every step for it,
-//     and this is bitwise because such an orbit never escapes in f64: every
+//     max_iter, de_tci, de_std, de_stage1 and potential an unescaped point
+//     (potential only where its caller asks, below). The twin runs every
+//     step for it, and this is bitwise because such an orbit never escapes
+//     in f64: every
 //     accepted c lies a margin inside a hyperbolic component (the fixed
 //     point's multiplier |1 - sqrt(1 - 4c)| < 1, or the 2-cycle's
 //     |4(c + 1)| < 1), so the orbit of 0 stays in the attracting cycle's
@@ -64,20 +95,22 @@
 //     multiplier is nearest 1 and the orbit slowest). A rounding of about 1e-16 a step is
 //     absorbed by the contraction towards the cycle and cannot carry |z|^2
 //     from 1.6 past 4, the dwell's radius, or past any squared threshold
-//     t >= 4 of de_tci, de_std or potential (which skip only then).
+//     t >= 4 of de_tci, de_std or potential (which skip only then), and
+//     keeps hypot below about 1.27, under any R >= 2 of de_stage1 (which
+//     skips only then).
 //     tests/test_torch_orbit_redesign.py iterates rim points 5,000 steps;
-//     chip_smoke.py holds the four entries bitwise to their twins (their
+//     chip_smoke.py holds the five entries bitwise to their twins (their
 //     contracts) on a grid over the cardioid-bulb junction at 2,000 steps.
 //     f32 points run every step: the argument is made for f64 rounding.
-//   * Branch-free chunks of DWELL_C (TCI_C, STD_C, POT_C) steps, as
+//   * Branch-free chunks of DWELL_C (TCI_C, STD_C, S1_C, POT_C) steps, as
 //     escape.cuh's dwell_chunked and bare_step run them in f32: the squares
 //     carried from one step's test into the next step's update, p + p, a
 //     sticky flag or a latch, and the exit test once a chunk. A step is 9
 //     FP64 instructions (3 mul, 5 add/sub, 1 compare) against the twin's 12.
 //   * A compact warp footprint on a 2-D grid: the wrapper passes the (ny, nx)
 //     of the contiguous input (a 1-D input is one row), a warp's 32 threads
-//     tile PATCH_W x PATCH_H points (de_std and potential: their own
-//     patches), a block is WARPS patches side by side along x, and with
+//     tile PATCH_W x PATCH_H points (de_std, de_stage1 and potential: their
+//     own patches), a block is WARPS patches side by side along x, and with
 //     MIDDLE_OUT the rows of blocks are handed out from the middle of the
 //     grid outwards, so the rows that cross the set start first. A grid of
 //     fewer rows than a patch, or of more rows than 65,535 rows of blocks
@@ -105,12 +138,16 @@ constexpr int DWELL_C = 8;          // dwell steps between two exit tests
 constexpr int TCI_C = 6;            // de_tci's first-pass steps between two exit tests
 constexpr int STD_C = 8;            // de_std's first-pass steps between two exit tests
 constexpr int POT_C = 8;            // potential's steps between two exit tests
+constexpr int S1_C = 8;             // de_stage1's steps between two exit tests
 constexpr int PATCH_W = 4;          // points across a warp's patch (dwell, de_tci)
 constexpr int PATCH_H = 8;          // points down a warp's patch
 constexpr int ESC_PATCH_W = 8;      // de_std's and potential's patch
 constexpr int ESC_PATCH_H = 4;
 constexpr int WARPS = 4;            // warps a block, side by side along x
 constexpr int POT_WARPS = 2;        // potential's warps a block
+constexpr int S1_PATCH_W = 8;       // de_stage1's patch
+constexpr int S1_PATCH_H = 4;
+constexpr int S1_WARPS = 1;         // de_stage1's warps a block
 constexpr int MIDDLE_OUT = 1;       // rows of blocks from the middle outwards (1)
 constexpr int SKIP_INTERIOR = 1;    // f64: the analytic interior takes no step (1)
 constexpr int LATCH_BY_REPLAY = 1;  // de_tci, de_std, potential: the first escape latched by a
@@ -118,6 +155,8 @@ constexpr int LATCH_BY_REPLAY = 1;  // de_tci, de_std, potential: the first esca
 constexpr int STD_DZ_CARRIED_F64 = 1;  // de_std in f64: dz carried in the first pass and
                                        // latched with z (1) or by a second pass of the escapers (0)
 constexpr int STD_DZ_CARRIED_F32 = 0;  // the same in f32
+constexpr int S1_DZ_CARRIED_F64 = 1;   // de_stage1: the same choice, in f64
+constexpr int S1_DZ_CARRIED_F32 = 1;   // and in f32
 
 // _zsq_add_c: z <- z*z + c, both parts from the old z
 template <typename T>
@@ -415,32 +454,82 @@ de_tci_kernel(const T* __restrict__ cr, const T* __restrict__ ci, unsigned char*
 
 // A walk from z = 0 (dz = 1) for the first-escape entries: z with its
 // carried squares, and dz when WITH_DZ. step() runs one step in the twin's
-// order (dz <- 2 z dz + 1 from the old z, then z as carried_step) and
-// returns whether the new |z|^2 passes t.
+// order (dz <- 2 z dz + 1 from the old z, then z as carried_step).
 template <typename T, bool WITH_DZ>
 struct Walk {
     T zr = T(0), zi = T(0), zr2 = T(0), zi2 = T(0), dzr = T(1), dzi = T(0);
 
-    __device__ __forceinline__ bool step(T cr, T ci, T t) {
+    __device__ __forceinline__ void step(T cr, T ci) {
         if constexpr (WITH_DZ) dz_step(zr, zi, dzr, dzi);
         carried_step(zr, zi, zr2, zi2, cr, ci);
-        return zr2 + zi2 > t;
     }
 };
 
-// The first escape of walk w within max_iter steps: returns k, its 1-based
-// step, with w the state there; or 0, with w the state after max_iter steps
-// (after none for max_iter <= 0). Chunks of C steps, the tests folded into a
-// flag with one branch a chunk, none past max_iter; with LATCH_BY_REPLAY a
-// flagged chunk is run again from its start one step at a time (green_steps'
-// design without its stages), else the state of the first escape is kept by
-// a select every step. The remaining max_iter mod C steps run one by one.
+// The radius tests of first_escape on a walk's state: flag() the test a
+// chunk folds into its sticky flag, exact() a step's own test. flag() is
+// true wherever exact() is (it may also be true where exact() is not: a
+// false alarm, which the replay below absorbs). interior_never_passes():
+// no orbit of the f64 analytic interior passes exact() (the rim argument
+// above), so such a point may take no step.
+//   SquaredTest: |z|^2 > t on the carried squares (de_std, potential); the
+//   flag is the exact test.
+template <typename T>
+struct SquaredTest {
+    T t;
+
+    template <bool D>
+    __device__ __forceinline__ bool flag(const Walk<T, D>& w) const {
+        return w.zr2 + w.zi2 > t;
+    }
+    template <bool D>
+    __device__ __forceinline__ bool exact(const Walk<T, D>& w) const {
+        return flag(w);
+    }
+    __device__ __forceinline__ bool interior_never_passes() const { return t >= T(4); }
+};
+
+//   HypotBand: de_stage1's hypot(zr, zi) > r through the band (t_lo, t_hi)
+//   around r^2 (the argument above): s > t_hi passes, s < t_lo fails, and
+//   only an s inside the band, or a NaN s, calls hypot, adding one to
+//   *hypot_calls where that is not null (a check's count; nothing else reads
+//   it). The flag is !(s < t_lo): true inside the band and for a NaN s.
+template <typename T>
+struct HypotBand {
+    T r, t_lo, t_hi;
+    int* hypot_calls;
+
+    template <bool D>
+    __device__ __forceinline__ bool flag(const Walk<T, D>& w) const {
+        return !(w.zr2 + w.zi2 < t_lo);
+    }
+    template <bool D>
+    __device__ __forceinline__ bool exact(const Walk<T, D>& w) const {
+        const T s = w.zr2 + w.zi2;
+        if (s > t_hi) return true;
+        if (s < t_lo) return false;
+        if (hypot_calls != nullptr) atomicAdd(hypot_calls, 1);
+        return hypot(w.zr, w.zi) > r;
+    }
+    __device__ __forceinline__ bool interior_never_passes() const { return r >= T(2); }
+};
+
+// The first escape of walk w within max_iter steps under `test`: returns k,
+// its 1-based step, with w the state there; or 0, with w the state after
+// max_iter steps (after none for max_iter <= 0). Chunks of C steps, the
+// flags folded into one with one branch a chunk, none past max_iter; with
+// LATCH_BY_REPLAY a flagged chunk is run again from its start one step at a
+// time with the exact test, and every later step too (green_steps' design
+// without its stages: a false alarm costs the point its chunks, not its
+// bits), else the state of the first escape is kept by a select on the
+// exact test every step. The remaining max_iter mod C steps run one by one.
 // Each step is the same steps in the same op order as a test a step, so the
-// state is bitwise that of a loop that stops at the first test: a NaN |z|^2
-// fails the flag as it fails the test, and the steps a flagged chunk takes
+// state is bitwise that of a loop that stops at the first exact test: a NaN
+// |z|^2 fails a squared flag as it fails the test (and raises the band's
+// flag, whose exact test then decides), and the steps a flagged chunk takes
 // past the escape (to inf or NaN) are undone or never read.
-template <int C, typename T, bool WITH_DZ>
-__device__ __forceinline__ int first_escape(Walk<T, WITH_DZ>& w, T cr, T ci, int max_iter, T t) {
+template <int C, typename T, bool WITH_DZ, typename Test>
+__device__ __forceinline__ int first_escape(Walk<T, WITH_DZ>& w, T cr, T ci, int max_iter,
+                                            const Test& test) {
     int n = 0;
     if constexpr (LATCH_BY_REPLAY != 0) {
         for (; n + C <= max_iter; n += C) {
@@ -448,8 +537,8 @@ __device__ __forceinline__ int first_escape(Walk<T, WITH_DZ>& w, T cr, T ci, int
             bool hit = false;
 #pragma unroll
             for (int s = 0; s < C; ++s) {
-                const bool h = w.step(cr, ci, t);
-                hit = hit || h;
+                w.step(cr, ci);
+                hit = hit || test.flag(w);
             }
             if (hit) {
                 w = start;  // the flagged chunk again, one step at a time below
@@ -462,7 +551,8 @@ __device__ __forceinline__ int first_escape(Walk<T, WITH_DZ>& w, T cr, T ci, int
         for (; n + C <= max_iter; n += C) {
 #pragma unroll
             for (int s = 0; s < C; ++s) {
-                const bool first = w.step(cr, ci, t) && k == 0;
+                w.step(cr, ci);
+                const bool first = k == 0 && test.exact(w);
                 at.zr = first ? w.zr : at.zr;
                 at.zi = first ? w.zi : at.zi;
                 at.dzr = first ? w.dzr : at.dzr;
@@ -475,51 +565,63 @@ __device__ __forceinline__ int first_escape(Walk<T, WITH_DZ>& w, T cr, T ci, int
             }
         }
     }
-    for (; n < max_iter; ++n)
-        if (w.step(cr, ci, t)) return n + 1;
+    for (; n < max_iter; ++n) {
+        w.step(cr, ci);
+        if (test.exact(w)) return n + 1;
+    }
     return 0;
 }
 
-// de_field_std. The twin runs (z, dz) every step and latches both at the
-// first sqrt(|z|^2) > R, then freezes the orbit: (esc, lz, ld), lz = (0, 0)
-// and ld = (1, 0) where it does not escape. Here, bitwise everywhere:
-//   * the radius test as de_tci's squared threshold s > t
-//     (mandelbrot.radius_threshold: sqrt is monotone, NaN fails both tests);
-//   * the f64 analytic interior, for t >= 4 only, takes no step and writes
-//     the twin's unescaped point: it never passes t (the rim argument above);
-//   * a first pass of z alone finds the escape step k (first_escape, STD_C
-//     steps a chunk): the z sequence is the twin's bit for bit (the carried
-//     squares are its zr*zr and zi*zi), so k is the twin's;
+// de_field_std and de_field_stage1, one loop (the twin of both is
+// _de_latched_loop_torch). The twin runs (z, dz) every step and latches both
+// at the first |z| > R (de_std: sqrt(|z|^2); de_stage1: hypot(zr, zi)), then
+// freezes the orbit: (esc, lz, ld), lz = (0, 0) and ld = (1, 0) where it
+// does not escape. Here, bitwise everywhere, with no contract:
+//   * the radius test (Test): de_std's as de_tci's squared threshold s > t
+//     (SquaredTest, mandelbrot.radius_threshold: sqrt is monotone, NaN fails
+//     both tests); de_stage1's through the band around R^2 (HypotBand,
+//     mandelbrot.hypot_band, the argument above);
+//   * the f64 analytic interior, for t >= 4 (R >= 2) only, takes no step and
+//     writes the twin's unescaped point: it never passes the test;
+//   * a first pass of z alone finds the escape step k (first_escape, C steps
+//     a chunk): the z sequence is the twin's bit for bit (the carried squares
+//     are its zr*zr and zi*zi), so k is the twin's;
 //   * dz either in a second pass that only the escapers take: the twin's
 //     (dz, z) body from z = 0, dz = 1 for exactly k steps, which ends on the
 //     twin's latched z and dz (most escapers leave within a few steps; a
 //     point that never escapes takes no dz step); or carried in the first
-//     pass and latched with z (STD_DZ_CARRIED_F64, _F32). f64 carries it:
-//     with the interior skipped few points run long, and dz's instructions
-//     issue beside z's dependent chain, where a second pass would add its
-//     own chain. f32 takes the second pass: no point is skipped, and every
-//     interior point would carry dz through all max_iter steps (both
-//     measured, PERF.md).
-//   * 8 x 4 patches (ESC_PATCH_*), measured faster here than dwell's 4 x 8.
-template <typename T, int PW, int PH>
-__global__ void __launch_bounds__(32 * WARPS)
-de_std_kernel(const T* __restrict__ cr, const T* __restrict__ ci, unsigned char* __restrict__ esc,
-              T* __restrict__ lzr, T* __restrict__ lzi, T* __restrict__ ldr, T* __restrict__ ldi,
-              long long ny, long long nx, int max_iter, T t) {
+//     pass and latched with z (CARRIED: STD_DZ_CARRIED_*, S1_DZ_CARRIED_*).
+//     de_std carries it in f64: with the interior skipped few points run
+//     long, and dz's instructions issue beside z's dependent chain, where a
+//     second pass would add its own chain; in f32 it takes the second pass:
+//     no point is skipped, and every interior point would carry dz through
+//     all max_iter steps (both measured, PERF.md). de_stage1 carries it in
+//     both dtypes (S1_DZ_*): its grid is resident at once and its deepest
+//     lanes never escape, so a second pass only lengthens the late
+//     escapers' chains (measured, PERF.md);
+//   * PW x PH patches, NW warps a block: de_std 8 x 4 (ESC_PATCH_*),
+//     measured faster there than dwell's 4 x 8, WARPS; de_stage1 8 x 4
+//     (S1_PATCH_*) in blocks of one warp (S1_WARPS): its 80 x 120 grid is
+//     resident at once, so where its 158 deep lanes fall sets the time, as
+//     for the potential below, and one-warp blocks spread them best.
+template <typename T, int PW, int PH, int NW, int C, bool CARRIED, typename Test>
+__global__ void __launch_bounds__(32 * NW)
+de_latched_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
+                  unsigned char* __restrict__ esc, T* __restrict__ lzr, T* __restrict__ lzi,
+                  T* __restrict__ ldr, T* __restrict__ ldi, long long ny, long long nx,
+                  int max_iter, Test test) {
     long long p;
-    if (!patch_point<PW, PH>(ny, nx, p)) return;
+    if (!patch_point<PW, PH, NW>(ny, nx, p)) return;
     const T c_r = cr[p], c_i = ci[p];
-    constexpr bool carried =
-        (std::is_same<T, double>::value ? STD_DZ_CARRIED_F64 : STD_DZ_CARRIED_F32) != 0;
     Walk<T, true> w;
     int k = 0;
-    if (!(t >= T(4) && skips_interior(c_r, c_i))) {
-        if constexpr (carried) {
-            k = first_escape<STD_C>(w, c_r, c_i, max_iter, t);
+    if (!(test.interior_never_passes() && skips_interior(c_r, c_i))) {
+        if constexpr (CARRIED) {
+            k = first_escape<C>(w, c_r, c_i, max_iter, test);
         } else {
             Walk<T, false> z;
-            k = first_escape<STD_C>(z, c_r, c_i, max_iter, t);
-            for (int s = 0; s < k; ++s) w.step(c_r, c_i, t);
+            k = first_escape<C>(z, c_r, c_i, max_iter, test);
+            for (int s = 0; s < k; ++s) w.step(c_r, c_i);
         }
     }
     const bool e = k > 0;
@@ -528,39 +630,6 @@ de_std_kernel(const T* __restrict__ cr, const T* __restrict__ ci, unsigned char*
     lzi[p] = e ? w.zi : T(0);
     ldr[p] = e ? w.dzr : T(1);
     ldi[p] = e ? w.dzi : T(0);
-}
-
-// de_field_stage1: z and dz latched at the first hypot(zr, zi) > R (CUDA's
-// hypot, which torch's kernel calls; no exact squared form), one thread a
-// point on 1-D blocks, a test and a branch every step
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
-de_stage1_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
-                 unsigned char* __restrict__ esc, T* __restrict__ lzr, T* __restrict__ lzi,
-                 T* __restrict__ ldr, T* __restrict__ ldi, long long n, int max_iter, T radius) {
-    const long long p = point_index();
-    if (p >= n) return;
-    const T c_r = cr[p], c_i = ci[p];
-    T zr = T(0), zi = T(0), dzr = T(1), dzi = T(0);
-    T l_zr = T(0), l_zi = T(0), l_dr = T(1), l_di = T(0);
-    bool e = false;
-    for (int k = 0; k < max_iter; ++k) {
-        dz_step(zr, zi, dzr, dzi);
-        zsq_add_c(zr, zi, c_r, c_i);
-        if (hypot(zr, zi) > radius) {
-            l_zr = zr;
-            l_zi = zi;
-            l_dr = dzr;
-            l_di = dzi;
-            e = true;
-            break;
-        }
-    }
-    esc[p] = e;
-    lzr[p] = l_zr;
-    lzi[p] = l_zi;
-    ldr[p] = l_dr;
-    ldi[p] = l_di;
 }
 
 // the Green loop's steps from z: `steps` of them, the test |z|^2 > r2 of
@@ -720,7 +789,7 @@ potential_kernel(const T* __restrict__ cr, const T* __restrict__ ci,
         w.zr = quiet_nan<T>();
         w.zi = quiet_nan<T>();
     } else {
-        k = first_escape<POT_C>(w, c_r, c_i, max_iter, r2);
+        k = first_escape<POT_C>(w, c_r, c_i, max_iter, SquaredTest<T>{r2});
     }
     esc[p] = k > 0;
     kk[p] = k > 0 ? k - 1 : 0;
@@ -735,18 +804,19 @@ inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 }  // namespace
 
 // Each entry launches on `stream` (PyTorch's current stream) over n points
-// (orbit_dwell, orbit_de_tci, orbit_de_std and orbit_potential: ny x nx) in
+// (orbit_green; the others ny x nx) in
 // contiguous buffers of the dtype (is_double 1: f64, 0: f32); escape flags
 // are bytes 0/1 (torch.bool), steps int32. A threshold arrives as a double
 // and is rounded to the dtype.
 // Returns cudaGetLastError() as an int; the caller raises when it is not 0.
 // Allocates nothing and does not synchronize.
 
-// orbit_dwell, orbit_de_tci, orbit_de_std and orbit_potential take the
-// (ny, nx) of the points' grid (row-major, ny * nx points).
+// Every entry but orbit_green takes the (ny, nx) of the points' grid
+// (row-major, ny * nx points).
 // kernel<PW, PH> over the compact footprint of the entry's patch, NW warps
-// a block (PATCH_* and WARPS; de_std ESC_PATCH_* and WARPS; potential
-// ESC_PATCH_* and POT_WARPS), or kernel<32, 1> over the points as one row
+// a block (PATCH_* and WARPS; de_std ESC_PATCH_* and WARPS; de_stage1
+// S1_PATCH_* and S1_WARPS; potential ESC_PATCH_* and POT_WARPS), or
+// kernel<32, 1> over the points as one row
 // when the grid has fewer than PH rows or more than the 65,535 rows of
 // blocks a launch can have.
 template <int PW = PATCH_W, int PH = PATCH_H, int NW = WARPS, typename Launch>
@@ -810,44 +880,53 @@ extern "C" int orbit_de_tci_launch(const void* cr, const void* ci, void* esc, vo
     return last_error();
 }
 
-// t: de_std's squared threshold (mandelbrot.radius_threshold), a value of
-// the dtype
-template <typename T>
-static void de_std_on(const void* cr, const void* ci, void* esc, void* lzr, void* lzi, void* ldr,
-                      void* ldi, long long ny, long long nx, int max_iter, T t,
-                      cudaStream_t stream) {
-    on_footprint<ESC_PATCH_W, ESC_PATCH_H>(ny, nx, [&](auto pw, auto ph, dim3 grid,
-                                                       long long gy, long long gx) {
-        de_std_kernel<T, decltype(pw)::value, decltype(ph)::value>
-            <<<grid, 32 * WARPS, 0, stream>>>((const T*)cr, (const T*)ci, (unsigned char*)esc,
-                                              (T*)lzr, (T*)lzi, (T*)ldr, (T*)ldi, gy, gx,
-                                              max_iter, t);
+// de_latched_kernel over the footprint of PW x PH patches, NW warps a block
+template <int PW, int PH, int NW, int C, bool CARRIED, typename T, typename Test>
+static void de_latched_on(const void* cr, const void* ci, void* esc, void* lzr, void* lzi,
+                          void* ldr, void* ldi, long long ny, long long nx, int max_iter,
+                          Test test, cudaStream_t stream) {
+    on_footprint<PW, PH, NW>(ny, nx, [&](auto pw, auto ph, dim3 grid, long long gy,
+                                         long long gx) {
+        de_latched_kernel<T, decltype(pw)::value, decltype(ph)::value, NW, C, CARRIED>
+            <<<grid, 32 * NW, 0, stream>>>((const T*)cr, (const T*)ci, (unsigned char*)esc,
+                                           (T*)lzr, (T*)lzi, (T*)ldr, (T*)ldi, gy, gx, max_iter,
+                                           test);
     });
 }
 
+// t: de_std's squared threshold (mandelbrot.radius_threshold), a value of
+// the dtype
 extern "C" int orbit_de_std_launch(const void* cr, const void* ci, void* esc, void* lzr,
                                    void* lzi, void* ldr, void* ldi, long long ny, long long nx,
                                    int max_iter, double t, int is_double, void* stream) {
     if (is_double)
-        de_std_on<double>(cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter, t,
-                          as_stream(stream));
+        de_latched_on<ESC_PATCH_W, ESC_PATCH_H, WARPS, STD_C, STD_DZ_CARRIED_F64 != 0, double>(
+            cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter, SquaredTest<double>{t},
+            as_stream(stream));
     else
-        de_std_on<float>(cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter, (float)t,
-                         as_stream(stream));
+        de_latched_on<ESC_PATCH_W, ESC_PATCH_H, WARPS, STD_C, STD_DZ_CARRIED_F32 != 0, float>(
+            cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter, SquaredTest<float>{(float)t},
+            as_stream(stream));
     return last_error();
 }
 
+// radius: de_stage1's R; (t_lo, t_hi): its band in the dtype
+// (mandelbrot.hypot_band, values of the dtype). hypot_calls: null, or an int
+// on the card that a point adds one to each time it calls hypot (a check's
+// count; nothing else reads it)
 extern "C" int orbit_de_stage1_launch(const void* cr, const void* ci, void* esc, void* lzr,
-                                      void* lzi, void* ldr, void* ldi, long long n, int max_iter,
-                                      double bailout, int is_double, void* stream) {
+                                      void* lzi, void* ldr, void* ldi, long long ny, long long nx,
+                                      int max_iter, double radius, double t_lo, double t_hi,
+                                      void* hypot_calls, int is_double, void* stream) {
+    int* calls = (int*)hypot_calls;
     if (is_double)
-        de_stage1_kernel<double><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
-            (const double*)cr, (const double*)ci, (unsigned char*)esc, (double*)lzr,
-            (double*)lzi, (double*)ldr, (double*)ldi, n, max_iter, bailout);
+        de_latched_on<S1_PATCH_W, S1_PATCH_H, S1_WARPS, S1_C, S1_DZ_CARRIED_F64 != 0, double>(
+            cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter,
+            HypotBand<double>{radius, t_lo, t_hi, calls}, as_stream(stream));
     else
-        de_stage1_kernel<float><<<grid_of(n), BLOCK, 0, as_stream(stream)>>>(
-            (const float*)cr, (const float*)ci, (unsigned char*)esc, (float*)lzr, (float*)lzi,
-            (float*)ldr, (float*)ldi, n, max_iter, (float)bailout);
+        de_latched_on<S1_PATCH_W, S1_PATCH_H, S1_WARPS, S1_C, S1_DZ_CARRIED_F32 != 0, float>(
+            cr, ci, esc, lzr, lzi, ldr, ldi, ny, nx, max_iter,
+            HypotBand<float>{(float)radius, (float)t_lo, (float)t_hi, calls}, as_stream(stream));
     return last_error();
 }
 

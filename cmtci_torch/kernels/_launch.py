@@ -33,13 +33,13 @@ ARGTYPES = {
     # zr, zi, steps, task, deg, width, closed, coef, coef_stride, ctas, lanes,
     # max_iters, tol2, rep64, the closed form's c0..c3, nc, a, threads, smem
     "aberth": [_P] * 8 + [_I] * 4 + [_D, _I] + [_D] * 4 + [_I, _D, _I, _I, _P],
-    # the orbit loops: inputs, outputs, n (orbit_dwell, orbit_de_tci,
-    # orbit_de_std, orbit_potential: ny, nx), then each loop's counts and
-    # threshold, is_double
+    # the orbit loops: inputs, outputs, n (orbit_green; the others ny, nx),
+    # then each loop's counts and threshold, is_double
     "orbit_dwell": [_P, _P, _P, _L, _L, _I, _I, _P],
     "orbit_de_tci": [_P] * 7 + [_L, _L, _I, _D, _P, _I, _P],  # t, then second_passes
     "orbit_de_std": [_P] * 7 + [_L, _L, _I, _D, _I, _P],  # t
-    "orbit_de_stage1": [_P] * 7 + [_L, _I, _D, _I, _P],
+    # R, the band (t_lo, t_hi), then hypot_calls
+    "orbit_de_stage1": [_P] * 7 + [_L, _L, _I, _D, _D, _D, _P, _I, _P],
     "orbit_green": [_P] * 10 + [_L, _I, _I, _D, _I, _I, _P],
     "orbit_potential": [_P] * 6 + [_L, _L, _I, _D, _I, _I, _P],  # r2, then skip_interior
     # cost, mk, mkT, f, g, plan, n, m, iters, eps, inv_eps, log_mu, log_nu,

@@ -27,6 +27,7 @@ that moves by an ulp can flip a borderline escape.
 from __future__ import annotations
 
 import functools
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -299,6 +300,53 @@ def radius_threshold(escape_r: float, double: bool) -> float:
     return float(value(lo))
 
 
+#: orbit.cu's band around R^2 for de_stage1's hypot(zr, zi) > R, by dtype (f64
+#: if True): the half-width d and the smallest and largest R it holds for
+HYPOT_BAND = {True: (2.0**-30, 2.0**-400, 2.0**400), False: (2.0**-12, 2.0**-40, 2.0**40)}
+
+
+def _rounded_out(x: Fraction, ft, down: bool) -> float:
+    """A value of the dtype ft on the outer side of the exact x: the nearest
+    one at or below it (down), or at or above it."""
+    v = ft(float(x))
+    step = ft(-np.inf if down else np.inf)
+    while (Fraction(float(v)) > x) if down else (Fraction(float(v)) < x):
+        v = np.nextafter(v, step)
+    return float(v)
+
+
+@functools.lru_cache(maxsize=None)
+def hypot_band(bailout: float, double: bool) -> tuple:
+    """(t_lo, t_hi), values of the dtype (f64 if `double`, else f32, the
+    radius rounded to it as torch rounds a Python scalar) around R^2, such
+    that for the s = zr*zr + zi*zi of any dtype values zr, zi (rounded as
+    computed) s > t_hi implies hypot(zr, zi) > R and s < t_lo implies that
+    it does not (orbit.cu states the argument): t_hi at or above R^2 (1 + d),
+    t_lo at or below R^2 (1 - d), d from HYPOT_BAND. (-inf, +inf) for an R
+    outside HYPOT_BAND's range, NaN, infinite, zero or negative: every step
+    then takes hypot."""
+    ft = np.float64 if double else np.float32
+    with np.errstate(over="ignore"):
+        r = ft(bailout)  # a radius past the dtype's range rounds to inf
+    d, smallest, largest = HYPOT_BAND[double]
+    if not smallest <= r <= largest:
+        return float("-inf"), float("inf")
+    r2 = Fraction(float(r)) ** 2
+    return (_rounded_out(r2 * (1 - Fraction(d)), ft, True),
+            _rounded_out(r2 * (1 + Fraction(d)), ft, False))
+
+
+def _count_arg(count, cr, name: str):
+    """The pointer of a check's counter: None, or an int32 tensor of one
+    element on cr's device."""
+    if count is None:
+        return None
+    if count.dtype != torch.int32 or count.device != cr.device or count.numel() < 1:
+        raise ValueError(f"{name}: an int32 tensor of one element on {cr.device}, got "
+                         f"{count.dtype} on {count.device} with {count.numel()} elements")
+    return count.data_ptr()
+
+
 def _de_tci_loop_cuda(cr, ci, max_iter: int, escape_r: float, second_passes=None):
     """orbit_de_tci's loop state (esc, lr, li, dzr, dzi). Its contract
     (argued in orbit.cu): esc, lr and li are _de_tci_loop_torch's bits; at
@@ -314,14 +362,7 @@ def _de_tci_loop_cuda(cr, ci, max_iter: int, escape_r: float, second_passes=None
     card, to which each point that runs the second pass adds one."""
     outs = (_out(cr, torch.bool), _out(cr), _out(cr), _out(cr), _out(cr))
     t = radius_threshold(float(escape_r), cr.dtype == torch.float64)
-    count = None
-    if second_passes is not None:
-        if (second_passes.dtype != torch.int32 or second_passes.device != cr.device
-                or second_passes.numel() < 1):
-            raise ValueError("second_passes: an int32 tensor of one element on "
-                             f"{cr.device}, got {second_passes.dtype} on "
-                             f"{second_passes.device} with {second_passes.numel()} elements")
-        count = second_passes.data_ptr()
+    count = _count_arg(second_passes, cr, "second_passes")
     return _orbit("orbit_de_tci", (cr, ci), outs, int(max_iter), t, count, grid=True)
 
 
@@ -395,15 +436,24 @@ def _de_latched_loop_torch(cr, ci, max_iter: int, radius: float, by_hypot: bool)
     return esc, lzr, lzi, ldr, ldi
 
 
-def _de_latched_loop_cuda(cr, ci, max_iter: int, radius: float, by_hypot: bool):
+def _de_latched_loop_cuda(cr, ci, max_iter: int, radius: float, by_hypot: bool,
+                          hypot_calls=None):
     """orbit_de_stage1 (by_hypot) or orbit_de_std: bitwise
-    _de_latched_loop_torch. orbit_de_std takes the squared threshold
-    radius_threshold(radius) and the (ny, nx) of the grid, and skips the f64
-    analytic interior for a threshold >= 4 (the argument is in orbit.cu)."""
+    _de_latched_loop_torch, on the (ny, nx) of the grid. orbit_de_std takes
+    the squared threshold radius_threshold(radius) and skips the f64
+    analytic interior for a threshold >= 4; orbit_de_stage1 takes the radius
+    and its band hypot_band(radius), calls hypot only for an |z|^2 inside
+    the band or NaN, and skips the f64 interior for R >= 2 (the arguments
+    are in orbit.cu). hypot_calls (a check's): None, or an int32 tensor of
+    one element on the card, to which orbit_de_stage1 adds one at each call
+    of hypot."""
     outs = (_out(cr, torch.bool), _out(cr), _out(cr), _out(cr), _out(cr))
+    double = cr.dtype == torch.float64
     if by_hypot:
-        return _orbit("orbit_de_stage1", (cr, ci), outs, int(max_iter), float(radius))
-    t = radius_threshold(float(radius), cr.dtype == torch.float64)
+        return _orbit("orbit_de_stage1", (cr, ci), outs, int(max_iter), float(radius),
+                      *hypot_band(float(radius), double),
+                      _count_arg(hypot_calls, cr, "hypot_calls"), grid=True)
+    t = radius_threshold(float(radius), double)
     return _orbit("orbit_de_std", (cr, ci), outs, int(max_iter), t, grid=True)
 
 

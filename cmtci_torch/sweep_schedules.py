@@ -2,8 +2,9 @@
 periodic entry (dwell_periodic_launch, "k2p"), K3 (csrc/cloud_green.cu), K4
 (csrc/de_std.cu), K1 (csrc/tci_de.cu), K5 (csrc/green_grid.cu), K6's fine
 pass (csrc/dwell_ms.cu), csrc/aberth.cu ("aberth"), csrc/orbit.cu's
-orbit_green ("green") and its orbit_dwell, orbit_de_tci, orbit_de_std and
-orbit_potential ("orbit") and csrc/sinkhorn.cu ("sinkhorn") against the
+orbit_green ("green") and its orbit_dwell, orbit_de_tci, orbit_de_std,
+orbit_potential and orbit_de_stage1 ("orbit") and csrc/sinkhorn.cu
+("sinkhorn") against the
 kernels as committed, in turns on one card.
 
 Run it on the card from the root of a checkout:
@@ -64,7 +65,12 @@ ORBIT_DWELL_CASES and ORBIT_TCI_CASES (sweep_orbit); then orbit_de_std's
 and orbit_potential's (ORBIT_VARIO_VARIANTS: STD_C and POT_C, their patch,
 POT_WARPS, SKIP_INTERIOR, LATCH_BY_REPLAY, STD_DZ_CARRIED_*; an --alt whose
 two entries take n, commit 78d1fc6's, recognised the same way) at
-ORBIT_STD_CASES and ORBIT_POTENTIAL_CASES (sweep_orbit_vario).
+ORBIT_STD_CASES and ORBIT_POTENTIAL_CASES (sweep_orbit_vario); then
+orbit_de_stage1's (ORBIT_S1_VARIANTS: SKIP_INTERIOR, S1_C, dz carried or
+rerun, LATCH_BY_REPLAY, S1_PATCH_*, S1_WARPS; an --alt whose entry takes n,
+commit 1f4d000's, with hypot at every step) at ORBIT_S1_CASES, beside the
+committed kernel given the band (-inf, +inf), and the SASS of each kernel
+of an --alt orbit.cu against the committed build's (sweep_orbit_stage1).
 
 Every variant's output is held bitwise to the committed kernel's at every
 shape before it is timed, and the committed kernel's to its plain twin once a
@@ -271,14 +277,35 @@ ORBIT_POTENTIAL_CASES = (("variograms' U_M 256^2 f64, 600 it., R 4", "variograms
                           "k_plus_1"),
                          ("junction 1000^2 f64, 2000 it., R 4", "junction", 2000, 4.0,
                           "two_pow_n"))
+#: orbit_de_stage1's variants: the f64 interior iterated, the steps between
+#: two exit tests, dz carried in the first pass or rerun by the escapers (in
+#: both dtypes), the first escape latched by a select every step (a replay
+#: of the flagged chunk committed), the warp's patch (8 x 4, 4 x 8, one
+#: row), the warps a block
+ORBIT_S1_VARIANTS = {
+    "no_skip": dict(SKIP_INTERIOR=0), **{f"c{c}": dict(S1_C=c) for c in (4, 6, 8)},
+    "dz_carried": dict(S1_DZ_CARRIED_F64=1, S1_DZ_CARRIED_F32=1),
+    "dz_second": dict(S1_DZ_CARRIED_F64=0, S1_DZ_CARRIED_F32=0),
+    "select": dict(LATCH_BY_REPLAY=0), "8x4": dict(S1_PATCH_W=8, S1_PATCH_H=4),
+    "4x8": dict(S1_PATCH_W=4, S1_PATCH_H=8), "row": dict(S1_PATCH_W=32, S1_PATCH_H=1),
+    **{f"warps{w}": dict(S1_WARPS=w) for w in (1, 2, 4)}}
+#: orbit_de_stage1's cases: (label, grid, dtype, max_iter, R); grid "stage1"
+#: is stage1's band field (Stage1Config's ny x nx on BAND_DOMAIN, its
+#: max_iter and bailout), "junction" 1000^2 over ORBIT_JUNCTION
+ORBIT_S1_CASES = (("stage1 80x120 f64, 200 it., R 1e6", "stage1", torch.float64, 200, 1e6),
+                  ("stage1 80x120 f32, 200 it., R 1e6", "stage1", torch.float32, 200, 1e6),
+                  ("junction 1000^2 f64, 2000 it., R 1e6", "junction", torch.float64, 2000,
+                   1e6))
 _VP, _VL, _VI, _VD = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double
 #: the argument types of the orbit.cu entries in a source that takes the
 #: point count n instead of (ny, nx): orbit_dwell and orbit_de_tci up to
 #: commit d8d4f7c, orbit_de_std (with R) and orbit_potential (without the
-#: skip flag) up to commit 78d1fc6
+#: skip flag) up to commit 78d1fc6, orbit_de_stage1 (with R) up to commit
+#: 1f4d000
 ORBIT_N_ARGTYPES = {"orbit_dwell": [_VP] * 3 + [_VL, _VI, _VI, _VP],
                     "orbit_de_tci": [_VP] * 7 + [_VL, _VI, _VD, _VI, _VP],
                     "orbit_de_std": [_VP] * 7 + [_VL, _VI, _VD, _VI, _VP],
+                    "orbit_de_stage1": [_VP] * 7 + [_VL, _VI, _VD, _VI, _VP],
                     "orbit_potential": [_VP] * 6 + [_VL, _VI, _VD, _VI, _VP]}
 #: aberth.cu's variants: the CTAs of a cluster and the threads of a CTA, and
 #: the repulsion's pair terms computed side by side
@@ -1134,6 +1161,7 @@ def sweep_orbit(dev, alts) -> dict:
             "twin_steps": float(it * cr.numel()), "executed_over_useful": ratios,
             "times": in_turns(calls)}
     report.update(sweep_orbit_vario(dev, alts))
+    report.update(sweep_orbit_stage1(dev, alts))
     return report
 
 
@@ -1278,6 +1306,153 @@ def sweep_orbit_vario(dev, alts) -> dict:
             calls[lab] = call
         report["potential"][label] = {
             "useful_steps": useful, "deepest_steps": int(lane.max()),
+            "twin_steps": float(it * cr.numel()), "executed_over_useful": ratios,
+            "times": in_turns(calls)}
+    return report
+
+
+def stage1_band_grid(dev):
+    """stage1's band-field grid at the defaults on `dev`: the f64 meshgrid
+    band_field passes de_field_stage1, (ny, nx) = (80, 120)."""
+    cfg = stage1.Stage1Config()
+    gx, gy = np.meshgrid(np.linspace(stage1.BAND_DOMAIN[0], stage1.BAND_DOMAIN[1], cfg.nx),
+                         np.linspace(stage1.BAND_DOMAIN[2], stage1.BAND_DOMAIN[3], cfg.ny),
+                         indexing="xy")
+    return torch.as_tensor(gx, device=dev), torch.as_tensor(gy, device=dev)
+
+
+def kernel_sass(src_dir: Path, tag: str) -> dict:
+    """{kernel name: its SASS text} of src_dir/orbit.cu built with the
+    package's flags into build/sweep/<tag>/ (cuobjdump -sass of the cubin),
+    the hash of the anonymous namespace, which differs from one source text
+    to another, taken out of the names and of the calls that name them."""
+    out_dir = SWEEP_DIR / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cubin = out_dir / "orbit.cubin"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", str(cubin),
+                    str(src_dir / "orbit.cu")], capture_output=True, text=True, check=True)
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(cubin)], capture_output=True, text=True,
+                          check=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
+    return {part.split("\n", 1)[0].strip(): part.split("\n", 1)[1]
+            for part in text.split("Function : ")[1:]}
+
+
+def sass_against(src_dir: Path, tag: str) -> dict:
+    """For each kernel of src_dir/orbit.cu, whether the committed orbit.cu
+    holds a kernel of the same SASS text (a kernel renamed counts as the
+    same): {name: "same"} or {name: "differs in n of m lines"} against the
+    committed kernel of the same name."""
+    theirs, ours = kernel_sass(src_dir, f"{tag}-sass"), kernel_sass(_build.CSRC, "committed-sass")
+    bodies = set(ours.values())
+    out = {}
+    for name, body in theirs.items():
+        if body in bodies:
+            out[name] = "same"
+            continue
+        mine = ours.get(name, "").splitlines()
+        lines = body.splitlines()
+        diff = sum(a != b for a, b in zip(lines, mine)) + abs(len(lines) - len(mine))
+        out[name] = f"differs in {diff} of {len(lines)} lines" if mine else "no kernel of that name"
+    return out
+
+
+def sweep_orbit_stage1(dev, alts) -> dict:
+    """orbit_de_stage1: every variant of ORBIT_S1_VARIANTS and alternative
+    (with --alt parent=DIR, the orbit.cu of commit 1f4d000, whose entry
+    takes the point count and runs one thread a point on 256-thread blocks
+    with hypot, a test and a branch every step) against the committed kernel
+    at ORBIT_S1_CASES, in turns, beside the committed kernel given the band
+    (-inf, +inf) (hypot at every step, its own schedule otherwise). Every
+    output is held bitwise to the committed kernel's, the committed kernel's
+    to _de_latched_loop_torch, and its count of hypot calls to
+    bench.orbit_de_stage1_hypot_calls. Beside each time the ratio of the
+    steps its warps execute to the steps the committed design needs
+    (bench.orbit_de_stage1_lane_steps; a first pass that carries dz counted
+    as one pass), and the steps the twin runs. With an alternative, the
+    SASS of each of its kernels against the committed build's
+    (sass_against)."""
+    from cmtci_torch.kernels import mandelbrot as mb
+
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                               (_build.CSRC / "orbit.cu").read_text())}
+    built = build_all("orbit", ORBIT_S1_VARIANTS, alts, tag="orbit-stage1")
+    grid_of = {lab: takes_grid(SWEEP_DIR / f"orbit-stage1-{lab}", "orbit_de_stage1")
+               for lab in built}
+    report = {"ptxas_stage1": {lab: p for lab, (_, p) in built.items()}, "de_stage1": {},
+              "sass": {lab: sass_against(d, f"alt-{lab}") for lab, d, _ in alts}}
+    labels = ["committed", *ORBIT_S1_VARIANTS]
+
+    def const(lab, key):
+        return {**consts, **(ORBIT_S1_VARIANTS.get(lab) or {})}[key]
+
+    grids = {"stage1": stage1_band_grid(dev),
+             "junction": mb.complex_grid(ORBIT_JUNCTION, 1000, 1000, device=dev)}
+    for label, which, dt, it, rad in ORBIT_S1_CASES:
+        cr, ci = (t.to(dt) for t in grids[which])
+        ny, nx = cr.shape
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        want = mb._de_latched_loop_cuda(cr, ci, it, rad, True, hypot_calls=count)
+        twin = mb._de_latched_loop_torch(cr, ci, it, rad, True)
+        check(sum(same_bits(a.double(), b.double()) for a, b in zip(want, twin)) == 0,
+              f"orbit_de_stage1 {label}: the committed kernel differs from its twin")
+        calls_n = int(bench.orbit_de_stage1_hypot_calls(cr, ci, it, rad).sum())
+        check(int(count.item()) == calls_n, f"orbit_de_stage1 {label}: {int(count.item())} hypot "
+              f"calls, the schedule has {calls_n}")
+        first, second = bench.orbit_de_stage1_lane_steps(cr, ci, it, rad)
+        skipped = bench._stage1_skipped(cr, ci, rad)
+        useful = float(first.sum() + second.sum())
+        ratios = {}
+        for lab in labels:
+            f = {"c": const(lab, "S1_C"), "patch_w": const(lab, "S1_PATCH_W"),
+                 "patch_h": const(lab, "S1_PATCH_H")}
+            z = torch.where(skipped, it, first) if not const(lab, "SKIP_INTERIOR") else first
+            executed = bench.warp_executed_steps(z.double(), f, it)
+            if not const(lab, "S1_DZ_CARRIED_F64" if dt == torch.float64
+                         else "S1_DZ_CARRIED_F32"):
+                executed += bench.warp_executed_steps(second.double(), dict(f, c=1))
+            ratios[lab] = executed / useful
+        outs = tuple(torch.empty_like(a) for a in want)
+        is_double = int(dt == torch.float64)
+        band = mb.hypot_band(rad, dt == torch.float64)
+        ptrs = (cr.data_ptr(), ci.data_ptr(), *(o.data_ptr() for o in outs))
+        calls = {
+            "committed": lambda ptrs=ptrs, ny=ny, nx=nx, it=it, rad=rad, band=band,
+            is_double=is_double: _launch.launch("orbit_de_stage1", dev, *ptrs, ny, nx, it, rad,
+                                                *band, None, is_double),
+            "committed, no band": lambda ptrs=ptrs, ny=ny, nx=nx, it=it, rad=rad,
+            is_double=is_double: _launch.launch("orbit_de_stage1", dev, *ptrs, ny, nx, it, rad,
+                                                -math.inf, math.inf, None, is_double)}
+        for lab, fn in calls.items():
+            for o in outs:
+                o.zero_()
+            fn()
+            torch.cuda.synchronize()
+            diff = sum(same_bits(a.double(), b.double()) for a, b in zip(outs, want))
+            check(diff == 0, f"orbit_de_stage1 {lab} differs at {label} ({diff})")
+        for lab, (lib, _) in built.items():
+            g = grid_of[lab]
+            fn = orbit_entry(lib, "orbit_de_stage1", g)
+            tail = (ny, nx, it, rad, *band, None) if g else (ny * nx, it, rad)
+
+            def call(fn=fn, ptrs=ptrs, tail=tail, is_double=is_double):
+                rc = fn(*ptrs, *tail, is_double, stream(dev))
+                check(rc == 0, f"orbit_de_stage1_launch returned cudaError {rc}")
+
+            for o in outs:
+                o.zero_()
+            call()
+            torch.cuda.synchronize()
+            diff = sum(same_bits(a.double(), b.double()) for a, b in zip(outs, want))
+            check(diff == 0, f"orbit_de_stage1 variant {lab} differs at {label} ({diff})")
+            calls[lab] = call
+        report["de_stage1"][label] = {
+            "useful_steps": useful, "z_steps": float(first.sum()),
+            "dz_steps": float(second.sum()), "escapers": int((second > 0).sum()),
+            "deepest_steps": int(first.max()),
+            "deepest_two_passes": int((first + second).max()), "hypot_calls": calls_n,
             "twin_steps": float(it * cr.numel()), "executed_over_useful": ratios,
             "times": in_turns(calls)}
     return report
@@ -1703,12 +1878,17 @@ def main(argv=None) -> int:
         for entry_name, cases in (("orbit_dwell", report["orbit"]["dwell"]),
                                   ("orbit_de_tci", report["orbit"]["de_tci"]),
                                   ("orbit_de_std", report["orbit"]["de_std"]),
-                                  ("orbit_potential", report["orbit"]["potential"])):
+                                  ("orbit_potential", report["orbit"]["potential"]),
+                                  ("orbit_de_stage1", report["orbit"]["de_stage1"])):
             for label, case in cases.items():
                 extra = (f", {case['late_escapers']} late escapers" if "late_escapers" in case
                          else f", {case['escapers']} escapers" if "escapers" in case
                          else f", deepest lane {case['deepest_steps']}" if "deepest_steps" in case
                          else "")
+                if "hypot_calls" in case:
+                    extra += (f", deepest lane {case['deepest_steps']} ("
+                              f"{case['deepest_two_passes']} with its second pass), "
+                              f"{case['hypot_calls']} hypot calls")
                 print(f"{entry_name} {label}: {case['useful_steps']:.0f} steps needed, "
                       f"{case['twin_steps']:.0f} the twin's{extra} (ms per launch: single, "
                       "chained, replayed from a CUDA graph; executed/needed):")
@@ -1735,8 +1915,12 @@ def main(argv=None) -> int:
               "orbit"):
         for lab, lines in report.get(k, {}).get("ptxas", {}).items():
             print(f"ptxas {k} {lab}: " + " | ".join(lines))
-    for lab, lines in report.get("orbit", {}).get("ptxas_vario", {}).items():
-        print(f"ptxas orbit-vario {lab}: " + " | ".join(lines))
+    for key in ("ptxas_vario", "ptxas_stage1"):
+        for lab, lines in report.get("orbit", {}).get(key, {}).items():
+            print(f"ptxas orbit {key[6:]} {lab}: " + " | ".join(lines))
+    for lab, kernels in report.get("orbit", {}).get("sass", {}).items():
+        for name, verdict in kernels.items():
+            print(f"SASS of {lab}'s {name}: {verdict} in the committed build")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -84,3 +84,25 @@ def test_port_sources_name_no_jax():
                     s = line.strip()
                     assert not s.startswith(("import jax", "from jax", "import cmtci.",
                                              "from cmtci.", "from cmtci import")), (f, s)
+
+
+_SMOKE_PROBE = """
+import sys
+import chip_smoke
+import cmtci_torch.kernels.mandelbrot as mb
+chip_smoke.orbit_constants()
+mb.hypot_band(1e6, True)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "cmtci" or m.startswith("cmtci."))
+print("BAD", bad)
+assert not bad, bad
+"""
+
+
+def test_chip_smoke_imports_no_jax_and_no_cmtci():
+    """chip_smoke.py, which drives the port on the card, imports neither jax
+    nor cmtci, nor does the stage1 band it hands orbit_de_stage1."""
+    proc = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout

@@ -283,8 +283,8 @@ def twin_state(name, cr, ci, it, radius):
 
 def test_models_read_the_committed_constants():
     """The constants the models default to are orbit.cu's, and the sources
-    hold the redesigned entries' launchers with (ny, nx); orbit_de_stage1
-    keeps the point count."""
+    hold the redesigned entries' launchers with (ny, nx); orbit_de_stage1's
+    takes them too, with the radius and its band."""
     assert CONSTS["STD_C"] in CHUNKS and CONSTS["POT_C"] in CHUNKS
     assert CONSTS["STD_DZ_CARRIED_F64"] in (0, 1) and CONSTS["STD_DZ_CARRIED_F32"] in (0, 1)
     assert CONSTS["LATCH_BY_REPLAY"] in (0, 1)
@@ -293,7 +293,8 @@ def test_models_read_the_committed_constants():
     text = ORBIT_CU.read_text()
     for entry, size in (("orbit_de_std", "long long ny, long long nx"),
                         ("orbit_potential", "long long ny, long long nx"),
-                        ("orbit_de_stage1", "long long n, int max_iter")):
+                        ("orbit_de_stage1", "long long ny, long long nx, int max_iter, "
+                                            "double radius, double t_lo, double t_hi")):
         sig = re.search(rf'extern "C" int {entry}_launch\(([^)]*)\)', text).group(1)
         assert size in " ".join(sig.split()), entry
     assert "double t," in text and "int skip_interior" in text
@@ -491,8 +492,8 @@ def test_wrappers_hand_the_entries_the_schedule(monkeypatch):
     the model (fed the scalars the wrapper passes): de_field_std passes
     orbit_de_std the squared threshold and the grid; escape_potential_grid
     passes orbit_potential r2 and its normalization's skip flag; both give
-    the twins' public outputs bitwise. orbit_de_stage1 keeps the radius and
-    the point count."""
+    the twins' public outputs bitwise. orbit_de_stage1 takes the radius,
+    its band (mandelbrot.hypot_band), no count and the grid."""
     seen = []
 
     def fake_orbit(entry, ins, outs, *scalars, grid=False):
@@ -521,7 +522,8 @@ def test_wrappers_hand_the_entries_the_schedule(monkeypatch):
             assert seen == [("orbit_potential", (61, 16.0, skip), True)], norm
         seen.clear()
         mb.de_field_stage1(cr, ci, 20)
-        assert seen == [("orbit_de_stage1", (20, 1e6), False)]
+        assert seen == [("orbit_de_stage1",
+                         (20, 1e6, *mb.hypot_band(1e6, dtype == F64), None), True)]
 
 
 def test_cpu_inputs_run_the_twins_and_launch_nothing():
