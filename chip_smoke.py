@@ -2186,7 +2186,8 @@ SUITE_WARM = 2
 
 def run_cli(argv, layers=None) -> str:
     """cmtci_torch.cli.main(argv) in this process; its last line of output.
-    `layers` (a StageTimer) takes the coupling stage's layer spans."""
+    `layers` (a StageTimer) takes the spatial-stats and coupling stages'
+    layer spans."""
     import contextlib
     import io
 
@@ -2450,7 +2451,8 @@ def phase_suite(dev):
                 print(f"  summary {json.dumps(summary)}")
                 # where the coupling stage's wall goes, in the run that set its best
                 i = min(range(cold, len(runs)), key=lambda i: runs[i]["stages"]["coupling"])
-                print(f"  coupling layers (s) of that run ({runs[i]['stages']['coupling']} s): "
+                print(f"  spatial-stats and coupling layers (s) of that run (coupling "
+                      f"{runs[i]['stages']['coupling']} s): "
                       + ", ".join(f"{k} {v:.4f}" for k, v in timers[i].times.items()))
                 for key in ("spectral_distance", "hausdorff", "coupling_d_mean"):
                     check(isinstance(runs[-1][key], float) and math.isfinite(runs[-1][key]),

@@ -336,7 +336,7 @@ def _run_bus_stage(st, c, m, ca, matches, out_prefix, opts, plots=True,
     and `suite` share (the same pipeline call and files, so a suite stage
     writes what its subcommand writes). `opts` holds the stage's knobs as
     the CLI's strings; `layers`, a StageTimer, takes the spans of a stage
-    that times its layers (coupling); `mesh` shards spatial-stats and
+    that times its layers (spatial-stats, coupling); `mesh` shards spatial-stats and
     coupling, the stages with mesh-sharded heads, and on a mesh only rank 0
     writes; returns the values the CLI prints."""
     import torch
@@ -375,7 +375,7 @@ def _run_bus_stage(st, c, m, ca, matches, out_prefix, opts, plots=True,
     if st == "spatial-stats":
         o = analysis.run_spatial_stats(ca, m, out_prefix=out_prefix,
                                        stat_dtype=dtype("stat_dtype"), plots=plots, device=dev,
-                                       mesh=mesh)
+                                       mesh=mesh, timer=layers)
         return {"hausdorff": o["hausdorff"]}
     if st == "report":
         return {"report_row": analysis.run_report(c, m, ca, matches, out_prefix, plots=plots,
@@ -412,8 +412,9 @@ def _run_suite(args, layers=None, mesh=None) -> int:
     synchronize at both ends), with one JSON summary line. Each stage runs
     the pipeline call of its subcommand and writes `{out}/{stage}_*`. An
     exception in a stage ends the run: no stage is rerun on another path.
-    `layers` (a StageTimer) takes the coupling stage's layer spans; `mesh`
-    shards spatial-stats and coupling, and rank 0 alone writes and prints."""
+    `layers` (a StageTimer) takes the spatial-stats and coupling stages'
+    layer spans; `mesh` shards spatial-stats and coupling, and rank 0 alone
+    writes and prints."""
     from cmtci_torch.parallel.sharded import is_writer
 
     import time
@@ -594,8 +595,9 @@ def _mesh_from_args(args, n: int, argv):
 
 
 def main(argv=None, layers=None):
-    """The CLI. `layers`, a StageTimer, takes the layer spans of `suite`'s and
-    `coupling`'s coupling stage, for a caller in the same process."""
+    """The CLI. `layers`, a StageTimer, takes the layer spans of the
+    spatial-stats and coupling stages (of `suite` or of their subcommands),
+    for a caller in the same process."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["bench"]:
         from cmtci_torch import bench

@@ -265,7 +265,8 @@ def run_symmetry(c_aligned, m_pts, matches=None, tol=0.05, out_prefix=None,
 
 
 def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
-                      stat_dtype=torch.float64, plots=True, device="cuda", mesh=None):
+                      stat_dtype=torch.float64, plots=True, device="cuda", mesh=None,
+                      timer: Optional[StageTimer] = None):
     """phase2 + phase3: g(r), Ripley K, Hausdorff, gradient curvature, box dim.
 
     stat_dtype=torch.float32 runs the three O(n²) pair scans (the shell
@@ -273,14 +274,27 @@ def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
     the counts stay exact int64, a borderline pair can land one bin over.
     With a `mesh` the shell counts shard over its ranks (bitwise the
     single-device counts), the rest runs on the rank's device, and only
-    rank 0 writes."""
+    rank 0 writes.
+
+    `timer` records the stages spatial_stats.shells_construct,
+    spatial_stats.shells_mandel, spatial_stats.hausdorff,
+    spatial_stats.curvature and spatial_stats.boxdim (device-synchronized on
+    CUDA, each ending where the host already waits for the card or the card
+    has nothing queued) and, on one device, the shell scans' counters
+    spatial_stats.distances and spatial_stats.in_shells (a mesh counts
+    nothing); the result holds them as stage_times and counts."""
     from cmtci_torch.parallel.sharded import is_writer
 
     dev = mesh.device if mesh is not None else resolve_device(device)
+    timer = timer if timer is not None else StageTimer(dev)
     if not is_writer(mesh):
         out_prefix = None
-    shells_c = ps._shell_counts(c_aligned, r_max, dr, dtype=stat_dtype, device=dev, mesh=mesh)
-    shells_m = ps._shell_counts(m_pts, r_max, dr, dtype=stat_dtype, device=dev, mesh=mesh)
+    with timer.stage("spatial_stats.shells_construct"):
+        shells_c = ps._shell_counts(c_aligned, r_max, dr, dtype=stat_dtype, device=dev,
+                                    mesh=mesh, count=timer.count)
+    with timer.stage("spatial_stats.shells_mandel"):
+        shells_m = ps._shell_counts(m_pts, r_max, dr, dtype=stat_dtype, device=dev, mesh=mesh,
+                                    count=timer.count)
     r_c, g_c = ps.pair_correlation(c_aligned, r_max, dr, _shells=shells_c)
     r_m, g_m = ps.pair_correlation(m_pts, r_max, dr, _shells=shells_m)
     _, k_c = ps.ripley_k(c_aligned, r_max, dr, _shells=shells_c)
@@ -288,12 +302,15 @@ def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
     out = {
         "r": r_c, "g_construct": g_c, "g_mandel": g_m,
         "K_construct": k_c, "K_mandel": k_m,
-        "hausdorff": ps.hausdorff(c_aligned, m_pts, dtype=stat_dtype, device=dev),
-        "curv_construct": curv.gradient_curvature(np.asarray(c_aligned), device=dev),
-        "curv_mandel": curv.gradient_curvature(np.asarray(m_pts), device=dev),
     }
-    fd_c, _ = ps.fractal_dimension(c_aligned)
-    fd_m, _ = ps.fractal_dimension(m_pts)
+    with timer.stage("spatial_stats.hausdorff"):
+        out["hausdorff"] = ps.hausdorff(c_aligned, m_pts, dtype=stat_dtype, device=dev)
+    with timer.stage("spatial_stats.curvature"):
+        out["curv_construct"] = curv.gradient_curvature(np.asarray(c_aligned), device=dev)
+        out["curv_mandel"] = curv.gradient_curvature(np.asarray(m_pts), device=dev)
+    with timer.stage("spatial_stats.boxdim"):
+        fd_c, _ = ps.fractal_dimension(c_aligned)
+        fd_m, _ = ps.fractal_dimension(m_pts)
     out["fractal_dim_construct"] = fd_c
     out["fractal_dim_mandel"] = fd_m
     if out_prefix:
@@ -310,6 +327,8 @@ def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
             plot_io.plot_curvature_hotspots(
                 c_aligned, m_pts, out["curv_construct"], out["curv_mandel"],
                 f"{out_prefix}_curvature_hotspots.png")
+    out["stage_times"] = dict(timer.times)
+    out["counts"] = dict(timer.counts)
     return out
 
 

@@ -25,17 +25,21 @@ from cmtci_torch.utils.arrays import as_xy as _xy
 from cmtci_torch.utils.device import resolve_device
 
 
-def _pair_hist(xy, r_edges, nbins: int, chunk: int = 1024, rows=None):
+def _pair_hist(xy, r_edges, nbins: int, chunk: int = 1024, rows=None, count=None):
     """int64 histogram of the upper-triangle pairwise distances of xy into
     the r_edges bins (bin k holds r_edges[k] <= d < r_edges[k+1]; values
     >= the last edge are dropped, matching the reference's shell masks). A
     block of rows meets only the columns from its first row on. rows =
-    (lo, hi) restricts the pairs to first indices in [lo, hi)."""
+    (lo, hi) restricts the pairs to first indices in [lo, hi). `count`, a
+    callable (name, n), takes ``spatial_stats.distances``: the distances a
+    block evaluates, its masked entries included, from the shapes alone."""
     counts = torch.zeros(nbins, dtype=torch.int64, device=xy.device)
     local = torch.arange(xy.shape[0], device=xy.device)
     lo, hi = (0, xy.shape[0]) if rows is None else rows
     for i in range(lo, hi, chunk):
         blk, rest = xy[i : min(i + chunk, hi)], xy[i:]
+        if count is not None:
+            count("spatial_stats.distances", blk.shape[0] * rest.shape[0])
         dx = blk[:, 0, None] - rest[None, :, 0]
         dy = blk[:, 1, None] - rest[None, :, 1]
         d = torch.sqrt(dx * dx + dy * dy)
@@ -45,12 +49,15 @@ def _pair_hist(xy, r_edges, nbins: int, chunk: int = 1024, rows=None):
 
 
 def _shell_counts(points, r_max: float, dr: float, dtype=torch.float64, device="cuda",
-                  mesh=None):
+                  mesh=None, count=None):
     """(r_vals, shell counts over [r, r+dr), n, rho): one O(N^2) pass shared
     by g(r) and Ripley K, in `dtype` on `device`. The counts are exact in
     either dtype; f32 distances can land a borderline pair one bin over
     against f64. With a `mesh` the pass shards its i-rows over the ranks
-    (parallel.sharded.sharded_shell_counts), on the ranks' devices."""
+    (parallel.sharded.sharded_shell_counts), on the ranks' devices. `count`,
+    a callable (name, n), takes ``spatial_stats.distances`` (``_pair_hist``)
+    and ``spatial_stats.in_shells``, the pairs counted in a shell; the
+    sharded pass counts nothing."""
     if mesh is not None:
         from cmtci_torch.parallel.sharded import sharded_shell_counts
 
@@ -63,8 +70,12 @@ def _shell_counts(points, r_max: float, dr: float, dtype=torch.float64, device="
     r_vals = np.arange(0, r_max, dr)
     edges = torch.as_tensor(np.concatenate([r_vals, [r_vals[-1] + dr]]), dtype=dtype,
                             device=dev)
-    counts = _pair_hist(torch.as_tensor(xy, dtype=dtype, device=dev), edges, len(r_vals))
-    return r_vals, counts.cpu().numpy().astype(np.float64), n, rho
+    counts = _pair_hist(torch.as_tensor(xy, dtype=dtype, device=dev), edges, len(r_vals),
+                        count=count)
+    counts = counts.cpu().numpy()
+    if count is not None:
+        count("spatial_stats.in_shells", int(counts.sum()))
+    return r_vals, counts.astype(np.float64), n, rho
 
 
 def pair_correlation(points, r_max: float, dr: float, _shells=None, device="cuda"):

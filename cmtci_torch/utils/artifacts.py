@@ -89,9 +89,16 @@ def fetch(x) -> np.ndarray:
 
 
 class StageTimer:
-    """Per-stage wall times. On a CUDA device each stage boundary
-    synchronizes the device, so a stage's time includes the kernels it
-    queued and no other stage's.
+    """Per-stage wall times, and counters beside them. On a CUDA device each
+    stage boundary synchronizes the device, so a stage's time includes the
+    kernels it queued and no other stage's.
+
+    Each stage runs inside a ``torch.profiler.record_function`` of its name,
+    which does nothing unless a profiler records: under one (the caller's,
+    or this timer's own with `trace_dir`) the stage is a ``user_annotation``
+    span of the Chrome trace, nested in its caller's spans. ``count(name,
+    n)`` adds n to ``counts[name]``, the program's counters, kept in memory
+    like ``times``.
 
     With `trace_dir` each stage also runs under ``torch.profiler`` (host
     ops, and the card's kernels on a CUDA device) and writes one Chrome
@@ -102,6 +109,7 @@ class StageTimer:
 
     def __init__(self, device=None, trace_dir: str | None = None):
         self.times: dict = {}
+        self.counts: dict = {}
         self.device = torch.device(device) if device is not None else None
         self.trace_dir = trace_dir
         self.traces: list = []
@@ -121,6 +129,10 @@ class StageTimer:
             acts.append(ProfilerActivity.CUDA)
         return profile(activities=acts)
 
+    def count(self, name: str, n) -> None:
+        """Add n to counts[name]."""
+        self.counts[name] = self.counts.get(name, 0) + n
+
     @contextlib.contextmanager
     def stage(self, name: str):
         prof = self._profiler()
@@ -128,13 +140,14 @@ class StageTimer:
             prof.__enter__()
             self._tracing = True
         try:
-            self._sync()
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
+            with torch.profiler.record_function(name):
                 self._sync()
-                self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+                t0 = time.perf_counter()
+                try:
+                    yield
+                finally:
+                    self._sync()
+                    self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
         finally:
             if prof is not None:
                 self._tracing = False

@@ -246,6 +246,10 @@ def test_run_spatial_stats(groups, n):
         np.testing.assert_allclose(out[k], ref[k], rtol=1e-9, err_msg=k)
     assert out["hausdorff"] == one["hausdorff"]
     assert out["hausdorff"] == pytest.approx(ref["hausdorff"], rel=1e-9)
+    # a mesh times the same stages and counts nothing
+    assert list(out["stage_times"]) == list(one["stage_times"])
+    assert out["counts"] == {} and set(one["counts"]) == {"spatial_stats.distances",
+                                                           "spatial_stats.in_shells"}
 
 
 @pytest.mark.parametrize("n", SIZES)
