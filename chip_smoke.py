@@ -157,8 +157,9 @@ prints no result line):
      table within 0.02 and the best axis's joint score no lower by more
      than 0.02; the f32 Hausdorff within 1e-6; the coupling trajectory
      within 1e-6, corr_pot within 1e-4, corr_lap within 5e-3. The launches
-     are aberth, orbit_de_stage1 and sinkhorn (the buses) and orbit_potential
-     (U_M); each bus's stage1 is also timed alone with its layers, best of 2;
+     are aberth, orbit_de_stage1 and sinkhorn (the buses), orbit_potential
+     (U_M) and boxcount (spatial-stats and report); each bus's stage1 is also
+     timed alone with its layers, best of 2;
  21. the conformal maps on the card (the clouds' aberth launches only): `uniformize-green`
      at its defaults (n_bdy 2000, 20,000 interior points) on the port's
      export_lucas_boundary defaults, in f64 (the host lstsq fit, f64 map
@@ -261,7 +262,21 @@ prints no result line):
      the graph yardstick's (the torch.logsumexp loop the port ran before the
      kernel, captured into a CUDA graph, within 1e-10 of the twin, argmax
      equal) and the barrier floor (the grid barriers alone,
-     sweep_schedules.barrier_floor_ms).
+     sweep_schedules.barrier_floor_ms);
+ 24. csrc/boxcount.cu (the box counts of fractal_dimensions, one launch for
+     every cloud and scale) against its twin box_counts_torch on the card:
+     counts and bitmaps bitwise, in one launch, on the pair cell's
+     149,877-point Lucas construct C (n 2..547, aberth.cu; its real roots on
+     the finest scale's box edge), a 150,000-point band M (escape counts
+     8 <= k < 500 of the 2000 x 2000 f64 grid of the boundary's domain,
+     jittered) and points on box edges (mins + k * step), at the default
+     scales (bitmaps in shared memory) and at 12 scales down to 1e-3 (atomics
+     in device memory); the counts of C and M also against numpy's np.unique
+     rows, the reference's lines; run_spatial_stats on C and M as the pair
+     cell runs it: one boxcount launch, the counter
+     spatial_stats.box_scales_card 20, the dimensions the twin's; the
+     kernel's time (a CUDA graph of the bitmaps' zeroing and the launch)
+     against its bound by bytes, and the wrapper's from numpy clouds.
 `python3 chip_smoke.py --cards N` on a machine with N cards runs only the
 multi-card check (phase_cards): phase 22's sharded heads, each called twice,
 on an N-rank NCCL group, one card a rank, against the single device, each
@@ -356,7 +371,7 @@ CONSTRUCT_SUMMARY = os.path.join(ROOT, "artifacts", "construct_curv_localpoly_su
 MANDEL_SUMMARY = os.path.join(ROOT, "artifacts", "mandel_curv_localpoly_summary.txt")
 #: the libraries to build, one csrc/<name>.cu each
 KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak",
-           "aberth", "orbit", "sinkhorn")
+           "aberth", "orbit", "sinkhorn", "boxcount")
 #: the entry points of csrc/orbit.cu, in the order of the kernels line
 ORBIT_ENTRIES = ("orbit_dwell", "orbit_de_tci", "orbit_de_std", "orbit_de_stage1",
                  "orbit_green", "orbit_potential")
@@ -405,7 +420,8 @@ ABERTH_CLOUDS = ([(f"tracker stage {i + 1}", "lucas_all_ones", list(range(20, to
 
 
 #: the entry points of the kernels line, and the source of one named otherwise
-ENTRIES = KERNELS[:-3] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES + ("sinkhorn",)
+ENTRIES = KERNELS[:-4] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES + ("sinkhorn",
+                                                                            "boxcount")
 SOURCE = {"dwell_periodic": "dwell", **{name: "orbit" for name in ORBIT_ENTRIES}}
 #: the TPU kernel, or the reference's compiled device loop, each entry replaces
 REPLACES = {
@@ -425,6 +441,7 @@ REPLACES = {
     "orbit_green": "cmtci/kernels/mandelbrot.py:204",
     "orbit_potential": "cmtci/kernels/mandelbrot.py:380",
     "sinkhorn": "cmtci/transport/sinkhorn.py:148",
+    "boxcount": "cmtci/stats/pointstats.py:197",  # host np.unique rows; no TPU kernel
 }
 #: the run (a label of launched()) whose launches the kernels line gives for
 #: each new entry: its main path
@@ -432,7 +449,7 @@ MAIN_PATH = {"aberth": "tracker (dense, second run)", "orbit_dwell": "boundary t
              "orbit_de_tci": "f64 tracker", "orbit_de_std": "run_variograms f64",
              "orbit_de_stage1": "stage1, one run", "orbit_green": "equipotential float64",
              "orbit_potential": "run_variograms f64",
-             "sinkhorn": "stage1, one run"}
+             "sinkhorn": "stage1, one run", "boxcount": "run_spatial_stats"}
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
 #: FP32 operations a step of the loops K6, K2's periodic entry and K5 ran
 #: before their redesign (one pixel a thread on one-row warps, a compare and
@@ -2511,9 +2528,10 @@ def phase_suite(dev):
                       f"relative difference {worst!r}; summary within 1e-9; spectral CI ends "
                       f"within {ci_err!r} relative "
                       f"({np.array([[r['ci_lo'], r['ci_hi']] for r in ci]).tolist()})")
-    # the bus's stage1 runs (cloud, band, Sinkhorn) and coupling's U_M
+    # the bus's stage1 runs (cloud, band, Sinkhorn), coupling's U_M and the
+    # box counts of spatial-stats and report
     got = launched("the suite", {"aberth": None, "orbit_de_stage1": None,
-                                 "orbit_potential": None, "sinkhorn": None})
+                                 "orbit_potential": None, "sinkhorn": None, "boxcount": None})
     print(f"  launches on the card: {got}")
 
 
@@ -4020,6 +4038,157 @@ def phase_loops(dev):
     return {"aberth": aberth, "sinkhorn": sink, **orbit}
 
 
+#: the pair cell's construct (n 2..547, 149,877 points) and band size
+#: (benchmarks/configs/pairstats_lucas150k.json)
+PAIR_NS, PAIR_M = range(2, 548), 150_000
+
+
+def band_points(dev, n: int, seed: int = 24):
+    """(n, 2) points of the Mandelbrot boundary band as the pair cell draws
+    M: nodes of the 2000 x 2000 f64 grid of BOUNDARY_DOMAIN whose escape
+    count k (|z|^2 > 4) is 8 <= k < 500, drawn without replacement, each
+    moved by a uniform jitter of up to half a grid step."""
+    import numpy as np
+    import torch
+
+    xmin, xmax, ymin, ymax = BOUNDARY_DOMAIN
+    res, max_iter = 2000, 500
+    xs = torch.linspace(xmin, xmax, res, dtype=torch.float64, device=dev)
+    ys = torch.linspace(ymin, ymax, res, dtype=torch.float64, device=dev)
+    cr, ci = xs[None, :].expand(res, res), ys[:, None].expand(res, res)
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(cr)
+    k = torch.full(cr.shape, max_iter, dtype=torch.int32, device=dev)
+    for step in range(max_iter):
+        zr, zi = zr * zr - zi * zi + cr, 2.0 * zr * zi + ci
+        k = torch.where((k == max_iter) & (zr * zr + zi * zi > 4.0), step + 1, k)
+    nodes = torch.nonzero(((k >= 8) & (k < max_iter)).reshape(-1)).reshape(-1).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(nodes, n, replace=False)
+    jitter = rng.random((n, 2)) - 0.5
+    hx, hy = (xmax - xmin) / (res - 1), (ymax - ymin) / (res - 1)
+    return np.column_stack([xmin + (idx % res + jitter[:, 0]) * hx,
+                            ymin + (idx // res + jitter[:, 1]) * hy])
+
+
+def edge_points():
+    """Points on the box edges of every default scale, mins + (i, j) * step
+    in f64, between two corners that fix mins and the extent (16,384
+    points): their quotients are integers or round next to one."""
+    import numpy as np
+
+    lo, hi = np.array([-0.7, 0.3]), np.array([1.1, 2.9])
+    pts = [lo[None], hi[None]]
+    for s in np.logspace(-2, 0, 10, base=10.0):
+        step = (hi - lo) * s
+        i, j = np.meshgrid(*[np.arange(int(np.floor(1 / s)) + 1)] * 2, indexing="ij")
+        pts.append(np.column_stack([lo[0] + i.ravel() * step[0], lo[1] + j.ravel() * step[1]]))
+    return np.concatenate(pts)
+
+
+def box_args(clouds, scales):
+    """box_counts' arguments for `clouds` at `scales`, as
+    pointstats.fractal_dimensions makes them."""
+    import numpy as np
+
+    from cmtci_torch.kernels import boxcount
+
+    mins = np.array([xy.min(axis=0) for xy in clouds])
+    col = np.asarray(scales, dtype=np.float64)[:, None]
+    return (clouds, mins, np.array([(xy.max(axis=0) - lo) * col for xy, lo in zip(clouds, mins)]),
+            boxcount.box_layout(scales))
+
+
+def phase_boxcount(dev):
+    """Phase 24: boxcount.cu bitwise its twin on the pair cell's clouds and
+    on box edges, at the default and at fine scales; the counts against
+    numpy's rows; run_spatial_stats' one launch and counter; the kernel's
+    time against its bound by bytes. Returns the kernels-line fields."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch.kernels import _launch, boxcount, companion
+    from cmtci_torch.pipelines.analysis import run_spatial_stats
+    from cmtci_torch.stats import pointstats as ps
+    from cmtci_torch.utils.artifacts import StageTimer
+
+    z = companion.inverse_cloud(PAIR_NS, "lucas_all_ones", device=dev)
+    c, m = np.column_stack([z.real, z.imag]), band_points(dev, PAIR_M)
+    clouds = [c, m, edge_points()]
+    default = np.logspace(-2, 0, 10, base=10.0)
+    # the fine scales' bitmaps outgrow shared memory (boxcount.cu's
+    # kSmemWords): the kernel's atomics in device memory
+    fine = np.logspace(-3, 0, 12, base=10.0)
+    err = 0.0
+    for label, scales in (("default scales", default), ("12 scales to 1e-3", fine)):
+        args = box_args(clouds, scales)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = boxcount.box_counts(*args, device=dev)
+        torch.cuda.synchronize()
+        launched(f"boxcount {label}", {"boxcount": 1})
+        want = boxcount.box_counts_torch(*args, device=dev)
+        check(same_bits(got, want), f"boxcount {label}: counts or bitmaps differ from the twin")
+        err = max(err, abs_err(got, want)[0])
+        words = int(boxcount._offsets(args[3])[-1])
+        print(f"boxcount {label}: clouds of {', '.join(str(len(x)) for x in clouds)} points in "
+              f"1 launch, {words} words a cloud's bitmaps: counts and bitmaps bitwise the "
+              f"twin's; counts {got[0].tolist()}")
+        for name, xy, row in zip("CM", clouds, got[0].tolist()):
+            lo = xy.min(axis=0)
+            rng = xy.max(axis=0) - lo
+            rows = [len(np.unique(np.floor((xy - lo) / (rng * s)).astype(int), axis=0))
+                    for s in scales]
+            check(row == rows, f"boxcount {label} {name}: {row} against np.unique's {rows}")
+        print("  C and M: the counts are numpy's np.unique rows")
+
+    timer = StageTimer(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = run_spatial_stats(c, m, r_max=1.5, dr=0.05, stat_dtype=torch.float32, plots=False,
+                            device=dev, timer=timer)
+    launched("run_spatial_stats", {"boxcount": 1})
+    cards = out["counts"].get("spatial_stats.box_scales_card")
+    twin = ps.fractal_dimensions((c, m), device="cpu")
+    check(cards == 2 * len(default), f"spatial_stats.box_scales_card {cards}, expected 20")
+    check(out["fractal_dim_construct"] == twin[0][0] and out["fractal_dim_mandel"] == twin[1][0],
+          "run_spatial_stats: box dimensions differ from the twin's on the host")
+    print(f"run_spatial_stats on C and M (f32 scans): 1 boxcount launch, box_scales_card "
+          f"{cards}, dimensions {out['fractal_dim_construct']!r}, {out['fractal_dim_mandel']!r} "
+          f"(the twin's on the host); stages (ms) "
+          f"{ {k: round(v * 1e3, 3) for k, v in out['stage_times'].items()} }")
+
+    args = box_args([c, m], default)
+    prepared, _, buf, _inputs = boxcount.device_inputs(*args, dev)
+
+    def one():
+        buf.zero_()
+        _launch.launch("boxcount", dev, *prepared)
+
+    graph_ms = cuda_ms(one, 3, 10, CHAIN, graph=True)
+    chained_ms = cuda_ms(one, 3, 10, CHAIN)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    boxcount.box_counts_torch(*args, device=dev)
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ps.fractal_dimensions((c, m), device=dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    words = int(boxcount._offsets(args[3])[-1])
+    nbytes = 16 * (len(c) + len(m)) + 2 * 4 * words + 4 * 2 * len(default)
+    bound = nbytes / PEAK_BYTES * 1e3
+    print(f"boxcount, C and M at the default scales: kernel {graph_ms:.4f} ms (graph, the "
+          f"bitmaps' zeroing included; {chained_ms:.4f} chained), twin {plain_ms:.2f} ms, bound "
+          f"{bound:.5f} ms (bytes: {nbytes}); fractal_dimensions from numpy clouds "
+          f"{statistics.median(walls):.3f} ms wall (median of 5)")
+    return dict(max_abs_err=err, ms=graph_ms, chained_ms=chained_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", fractal_dimensions_wall_ms=statistics.median(walls),
+                shape=f"C {len(c)} + M {len(m)} points, {len(default)} scales")
+
+
 def main() -> int:
     card = card_line()
     print(card)
@@ -4060,6 +4229,7 @@ def main() -> int:
     timed(21, phase_conformal, dev)
     doctor_k2 = timed(22, phase_multidevice, dev)
     loops = timed(23, phase_loops, dev)
+    box = timed(24, phase_boxcount, dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
@@ -4084,6 +4254,7 @@ def main() -> int:
                       library_ms=None) for name in ORBIT_ENTRIES},
         **{name: dict(loops[name], launches=LAUNCHED[MAIN_PATH[name]][name])
            for name in ("aberth", "sinkhorn")},
+        "boxcount": dict(box, launches=LAUNCHED[MAIN_PATH["boxcount"]]["boxcount"]),
     }
     print(card)
     print(json.dumps({"kernels": [

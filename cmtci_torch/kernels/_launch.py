@@ -47,6 +47,8 @@ ARGTYPES = {
     "sinkhorn": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_I] * 5 + [_P],
     # the grid barriers alone: ctas, smem, count
     "sinkhorn_barriers": [_I] * 3 + [_P],
+    # xy, fparams, iparams, nclouds, nscales, words, ctas, bitmaps, counts, ticket
+    "boxcount": [_P] * 3 + [_I, _I, _L, _I] + [_P] * 3 + [_P],
 }
 
 #: the csrc/<library>.cu that holds an entry point named otherwise

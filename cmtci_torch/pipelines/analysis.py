@@ -280,9 +280,11 @@ def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
     spatial_stats.shells_mandel, spatial_stats.hausdorff,
     spatial_stats.curvature and spatial_stats.boxdim (device-synchronized on
     CUDA, each ending where the host already waits for the card or the card
-    has nothing queued) and, on one device, the shell scans' counters
+    has nothing queued), on one device the shell scans' counters
     spatial_stats.distances and spatial_stats.in_shells (a mesh counts
-    nothing); the result holds them as stage_times and counts."""
+    neither), and on a card spatial_stats.box_scales_card, the (cloud,
+    scale) box counts of the one boxcount.cu launch (20 at the default
+    scales); the result holds them as stage_times and counts."""
     from cmtci_torch.parallel.sharded import is_writer
 
     dev = mesh.device if mesh is not None else resolve_device(device)
@@ -309,8 +311,8 @@ def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
         out["curv_construct"] = curv.gradient_curvature(np.asarray(c_aligned), device=dev)
         out["curv_mandel"] = curv.gradient_curvature(np.asarray(m_pts), device=dev)
     with timer.stage("spatial_stats.boxdim"):
-        fd_c, _ = ps.fractal_dimension(c_aligned)
-        fd_m, _ = ps.fractal_dimension(m_pts)
+        (fd_c, _), (fd_m, _) = ps.fractal_dimensions((c_aligned, m_pts), device=dev,
+                                                     count=timer.count)
     out["fractal_dim_construct"] = fd_c
     out["fractal_dim_mandel"] = fd_m
     if out_prefix:
@@ -350,7 +352,7 @@ def run_report(c, m, c_aligned, matches, out_prefix=None, plots=True, device="cu
         k = k[np.isfinite(k)]
         row[f"curv_{name}_median"] = float(np.median(k))
         row[f"curv_{name}_mean"] = float(np.mean(k))
-        fd, _ = ps.fractal_dimension(pts)
+        fd, _ = ps.fractal_dimension(pts, device=dev)
         row[f"fractal_dim_{name}"] = float(fd)
     if out_prefix:
         writers.write_dict_rows_csv(f"{out_prefix}_phase5_summary.csv", [row])

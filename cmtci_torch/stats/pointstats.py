@@ -8,7 +8,8 @@ matrix):
   * Hausdorff = max of the two directed distances
     (spatial_stats_phase3.py:10-15, tci_construct_mandelbrot_v002_fixed.py:97-98)
   * box-counting fractal dimension over 10 logspaced relative scales
-    (spatial_stats_phase3.py:41-55)
+    (spatial_stats_phase3.py:41-55), the boxes counted on the device by
+    ``csrc/boxcount.cu`` (kernels/boxcount.py) with the reference's f64 keys
 
 The pair histogram keeps exact int64 counts in either dtype, so it has no
 pair-count ceiling; the reference's masked int32 (hi, lo) head and its block
@@ -20,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cmtci_torch.kernels import boxcount
 from cmtci_torch.stats.variogram import masked_bin_reduce
 from cmtci_torch.utils.arrays import as_xy as _xy
 from cmtci_torch.utils.device import resolve_device
@@ -118,20 +120,49 @@ def hausdorff(a, b, dtype=torch.float64, device="cuda") -> float:
     return float(torch.maximum(_directed_hausdorff(a, b), _directed_hausdorff(b, a)))
 
 
-def fractal_dimension(points, scales=None):
-    """Box-counting dimension (spatial_stats_phase3.py:41-55), on the host.
+def fractal_dimensions(clouds, scales=None, device="cuda", count=None) -> list:
+    """Box-counting dimension of each cloud (spatial_stats_phase3.py:41-55):
+    a list of (slope, (log(1/scales), log(N))), one a cloud.
 
-    Returns (slope, (log(1/scales), log(N))).
-    """
-    xy = _xy(points)
+    mins and rng (each column's extremes, boxcount.extent), each scale's
+    step = rng * s and the fit are the reference's numpy values. The occupied boxes come from kernels.boxcount.box_counts on
+    `device` (CUDA: one boxcount.cu launch for every cloud and scale; CPU:
+    its twin), keyed in f64 as the reference keys them, so the counts are
+    its counts. A cloud whose extent along an axis is zero or not finite
+    keeps the reference's host lines. `count`, a callable (name, n), takes
+    ``spatial_stats.box_scales_card``: the (cloud, scale) counts the kernel
+    made (none on the CPU or the host lines)."""
+    dev = resolve_device(device)
     if scales is None:
         scales = np.logspace(-2, 0, 10, base=10.0)
-    mins = xy.min(axis=0)
-    rng = xy.max(axis=0) - mins
-    n_boxes = []
-    for s in scales:
-        step = rng * s
-        grid = np.floor((xy - mins) / step).astype(int)
-        n_boxes.append(len(np.unique(grid, axis=0)))
-    coeffs = np.polyfit(np.log(1 / scales), np.log(n_boxes), 1)
-    return coeffs[0], (np.log(1 / scales), np.log(n_boxes))
+    xys = [_xy(p) for p in clouds]
+    ends = [boxcount.extent(xy) for xy in xys]
+    mins = [lo for lo, _ in ends]
+    rngs = [hi - lo for lo, hi in ends]
+    keyed = [i for i, rng in enumerate(rngs) if np.all(np.isfinite(rng) & (rng > 0))]
+    n_boxes = {}
+    if keyed:
+        col = np.asarray(scales, dtype=np.float64)[:, None]
+        counts, _ = boxcount.box_counts([xys[i] for i in keyed], [mins[i] for i in keyed],
+                                        [rngs[i] * col for i in keyed],
+                                        boxcount.box_layout(scales), device=dev)
+        n_boxes.update(zip(keyed, counts.cpu().tolist()))
+        if count is not None and dev.type == "cuda":
+            count("spatial_stats.box_scales_card", counts.numel())
+    out = []
+    for i, (xy, lo, rng) in enumerate(zip(xys, mins, rngs)):
+        if i not in n_boxes:
+            n_boxes[i] = []
+            for s in scales:
+                step = rng * s
+                grid = np.floor((xy - lo) / step).astype(int)
+                n_boxes[i].append(len(np.unique(grid, axis=0)))
+        coeffs = np.polyfit(np.log(1 / scales), np.log(n_boxes[i]), 1)
+        out.append((coeffs[0], (np.log(1 / scales), np.log(n_boxes[i]))))
+    return out
+
+
+def fractal_dimension(points, scales=None, device="cuda", count=None):
+    """Box-counting dimension of one cloud (fractal_dimensions): returns
+    (slope, (log(1/scales), log(N)))."""
+    return fractal_dimensions([points], scales, device=device, count=count)[0]

@@ -74,8 +74,8 @@ def _straight(c, m, dtype):
            "hausdorff": ps.hausdorff(c, m, dtype=dtype, device="cpu"),
            "curv_construct": curv.gradient_curvature(c, device="cpu"),
            "curv_mandel": curv.gradient_curvature(m, device="cpu"),
-           "fractal_dim_construct": ps.fractal_dimension(c)[0],
-           "fractal_dim_mandel": ps.fractal_dimension(m)[0]}
+           "fractal_dim_construct": ps.fractal_dimension(c, device="cpu")[0],
+           "fractal_dim_mandel": ps.fractal_dimension(m, device="cpu")[0]}
     return out, (sc[1], sm[1])
 
 
