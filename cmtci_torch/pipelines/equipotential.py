@@ -99,6 +99,19 @@ def batch_potential(cloud: np.ndarray, max_iter: int, escape_radius: float,
     return np.asarray(out["g"]), np.asarray(out["it"]), np.asarray(out["phi"])
 
 
+def _count_green(timer, it, max_iter: int) -> None:
+    """Add one solve's escape steps `it` to the timer's Green-loop counters:
+    ``equipotential.green_points``, the points solved;
+    ``equipotential.green_unescaped``, the records with it = max_iter (no
+    escape within the budget; an escape on the last step reads the same);
+    ``equipotential.green_escape_steps``, the sum of it over the others."""
+    it = np.asarray(it)
+    escaped = it < max_iter
+    timer.count("equipotential.green_points", int(it.size))
+    timer.count("equipotential.green_unescaped", int(it.size - np.count_nonzero(escaped)))
+    timer.count("equipotential.green_escape_steps", int(it[escaped].sum(dtype=np.int64)))
+
+
 def _per_n_potentials(cfg: EquipotentialConfig, family: str | None = None,
                       cache_dir: str | None = None, clouds=None, g=None, device="cuda"):
     """g for every n's inverse-eigenvalue cloud in ONE batched solve. Returns
@@ -152,7 +165,15 @@ def run_equipotential(cfg: EquipotentialConfig, out_dir: str | None = None,
     """Full driver on `device`. Returns a dict of results; writes CSV/NPY
     (and, if `plots`, the density figures) if out_dir. With a `mesh` it runs
     on the rank's device, the Green potential (K3 in f32, the f64 loop)
-    sharded over the ranks (batch_potential), and only rank 0 writes."""
+    sharded over the ranks (batch_potential), and only rank 0 writes.
+
+    Beside the rows, ``points`` holds the per-point records the solves gave:
+    ``points["families"][f]`` the family's concatenated cloud ``c`` (by n,
+    then root; lucas_all_ones first, then the other families in
+    cfg.families order) with its ``g`` and escape step ``k``, and with a
+    stored curve ``points["curve"]`` its ``c``, ``g`` and ``k``: the arrays
+    written as C_lucas.npy, g_lucas.npy and it_lucas.npy, not copies.
+    ``stage_times`` and ``counts`` are the timer's (``_count_green``)."""
     from cmtci_torch.parallel.sharded import is_writer
 
     dev = mesh.device if mesh is not None else resolve_device(device)
@@ -187,6 +208,13 @@ def run_equipotential(cfg: EquipotentialConfig, out_dir: str | None = None,
             dtype=cfg.potential_dtype, device=dev, mesh=mesh)
         g, it, phi = (g_all[: len(c_inv)], it_all[: len(c_inv)],
                       phi_all[: len(c_inv)])
+    _count_green(timer, it_all, cfg.max_iter)
+    points = {"families": {}}
+    off = 0
+    for f, c in zip(["lucas_all_ones", *others], [c_inv, *fam_clouds]):
+        points["families"][f] = {"c": c, "g": g_all[off : off + len(c)],
+                                 "k": it_all[off : off + len(c)]}
+        off += len(c)
     out = {
         "summary": laws.summarize_g(g),
         "laws": laws.compare_reference_laws(g[g > 0]),
@@ -212,13 +240,17 @@ def run_equipotential(cfg: EquipotentialConfig, out_dir: str | None = None,
             out["family_summary"] = fam_rows
     if c_curve is not None:
         with timer.stage("stored_curve"):
-            g_c, _, _ = batch_potential(c_curve, cfg.max_iter, cfg.escape_radius,
-                                        cache_dir=cache_dir, dtype=cfg.potential_dtype,
-                                        device=dev, mesh=mesh)
+            g_c, it_c, _ = batch_potential(c_curve, cfg.max_iter, cfg.escape_radius,
+                                           cache_dir=cache_dir, dtype=cfg.potential_dtype,
+                                           device=dev, mesh=mesh)
             out["curve_summary"] = laws.summarize_g(g_c)
             out["curve_laws"] = laws.compare_reference_laws(g_c[g_c > 0])
             out["curve_g"] = g_c
+        _count_green(timer, it_c, cfg.max_iter)
+        points["curve"] = {"c": c_curve, "g": g_c, "k": it_c}
+    out["points"] = points
     out["stage_times"] = dict(timer.times)
+    out["counts"] = dict(timer.counts)
     if out_dir:
         writers.write_config_meta(f"{out_dir}/meta.txt", cfg,
                                   extra={"n_cloud": len(c_inv)})
