@@ -158,8 +158,8 @@ prints no result line):
      than 0.02; the f32 Hausdorff within 1e-6; the coupling trajectory
      within 1e-6, corr_pot within 1e-4, corr_lap within 5e-3. The launches
      are aberth, orbit_de_stage1 and sinkhorn (the buses), orbit_potential
-     (U_M) and boxcount (spatial-stats and report); each bus's stage1 is also
-     timed alone with its layers, best of 2;
+     (U_M), boxcount and shellcount (spatial-stats and report); each bus's
+     stage1 is also timed alone with its layers, best of 2;
  21. the conformal maps on the card (the clouds' aberth launches only): `uniformize-green`
      at its defaults (n_bdy 2000, 20,000 interior points) on the port's
      export_lucas_boundary defaults, in f64 (the host lstsq fit, f64 map
@@ -276,7 +276,22 @@ prints no result line):
      cell runs it: one boxcount launch, the counter
      spatial_stats.box_scales_card 20, the dimensions the twin's; the
      kernel's time (a CUDA graph of the bitmaps' zeroing and the launch)
-     against its bound by bytes, and the wrapper's from numpy clouds.
+     against its bound by bytes, and the wrapper's from numpy clouds;
+ 25. csrc/shellcount.cu (the shell counts of g(r) and K(r), one launch a
+     cloud) against the torch chain it replaced, shell_counts_torch on the
+     card: int64 shells bitwise, in f32 and f64, on the pair cell's C and a
+     150,000-point band M at the cell's shells (r_max 1.5, dr 0.05), on
+     ragged sizes (below one tile, one tile, one more, not a multiple) at
+     (0.5, 0.02), at 100 and 300 shells (counters past 48 KB of shared
+     memory, fewer threads a CTA), on the row ranges sharded_shell_counts
+     gives 2 and 4 ranks (C's, and an empty one), and on pairs placed at each
+     edge's distance, (0, 0) and (edges[k], 0) and their neighbours one ulp
+     off;
+     run_spatial_stats as the pair cell runs it: two shellcount launches,
+     the counter spatial_stats.shell_scans_card 2, the in-shell pairs the
+     twin's; the kernel's time on C and M (a CUDA graph of the counts'
+     zeroing and the launch) against its bound by operations (5 FP32 a
+     pair j > i at 67 TFLOP/s), and the twin's.
 `python3 chip_smoke.py --cards N` on a machine with N cards runs only the
 multi-card check (phase_cards): phase 22's sharded heads, each called twice,
 on an N-rank NCCL group, one card a rank, against the single device, each
@@ -371,7 +386,7 @@ CONSTRUCT_SUMMARY = os.path.join(ROOT, "artifacts", "construct_curv_localpoly_su
 MANDEL_SUMMARY = os.path.join(ROOT, "artifacts", "mandel_curv_localpoly_summary.txt")
 #: the libraries to build, one csrc/<name>.cu each
 KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak",
-           "aberth", "orbit", "sinkhorn", "boxcount")
+           "aberth", "orbit", "sinkhorn", "boxcount", "shellcount")
 #: the entry points of csrc/orbit.cu, in the order of the kernels line
 ORBIT_ENTRIES = ("orbit_dwell", "orbit_de_tci", "orbit_de_std", "orbit_de_stage1",
                  "orbit_green", "orbit_potential")
@@ -420,8 +435,9 @@ ABERTH_CLOUDS = ([(f"tracker stage {i + 1}", "lucas_all_ones", list(range(20, to
 
 
 #: the entry points of the kernels line, and the source of one named otherwise
-ENTRIES = KERNELS[:-4] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES + ("sinkhorn",
-                                                                            "boxcount")
+ENTRIES = KERNELS[:-5] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES + ("sinkhorn",
+                                                                            "boxcount",
+                                                                            "shellcount")
 SOURCE = {"dwell_periodic": "dwell", **{name: "orbit" for name in ORBIT_ENTRIES}}
 #: the TPU kernel, or the reference's compiled device loop, each entry replaces
 REPLACES = {
@@ -442,6 +458,7 @@ REPLACES = {
     "orbit_potential": "cmtci/kernels/mandelbrot.py:380",
     "sinkhorn": "cmtci/transport/sinkhorn.py:148",
     "boxcount": "cmtci/stats/pointstats.py:197",  # host np.unique rows; no TPU kernel
+    "shellcount": "cmtci/stats/pointstats.py:25",  # XLA ops; no TPU kernel
 }
 #: the run (a label of launched()) whose launches the kernels line gives for
 #: each new entry: its main path
@@ -449,7 +466,8 @@ MAIN_PATH = {"aberth": "tracker (dense, second run)", "orbit_dwell": "boundary t
              "orbit_de_tci": "f64 tracker", "orbit_de_std": "run_variograms f64",
              "orbit_de_stage1": "stage1, one run", "orbit_green": "equipotential float64",
              "orbit_potential": "run_variograms f64",
-             "sinkhorn": "stage1, one run", "boxcount": "run_spatial_stats"}
+             "sinkhorn": "stage1, one run", "boxcount": "run_spatial_stats",
+             "shellcount": "run_spatial_stats"}
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
 #: FP32 operations a step of the loops K6, K2's periodic entry and K5 ran
 #: before their redesign (one pixel a thread on one-row warps, a compare and
@@ -2531,7 +2549,8 @@ def phase_suite(dev):
     # the bus's stage1 runs (cloud, band, Sinkhorn), coupling's U_M and the
     # box counts of spatial-stats and report
     got = launched("the suite", {"aberth": None, "orbit_de_stage1": None,
-                                 "orbit_potential": None, "sinkhorn": None, "boxcount": None})
+                                 "orbit_potential": None, "sinkhorn": None, "boxcount": None,
+                                 "shellcount": None})
     print(f"  launches on the card: {got}")
 
 
@@ -4146,7 +4165,7 @@ def phase_boxcount(dev):
     reset_launches()
     out = run_spatial_stats(c, m, r_max=1.5, dr=0.05, stat_dtype=torch.float32, plots=False,
                             device=dev, timer=timer)
-    launched("run_spatial_stats", {"boxcount": 1})
+    launched("run_spatial_stats", {"boxcount": 1, "shellcount": 2})
     cards = out["counts"].get("spatial_stats.box_scales_card")
     twin = ps.fractal_dimensions((c, m), device="cpu")
     check(cards == 2 * len(default), f"spatial_stats.box_scales_card {cards}, expected 20")
@@ -4187,6 +4206,161 @@ def phase_boxcount(dev):
     return dict(max_abs_err=err, ms=graph_ms, chained_ms=chained_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by="bytes", fractal_dimensions_wall_ms=statistics.median(walls),
                 shape=f"C {len(c)} + M {len(m)} points, {len(default)} scales")
+
+
+#: the pair cell's shells (benchmarks/configs/pairstats_lucas150k.json) and
+#: the smaller ones of phase 17 and the bench
+PAIR_SHELLS, SMOKE_SHELLS = (1.5, 0.05), (0.5, 0.02)
+#: 100 and 300 shells to r_max 1.5: counters past the 48 KB of shared memory a
+#: launch takes without an opt-in, and (300) fewer threads a CTA
+MANY_SHELLS = ((1.5, 0.015), (1.5, 0.005))
+#: FP32 operations a pair needs, whatever the implementation: two
+#: subtractions, two products and a sum for d^2
+SHELL_OPS_PER_PAIR = 5
+
+
+def shell_edges(shells, dtype, dev):
+    """The edges of (r_max, dr) in `dtype` on `dev`, as _shell_counts makes
+    them, and the number of shells."""
+    import numpy as np
+    import torch
+
+    r_vals = np.arange(0, *shells)
+    edges = np.concatenate([r_vals, [r_vals[-1] + shells[1]]])
+    return torch.as_tensor(edges, dtype=dtype, device=dev), len(r_vals)
+
+
+def shells_bitwise(label, xy, shells, rows=None, launches=1):
+    """shellcount.shell_counts on the card against shell_counts_torch, the
+    chain it replaced, on the same tensor: int64 counts bitwise, the
+    launches counted. Returns the counts."""
+    import torch
+
+    from cmtci_torch.kernels import shellcount
+
+    edges, nbins = shell_edges(shells, xy.dtype, xy.device)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = shellcount.shell_counts(xy, edges, nbins, rows=rows)
+    torch.cuda.synchronize()
+    launched(f"shellcount {label}", {"shellcount": launches})
+    want = shellcount.shell_counts_torch(xy, edges, nbins, rows=rows)
+    check(torch.equal(got, want), f"shellcount {label}: {got.tolist()} against the chain's "
+          f"{want.tolist()}")
+    return got
+
+
+def phase_shellcount(dev):
+    """Phase 25: shellcount.cu bitwise the torch chain in f32 and f64 on the
+    pair cell's clouds, ragged sizes, row ranges and pairs at the edges;
+    run_spatial_stats' two launches and counter; the kernel's time against
+    its bound by operations and the chain's. Returns the kernels-line
+    fields."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch.kernels import _launch, companion, shellcount
+    from cmtci_torch.parallel.sharded import _share
+    from cmtci_torch.pipelines.analysis import run_spatial_stats
+    from cmtci_torch.utils.artifacts import StageTimer
+
+    z = companion.inverse_cloud(PAIR_NS, "lucas_all_ones", device=dev)
+    c, m = np.column_stack([z.real, z.imag]), band_points(dev, PAIR_M)
+    cell = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, pts in (("C", c), ("M", m)):
+            xy = torch.as_tensor(pts, dtype=dtype, device=dev)
+            cell[name, dtype] = shells_bitwise(f"{name} {dtype}", xy, PAIR_SHELLS)
+        print(f"shellcount {dtype}: C ({len(c)}) and M ({len(m)}) at r_max 1.5, dr 0.05 bitwise "
+              f"the chain's; in shells {int(cell['C', dtype].sum())} and "
+              f"{int(cell['M', dtype].sum())}")
+
+    rng = np.random.default_rng(25)
+    ragged = [37, 1024, 1025, 3001, 5000]
+    for dtype in (torch.float32, torch.float64):
+        for n in ragged:
+            xy = torch.as_tensor(rng.uniform(-0.6, 0.6, (n, 2)), dtype=dtype, device=dev)
+            shells_bitwise(f"{n} points {dtype}", xy, SMOKE_SHELLS)
+        for shells in MANY_SHELLS:
+            xy = torch.as_tensor(rng.uniform(-0.9, 0.9, (5000, 2)), dtype=dtype, device=dev)
+            shells_bitwise(f"5000 points, dr {shells[1]} {dtype}", xy, shells)
+        for size in (2, 4):
+            for name, pts in (("C", c), ("5000 points", rng.uniform(-0.6, 0.6, (5000, 2)))):
+                xy = torch.as_tensor(pts, dtype=dtype, device=dev)
+                total = 0
+                for rank in range(size):
+                    mesh = type("Rank", (), {"size": size, "rank": rank})()
+                    lo, hi, _ = _share(len(pts), mesh, 1024)
+                    total = total + shells_bitwise(
+                        f"{name} rows [{lo}, {hi}) of {size} ranks {dtype}", xy, PAIR_SHELLS,
+                        rows=(lo, hi), launches=int(hi > lo))
+                if name == "C":
+                    check(torch.equal(total, cell["C", dtype]),
+                          f"C's {size} row ranges sum to other shells than the whole")
+        edges, _ = shell_edges(SMOKE_SHELLS, dtype, "cpu")
+        off = torch.cat([torch.nextafter(edges, edges + 1), torch.nextafter(edges, edges - 1)])
+        xs = torch.cat([torch.zeros(1, dtype=dtype), edges, off])
+        at = torch.stack([xs, torch.zeros_like(xs)], 1).to(dev)
+        shells_bitwise(f"pairs at the edges {dtype}", at.contiguous(), SMOKE_SHELLS)
+        ys = torch.stack([torch.zeros_like(xs), xs], 1).to(dev)
+        shells_bitwise(f"pairs at the edges, along y {dtype}", ys.contiguous(), SMOKE_SHELLS)
+    print(f"shellcount: ragged sizes {ragged}, 100 and 300 shells, the row ranges of 2 and 4 "
+          "ranks (C and 5,000 points, an empty range among them) and pairs at every edge and one "
+          "ulp off it, in f32 and f64: bitwise the chain's")
+
+    timer = StageTimer(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = run_spatial_stats(c, m, r_max=PAIR_SHELLS[0], dr=PAIR_SHELLS[1],
+                            stat_dtype=torch.float32, plots=False, device=dev, timer=timer)
+    launched("run_spatial_stats", {"boxcount": 1, "shellcount": 2})
+    counts = out["counts"]
+    in_shells = int(cell["C", torch.float32].sum() + cell["M", torch.float32].sum())
+    check(counts.get("spatial_stats.shell_scans_card") == 2,
+          f"spatial_stats.shell_scans_card {counts.get('spatial_stats.shell_scans_card')}")
+    check(counts.get("spatial_stats.in_shells") == in_shells,
+          f"run_spatial_stats: {counts.get('spatial_stats.in_shells')} pairs in shells against "
+          f"the chain's {in_shells}")
+    print(f"run_spatial_stats on C and M (f32 scans): 2 shellcount launches, shell_scans_card 2, "
+          f"in_shells {in_shells} (the chain's), distances "
+          f"{counts.get('spatial_stats.distances')} "
+          f"({100 * in_shells / counts['spatial_stats.distances']:.4f}% in a shell); stages (ms) "
+          f"{ {k: round(v * 1e3, 3) for k, v in out['stage_times'].items()} }")
+
+    prepared = []
+    for pts in (c, m):
+        xy = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+        edges, nbins = shell_edges(PAIR_SHELLS, torch.float32, dev)
+        lo, hi, e = shellcount.check_inputs(xy, edges, nbins)
+        prepared.append((xy, edges, nbins, *shellcount.device_inputs(xy, e, nbins, lo, hi)))
+
+    def both():
+        for _, _, _, args, zeroed, _, _ in prepared:
+            zeroed.zero_()
+            _launch.launch("shellcount", dev, *args)
+
+    graph_ms = cuda_ms(both, 2, 5, 1, graph=True)
+    chained_ms = cuda_ms(both, 1, 3)
+    plain_ms = 0.0
+    for xy, edges, nbins, *_ in prepared:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        shellcount.shell_counts_torch(xy, edges, nbins)
+        stop.record()
+        stop.synchronize()
+        plain_ms += start.elapsed_time(stop)
+    pairs = sum(len(p) * (len(p) - 1) // 2 for p in (c, m))
+    bound, by = least_ms(SHELL_OPS_PER_PAIR * pairs, 8 * (len(c) + len(m)))
+    plans = [p[5] for p in prepared]
+    print(f"shellcount, C and M in f32 at r_max 1.5, dr 0.05: kernel {graph_ms:.4f} ms (graph, "
+          f"the counts' zeroing included; {chained_ms:.4f} chained), chain {plain_ms:.2f} ms, "
+          f"bound {bound:.4f} ms ({by}: {pairs} pairs x {SHELL_OPS_PER_PAIR} FP32), "
+          f"{100 * bound / graph_ms:.2f}% of it; {sum(p.ctas for p in plans)} CTAs of "
+          f"{plans[0].threads} threads, {plans[0].tile} rows x {plans[0].cols} columns")
+    return dict(max_abs_err=0.0, ms=graph_ms, chained_ms=chained_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, pairs=pairs,
+                shape=f"C {len(c)} + M {len(m)} points, f32, {len(cell['C', torch.float32])} "
+                      "shells to r_max 1.5")
 
 
 def main() -> int:
@@ -4230,6 +4404,7 @@ def main() -> int:
     doctor_k2 = timed(22, phase_multidevice, dev)
     loops = timed(23, phase_loops, dev)
     box = timed(24, phase_boxcount, dev)
+    shells = timed(25, phase_shellcount, dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
@@ -4255,6 +4430,7 @@ def main() -> int:
         **{name: dict(loops[name], launches=LAUNCHED[MAIN_PATH[name]][name])
            for name in ("aberth", "sinkhorn")},
         "boxcount": dict(box, launches=LAUNCHED[MAIN_PATH["boxcount"]]["boxcount"]),
+        "shellcount": dict(shells, launches=LAUNCHED[MAIN_PATH["shellcount"]]["shellcount"]),
     }
     print(card)
     print(json.dumps({"kernels": [

@@ -49,6 +49,8 @@ ARGTYPES = {
     "sinkhorn_barriers": [_I] * 3 + [_P],
     # xy, fparams, iparams, nclouds, nscales, words, ctas, bitmaps, counts, ticket
     "boxcount": [_P] * 3 + [_I, _I, _L, _I] + [_P] * 3 + [_P],
+    # xy, n, lo, hi, tau, nbins, e0, inv, threads, cols, ctas, is_double, counts
+    "shellcount": [_P, _I, _I, _I, _P, _I, _F, _F, _I, _I, _I, _I, _P, _P],
 }
 
 #: the csrc/<library>.cu that holds an entry point named otherwise

@@ -367,9 +367,10 @@ def sharded_shell_counts(points, r_max: float, dr: float, mesh: Mesh, chunk: int
     """stats.pointstats._shell_counts with the i-rows sharded over the mesh.
 
     Each rank bins the upper-triangle pair distances of its row block
-    against the replicated cloud with the single-device head's blocks
-    (pointstats._pair_hist), so the int64 counts are bitwise the
-    single-device ones at equal dtype (default f64). Returns the `_shells`
+    against the replicated cloud with the single-device head's
+    pointstats._pair_hist (on a card one shellcount.cu launch over the
+    rank's rows), so the int64 counts are bitwise the single-device ones at
+    equal dtype (default f64). Returns the `_shells`
     tuple (r_vals, counts f64, n, rho) that pair_correlation and ripley_k
     take."""
     from cmtci_torch.stats.pointstats import _pair_hist

@@ -282,9 +282,11 @@ def run_spatial_stats(c_aligned, m_pts, r_max=1.5, dr=0.05, out_prefix=None,
     CUDA, each ending where the host already waits for the card or the card
     has nothing queued), on one device the shell scans' counters
     spatial_stats.distances and spatial_stats.in_shells (a mesh counts
-    neither), and on a card spatial_stats.box_scales_card, the (cloud,
-    scale) box counts of the one boxcount.cu launch (20 at the default
-    scales); the result holds them as stage_times and counts."""
+    neither), and on a card spatial_stats.shell_scans_card, the shell scans
+    that shellcount.cu made (2, one launch a cloud; none with a mesh), and
+    spatial_stats.box_scales_card, the (cloud, scale) box counts of the one
+    boxcount.cu launch (20 at the default scales); the result holds them as
+    stage_times and counts."""
     from cmtci_torch.parallel.sharded import is_writer
 
     dev = mesh.device if mesh is not None else resolve_device(device)

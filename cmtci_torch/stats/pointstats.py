@@ -10,6 +10,8 @@ matrix):
   * box-counting fractal dimension over 10 logspaced relative scales
     (spatial_stats_phase3.py:41-55), the boxes counted on the device by
     ``csrc/boxcount.cu`` (kernels/boxcount.py) with the reference's f64 keys
+  * the shell counts of g(r) and K(r) on the device by ``csrc/shellcount.cu``
+    (kernels/shellcount.py), bitwise the blocked torch chain
 
 The pair histogram keeps exact int64 counts in either dtype, so it has no
 pair-count ceiling; the reference's masked int32 (hi, lo) head and its block
@@ -21,8 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cmtci_torch.kernels import boxcount
-from cmtci_torch.stats.variogram import masked_bin_reduce
+from cmtci_torch.kernels import boxcount, shellcount
 from cmtci_torch.utils.arrays import as_xy as _xy
 from cmtci_torch.utils.device import resolve_device
 
@@ -30,23 +31,19 @@ from cmtci_torch.utils.device import resolve_device
 def _pair_hist(xy, r_edges, nbins: int, chunk: int = 1024, rows=None, count=None):
     """int64 histogram of the upper-triangle pairwise distances of xy into
     the r_edges bins (bin k holds r_edges[k] <= d < r_edges[k+1]; values
-    >= the last edge are dropped, matching the reference's shell masks). A
-    block of rows meets only the columns from its first row on. rows =
-    (lo, hi) restricts the pairs to first indices in [lo, hi). `count`, a
-    callable (name, n), takes ``spatial_stats.distances``: the distances a
-    block evaluates, its masked entries included, from the shapes alone."""
-    counts = torch.zeros(nbins, dtype=torch.int64, device=xy.device)
-    local = torch.arange(xy.shape[0], device=xy.device)
-    lo, hi = (0, xy.shape[0]) if rows is None else rows
-    for i in range(lo, hi, chunk):
-        blk, rest = xy[i : min(i + chunk, hi)], xy[i:]
-        if count is not None:
-            count("spatial_stats.distances", blk.shape[0] * rest.shape[0])
-        dx = blk[:, 0, None] - rest[None, :, 0]
-        dy = blk[:, 1, None] - rest[None, :, 1]
-        d = torch.sqrt(dx * dx + dy * dy)
-        valid = local[None, : rest.shape[0]] > local[: blk.shape[0], None]
-        counts += masked_bin_reduce(d, valid, r_edges, nbins)
+    >= the last edge are dropped, matching the reference's shell masks).
+    rows = (lo, hi) restricts the pairs to first indices in [lo, hi). On a
+    CUDA tensor one ``csrc/shellcount.cu`` launch (kernels/shellcount.py),
+    bitwise the blocked torch chain that a CPU tensor runs (blocks of `chunk`
+    rows, each meeting the columns from its first row on). `count`, a
+    callable (name, n), takes ``spatial_stats.distances``: the distances the
+    launch or the blocks evaluate, their masked entries included, from the
+    shapes alone; and on a card ``spatial_stats.shell_scans_card``, one for
+    the launch."""
+    counts = shellcount.shell_counts(xy.contiguous(), r_edges, nbins, rows=rows, chunk=chunk,
+                                     count=count)
+    if count is not None and xy.device.type == "cuda":
+        count("spatial_stats.shell_scans_card", 1)
     return counts
 
 
@@ -57,9 +54,10 @@ def _shell_counts(points, r_max: float, dr: float, dtype=torch.float64, device="
     either dtype; f32 distances can land a borderline pair one bin over
     against f64. With a `mesh` the pass shards its i-rows over the ranks
     (parallel.sharded.sharded_shell_counts), on the ranks' devices. `count`,
-    a callable (name, n), takes ``spatial_stats.distances`` (``_pair_hist``)
-    and ``spatial_stats.in_shells``, the pairs counted in a shell; the
-    sharded pass counts nothing."""
+    a callable (name, n), takes ``spatial_stats.distances`` and, on a card,
+    ``spatial_stats.shell_scans_card`` (``_pair_hist``), and
+    ``spatial_stats.in_shells``, the pairs counted in a shell; the sharded
+    pass counts nothing."""
     if mesh is not None:
         from cmtci_torch.parallel.sharded import sharded_shell_counts
 
