@@ -200,11 +200,9 @@ prints no result line):
      bench's eigensweep and the first run_tci's; the equipotential's four
      families at n 2..200; stage1; lucas-boundary): every valid root within
      1e-12 relative, the parked lanes equal, the step counts within one, and
-     bitwise aberth.cu built with CLUSTER 1 (one CTA a polynomial, the design
-     before the cluster; built in phase 2), with the kernel's time (the
-     launch alone from the start roots, and the CLUSTER 1 build's), the
-     wrapper's with the plan cached and built anew, the twin's and the bound
-     over the card, over the one SM of the largest polynomial and over its
+     the launch alone from the start roots bitwise the wrapper's, with the
+     kernel's time (that launch alone), the wrapper's with the plan cached
+     and built anew, the twin's and the bound over the card, over the one SM of the largest polynomial and over its
      cluster; torch.linalg.eigvals on the eigensweep's companion matrices
      beside it; last in the phase, after all its timings, at degree 4,843,
      one above what one CTA held before the cluster, against the twin run on
@@ -257,12 +255,7 @@ prints no result line):
      a warp, shorter and longer than a CTA, more CTAs than lines) on six
      grids at 0, 1 and 3 steps; the kernel's time beside the recorded one of
      the earlier two-pass design (commit faa791d), the bytes its ring stages
-     from HBM a step, the split of a half step
-     (builds cut after each part, in turns with the whole), the twin's time,
-     the graph yardstick's (the torch.logsumexp loop the port ran before the
-     kernel, captured into a CUDA graph, within 1e-10 of the twin, argmax
-     equal) and the barrier floor (the grid barriers alone,
-     sweep_schedules.barrier_floor_ms);
+     from HBM a step and the twin's time;
  24. csrc/boxcount.cu (the box counts of fractal_dimensions, one launch for
      every cloud and scale) against its twin box_counts_torch on the card:
      counts and bitmaps bitwise, in one launch, on the pair cell's
@@ -338,8 +331,8 @@ largest |kernel - twin| over the entries finite in both, in every case phase
 line counts); aberth's bound is the f32 repulsion of the lanes not yet frozen
 (ABERTH_OPS_PER_PAIR a pair term) over the whole card, with bound_one_sm_ms
 that of the largest polynomial on one SM and bound_cluster_ms on the SMs of
-its cluster, tracker_ms its four tracker launches summed and cluster1_ms
-the launch with one CTA a polynomial, its max_abs_err the largest
+its cluster, tracker_ms its four tracker launches summed, its max_abs_err
+the largest
 |kernel - twin| of a root, and its library_ms torch.linalg.eigvals on the
 eigensweep's 61 companion matrices, one call each, summed. orbit_green's,
 orbit_potential's and orbit_de_stage1's bound_chain_ms is the deepest
@@ -347,14 +340,12 @@ point's steps x 3 dependent f64 instructions x FP64_DEPENDENT_CYCLES at the
 card's maximum SM clock; orbit_de_stage1's hypot_calls its calls of hypot
 there (the band's). sinkhorn's line is
 the CLI defaults' (819 x 600, resident; bus_6x holds the 6x bus's): ms the
-median of 5 single calls, plain_ms the twin's one call, graph_ms the graph
-yardstick's replay; its operations count a term's add, max, add,
-subtraction, exp and sum, each line's log, and the plan's exps, the exp and
-log at their FP64 instructions in the SASS of one each
-(sweep_schedules.exp_log_sass; bound_ops_4_ms at the 4 an element counted
+median of 5 single calls, plain_ms the twin's one call; its operations
+count a term's add, max, add, subtraction, exp and sum, each line's log,
+and the plan's exps, the exp and log at their FP64 instructions in the SASS
+of one each (exp_log_sass; bound_ops_4_ms at the 4 an element counted
 before), over 33.5 TFLOP/s; its bytes the cost in and the plan out
-(bound_streaming_ms: mk and mkT from HBM every step); barrier_floor_ms the
-2,000 grid barriers alone.
+(bound_streaming_ms: mk and mkT from HBM every step).
 
 The kernels line reports K1 at the tracker's largest grid, 912 x 912; the
 other grids' times are printed in phase 3; K2's launches are those of the
@@ -477,25 +468,16 @@ OPS_BEFORE = {"dwell_ms": 11, "dwell_periodic": 13, "green_grid": 11}
 #: launches back to back in one timing of a kernel (cuda_ms)
 CHAIN = 20
 #: cycles between two dependent FP32 instructions of one warp, measured on an
-#: H100 80GB HBM3 by `python -m cmtci_torch.sweep_schedules` (4.05 at 1.92 and
-#: at 1.97 GHz); K3's chain bound is worked out from it
+#: H100 80GB HBM3 by a clock64 probe of a chain of FMUL -> FADD (4.05 at 1.92
+#: and at 1.97 GHz); K3's chain bound is worked out from it
 FP32_DEPENDENT_CYCLES = 4.05
-#: the same for FP64 (DMUL -> DADD), measured by `sweep_schedules --only
-#: probe` on an H100 80GB HBM3 at 700 W (8.02 at 1.96 GHz); orbit_green's chain
-#: bound is worked out from it
+#: the same for FP64 (DMUL -> DADD), measured by the same probe on an H100
+#: 80GB HBM3 at 700 W (8.02 at 1.96 GHz); orbit_green's chain bound is worked
+#: out from it
 FP64_DEPENDENT_CYCLES = 8.02
 #: a Horner polynomial one degree above the largest one CTA held before the
 #: cluster (40 B a lane and 8 a coefficient in 232,448 B: 4,842)
 ABERTH_ABOVE_ONE_CTA = 4843
-#: aberth.cu's constants rewritten for phase 23's yardstick: one CTA a
-#: polynomial, the design before the cluster (a sweep_schedules variant,
-#: built in phase 2 into build/sweep/smoke-aberth-c1/)
-ABERTH_C1 = {"CLUSTER": 1}
-ABERTH_C1_LIB: list = []
-#: sinkhorn.cu built to stop every half step after a part (STOP 0 to 3,
-#: sweep_schedules.SINKHORN_STOPS), built in phase 2 into
-#: build/sweep/smoke-sinkhorn-stop<k>/: phase 23's split of a half step
-SINKHORN_STOP_LIBS: dict = {}
 FIELD_SHAPES = ((2048, 2048), (1001, 1999))  # (ny, nx)
 MS_SHAPE, MS_STRIDE, MS_TILE = (2048, 2048), 8, (32, 256)
 TCI_GRIDS = (600, 2400)
@@ -639,19 +621,10 @@ def phase_build():
 
     from cmtci_torch.kernels import _build
 
-    from cmtci_torch import sweep_schedules as sweep
-
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1 + len(sweep.SINKHORN_STOPS)) as ex:
-        c1 = ex.submit(sweep.build, "smoke-aberth-c1", "aberth", _build.CSRC, ABERTH_C1)
-        stops = {k: ex.submit(sweep.build, f"smoke-sinkhorn-stop{k}", "sinkhorn", _build.CSRC,
-                              {"STOP": k}) for k in sweep.SINKHORN_STOPS}
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
         list(ex.map(_build.library, KERNELS))
-        ABERTH_C1_LIB.append(c1.result()[0])
-        SINKHORN_STOP_LIBS.update({f"stop{k}": f.result()[0] for k, f in stops.items()})
-    print(f"build: {', '.join(KERNELS)}, aberth with CLUSTER 1 and sinkhorn cut after each "
-          f"part (STOP {', '.join(map(str, sweep.SINKHORN_STOPS))}) in "
-          f"{time.perf_counter() - t0:.2f} s wall")
+    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s wall")
     for name in KERNELS:
         print(f"  {name}: nvcc {_build.BUILD_SECONDS[name]:.2f} s")
         for line in _build.build_log(name).splitlines():
@@ -2435,7 +2408,6 @@ def phase_suite(dev):
     the CPU's, file for file, the local maps and eigenvectors included."""
     import numpy as np
 
-    from cmtci_torch import sweep_schedules as sweep
     from cmtci_torch.cli import _SUITE_STAGES
     from cmtci_torch.io.loaders import load_points
     from cmtci_torch.pipelines import stage1
@@ -2450,7 +2422,7 @@ def phase_suite(dev):
             n_m = len(load_points(f"{bus}/mandel_boundary_sample.csv"))
             # the bus's stage1 alone, with its layers (match: the features on the
             # host, the cost, the Sinkhorn kernel and the argmax)
-            cfg = stage1.Stage1Config(**sweep.SINKHORN_BUSES[label])
+            cfg = stage1.Stage1Config(**SINKHORN_BUSES[label])
             timers = []
 
             def one_stage1():
@@ -3131,14 +3103,13 @@ def aberth_above_one_cta(dev):
 
 
 def loop_aberth(dev):
-    """Phase 23, Aberth at ABERTH_CLOUDS: the launch against the twin,
-    against the build with one CTA a polynomial (ABERTH_C1) bitwise, and its
-    times; the kernels-line fields of the eigensweep (tracker stage 4) with
-    the four tracker launches summed."""
+    """Phase 23, Aberth at ABERTH_CLOUDS: the launch against the twin, the
+    launch alone from the start roots bitwise the wrapper's, and its times;
+    the kernels-line fields of the eigensweep (tracker stage 4) with the four
+    tracker launches summed."""
     import torch
 
     from cmtci_torch import bench
-    from cmtci_torch import sweep_schedules as sweep
     from cmtci_torch.kernels import companion
 
     worst_rel = worst_abs = 0.0
@@ -3154,35 +3125,24 @@ def loop_aberth(dev):
         rel, err, dsteps = aberth_against(label, got, want)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
         lanes = want[4]
-        # the launch alone, from the start roots each time: the committed
-        # build and the one with one CTA a polynomial, bitwise the same
+        # the launch alone, from the start roots each time, bitwise the
+        # wrapper's
         plan = companion._one_launch_plan(ns, fam, True, dev)
         kr, ki, ks, go = companion._aberth_prepare(*plan[:6], fam, 200, 1e-13, torch.float32)
         z0 = (kr.clone(), ki.clone())
-        c1_args, c1_task = sweep.aberth_variant_args(sweep.launch_args(go), plan, ABERTH_C1,
-                                                     dev)
-        c1_entry = sweep.entry(ABERTH_C1_LIB[0], "aberth")
 
         def committed(kr=kr, ki=ki, z0=z0, go=go):
             kr.copy_(z0[0])
             ki.copy_(z0[1])
             go()
 
-        def one_cta(kr=kr, ki=ki, z0=z0, args=c1_args, task=c1_task):
-            kr.copy_(z0[0])
-            ki.copy_(z0[1])
-            rc = c1_entry(*args, sweep.stream(dev))
-            check(rc == 0, f"aberth with CLUSTER 1 returned cudaError {rc}")
-
-        for name, call in (("the committed launch", committed), ("CLUSTER 1", one_cta)):
-            call()
-            torch.cuda.synchronize()
-            check(bool(torch.equal(kr, got[0]) and torch.equal(ki, got[1])
-                       and torch.equal(ks, got[3])),
-                  f"aberth {label}: {name} differs from eigvals_one_launch's")
+        committed()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(kr, got[0]) and torch.equal(ki, got[1])
+                   and torch.equal(ks, got[3])),
+              f"aberth {label}: the launch alone differs from eigvals_one_launch's")
         ms = cuda_ms(committed, 2, 10, CHAIN)
         graph_ms = cuda_ms(committed, 2, 10, CHAIN, graph=True)
-        c1_ms = cuda_ms(one_cta, 2, 10, CHAIN, graph=True)
         wrapper_ms = cuda_ms(lambda: companion.eigvals_one_launch(ns, fam, device=dev), 1, 5)
 
         def built_anew():
@@ -3197,22 +3157,21 @@ def loop_aberth(dev):
         card, by = least_ms(float(pairs.sum()) * ABERTH_OPS_PER_PAIR, 16 * sum(ns) * 2)
         one_sm = float(pairs.max()) * ABERTH_OPS_PER_PAIR / sm_rate * 1e3
         parts = companion.aberth_parts(max(ns))
-        ms_of[label] = dict(ms=graph_ms, chained_ms=ms, cluster1_ms=c1_ms, plain_ms=plain_ms,
+        ms_of[label] = dict(ms=graph_ms, chained_ms=ms, plain_ms=plain_ms,
                             bound_ms=card, bound_by=by, bound_one_sm_ms=one_sm,
                             bound_cluster_ms=one_sm / parts, wrapper_ms=wrapper_ms,
                             wrapper_built_ms=built_ms, cluster=companion.ABERTH_CLUSTER)
         print(f"aberth {label} (n {ns[0]}..{ns[-1]}, {len(ns)} polynomials): 1 launch, roots "
               f"within {rel:.3e} relative of the twin, steps {int(got[3].min())}.."
               f"{int(got[3].max())} (twin {int(want[3].min())}..{int(want[3].max())}, |diff| "
-              f"<= {dsteps}), {int(lanes.sum())} lane updates, bitwise the CLUSTER 1 build's; kernel "
+              f"<= {dsteps}), {int(lanes.sum())} lane updates; kernel "
               f"{graph_ms:.4f} ms (graph, {companion.ABERTH_CLUSTER} CTAs a cluster; {ms:.4f} "
-              f"chained), one CTA a polynomial {c1_ms:.4f}; inverse_cloud_padded's eigenvalues "
+              f"chained); inverse_cloud_padded's eigenvalues "
               f"{wrapper_ms:.4f} ms with the plan cached, {built_ms:.4f} built anew; twin "
               f"{plain_ms:.2f} ms; bound {card:.5f} ms over the card ({by}), {one_sm:.5f} ms on "
               f"one SM, {one_sm / parts:.5f} on the largest polynomial's {parts}")
     tracker = [ms_of[f"tracker stage {i}"]["ms"] for i in range(1, 5)]
-    print(f"aberth: the tracker's four launches {sum(tracker):.4f} ms in all (graph), one CTA a "
-          f"polynomial {sum(ms_of[f'tracker stage {i}']['cluster1_ms'] for i in range(1, 5)):.4f}")
+    print(f"aberth: the tracker's four launches {sum(tracker):.4f} ms in all (graph)")
     print(f"  SM clock {bench.max_sm_clock_mhz(dev)} MHz (max)")
     return dict(ms_of["tracker stage 4"], tracker_ms=sum(tracker), max_abs_err=worst_abs,
                 max_rel_err=worst_rel)
@@ -3890,6 +3849,65 @@ SINKHORN_RAGGED_GRIDS = (dict(), dict(ctas=4), dict(ctas=1), dict(streaming=True
 #: costs, ms per call on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
 #: section 6): printed beside this run's times
 SINKHORN_TWO_PASS_MS = {"default": 10.160, "6x": 101.877}
+#: stage1's two Sinkhorn costs: the CLI defaults (819 x 600) and the 6x bus
+#: (--max-n 100 --boundary-samples 2000: 5,049 x 1,624, every band pixel), as
+#: Stage1Config overrides
+SINKHORN_BUSES = {"default": {}, "6x": dict(max_n=100, boundary_samples=2000)}
+#: one libdevice exp and one log a thread, whose SASS FP64 instructions
+#: exp_log_sass counts (the Sinkhorn bound's operations an element)
+EXP_LOG_SRC = r"""
+extern "C" __global__ void exp_probe(const double* x, double* y) {
+    y[threadIdx.x] = exp(x[threadIdx.x]);
+}
+extern "C" __global__ void log_probe(const double* x, double* y) {
+    y[threadIdx.x] = log(x[threadIdx.x]);
+}
+"""
+#: SASS opcodes counted as FP64 instructions
+FP64_SASS = r"\b(D(?:ADD|MUL|FMA|SETP|MNMX|SET)|MUFU\.\w*64\w*|[FI]2[FI]\.\S*64\S*)\b"
+
+
+def stage1_cost(cfg, dev):
+    """The f64 Sinkhorn cost run_stage1 matches with under `cfg` on `dev`
+    (its cloud and band, their orientation features and coordinates)."""
+    import numpy as np
+
+    from cmtci_torch.pipelines import stage1
+
+    out = stage1.run_stage1(cfg, None, plots=False, device=dev)
+    xa = np.hstack([stage1.orientation_features(out["C"], cfg.k_orientation), out["C"]])
+    xb = np.hstack([stage1.orientation_features(out["M"], cfg.k_orientation), out["M"]])
+    return stage1.feature_cost(xa, xb, device=dev)
+
+
+def exp_log_sass() -> dict:
+    """FP64 instructions (FP64_SASS's opcodes) in the SASS of one f64 exp and
+    one log, built with the package's flags into build/exp_log/: {"exp": n,
+    "log": n, "opcodes": {...}}. A static count: a special case's
+    instructions count once though they rarely run."""
+    import re
+
+    from cmtci_torch.kernels import _build
+
+    out_dir = os.path.join(ROOT, "build", "exp_log")
+    os.makedirs(out_dir, exist_ok=True)
+    src, cubin = os.path.join(out_dir, "exp_log.cu"), os.path.join(out_dir, "exp_log.cubin")
+    with open(src, "w") as f:
+        f.write(EXP_LOG_SRC)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", cubin, src],
+                   capture_output=True, text=True, check=True)
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    result, opcodes = {}, {}
+    for name in ("exp", "log"):
+        body = sass.split(f"Function : {name}_probe")[1].split("Function :")[0]
+        ops = [m.group(1) for m in re.finditer(FP64_SASS, body)]
+        result[name] = len(ops)
+        opcodes[name] = {op: ops.count(op) for op in sorted(set(ops))}
+    result["opcodes"] = opcodes
+    return result
 
 
 def sinkhorn_ragged(dev) -> float:
@@ -3940,22 +3958,19 @@ def loop_sinkhorn(dev):
     stage1's two costs (the CLI defaults: the resident plan, two other grids
     and the streaming mode, at 0, 1, 3 and 1,000 steps; the 6x bus:
     streaming) and at the ragged costs (sinkhorn_ragged), one launch a call;
-    the kernel's, the twin's and the graph yardstick's times, the bytes
-    staged a step, the split of a half step, the barrier floor and the
+    the kernel's and the twin's times, the bytes staged a step and the
     bounds. Returns the kernels-line fields at the defaults."""
     import torch
 
-    from cmtci_torch import sweep_schedules as sweep
-    from cmtci_torch.kernels import _build
     from cmtci_torch.pipelines import stage1
     from cmtci_torch.transport import sinkhorn
 
-    sass = sweep.exp_log_sass()
+    sass = exp_log_sass()
     print(f"FP64 SASS instructions of one exp and one log: {json.dumps(sass)}")
     out = {}
-    for label, over in sweep.SINKHORN_BUSES.items():
+    for label, over in SINKHORN_BUSES.items():
         cfg = stage1.Stage1Config(**over)
-        cost = sweep.stage1_cost(cfg, dev)
+        cost = stage1_cost(cfg, dev)
         iters, eps = stage1.SINKHORN_ITERS, cfg.sinkhorn_reg
         n, m = cost.shape
         t0 = time.perf_counter()
@@ -3986,29 +4001,6 @@ def loop_sinkhorn(dev):
         stream_ms = (cuda_ms(lambda: sinkhorn.sinkhorn_kernel(cost, iters, eps, streaming=True),
                              1, 5) if plan.resident else ms)
         stream_plan = sinkhorn.card_plan(dev, n, m, streaming=True)
-        graph, static, gplan = sweep.sinkhorn_graph(cost, iters, eps)
-        graph.replay()
-        torch.cuda.synchronize()
-        rel = float((gplan - want).abs().max() / want.abs().max())
-        same = bool(torch.equal(gplan.argmax(dim=1), want.argmax(dim=1)))
-        check(rel <= 1e-10 and same, f"sinkhorn {label}: the graph yardstick {rel!r} from the "
-                                     f"twin, argmax equal {same}")
-        # the 6x graph takes 0.4 s a replay: one timed replay after the check's
-        graph_ms = cuda_ms(graph.replay, 1, 3) if label == "default" else cuda_ms(
-            graph.replay, 0, 1)
-        del graph, static, gplan
-        floor_ms = sweep.barrier_floor_ms(dev, plan, 2 * iters)
-        # the split of a half step: builds cut after each part, in turns with
-        # the whole kernel, on this plan
-        keep = []
-        split = sweep.in_turns(sweep.stop_calls(
-            cost, iters, eps, plan, {**SINKHORN_STOP_LIBS, "whole": _build.library("sinkhorn")},
-            keep), rounds=3, chain=1, graphs=False)
-        del keep
-        labels = list(sweep.SINKHORN_STOPS.values()) + ["+ adds"]
-        cut = [split[f"stop{k}"][0] for k in sweep.SINKHORN_STOPS] + [split["whole"][0]]
-        # what each part adds to the cut before it, as a share of the whole
-        shares = [(c - prev) / cut[-1] for c, prev in zip(cut, [0.0] + cut[:-1])]
         ops = sinkhorn_ops(n, m, iters, sass["exp"], sass["log"])
         t_ops = ops / PEAK_FP64 * 1e3
         t_ops4 = iters * 2 * n * m * 4 / PEAK_FP64 * 1e3
@@ -4022,20 +4014,14 @@ def loop_sinkhorn(dev):
               f"{SINKHORN_TWO_PASS_MS[label]} ms, PERF.md)"
               + (f" (forced to stream {stream_ms:.4f}, {stream_plan.staged} B staged a step)"
                  if plan.resident else f", {plan.staged} B staged from HBM a step")
-              + "; split of a half step, each build cut after a part (ms, single call in "
-              "turns with the whole, and the share of the whole each part adds): "
-              + ", ".join(f"{lab} {c:.4f} ({sh:.3f})" for lab, c, sh in zip(labels, cut, shares))
-              + f"; twin {twin_ms:.1f} ms, graph yardstick {graph_ms:.4f} ms (within "
-              f"{rel!r} of the twin, argmax equal), barrier floor ({2 * iters} barriers) "
-              f"{floor_ms:.4f} ms; bound {bound:.4f} ms ({by}; operations {t_ops:.4f} at "
+              + f"; twin {twin_ms:.1f} ms; bound {bound:.4f} ms ({by}; operations {t_ops:.4f} at "
               f"{5 + sass['exp']} an element, {t_ops4:.4f} at 4; bytes in and out "
               f"{t_bytes:.4f}; mk and mkT from HBM every step {t_stream:.4f})")
         out[label] = dict(shape=[n, m], resident=plan.resident, ctas=plan.ctas,
-                          max_abs_err=err, ms=ms, plain_ms=twin_ms, graph_ms=graph_ms,
-                          streaming_ms=stream_ms, barrier_floor_ms=floor_ms, bound_ms=bound,
-                          bound_by=by, bound_ops_4_ms=t_ops4, bound_streaming_ms=t_stream,
-                          staged_bytes=(stream_plan if plan.resident else plan).staged,
-                          split_ms=dict(zip(labels, cut)))
+                          max_abs_err=err, ms=ms, plain_ms=twin_ms, streaming_ms=stream_ms,
+                          bound_ms=bound, bound_by=by, bound_ops_4_ms=t_ops4,
+                          bound_streaming_ms=t_stream,
+                          staged_bytes=(stream_plan if plan.resident else plan).staged)
     ragged = sinkhorn_ragged(dev)
     return dict(out["default"], bus_6x=out["6x"],
                 max_abs_err=max(out["default"]["max_abs_err"], out["6x"]["max_abs_err"],

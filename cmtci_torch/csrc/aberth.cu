@@ -59,7 +59,7 @@
 // SMs that hold the largest polynomials. One CTA a polynomial (the design
 // before the cluster) left n = 1220's 1.49 M pair terms a step to one SM;
 // a cluster of 8 spreads them over 8 CTAs, one lane a thread (4.5 times
-// faster at the eigensweep; 16 CTAs gain nothing more, sweep_schedules). The
+// faster at the eigensweep; 16 CTAs gain nothing more). The
 // O(log n) closed form costs a few hundred f64 operations a lane and step.
 //
 // Shared memory a CTA: the votes (2 CLUSTER ints, padded to 16 B), two copies
@@ -80,8 +80,8 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int MAX_THREADS = 256;
-// the CTAs of a cluster (companion.ABERTH_CLUSTER; sweep_schedules builds 1 to
-// 16, and 16 needs cudaFuncAttributeNonPortableClusterSizeAllowed)
+// the CTAs of a cluster (companion.ABERTH_CLUSTER; 1 to 16 were measured, and
+// 16 needs cudaFuncAttributeNonPortableClusterSizeAllowed)
 constexpr int CLUSTER = 8;
 // the votes' bytes: two slots of CLUSTER ints, the roots after them aligned
 constexpr int VOTE_BYTES = (2 * CLUSTER * 4 + 15) / 16 * 16;
@@ -235,8 +235,8 @@ struct Rep<true> {
 // the repulsion of lane i from the n roots of `cur`: the terms of REP_UNROLL
 // roots at a time computed side by side, then added one after another in
 // j's order, so the sums are those of a loop of one term a step, bitwise
-// (sweep_schedules: 1 to 8 side by side within 2% of each other at the
-// eigensweep; 4 spills)
+// (1 to 8 side by side measured within 2% of each other at the eigensweep;
+// 4 spills)
 template <typename V, typename S>
 __device__ __forceinline__ void pair_term(V x, V o, S& tr, S& ti) {
     const S dr = x.x - o.x;

@@ -24,7 +24,7 @@
 //     max_iter. Its output is the plain kernel's for every input. The check
 //     pays only where bounded, non-analytic pixels would otherwise run a long
 //     max_iter out. It has its own constants (P_*), so that either entry can
-//     be varied alone (cmtci_torch/sweep_schedules.py).
+//     be tuned alone.
 //
 // What bounds both on this card: FP32 issue. There is no load and one 4-byte
 // store a pixel; a warp runs as long as its slowest pixel, while far-field
@@ -41,9 +41,9 @@
 //     side by side;
 //   * the periodic entry moves its checkpoint only at chunk ends, and runs
 //     chunks of P_C = 8 steps, compares z with its checkpoint once a chunk
-//     and hands out the rows of blocks from the middle of the grid outwards
-//     (P_MIDDLE_OUT). Measured in turns at 2000^2 on an H100 80GB
-//     HBM3 at 700 W, ms per launch of 20 chained at max_iter 500 / 20,000
+//     and hands out the rows of blocks from the middle of the grid outwards.
+//     Measured in turns at 2000^2 on an H100 80GB HBM3 at 700 W, ms per
+//     launch of 20 chained at max_iter 500 / 20,000
 //     (PERF.md, K2p): this schedule 0.0554 / 0.764; rows in order 0.0597 /
 //     0.762; C = 4 with the compare in every step 0.0712 / 1.092 (it catches
 //     a cycle a few steps sooner, which does not pay for its compares), once
@@ -80,7 +80,6 @@ constexpr int P_C = 8;
 constexpr int P_PATCH_W = 4;
 constexpr int P_PATCH_H = 8;
 constexpr int P_WARPS = 4;
-constexpr int P_MIDDLE_OUT = 1;  // rows of blocks from the middle outwards (1)
 
 __global__ void __launch_bounds__(32 * WARPS)
 dwell_kernel(float* __restrict__ out, int nx, int ny, int row0, float xmin, float ymin,
@@ -99,7 +98,7 @@ __global__ void __launch_bounds__(32 * P_WARPS)
 dwell_periodic_kernel(float* __restrict__ out, int nx, int ny, float xmin, float ymin,
                       float dx, float dy, int max_iter) {
     int col, row;
-    patch_pixel<P_PATCH_W, P_PATCH_H, P_WARPS, P_MIDDLE_OUT != 0>(col, row);
+    patch_pixel<P_PATCH_W, P_PATCH_H, P_WARPS, true>(col, row);
     if (col >= nx || row >= ny) return;
 
     const float cr = xmin + (float)col * dx;

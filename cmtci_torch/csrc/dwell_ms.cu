@@ -48,13 +48,12 @@ constexpr int C = 4;           // orbit steps between two exit tests
 constexpr int PATCH_W = 4;     // pixels across a warp's patch
 constexpr int PATCH_H = 8;     // pixels down a warp's patch
 constexpr int WARPS = 4;       // warps a block, side by side along x
-constexpr int MIDDLE_OUT = 1;  // rows of blocks from the middle outwards (1)
 
 __global__ void __launch_bounds__(32 * WARPS)
 dwell_ms_kernel(const float* __restrict__ fill, float* __restrict__ out, int nx, int ny,
                 float xmin, float ymin, float dx, float dy, int max_iter, int th, int tw) {
     int col, row;
-    patch_pixel<PATCH_W, PATCH_H, WARPS, MIDDLE_OUT != 0>(col, row);
+    patch_pixel<PATCH_W, PATCH_H, WARPS, true>(col, row);
     if (col >= nx || row >= ny) return;
 
     const float fv = fill[(row / th) * (nx / tw) + col / tw];

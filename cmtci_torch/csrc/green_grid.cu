@@ -41,9 +41,9 @@
 //   * A compact warp footprint (escape.cuh:patch_pixel): a warp's 32 threads
 //     tile PATCH_W x PATCH_H pixels, so the pixels a warp waits for are
 //     neighbours with neighbouring escape steps; a block is WARPS such
-//     patches side by side; with MIDDLE_OUT the rows of blocks are handed out
-//     from the middle of the grid outwards, so the rows that cross the set,
-//     whose warps run longest, start first.
+//     patches side by side; the rows of blocks are handed out from the
+//     middle of the grid outwards, so the rows that cross the set, whose
+//     warps run longest, start first.
 // Measured in turns at 2048 x 2048, max_iter 500, R 4 on an H100 80GB HBM3
 // at 700 W (PERF.md, K5; ms per launch replayed from a CUDA graph): this
 // kernel 0.0480 against 0.1001 for the earlier one (one pixel a thread on
@@ -72,13 +72,12 @@ constexpr int C = 4;           // orbit steps between two exit tests
 constexpr int PATCH_W = 4;     // pixels across a warp's patch
 constexpr int PATCH_H = 8;     // pixels down a warp's patch
 constexpr int WARPS = 4;       // warps a block, side by side along x
-constexpr int MIDDLE_OUT = 1;  // rows of blocks from the middle outwards
 
 __global__ void __launch_bounds__(32 * WARPS)
 green_grid_kernel(float* __restrict__ out, int nx, int ny, float xmin, float ymin, float dx,
                   float dy, int max_iter, float r2) {
     int col, row;
-    patch_pixel<PATCH_W, PATCH_H, WARPS, MIDDLE_OUT != 0>(col, row);
+    patch_pixel<PATCH_W, PATCH_H, WARPS, true>(col, row);
     if (col >= nx || row >= ny) return;
 
     const float cr = xmin + (float)col * dx;

@@ -79,7 +79,7 @@
 //
 // orbit_dwell, orbit_de_tci, orbit_de_std, orbit_de_stage1 and
 // orbit_potential run fewer steps and cheaper ones:
-//   * Analytic interior, f64 only (SKIP_INTERIOR). A point that the cardioid
+//   * Analytic interior, f64 only (skips_interior). A point that the cardioid
 //     or period-2 bulb test of the reference's _interior_mask
 //     (cmtci/kernels/mandelbrot_pallas.py:148) accepts, evaluated in f64 with
 //     the same 1e-5 margins (interior_f64), takes no step: dwell writes
@@ -110,12 +110,11 @@
 //   * A compact warp footprint on a 2-D grid: the wrapper passes the (ny, nx)
 //     of the contiguous input (a 1-D input is one row), a warp's 32 threads
 //     tile PATCH_W x PATCH_H points (de_std, de_stage1 and potential: their
-//     own patches), a block is WARPS patches side by side along x, and with
-//     MIDDLE_OUT the rows of blocks are handed out from the middle of the
-//     grid outwards, so the rows that cross the set start first. A grid of
-//     fewer rows than a patch, or of more rows than 65,535 rows of blocks
-//     hold, runs as one row of 32-point warps. No result depends on the
-//     footprint.
+//     own patches), a block is WARPS patches side by side along x, and the
+//     rows of blocks are handed out from the middle of the grid outwards, so
+//     the rows that cross the set start first. A grid of fewer rows than a
+//     patch, or of more rows than 65,535 rows of blocks hold, runs as one row
+//     of 32-point warps. No result depends on the footprint.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -prec-div=true -prec-sqrt=true -shared -Xcompiler -fPIC
@@ -133,7 +132,7 @@ constexpr int BLOCK = 256;
 constexpr int GREEN_CHUNK = 64;
 constexpr int GREEN_EPOCH = 512;
 // orbit_dwell's, orbit_de_tci's, orbit_de_std's and orbit_potential's
-// schedule (sweep_schedules rewrites these)
+// schedule
 constexpr int DWELL_C = 8;          // dwell steps between two exit tests
 constexpr int TCI_C = 6;            // de_tci's first-pass steps between two exit tests
 constexpr int STD_C = 8;            // de_std's first-pass steps between two exit tests
@@ -148,8 +147,6 @@ constexpr int POT_WARPS = 2;        // potential's warps a block
 constexpr int S1_PATCH_W = 8;       // de_stage1's patch
 constexpr int S1_PATCH_H = 4;
 constexpr int S1_WARPS = 1;         // de_stage1's warps a block
-constexpr int MIDDLE_OUT = 1;       // rows of blocks from the middle outwards (1)
-constexpr int SKIP_INTERIOR = 1;    // f64: the analytic interior takes no step (1)
 constexpr int LATCH_BY_REPLAY = 1;  // de_tci, de_std, potential: the first escape latched by a
                                     // replay of the flagged chunk (1) or a select every step (0)
 constexpr int STD_DZ_CARRIED_F64 = 1;  // de_std in f64: dz carried in the first pass and
@@ -185,19 +182,16 @@ __device__ __forceinline__ long long point_index() {
 // The point of the calling thread on the compact footprint (escape.cuh's
 // patch_pixel with 64-bit columns): p = row * nx + col of a (ny, nx) grid,
 // false past its edge. A warp tiles PW x PH points, a block is NW patches
-// side by side along x; with MIDDLE_OUT, blockIdx.y is the rank of the row of
-// blocks in the order middle, one below, one above, ...
+// side by side along x; blockIdx.y is the rank of the row of blocks in the
+// order middle, one below, one above, ...
 template <int PW, int PH, int NW = WARPS>
 __device__ __forceinline__ bool patch_point(long long ny, long long nx, long long& p) {
     static_assert(PW * PH == 32, "a warp's patch is 32 threads");
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const long long col = ((long long)blockIdx.x * NW + warp) * PW + lane % PW;
-    int by = blockIdx.y;
-    if constexpr (MIDDLE_OUT != 0) {
-        const int r = blockIdx.y;
-        by = (int)(gridDim.y - 1) / 2 + ((r & 1) ? (r + 1) / 2 : -(r / 2));
-    }
+    const int r = blockIdx.y;
+    const int by = (int)(gridDim.y - 1) / 2 + ((r & 1) ? (r + 1) / 2 : -(r / 2));
     const long long row = (long long)by * PH + lane / PW;
     p = row * nx + col;
     return col < nx && row < ny;
@@ -220,7 +214,7 @@ __device__ __forceinline__ bool interior_f64(double cr, double ci) {
 
 template <typename T>
 __device__ __forceinline__ bool skips_interior(T cr, T ci) {
-    if constexpr (std::is_same<T, double>::value && SKIP_INTERIOR != 0)
+    if constexpr (std::is_same<T, double>::value)
         return interior_f64(cr, ci);
     return false;
 }

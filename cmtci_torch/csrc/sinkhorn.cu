@@ -72,11 +72,6 @@
 // half steps of n m terms a step; chip_smoke.py counts the instructions of the
 // libdevice exp and log in this build's SASS), and the 2 * iters grid
 // barriers; streaming, the bytes of mk and mkT from HBM every step.
-// sinkhorn_barriers_launch runs the barriers alone on the same grid: the
-// floor beside the bound. STOP (4: everything) cuts every half step after a
-// part, for sweep_schedules' split of its time: 0 the barriers alone, 1 the
-// vector copy, 2 the maxima (streaming: with the ring's copies), 3 the exps
-// (RESIDENT: the exps and the adds, which are one loop there).
 //
 // f and g are written and read inside the launch: they are read with
 // ld.global.cg (__ldcg, L2 only), never through the read-only path, which
@@ -93,24 +88,17 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-// threads a CTA (transport/sinkhorn.SINKHORN_THREADS; sweep_schedules
-// rewrites it)
+// threads a CTA (transport/sinkhorn.SINKHORN_THREADS)
 constexpr int THREADS = 512;
 // CTAs a grid slot of each SM (transport/sinkhorn.SINKHORN_CTAS_PER_SM)
 constexpr int CTAS_PER_SM = 1;
-// passes the streaming ring holds (transport/sinkhorn.SINKHORN_RING;
-// sweep_schedules rewrites it): pass p's exps, pass p - 1's adds and pass p +
-// 1's maxima read three slots at once, and the others are in flight
+// passes the streaming ring holds (transport/sinkhorn.SINKHORN_RING): pass
+// p's exps, pass p - 1's adds and pass p + 1's maxima read three slots at
+// once, and the others are in flight
 constexpr int RING = 3;
 // a lane's terms loaded, maxed and exponentiated side by side when a warp
-// takes a whole resident line (sweep_schedules rewrites it)
+// takes a whole resident line
 constexpr int UNROLL = 8;
-// the last part of a half step that runs (4: all; sweep_schedules rewrites it)
-constexpr int STOP = 4;
-// 1: thread 0 of CTA 0 adds up the clock cycles of each part of its half
-// steps and writes them over the plan's first entries (sweep_schedules'
-// trace build; 0 in the package)
-constexpr int TRACE = 0;
 constexpr int WARP = 32;
 constexpr int WARPS = THREADS / WARP;
 constexpr unsigned FULL = 0xffffffffu;
@@ -173,15 +161,6 @@ __device__ __forceinline__ unsigned long long warp_max_key(unsigned long long k)
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// TRACE: thread 0 of CTA 0 adds the cycles since `t` to tr[part]
-__device__ __forceinline__ void mark(unsigned long long* tr, int part, unsigned long long& t) {
-    if (TRACE && threadIdx.x == 0 && blockIdx.x == 0) {
-        const unsigned long long now = clock64();
-        tr[part] += now - t;
-        t = now;
-    }
 }
 
 // Wait until the mbarrier completes the phase of parity `parity`.
@@ -341,10 +320,6 @@ __device__ __forceinline__ void line_lse(const double* x, const double* add, int
 #pragma unroll
     for (int u = 1; u < UNROLL; ++u) part[0] = fmax(part[0], part[u]);
     const double mx = key_max(warp_max_key(max_key(part[0])));
-    if (STOP < 3) {
-        if (lane == 0) *out = mx;
-        return;
-    }
     double acc = 0.0;
     k = lane;
     for (; k + (UNROLL - 1) * WARP < len; k += STRIDE) {
@@ -372,8 +347,7 @@ __device__ __forceinline__ void line_lse(const double* x, const double* add, int
 __device__ __forceinline__ void half_step(const Lines ls, const double* add, double* out,
                                           double eps, double log_marg, double* work,
                                           unsigned long long* keys, unsigned long long* bars,
-                                          unsigned& phases, unsigned long long* tr,
-                                          unsigned long long& t) {
+                                          unsigned& phases) {
     const int warp = threadIdx.x / WARP, len = ls.len, ld = ls.ld;
     if (ls.count == 0) return;
     // the segments of a line: in a full pass and in the last, shorter one
@@ -386,27 +360,23 @@ __device__ __forceinline__ void half_step(const Lines ls, const double* add, dou
     // round p: pass p - 1 exists while (p - 1) pass < count
     for (int p = -1; (p - 1) * ls.pass < ls.count; ++p) {
         const bool here = p >= 0 && p * ls.pass < ls.count, next = (p + 1) * ls.pass < ls.count;
-        const int adders = p < 1 || STOP < 4 ? 0 : min(count(p - 1), here ? WARPS / 2 : WARPS);
+        const int adders = p < 1 ? 0 : min(count(p - 1), here ? WARPS / 2 : WARPS);
         if (warp < adders) {
             for (int l = warp; l < count(p - 1); l += adders)
                 add_up(lines(p - 1) + l * ld, len, line_max(maxima(p - 1), l, segs(p - 1)), eps,
                        log_marg, out + (p - 1) * ls.pass + l);
-        } else if (here && STOP >= 3) {
+        } else if (here) {
             exps(lines(p), count(p), len, ld, add, maxima(p), segs(p), adders);
         }
-        mark(tr, 1, t);
         if (next) {
             const int slot = (p + 1) % RING;
             bar_wait(bars + slot, (phases >> slot) & 1u);
             phases ^= 1u << slot;
-            mark(tr, 2, t);
             partials(lines(p + 1), count(p + 1), segs(p + 1), len, ld, add, maxima(p + 1));
         }
-        mark(tr, 3, t);
         // the ring's in-place exps before a later bulk copy overwrites them
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         __syncthreads();
-        mark(tr, 4, t);
         if (threadIdx.x == 0 && p >= 1) stage(ls, p - 1 + RING, work, bars);
     }
 }
@@ -446,10 +416,6 @@ __global__ void __launch_bounds__(THREADS, 1) sinkhorn_kernel(const Args a) {
                 (-a.cost[static_cast<long long>(i) * m + j]) * a.inv_eps;
     const Lines row_lines{rows, r1 - r0, m, ldm, a.pass_rows};
     unsigned phases = 0;
-    // TRACE: cycles of each part (sweep_schedules.SINKHORN_TRACE); the
-    // loop's wall in ns
-    unsigned long long tr[6] = {}, t = 0, ns0 = 0, ns1 = 0;
-    constexpr bool STAGED = !RESIDENT && STOP >= 2;
     if (!RESIDENT) {
         // the scratch written above, before the bulk copies read it
         asm volatile("fence.proxy.async.global;" ::: "memory");
@@ -462,23 +428,20 @@ __global__ void __launch_bounds__(THREADS, 1) sinkhorn_kernel(const Args a) {
         }
     }
     __syncthreads();
-    if (STAGED && threadIdx.x == 0 && a.iters > 0)
+    if (!RESIDENT && threadIdx.x == 0 && a.iters > 0)
         for (int p = 0; p < RING; ++p) stage(row_lines, p, work, bars);
 
-    if (TRACE) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns0));
-    t = clock64();
     // 2 iters half steps, the f one (rows, after g) even, the g one (columns,
     // after f) odd, through one copy of the code; g starts at 0 (the first
     // half step reads no g)
     for (int h = 0; h < 2 * a.iters; ++h) {
         const bool gstep = h & 1;
         double* vec = gstep ? fs : gs;
-        if (STOP >= 1 && h == 0)
+        if (h == 0)
             for (int j = threadIdx.x; j < m; j += THREADS) gs[j] = 0.0 * a.inv_eps;
-        else if (STOP >= 1)
+        else
             refill(vec, gstep ? a.f : a.g, gstep ? n : m, a.inv_eps);
         __syncthreads();
-        mark(tr, 0, t);
         // this half step's lines and the next one's, field by field (registers)
         const Lines ls{gstep ? cols : rows, gstep ? c1 - c0 : r1 - r0, gstep ? n : m,
                        gstep ? ldn : ldm, gstep ? a.pass_cols : a.pass_rows};
@@ -486,23 +449,19 @@ __global__ void __launch_bounds__(THREADS, 1) sinkhorn_kernel(const Args a) {
                          gstep ? ldm : ldn, gstep ? a.pass_rows : a.pass_cols};
         double* out = gstep ? a.g + c0 : a.f + r0;
         const double log_marg = gstep ? a.log_nu : a.log_mu;
-        if (STOP >= 2 && RESIDENT) {
+        if (RESIDENT) {
             for (int l = threadIdx.x / WARP; l < ls.count; l += WARPS)
                 line_lse(ls.src + static_cast<long long>(l) * ls.ld, vec, ls.len, a.eps, log_marg,
                          out + l);
-            mark(tr, 1, t);
-        } else if (STOP >= 2) {
-            half_step(ls, vec, out, a.eps, log_marg, work, keys, bars, phases, tr, t);
+        } else {
+            half_step(ls, vec, out, a.eps, log_marg, work, keys, bars, phases);
         }
         // the lines added up (half_step's last barrier): the ring takes the
         // next half step's
-        if (STAGED && threadIdx.x == 0 && h + 1 < 2 * a.iters)
+        if (!RESIDENT && threadIdx.x == 0 && h + 1 < 2 * a.iters)
             for (int p = 0; p < RING; ++p) stage(next, p, work, bars);
         grid.sync();
-        mark(tr, 5, t);
     }
-
-    if (TRACE) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns1));
 
     // epilogue: the CTA's rows of the plan (f and g at 0 after no step)
     const bool none = a.iters <= 0;
@@ -515,37 +474,18 @@ __global__ void __launch_bounds__(THREADS, 1) sinkhorn_kernel(const Args a) {
         for (int j = threadIdx.x; j < m; j += THREADS)
             a.plan[static_cast<long long>(i) * m + j] =
                 exp((rows[static_cast<long long>(i - r0) * ldm + j] + fs[i]) + gs[j]);
-    if (TRACE) {
-        __syncthreads();
-        if (c == 0 && threadIdx.x == 0) {
-            for (int part = 0; part < 6; ++part) a.plan[part] = static_cast<double>(tr[part]);
-            a.plan[6] = static_cast<double>(ns1 - ns0);
-        }
-    }
-}
-
-// the grid barriers alone, on the loop's grid: the floor of its 2 * iters
-// barriers
-__global__ void __launch_bounds__(THREADS) barrier_kernel(int count) {
-    cg::grid_group grid = cg::this_grid();
-    for (int k = 0; k < count; ++k) grid.sync();
 }
 
 // opt in to `smem` bytes of dynamic shared memory past 48 KB, once a kernel
 // and size
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem, int* set) {
-    if (smem <= *set) return cudaSuccess;
-    const cudaError_t rc =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc == cudaSuccess) *set = smem;
-    return rc;
-}
-
 template <bool RESIDENT>
 cudaError_t allow(int smem) {
     static int set = 48 * 1024;
-    return allow_smem(sinkhorn_kernel<RESIDENT>, smem, &set);
+    if (smem <= set) return cudaSuccess;
+    const cudaError_t rc = cudaFuncSetAttribute(
+        sinkhorn_kernel<RESIDENT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc == cudaSuccess) set = smem;
+    return rc;
 }
 
 cudaError_t cooperative(const void* kernel, int ctas, void** params, int smem, void* stream) {
@@ -611,16 +551,4 @@ extern "C" int sinkhorn_launch(const void* cost, void* mk, void* mkT, void* f, v
                                      : cooperative(
                                            reinterpret_cast<const void*>(&sinkhorn_kernel<false>),
                                            ctas, params, smem, stream));
-}
-
-// `count` grid barriers and nothing else, on the grid the loop would take:
-// `ctas` CTAs of THREADS threads with `smem` bytes each (for the same
-// residency; the kernel touches none of it).
-extern "C" int sinkhorn_barriers_launch(int ctas, int smem, int count, void* stream) {
-    static int set = 48 * 1024;
-    const cudaError_t rc = allow_smem(barrier_kernel, smem, &set);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    void* params[] = {&count};
-    return static_cast<int>(
-        cooperative(reinterpret_cast<const void*>(&barrier_kernel), ctas, params, smem, stream));
 }

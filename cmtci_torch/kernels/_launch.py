@@ -45,8 +45,6 @@ ARGTYPES = {
     # cost, mk, mkT, f, g, plan, n, m, iters, eps, inv_eps, log_mu, log_nu,
     # ctas, resident, smem, pass_rows, pass_cols
     "sinkhorn": [_P] * 6 + [_I] * 3 + [_D] * 4 + [_I] * 5 + [_P],
-    # the grid barriers alone: ctas, smem, count
-    "sinkhorn_barriers": [_I] * 3 + [_P],
     # xy, fparams, iparams, nclouds, nscales, words, ctas, bitmaps, counts, ticket
     "boxcount": [_P] * 3 + [_I, _I, _L, _I] + [_P] * 3 + [_P],
     # xy, n, lo, hi, tau, nbins, e0, inv, threads, cols, ctas, is_double, counts
@@ -54,7 +52,7 @@ ARGTYPES = {
 }
 
 #: the csrc/<library>.cu that holds an entry point named otherwise
-LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell", "sinkhorn_barriers": "sinkhorn",
+LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell",
            **{name: "orbit" for name in ("orbit_dwell", "orbit_de_tci", "orbit_de_std",
                                          "orbit_de_stage1", "orbit_green", "orbit_potential")}}
 

@@ -389,7 +389,7 @@ ABERTH_SMEM_MAX = 232448
 #: lanes
 ABERTH_THREADS = 256
 #: the CTAs of a thread block cluster that share a polynomial of more lanes
-#: than a CTA has threads (aberth.cu's CLUSTER; sweep_schedules builds 1 to 16)
+#: than a CTA has threads (aberth.cu's CLUSTER; 1 to 16 were measured)
 ABERTH_CLUSTER = 8
 
 

@@ -288,38 +288,22 @@ def test_batch_potential_on_a_missing_card_raises():
 
 
 def test_sweep_variants_of_the_two_kernels():
-    """sweep_schedules' orbit_green and aberth variants rewrite constants
-    the sources have, the committed ones among them; the aberth builds span
-    the cluster sizes 1 to 16, and the package's ABERTH_CLUSTER and
-    ABERTH_THREADS are aberth.cu's CLUSTER and MAX_THREADS."""
+    """The constants of orbit_green's and aberth.cu's schedules are in the
+    sources, and the package's ABERTH_CLUSTER and ABERTH_THREADS are
+    aberth.cu's CLUSTER and MAX_THREADS."""
     import re
     from pathlib import Path
 
-    from cmtci_torch import sweep_schedules as sweep
-
-    text = (Path(companion.__file__).parents[1] / "csrc" / "orbit.cu").read_text()
+    csrc = Path(companion.__file__).parents[1] / "csrc"
+    text = (csrc / "orbit.cu").read_text()
     have = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
-    for label, consts in sweep.GREEN_VARIANTS.items():
-        new = sweep.rewrite(text, consts)
-        got = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", new)}
-        assert got == {**have, **consts}, label
-    assert {"GREEN_CHUNK": have["GREEN_CHUNK"]} in sweep.GREEN_VARIANTS.values()
-    assert {"GREEN_EPOCH": have["GREEN_EPOCH"]} not in sweep.GREEN_VARIANTS.values()
-    assert {v.get("GREEN_EPOCH") for v in sweep.GREEN_VARIANTS.values()} >= {64, 1024, 20000}
+    assert have["GREEN_CHUNK"] >= 1 and have["GREEN_EPOCH"] >= 1
     assert "GREEN_REFILL" not in text
-    text = (Path(companion.__file__).parents[1] / "csrc" / "aberth.cu").read_text()
+    text = (csrc / "aberth.cu").read_text()
     have = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
-    for label, consts in sweep.ABERTH_VARIANTS.items():
-        got = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
-                                                sweep.rewrite(text, consts))}
-        assert got == {**have, **consts}, label
-    assert {"REP_UNROLL": have["REP_UNROLL"]} in sweep.ABERTH_VARIANTS.values()
-    assert sweep.ABERTH_CLUSTERS == (1, 2, 4, 8, 16)
+    assert have["REP_UNROLL"] >= 1
     assert (have["CLUSTER"], have["MAX_THREADS"]) == (companion.ABERTH_CLUSTER,
                                                       companion.ABERTH_THREADS)
-    assert {(v.get("CLUSTER"), v.get("MAX_THREADS")) for v in sweep.ABERTH_VARIANTS.values()} >= {
-        (c, t) for c in sweep.ABERTH_CLUSTERS for t in sweep.ABERTH_THREADS}
-    assert {"aberth", "green", "probe"} <= set(sweep.SWEEPS)
 
 
 def test_cpu_runs_launch_nothing(green_points):

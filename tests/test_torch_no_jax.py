@@ -40,7 +40,6 @@ import cmtci_torch.io.loaders
 import cmtci_torch.transport.sinkhorn
 import cmtci_torch.transport.procrustes
 import cmtci_torch.bench
-import cmtci_torch.sweep_schedules
 import cmtci_torch.kernels.fma_peak
 import cmtci_torch.kernels.potential
 import cmtci_torch.kernels._launch

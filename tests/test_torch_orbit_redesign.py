@@ -35,11 +35,14 @@ from cmtci_torch.kernels import mandelbrot as mb
 ORBIT_CU = Path(__file__).resolve().parents[1] / "cmtci_torch" / "csrc" / "orbit.cu"
 CONSTS = {k: int(v) for k, v in
           re.findall(r"constexpr int (\w+) = (\d+);", ORBIT_CU.read_text())}
+#: orbit.cu's skips_interior: the f64 analytic interior takes no step
+SKIP_SRC = ("    if constexpr (std::is_same<T, double>::value)\n"
+            "        return interior_f64(cr, ci);")
 DOM = (-2.2, 1.2, -1.6, 1.6)
 F64, F32 = torch.float64, torch.float32
 SHAPES = ((3, 5), (1, 7), (37, 61), (129, 33))
 ITERS = (1, 2, 7, 300)
-#: the chunk lengths sweep_schedules builds orbit.cu with
+#: the chunk lengths the models are held to the twins at
 CHUNKS = (4, 6, 8)
 #: the cardioid-bulb junction chip_smoke.py holds both entries on
 JUNCTION = (-0.80, -0.70, -0.05, 0.05)
@@ -99,8 +102,7 @@ def skipped(cr, ci, skip: bool):
     return torch.zeros(cr.shape, dtype=torch.bool)
 
 
-def dwell_model(cr, ci, max_iter: int, c: int = CONSTS["DWELL_C"],
-                skip: bool = bool(CONSTS["SKIP_INTERIOR"])):
+def dwell_model(cr, ci, max_iter: int, c: int = CONSTS["DWELL_C"], skip: bool = True):
     """orbit.cu's dwell_of on every point: chunks of c carried steps, the
     latch `inside` that falls at the first |z|^2 > 4, the latches of the
     newest chunk counted after the loop, min(n - c + in_chunk, max_iter)."""
@@ -129,7 +131,7 @@ def dwell_model(cr, ci, max_iter: int, c: int = CONSTS["DWELL_C"],
 
 
 def tci_model(cr, ci, max_iter: int, escape_r: float = 250.0, c: int = CONSTS["TCI_C"],
-              skip: bool = bool(CONSTS["SKIP_INTERIOR"]),
+              skip: bool = True,
               replay: bool = bool(CONSTS["LATCH_BY_REPLAY"]), counts: dict | None = None):
     """orbit.cu's de_tci_kernel on every point: (esc, lr, li, dzr, dzi).
     All running points of the first pass stand at the same step (a thread
@@ -270,35 +272,17 @@ def grid(shape, dtype, dom=DOM):
 
 
 def test_models_read_the_committed_constants():
-    """The constants the models default to are orbit.cu's, and the sources
-    hold the two redesigned entries' launchers with (ny, nx)."""
+    """The constants the models default to are orbit.cu's, the f64 analytic
+    interior is always skipped (the models' default), and the sources hold
+    the two redesigned entries' launchers with (ny, nx)."""
     assert CONSTS["DWELL_C"] in CHUNKS and CONSTS["TCI_C"] in CHUNKS
     assert CONSTS["PATCH_W"] * CONSTS["PATCH_H"] == 32
-    assert CONSTS["SKIP_INTERIOR"] in (0, 1) and CONSTS["LATCH_BY_REPLAY"] in (0, 1)
+    assert CONSTS["LATCH_BY_REPLAY"] in (0, 1) and "SKIP_INTERIOR" not in CONSTS
     text = ORBIT_CU.read_text()
+    assert SKIP_SRC in text
     for entry in ("orbit_dwell", "orbit_de_tci"):
         sig = re.search(rf'extern "C" int {entry}_launch\(([^)]*)\)', text).group(1)
         assert "long long ny, long long nx" in " ".join(sig.split()), entry
-
-
-def test_sweep_variants_rewrite_the_source():
-    """sweep_schedules' orbit variants rewrite constants orbit.cu has, each
-    to a value other than the committed one or a chunk length the models
-    above cover; the parent's signature is told from the committed one."""
-    from cmtci_torch import sweep_schedules as sweep
-
-    text = ORBIT_CU.read_text()
-    for label, consts in sweep.ORBIT_VARIANTS.items():
-        got = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
-                                                sweep.rewrite(text, consts))}
-        assert got == {**CONSTS, **consts}, label
-        assert set(consts) <= {"DWELL_C", "TCI_C", "PATCH_W", "PATCH_H", "SKIP_INTERIOR",
-                               "LATCH_BY_REPLAY", "MIDDLE_OUT"}, label
-    assert {v.get("DWELL_C") for v in sweep.ORBIT_VARIANTS.values()} >= set(CHUNKS)
-    assert {"LATCH_BY_REPLAY": 1 - CONSTS["LATCH_BY_REPLAY"]} in sweep.ORBIT_VARIANTS.values()
-    assert {"SKIP_INTERIOR": 0} in sweep.ORBIT_VARIANTS.values()
-    assert sweep.takes_grid(ORBIT_CU.parent)
-    assert "orbit" in sweep.SWEEPS
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
@@ -417,8 +401,8 @@ def test_the_interior_takes_no_step_in_f64_only():
 
 @pytest.mark.parametrize("dtype", [F64, F32])
 def test_step_accounting_is_the_models(dtype):
-    """bench's step accounting, which chip_smoke.py and sweep_schedules
-    take the redesign's bounds from, counts the model's steps at one step a
+    """bench's step accounting, which chip_smoke.py takes the redesign's
+    bounds from, counts the model's steps at one step a
     chunk; its mask is the model's; _de_tci_contract is the model's loop
     state."""
     from cmtci_torch import bench

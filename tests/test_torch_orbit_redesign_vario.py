@@ -38,13 +38,16 @@ from cmtci_torch.kernels import mandelbrot as mb
 ORBIT_CU = Path(__file__).resolve().parents[1] / "cmtci_torch" / "csrc" / "orbit.cu"
 CONSTS = {k: int(v) for k, v in
           re.findall(r"constexpr int (\w+) = (\d+);", ORBIT_CU.read_text())}
+#: orbit.cu's skips_interior: the f64 analytic interior takes no step
+SKIP_SRC = ("    if constexpr (std::is_same<T, double>::value)\n"
+            "        return interior_f64(cr, ci);")
 DOM = (-2.2, 1.2, -1.6, 1.6)
 F64, F32 = torch.float64, torch.float32
 SHAPES = ((3, 5), (1, 7), (37, 61), (129, 33))
 #: max_iter on every shape; 600 (the variograms' de_std and U_M) on SHAPES[2]
 ITERS = (0, 1, 2, 7, 61)
 DEEP = 600
-#: the chunk lengths sweep_schedules builds orbit.cu with
+#: the chunk lengths the models are held to the twins at
 CHUNKS = (4, 6, 8)
 #: the cardioid-bulb junction chip_smoke.py holds the entries on
 JUNCTION = (-0.80, -0.70, -0.05, 0.05)
@@ -165,7 +168,7 @@ def skipped(cr, ci, skip: bool, t: float):
 def de_std_model(cr, ci, max_iter: int, escape_r: float = 4.0, c: int = CONSTS["STD_C"],
                  replay: bool = bool(CONSTS["LATCH_BY_REPLAY"]),
                  second_pass: bool | None = None,
-                 skip: bool = bool(CONSTS["SKIP_INTERIOR"]), counts: dict | None = None):
+                 skip: bool = True, counts: dict | None = None):
     """orbit.cu's de_std_kernel on every point: (esc, lzr, lzi, ldr, ldi);
     dz by a second pass of the escapers, or carried in the first pass
     (second_pass None: as orbit.cu's STD_DZ_CARRIED_F64 or _F32 says for
@@ -199,7 +202,7 @@ def de_std_model(cr, ci, max_iter: int, escape_r: float = 4.0, c: int = CONSTS["
 
 def potential_model(cr, ci, max_iter: int, r2: float, skip_interior: bool,
                     c: int = CONSTS["POT_C"], replay: bool = bool(CONSTS["LATCH_BY_REPLAY"]),
-                    skip: bool = bool(CONSTS["SKIP_INTERIOR"]), counts: dict | None = None):
+                    skip: bool = True, counts: dict | None = None):
     """orbit.cu's potential_kernel on every point: (esc, k, lzr, lzi)."""
     shape = cr.shape
     cr, ci = cr.reshape(-1), ci.reshape(-1)
@@ -289,8 +292,10 @@ def test_models_read_the_committed_constants():
     assert CONSTS["STD_DZ_CARRIED_F64"] in (0, 1) and CONSTS["STD_DZ_CARRIED_F32"] in (0, 1)
     assert CONSTS["LATCH_BY_REPLAY"] in (0, 1)
     assert CONSTS["ESC_PATCH_W"] * CONSTS["ESC_PATCH_H"] == 32
-    assert CONSTS["SKIP_INTERIOR"] == 1  # _potential_contract describes the committed skip
+    # _potential_contract describes the skip, which is always on in f64
+    assert "SKIP_INTERIOR" not in CONSTS
     text = ORBIT_CU.read_text()
+    assert SKIP_SRC in text
     for entry, size in (("orbit_de_std", "long long ny, long long nx"),
                         ("orbit_potential", "long long ny, long long nx"),
                         ("orbit_de_stage1", "long long ny, long long nx, int max_iter, "
@@ -298,37 +303,6 @@ def test_models_read_the_committed_constants():
         sig = re.search(rf'extern "C" int {entry}_launch\(([^)]*)\)', text).group(1)
         assert size in " ".join(sig.split()), entry
     assert "double t," in text and "int skip_interior" in text
-
-
-def test_sweep_variants_cover_the_two_entries():
-    """sweep_schedules' variants of the two entries rewrite their chunks (4,
-    6, 8), the skip, the warp's row, the latch and de_std's dz pass, and the
-    sweep has cases for both entries at the variograms' and coupling's
-    sizes; an orbit.cu whose two entries take the point count (commit
-    78d1fc6's) is told from the committed one by its signature."""
-    from cmtci_torch import sweep_schedules as sweep
-
-    text = ORBIT_CU.read_text()
-    for label, consts in sweep.ORBIT_VARIO_VARIANTS.items():
-        got = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
-                                                sweep.rewrite(text, consts))}
-        assert got == {**CONSTS, **consts}, label
-    assert sweep.takes_grid(ORBIT_CU.parent, "orbit_de_std")
-    assert sweep.takes_grid(ORBIT_CU.parent, "orbit_potential")
-    # the point count for (ny, nx); orbit_potential without its skip flag
-    for entry, fewer in (("orbit_de_std", 1), ("orbit_potential", 2)):
-        assert len(sweep.ORBIT_N_ARGTYPES[entry]) == len(_launch.ARGTYPES[entry]) - fewer
-    variants = list(sweep.ORBIT_VARIO_VARIANTS.values())
-    assert {v.get("STD_C") for v in variants} >= set(CHUNKS)
-    assert {v.get("POT_C") for v in variants} >= set(CHUNKS)
-    for key in ("STD_DZ_CARRIED_F64", "STD_DZ_CARRIED_F32"):
-        assert {key: 1 - CONSTS[key]} in variants, key
-    assert {"SKIP_INTERIOR": 0} in variants
-    assert dict(ESC_PATCH_W=32, ESC_PATCH_H=1) in variants
-    assert {v.get("POT_WARPS") for v in variants} >= {1, 4}
-    assert {"LATCH_BY_REPLAY": 1 - CONSTS["LATCH_BY_REPLAY"]} in variants
-    assert [c[0] for c in sweep.ORBIT_STD_CASES][0].startswith("variograms 700^2 f64")
-    assert {c[-1] for c in sweep.ORBIT_POTENTIAL_CASES} >= {"two_pow_n", "k_plus_1"}
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
@@ -456,8 +430,8 @@ def test_the_interior_takes_no_step_in_f64_only():
 
 @pytest.mark.parametrize("dtype", [F64, F32])
 def test_step_accounting_is_the_models(dtype):
-    """bench's step accounting, which chip_smoke.py and sweep_schedules take
-    the redesign's bounds from, counts the models' steps at one step a chunk
+    """bench's step accounting, which chip_smoke.py takes the redesign's
+    bounds from, counts the models' steps at one step a chunk
     with the select latch (no replay): de_std's z-only steps and its second
     pass's (dz, z) steps, which a first pass that carries dz folds into its
     own."""

@@ -45,12 +45,15 @@ from cmtci_torch.pipelines import stage1
 ORBIT_CU = Path(__file__).resolve().parents[1] / "cmtci_torch" / "csrc" / "orbit.cu"
 CONSTS = {k: int(v) for k, v in
           re.findall(r"constexpr int (\w+) = (\d+);", ORBIT_CU.read_text())}
+#: orbit.cu's skips_interior: the f64 analytic interior takes no step
+SKIP_SRC = ("    if constexpr (std::is_same<T, double>::value)\n"
+            "        return interior_f64(cr, ci);")
 F64, F32 = torch.float64, torch.float32
 SHAPES = ((3, 5), (1, 7), (37, 61), (129, 33))
 #: max_iter on every shape; stage1's 200 on SHAPES[2] and on its own grid
 ITERS = (0, 1, 2, 7, 61)
 DEEP = 200
-#: the chunk lengths sweep_schedules builds orbit.cu with
+#: the chunk lengths the model is held to the twin at
 CHUNKS = (4, 6, 8)
 
 
@@ -166,7 +169,7 @@ def first_escape(cr, ci, max_iter: int, test, c: int, replay: bool, with_dz: boo
 def de_stage1_model(cr, ci, max_iter: int, radius: float = 1e6, c: int = CONSTS["S1_C"],
                     replay: bool = bool(CONSTS["LATCH_BY_REPLAY"]),
                     second_pass: bool | None = None,
-                    skip: bool = bool(CONSTS["SKIP_INTERIOR"]), counts: dict | None = None):
+                    skip: bool = True, counts: dict | None = None):
     """orbit.cu's de_latched_kernel under HypotBand on every point: (esc,
     lzr, lzi, ldr, ldi); dz by a second pass of the escapers, or carried in
     the first pass (second_pass None: as S1_DZ_CARRIED_F64 or _F32 says for
@@ -281,8 +284,9 @@ def test_model_reads_the_committed_constants():
     assert CONSTS["S1_PATCH_W"] * CONSTS["S1_PATCH_H"] == 32
     assert CONSTS["S1_WARPS"] in (1, 2, 4)
     assert CONSTS["S1_DZ_CARRIED_F64"] in (0, 1) and CONSTS["S1_DZ_CARRIED_F32"] in (0, 1)
-    assert CONSTS["LATCH_BY_REPLAY"] in (0, 1) and CONSTS["SKIP_INTERIOR"] == 1
+    assert CONSTS["LATCH_BY_REPLAY"] in (0, 1) and "SKIP_INTERIOR" not in CONSTS
     text = ORBIT_CU.read_text()
+    assert SKIP_SRC in text
     sig = re.search(r'extern "C" int orbit_de_stage1_launch\(([^)]*)\)', text).group(1)
     assert ("long long ny, long long nx, int max_iter, double radius, double t_lo, "
             "double t_hi, void* hypot_calls, int is_double, void* stream") in " ".join(sig.split())
@@ -512,8 +516,8 @@ def test_cpu_inputs_run_the_twin_and_launch_nothing():
 
 @pytest.mark.parametrize("dtype", [F64, F32])
 def test_step_accounting_is_the_models(dtype):
-    """bench's accounting, which chip_smoke.py and sweep_schedules take the
-    bounds and the hypot count from, is the model's: orbit_de_stage1_lane_steps
+    """bench's accounting, which chip_smoke.py takes the bounds and the
+    hypot count from, is the model's: orbit_de_stage1_lane_steps
     counts its z-only steps at one step a chunk with the select latch and
     its second pass's steps; orbit_de_stage1_hypot_calls its calls of hypot
     under the committed replay, the same at each chunk length."""
@@ -532,31 +536,6 @@ def test_step_accounting_is_the_models(dtype):
                     counts = {}
                     de_stage1_model(cr, ci, it, radius, c=c, replay=True, counts=counts)
                     assert calls == counts["hypot"], (tuple(cr.shape), it, radius, c)
-
-
-def test_sweep_variants_cover_the_entry():
-    """sweep_schedules' stage1 variants rewrite the skip, the chunk (4, 6,
-    8), dz's pass both ways, the latch, the three patches and 1, 2 and 4
-    warps a block; the parent's entry (commit 1f4d000) is told from the
-    committed one by its signature, and its argument types take the point
-    count and R."""
-    from cmtci_torch import sweep_schedules as sweep
-
-    text = ORBIT_CU.read_text()
-    for label, consts in sweep.ORBIT_S1_VARIANTS.items():
-        got = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
-                                                sweep.rewrite(text, consts))}
-        assert got == {**CONSTS, **consts}, label
-    variants = list(sweep.ORBIT_S1_VARIANTS.values())
-    assert {"SKIP_INTERIOR": 0} in variants and {"LATCH_BY_REPLAY": 0} in variants
-    assert {v.get("S1_C") for v in variants} >= set(CHUNKS)
-    assert {v.get("S1_WARPS") for v in variants} >= {1, 2, 4}
-    assert {(v.get("S1_PATCH_W"), v.get("S1_PATCH_H")) for v in variants} >= {(8, 4), (4, 8),
-                                                                              (32, 1)}
-    assert {v.get("S1_DZ_CARRIED_F64") for v in variants} >= {0, 1}
-    assert sweep.takes_grid(ORBIT_CU.parent, "orbit_de_stage1")
-    assert len(sweep.ORBIT_N_ARGTYPES["orbit_de_stage1"]) == 12
-    assert [c[1] for c in sweep.ORBIT_S1_CASES] == ["stage1", "stage1", "junction"]
 
 
 # ---------------------------------------------------------------------------

@@ -445,8 +445,8 @@ def test_a_ring_of_two_passes_is_refused():
 @pytest.mark.parametrize("streaming", [False, True])
 @pytest.mark.parametrize("threads", [256, 1024])
 def test_pass_model_threads(threads, streaming):
-    """The sweep's builds of other THREADS, on their own plans (up to
-    THREADS / 32 lines a pass), keep the twin's bits."""
+    """Plans for other THREADS (launch_plan's threads=; up to THREADS / 32
+    lines a pass) keep the twin's bits."""
     cost = torch.as_tensor(feature_cost(31, 45, seed=11))
     plan = sinkhorn.launch_plan(31, 45, H100_SMS, H100_SMEM, ctas=2, streaming=streaming,
                                 threads=threads)
@@ -589,23 +589,21 @@ def test_the_card_path_raises_without_a_card():
 
 
 def test_signatures_and_constants_match_the_source():
-    """Each ctypes argument list has as many types as its extern "C"
-    function has parameters, and the Python mirrors of CTAS_PER_SM, THREADS
-    and RING are the source's; the committed build runs every part of a half
-    step (STOP 4) and traces nothing (TRACE 0)."""
+    """The ctypes argument list has as many types as the extern "C" launch
+    has parameters (test_python_mirror_equals_the_csrc_constant compares the
+    mirrors of CTAS_PER_SM, THREADS and RING); the source has one loop, with
+    no build-time cut of a half step (STOP) and no clock trace (TRACE)."""
     src = (CSRC / "sinkhorn.cu").read_text()
-    for entry in ("sinkhorn", "sinkhorn_barriers"):
-        assert _launch.LIBRARY.get(entry, entry) == "sinkhorn"
-        m = re.search(rf'extern "C" int {entry}_launch\(([^)]*)\)', src)
-        assert m, entry
-        assert len(m.group(1).split(",")) == len(_launch.ARGTYPES[entry]), entry
+    assert _launch.LIBRARY.get("sinkhorn", "sinkhorn") == "sinkhorn"
+    m = re.search(r'extern "C" int sinkhorn_launch\(([^)]*)\)', src)
+    assert m
+    assert len(m.group(1).split(",")) == len(_launch.ARGTYPES["sinkhorn"])
+    assert re.findall(r'extern "C" int (\w+)\(', src) == [
+        "sinkhorn_limits", "sinkhorn_occupancy", "sinkhorn_launch"]
     for query, arity in (("sinkhorn_limits", 2), ("sinkhorn_occupancy", 3)):
         m = re.search(rf'extern "C" int {query}\(([^)]*)\)', src)
         assert m and len(m.group(1).split(",")) == arity, query
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
-    assert int(consts["CTAS_PER_SM"]) == sinkhorn.SINKHORN_CTAS_PER_SM
     assert int(consts["WARP"]) == sinkhorn.WARP
-    assert int(consts["THREADS"]) == sinkhorn.SINKHORN_THREADS
-    assert int(consts["RING"]) == sinkhorn.SINKHORN_RING
-    assert int(consts["STOP"]) == 4 and int(consts["TRACE"]) == 0
+    assert "STOP" not in consts and "TRACE" not in consts
     assert int(consts["UNROLL"]) >= 1
