@@ -284,7 +284,20 @@ prints no result line):
      the counter spatial_stats.shell_scans_card 2, the in-shell pairs the
      twin's; the kernel's time on C and M (a CUDA graph of the counts'
      zeroing and the launch) against its bound by operations (5 FP32 a
-     pair j > i at 67 TFLOP/s), and the twin's.
+     pair j > i at 67 TFLOP/s), and the twin's;
+ 26. csrc/argmax_match.cu (the tracker's matcher: a mean pass and an argmax
+     pass) against the torch chain it replaced, on the card, on the matcher's
+     own inputs of the to1024 tracker (bins 64 to 1024: 2,400, 6,000,
+     14,820, 37,820 and 97,020 points a cloud) for three seeds in f32 and of
+     the f64 tracker's first four stages: the f64 totals within 1e-12, the
+     mean's f32 (f64) bits equal, the indices bitwise given the same mean,
+     and _match_fused's bitwise; the same at ragged and tiny sizes, on
+     duplicated points (the first index wins) and NaN coordinates; one
+     run_tracker's launches (an argmax_mean and an argmax_rows a stage) and
+     its counter tracker.match_card; each pass's and the match's time (a CUDA
+     graph's replay) at the five sizes beside the chain's and the bound by
+     the instructions a pair issues, counted in the SASS of the two inner
+     loops.
 `python3 chip_smoke.py --cards N` on a machine with N cards runs only the
 multi-card check (phase_cards): phase 22's sharded heads, each called twice,
 on an N-rank NCCL group, one card a rank, against the single device, each
@@ -377,7 +390,7 @@ CONSTRUCT_SUMMARY = os.path.join(ROOT, "artifacts", "construct_curv_localpoly_su
 MANDEL_SUMMARY = os.path.join(ROOT, "artifacts", "mandel_curv_localpoly_summary.txt")
 #: the libraries to build, one csrc/<name>.cu each
 KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "green_grid", "dwell_ms", "fma_peak",
-           "aberth", "orbit", "sinkhorn", "boxcount", "shellcount")
+           "aberth", "orbit", "sinkhorn", "boxcount", "shellcount", "argmax_match")
 #: the entry points of csrc/orbit.cu, in the order of the kernels line
 ORBIT_ENTRIES = ("orbit_dwell", "orbit_de_tci", "orbit_de_std", "orbit_de_stage1",
                  "orbit_green", "orbit_potential")
@@ -426,9 +439,8 @@ ABERTH_CLOUDS = ([(f"tracker stage {i + 1}", "lucas_all_ones", list(range(20, to
 
 
 #: the entry points of the kernels line, and the source of one named otherwise
-ENTRIES = KERNELS[:-5] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES + ("sinkhorn",
-                                                                            "boxcount",
-                                                                            "shellcount")
+ENTRIES = KERNELS[:-6] + ("dwell_periodic", "aberth") + ORBIT_ENTRIES + (
+    "sinkhorn", "boxcount", "shellcount", "argmax_match")
 SOURCE = {"dwell_periodic": "dwell", **{name: "orbit" for name in ORBIT_ENTRIES}}
 #: the TPU kernel, or the reference's compiled device loop, each entry replaces
 REPLACES = {
@@ -450,6 +462,7 @@ REPLACES = {
     "sinkhorn": "cmtci/transport/sinkhorn.py:148",
     "boxcount": "cmtci/stats/pointstats.py:197",  # host np.unique rows; no TPU kernel
     "shellcount": "cmtci/stats/pointstats.py:25",  # XLA ops; no TPU kernel
+    "argmax_match": "cmtci/transport/sinkhorn.py:28",  # XLA ops; no TPU kernel
 }
 #: the run (a label of launched()) whose launches the kernels line gives for
 #: each new entry: its main path
@@ -458,7 +471,7 @@ MAIN_PATH = {"aberth": "tracker (dense, second run)", "orbit_dwell": "boundary t
              "orbit_de_stage1": "stage1, one run", "orbit_green": "equipotential float64",
              "orbit_potential": "run_variograms f64",
              "sinkhorn": "stage1, one run", "boxcount": "run_spatial_stats",
-             "shellcount": "run_spatial_stats"}
+             "shellcount": "run_spatial_stats", "argmax_match": "tracker (dense, second run)"}
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM, published, at 700 W
 #: FP32 operations a step of the loops K6, K2's periodic entry and K5 ran
 #: before their redesign (one pixel a thread on one-row warps, a compare and
@@ -755,19 +768,26 @@ def phase_kernels(dev):
 
 def run_kernel_tracker(dev, label, config):
     """One kernel-path tracker run; returns (rows, meta, wall, K1 launches):
-    one K1 and one aberth launch a stage, nothing else."""
+    one K1, one aberth, one argmax_mean and one argmax_rows launch a stage,
+    nothing else, and the counter tracker.match_card one a stage."""
     import torch
 
     from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
+    from cmtci_torch.utils.artifacts import StageTimer
 
     cfg = TrackerConfig(**config, field_dtype="float32", de_impl="cuda")
+    timer = StageTimer(dev)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    rows, meta = run_tracker(cfg, device=dev)
+    rows, meta = run_tracker(cfg, device=dev, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launched(f"tracker ({label})", {"tci_de": None, "aberth": len(rows)})
+    launches = launched(f"tracker ({label})", {"tci_de": None, "aberth": len(rows),
+                                               "argmax_mean": len(rows),
+                                               "argmax_rows": len(rows)})
+    check(timer.counts.get("tracker.match_card") == len(rows),
+          f"tracker ({label}): tracker.match_card {timer.counts.get('tracker.match_card')}")
     print(f"tracker ({label}): {len(rows)} rows in {wall:.3f} s wall, "
           f"{launches['tci_de']} K1 and {launches['aberth']} aberth launches")
     return rows, meta, wall, launches["tci_de"]
@@ -834,7 +854,7 @@ def phase_f64(dev, oracle):
     t0 = time.perf_counter()
     rows, _ = run_tracker(TrackerConfig(**DENSE), max_stages=2, device=dev)
     wall = time.perf_counter() - t0
-    launched("f64 tracker", {"aberth": 2, "orbit_de_tci": 2})
+    launched("f64 tracker", {"aberth": 2, "orbit_de_tci": 2, "argmax_mean": 2, "argmax_rows": 2})
     check(len(rows) == 2 and rows[1].n_construct_pts == 6000, "f64 path: wrong rows")
     for k in CHECK_KEYS:
         got, want = getattr(rows[0], k), float(oracle[0][k])
@@ -1580,7 +1600,8 @@ def phase_tci(dev):
                                   plots=False, timer=timer, device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = launched(f"run_tci {grid}", {"tci_de": 1, "aberth": 1})
+            launches = launched(f"run_tci {grid}", {"tci_de": 1, "aberth": 1, "argmax_mean": 1,
+                                                    "argmax_rows": 1})
             launches_k1 = launches["tci_de"]
             label = f"run_tci {grid}x{grid} ({run} run)"
             check(bool(np.all(np.diff(kls) <= 1e-12)), f"{label}: KL not monotone")
@@ -1613,7 +1634,7 @@ def phase_tci_f64(dev):
     t0 = time.perf_counter()
     out, kls, _ = run_tci(cfg, plots=False, device=dev)
     wall = time.perf_counter() - t0
-    launched("f64 run_tci", {"aberth": 1})
+    launched("f64 run_tci", {"aberth": 1, "argmax_mean": 1, "argmax_rows": 1})
     want = np.asarray(ref["kls"])
     rel = np.abs(kls - want) / np.abs(want)
     check(rel[0] <= 1e-9, f"KL_initial {kls[0]!r} vs {want[0]!r}")
@@ -1977,11 +1998,11 @@ BENCH_KEYS = ("value", "dwell_entry_ms", "dwell_tflops", "vpu_peak_tflops", "dwe
               "knn_150k_s", "eigensweep_s", "tracker_warm_s", "equipotential_s", "variograms_s",
               "uniformize_green_s", "uniformize_fem_s", "tci_4x_s", "coupling_s")
 #: the kernels a bench run must launch: K1 (tracker_warm_s, tci_4x_s), K2, K3
-#: (equipotential_s), K4, K7, aberth (every key with a cloud), and the
+#: (equipotential_s), K4, K7, aberth (every key with a cloud), the
 #: orbit.cu entries of variograms_s (the boundary proxy's DE field, U_M) and
-#: coupling_s (U_M)
+#: coupling_s (U_M), and the matcher's two passes (tracker_warm_s, tci_4x_s)
 BENCH_KERNELS = ("tci_de", "dwell", "cloud_green", "de_std", "fma_peak", "aberth",
-                 "orbit_de_std", "orbit_potential")
+                 "orbit_de_std", "orbit_potential", "argmax_mean", "argmax_rows")
 
 
 def phase_bench(dev):
@@ -2872,9 +2893,11 @@ def phase_multidevice(dev):
     meshed, _ = timed("the same on a one-rank NCCL mesh",
                       lambda: run_tracker(cfg, device=dev, mesh=mesh))
     dist.destroy_process_group()
-    # each run: an aberth and an orbit_de_tci launch a stage
+    # each run: an aberth and an orbit_de_tci launch a stage; the single
+    # device's matcher an argmax_mean and an argmax_rows launch a stage, the
+    # mesh's the sharded torch chain
     launched("f32 torch-DE tracker, single and one-rank mesh",
-             {"aberth": 8, "orbit_de_tci": 8})
+             {"aberth": 8, "orbit_de_tci": 8, "argmax_mean": 4, "argmax_rows": 4})
     strip = [[{**dataclasses.asdict(r), "runtime_sec": 0.0} for r in rows[0]]
              for rows in (single, meshed)]
     check(len(strip[0]) == 4 and strip[0] == strip[1],
@@ -4349,6 +4372,229 @@ def phase_shellcount(dev):
                       "shells to r_max 1.5")
 
 
+#: to1024's schedule: the dense tracker one stage on, bins 64 to 1024
+TO1024 = dict(DENSE, bins_max=1024)
+#: the matcher's sizes on it, a stage each (both clouds cut to C's size)
+MATCH_SIZES = (2400, 6000, 14820, 37820, 97020)
+#: host seeds of the tracker runs whose matcher inputs phase 26 replays
+MATCH_SEEDS = (7, 2147500301, 4294967291)
+#: the matcher's eps in both tracker cells (sinkhorn_eps)
+MATCH_EPS = 0.8
+#: MUFU operations an SM issues a clock (the root's reciprocal square root,
+#: the division's reciprocal, the exp's ex2)
+MUFU_LANES = 16
+
+
+def tracker_matches(dev, config: dict, seed: int, timer=None, **kw) -> list:
+    """The matcher's inputs [(a, b)] of one run_tracker on `dev`, a stage
+    each, as entropic_argmax_match hands them to _match_fused (which still
+    computes the run's matches)."""
+    from cmtci_torch.pipelines.tracker import TrackerConfig, run_tracker
+    from cmtci_torch.transport import sinkhorn
+
+    seen, real = [], sinkhorn._match_fused
+
+    def record(a, b, eps, chunk=2048):
+        seen.append((a, b))
+        return real(a, b, eps, chunk)
+
+    sinkhorn._match_fused = record
+    try:
+        run_tracker(TrackerConfig(**config, seed=seed), device=dev, timer=timer, **kw)
+    finally:
+        sinkhorn._match_fused = real
+    return seen
+
+
+def match_against_chain(label: str, a, b, eps: float = MATCH_EPS) -> float:
+    """argmax_match.cu on the card against the torch chain it replaced, on
+    the same clouds: the f64 totals within 1e-12 (returns the relative gap);
+    in f32 the means' bits equal (a total on a rounding boundary of f32 fails
+    and is named; an f64 mean is the total's quotient, which the order of the
+    sum moves by an ulp); the indices bitwise given the chain's mean; and
+    _match_fused's (the public path's) bitwise the chain's given the
+    kernel's mean."""
+    import torch
+
+    from cmtci_torch.kernels import argmax_match
+    from cmtci_torch.transport import sinkhorn
+
+    n, m = a.shape[0], b.shape[0]
+    total_k, total_t = argmax_match.dist_total(a, b), sinkhorn._blocked_dist_total(a, b)
+    both_nan = bool(total_k.isnan() and total_t.isnan())
+    gap = 0.0 if both_nan else abs(float(total_k) - float(total_t)) / abs(float(total_t))
+    check(both_nan or gap <= 1e-12, f"argmax_match {label}: total {float(total_k)!r} against "
+          f"the chain's {float(total_t)!r}")
+    mean_k = argmax_match.mean_from_total(total_k, n, m, a.dtype)
+    mean_t = argmax_match.mean_from_total(total_t, n, m, a.dtype)
+    if a.dtype == torch.float32:
+        check(torch.equal(mean_k, mean_t) or bool(mean_k.isnan() and mean_t.isnan()),
+              f"argmax_match {label}: the mean {mean_k.item()!r} against the chain's "
+              f"{mean_t.item()!r}: the totals {float(total_k)!r} and {float(total_t)!r} "
+              "straddle a rounding boundary of float32")
+    got = argmax_match.argmax_rows(a, b, mean_t, eps)
+    want = sinkhorn._argmax_kernel_rows(a, b, mean_t, eps)
+    check(torch.equal(got, want), f"argmax_match {label}: {int((got != want).sum())} of {n} "
+          "rows differ from the chain's, given its mean")
+    public = sinkhorn._match_fused(a, b, eps)
+    want = sinkhorn._argmax_kernel_rows(a, b, mean_k, eps)
+    check(torch.equal(public, want), f"argmax_match {label}: _match_fused differs from the "
+          f"chain given the kernel's mean in {int((public != want).sum())} rows")
+    return gap
+
+
+def argmax_sass() -> dict:
+    """From the SASS of the f32 passes (cuobjdump on the built library): the
+    instructions a pair issues on the common path of each inner loop's body
+    (a forward branch over a slow path's call taken, its instructions not
+    counted; the body over its MUFU.RSQ, one a pair), and its MUFU
+    operations a pair."""
+    import re
+
+    from cmtci_torch.kernels import _build
+
+    so = _build.BUILD_DIR / f"argmax_match-{_build.source_digest('argmax_match')}"
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so / "libargmax_match.so")],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for name in ("mean_kernelIf", "rows_kernelIf"):
+        body = next(f for f in sass.split("Function : ")[1:] if name in f.split("\n")[0])
+        code = [(int(m.group(1), 16), m.group(2).strip()) for m in
+                re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        at = {addr: k for k, (addr, _) in enumerate(code)}
+
+        def target(k):
+            m = re.search(r"BRA (0x[0-9a-f]+)", code[k][1])
+            return int(m.group(1), 16) if m else None
+
+        best = None
+        for end in range(len(code)):
+            t = target(end)
+            if t is None or t > code[end][0]:
+                continue
+            issued, mufu, k = [], 0, at[t]
+            while k <= end:
+                issued.append(code[k][1])
+                f = target(k)
+                k = (at[f] if f is not None and code[k][0] < f <= code[end][0]
+                     and any("CALL" in c for _, c in code[k + 1 : at[f]]) else k + 1)
+            rsq = sum("MUFU.RSQ" in c for c in issued)
+            if rsq and (best is None or (rsq, -len(issued)) > (best[1], -best[0])):
+                best = (len(issued), rsq, sum("MUFU" in c for c in issued))
+        size, rsq, mufu = best
+        out[name] = dict(instructions=size / rsq, mufu=mufu / rsq, pairs_a_body=rsq)
+    return out
+
+
+def phase_argmax_match(dev):
+    """Phase 26: argmax_match.cu against the torch chain on the tracker's own
+    matcher inputs (to1024 in f32, three seeds; the f64 tracker's four
+    stages), at ragged and tiny sizes, on duplicated points and NaN; one
+    run_tracker's launches and counter; the passes' times against the chain's
+    and the bound. Returns the kernels-line fields."""
+    import numpy as np
+    import torch
+
+    from cmtci_torch import bench
+    from cmtci_torch.kernels import argmax_match
+    from cmtci_torch.transport import sinkhorn
+    from cmtci_torch.utils.artifacts import StageTimer
+
+    gaps, timed = [], None
+    for seed in MATCH_SEEDS:
+        timer = StageTimer(dev)
+        reset_launches()
+        calls = tracker_matches(dev, {**TO1024, "field_dtype": "float32", "de_impl": "cuda"},
+                                seed, timer)
+        torch.cuda.synchronize()
+        launched(f"to1024 tracker, seed {seed}", {"tci_de": None, "aberth": 5, "argmax_mean": 5,
+                                                 "argmax_rows": 5})
+        check(timer.counts.get("tracker.match_card") == 5,
+              f"to1024 seed {seed}: tracker.match_card {timer.counts.get('tracker.match_card')}")
+        sizes = [a.shape[0] for a, _ in calls]
+        check(sizes == list(MATCH_SIZES) and all(b.shape == a.shape for a, b in calls),
+              f"to1024 seed {seed}: matcher sizes {sizes}")
+        for a, b in calls:
+            gaps.append(match_against_chain(f"f32 {a.shape[0]} seed {seed}", a, b))
+        print(f"argmax_match, to1024 seed {seed}: f32 at {sizes} points: means' bits and indices "
+              f"the chain's; totals within {max(gaps[-5:])!r}; tracker.match_card 5; match "
+              "stages (ms) " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in timer.times.items()
+                                         if k.endswith("_match")))
+        timed = timed or calls
+    f64 = tracker_matches(dev, DENSE, MATCH_SEEDS[0], max_stages=4)
+    check([a.shape[0] for a, _ in f64] == list(MATCH_SIZES[:4])
+          and all(a.dtype == torch.float64 for a, _ in f64), "f64 tracker's matcher inputs")
+    for a, b in f64:
+        gaps.append(match_against_chain(f"f64 {a.shape[0]}", a, b))
+    print(f"argmax_match f64 (the f64 tracker's four stages): indices the chain's given its "
+          f"mean; totals within {max(gaps[-4:])!r}")
+
+    rng = np.random.default_rng(26)
+    for dtype in (torch.float32, torch.float64):
+        for n, m in ((1, 1), (37, 5), (1025, 511), (1025, 512), (3001, 2999), (2048, 97020)):
+            a = torch.as_tensor(rng.uniform(-2, 1, (n, 2)), dtype=dtype, device=dev)
+            b = torch.as_tensor(rng.uniform(-2, 1, (m, 2)), dtype=dtype, device=dev)
+            match_against_chain(f"{n} x {m} {dtype}", a, b)
+        base = torch.as_tensor(rng.uniform(-2, 1, (1500, 2)), dtype=dtype, device=dev)
+        a = torch.as_tensor(rng.uniform(-2, 1, (3000, 2)), dtype=dtype, device=dev)
+        b = torch.cat([base, base]).contiguous()
+        match_against_chain(f"duplicated points {dtype}", a, b)
+        check(int(argmax_match.argmax_match(a, b, MATCH_EPS).max()) < 1500,
+              f"duplicated points {dtype}: a second copy won")
+        b[7, 0] = math.nan
+        mean = torch.tensor(1.25, dtype=dtype, device=dev)
+        got = argmax_match.argmax_rows(a, b, mean, MATCH_EPS)
+        check(torch.equal(got, sinkhorn._argmax_kernel_rows(a, b, mean, MATCH_EPS))
+              and not bool((got == 7).any()), f"a NaN column {dtype}")
+        a[3, 1] = math.nan
+        match_against_chain(f"a NaN row {dtype}", a, b)
+        check(not bool(argmax_match.argmax_match(a, b, MATCH_EPS).any()),
+              f"a NaN row {dtype}: a NaN mean gives index 0 everywhere")
+    print("argmax_match at 1 x 1, 37 x 5, 1025 x 511 (one slab), 1025 x 512, 3001 x 2999, "
+          "2048 x 97020, on duplicated points (the first index) and NaN coordinates, in f32 "
+          "and f64: the chain's")
+
+    sass = argmax_sass()
+    ops = sass["mean_kernelIf"]["instructions"] + sass["rows_kernelIf"]["instructions"]
+    mufu = sass["mean_kernelIf"]["mufu"] + sass["rows_kernelIf"]["mufu"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = bench.max_sm_clock_mhz(dev) * 1e6
+    print(f"argmax_match SASS (f32): {sass}; {ops:.2f} instructions and {mufu:.2f} MUFU "
+          f"operations a pair; {sms} SMs at {clock_hz / 1e9:.3f} GHz")
+    rows = {}
+    for a, b in timed:
+        n = a.shape[0]
+        mean = sinkhorn._blocked_mean_dist(a, b)
+        match_ms = cuda_ms(lambda: argmax_match.argmax_match(a, b, MATCH_EPS), 1, 5, 1,
+                           graph=True)
+        mean_ms = cuda_ms(lambda: argmax_match.dist_total(a, b), 1, 5, 1, graph=True)
+        rows_ms = cuda_ms(lambda: argmax_match.argmax_rows(a, b, mean, MATCH_EPS), 1, 5, 1,
+                          graph=True)
+        chained_ms = cuda_ms(lambda: argmax_match.argmax_match(a, b, MATCH_EPS), 1, 5)
+        chain_ms = cuda_ms(lambda: sinkhorn._argmax_kernel_rows(
+            a, b, sinkhorn._blocked_mean_dist(a, b), MATCH_EPS), 1, 3)
+        pairs = n * b.shape[0]
+        issue = pairs * ops / (sms * FP32_LANES * clock_hz) * 1e3
+        mufu_ms = pairs * mufu / (sms * MUFU_LANES * clock_hz) * 1e3
+        bound = max(issue, mufu_ms)
+        rows[n] = dict(match_ms=match_ms, mean_ms=mean_ms, rows_ms=rows_ms,
+                       chained_ms=chained_ms, chain_ms=chain_ms, bound_ms=bound,
+                       plan=argmax_match.launch_plan(n, b.shape[0]))
+        print(f"argmax_match {n} x {b.shape[0]} f32 ({rows[n]['plan']}): match {match_ms:.4f} ms "
+              f"(graph; mean pass {mean_ms:.4f}, argmax pass {rows_ms:.4f}; chained "
+              f"{chained_ms:.4f}), chain {chain_ms:.2f} ms, bound {bound:.4f} ms (issue "
+              f"{issue:.4f}, MUFU {mufu_ms:.4f}), {100 * bound / match_ms:.2f}% of it")
+    top = rows[MATCH_SIZES[-1]]
+    print(f"argmax_match, to1024's five stages: {sum(r['match_ms'] for r in rows.values()):.4f} "
+          f"ms (graph) against the chain's {sum(r['chain_ms'] for r in rows.values()):.2f}")
+    return dict(max_abs_err=0.0, ms=top["match_ms"], chained_ms=top["chained_ms"],
+                plain_ms=top["chain_ms"], bound_ms=top["bound_ms"], bound_by="operations",
+                mean_ms=top["mean_ms"], rows_ms=top["rows_ms"], total_gap=max(gaps),
+                instructions_a_pair=ops, mufu_a_pair=mufu,
+                shape=f"{MATCH_SIZES[-1]} x {MATCH_SIZES[-1]} f32, to1024's fifth stage")
+
+
 def main() -> int:
     card = card_line()
     print(card)
@@ -4391,6 +4637,7 @@ def main() -> int:
     loops = timed(23, phase_loops, dev)
     box = timed(24, phase_boxcount, dev)
     shells = timed(25, phase_shellcount, dev)
+    matcher = timed(26, phase_argmax_match, dev)
 
     k1_ms, k1_plain, k1_bound, k1_by, k1_graph_ms = k1_timing[("tracker", GRIDS[-1])]
     k2_ms, k2_plain, k2_bound, k2_by = k2_timing[DWELL_SHAPES[0]]
@@ -4417,6 +4664,9 @@ def main() -> int:
            for name in ("aberth", "sinkhorn")},
         "boxcount": dict(box, launches=LAUNCHED[MAIN_PATH["boxcount"]]["boxcount"]),
         "shellcount": dict(shells, launches=LAUNCHED[MAIN_PATH["shellcount"]]["shellcount"]),
+        # a launch of each pass a match
+        "argmax_match": dict(matcher,
+                             launches=LAUNCHED[MAIN_PATH["argmax_match"]]["argmax_rows"]),
     }
     print(card)
     print(json.dumps({"kernels": [

@@ -49,10 +49,15 @@ ARGTYPES = {
     "boxcount": [_P] * 3 + [_I, _I, _L, _I] + [_P] * 3 + [_P],
     # xy, n, lo, hi, tau, nbins, e0, inv, threads, cols, ctas, is_double, counts
     "shellcount": [_P, _I, _I, _I, _P, _I, _F, _F, _I, _I, _I, _I, _P, _P],
+    # a, b, n, m, slabs, is_double, then partials, ticket, total
+    "argmax_mean": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # a, b, n, m, slabs, is_double, mean, inv_eps, kpart, jpart, tickets, out
+    "argmax_rows": [_P, _P, _I, _I, _I, _I, _P, _D, _P, _P, _P, _P, _P],
 }
 
 #: the csrc/<library>.cu that holds an entry point named otherwise
 LIBRARY = {"dwell_rows": "dwell", "dwell_periodic": "dwell",
+           "argmax_mean": "argmax_match", "argmax_rows": "argmax_match",
            **{name: "orbit" for name in ("orbit_dwell", "orbit_de_tci", "orbit_de_std",
                                          "orbit_de_stage1", "orbit_green", "orbit_potential")}}
 

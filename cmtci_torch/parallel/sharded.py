@@ -529,10 +529,11 @@ def sharded_argmax_match(ax, by, eps: float, mesh: Mesh, chunk: int = 2048):
     """Kernel-argmax OT matcher with the rows of `ax` sharded over the mesh.
 
     Each rank matches its chunks of rows against the replicated `by`; the
-    mean-distance normalizer sums the per-chunk partials, gathered, in
+    mean-distance normalizer sums the per-chunk f64 partials, gathered, in
     global chunk order, as the single-device blocked matcher
-    (sinkhorn._blocked_mean_dist) accumulates them, so the match is
-    bitwise the single-device one. Returns host int64 match indices (n,)."""
+    (sinkhorn._blocked_dist_total) accumulates them, and takes the mean by
+    the same epilogue, so the match is bitwise the single-device twin's.
+    Returns host int64 match indices (n,)."""
     ax = torch.as_tensor(ax, device=mesh.device)
     by = torch.as_tensor(by, dtype=ax.dtype, device=mesh.device)
     return _sharded_argmax_match_dev(ax, by, ax.shape[0], eps, mesh, chunk).cpu().numpy()
@@ -540,18 +541,20 @@ def sharded_argmax_match(ax, by, eps: float, mesh: Mesh, chunk: int = 2048):
 
 def _sharded_argmax_match_dev(a, b, n: int, eps, mesh: Mesh, chunk: int):
     """Device core of sharded_argmax_match: (n,) int64 on every rank."""
+    from cmtci_torch.kernels.argmax_match import mean_from_total
     from cmtci_torch.transport.sinkhorn import _pairwise_dist
 
     n_chunks = -(-n // chunk)
     lo_c, hi_c, k_loc = _share(n_chunks, mesh)
-    parts = torch.zeros(k_loc, dtype=a.dtype, device=a.device)
+    parts = torch.zeros(k_loc, dtype=torch.float64, device=a.device)
     for j, c in enumerate(range(lo_c, hi_c)):
-        parts[j] = torch.sum(_pairwise_dist(a[c * chunk : (c + 1) * chunk], b))
+        parts[j] = torch.sum(_pairwise_dist(a[c * chunk : (c + 1) * chunk], b),
+                             dtype=torch.float64)
     all_parts = torch.cat(all_gather(mesh, parts))
-    total = torch.zeros((), dtype=a.dtype, device=a.device)
-    for c in range(n_chunks):  # global chunk order, as _blocked_mean_dist adds
+    total = torch.zeros((), dtype=torch.float64, device=a.device)
+    for c in range(n_chunks):  # global chunk order, as _blocked_dist_total adds
         total = total + all_parts[c]
-    mean = total / (n * b.shape[0])
+    mean = mean_from_total(total, n, b.shape[0], a.dtype)
     out = torch.zeros(k_loc * chunk, dtype=torch.int64, device=a.device)
     for j, c in enumerate(range(lo_c, hi_c)):
         rows = a[c * chunk : (c + 1) * chunk]

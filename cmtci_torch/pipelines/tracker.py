@@ -139,7 +139,9 @@ def run_tracker(cfg: TrackerConfig, max_stages: Optional[int] = None,
     post-stage RNG state are stored keyed by the stage config; reruns with
     identical parameters touch no eigensolve/DE/matcher and the shared RNG
     stream continues where the stage left it. `timer` records per-phase
-    wall times (device-synchronized on CUDA).
+    wall times (device-synchronized on CUDA) and counts
+    ``tracker.match_card``, the stages whose matcher ran on
+    csrc/argmax_match.cu.
 
     With a `mesh` (parallel.sharded.device_mesh) the stage runs on the
     rank's device with its heavy work sharded over the ranks: the DE grid's
@@ -195,7 +197,8 @@ def run_tracker(cfg: TrackerConfig, max_stages: Optional[int] = None,
                 m_match, c_sub = entropic_argmax_match(
                     c_cloud, m_cloud, eps=cfg.sinkhorn_eps, rng=rng,
                     backend="numpy" if cfg.parity else "torch",
-                    dtype=torch.float32 if f32 else None, device=dev, mesh=stage_mesh)
+                    dtype=torch.float32 if f32 else None, device=dev, mesh=stage_mesh,
+                    count=timer.count)
             c_aligned = procrustes_align_no_scale(c_sub, m_match, convention="reference")
             return {"c_aligned": c_aligned, "m_aligned": m_match,
                     **artifacts.rng_state_arrays(rng)}

@@ -9,10 +9,15 @@ larger cloud to the smaller's size with the caller's numpy RNG, scales the
 distance matrix by its mean, K = exp(-M/eps), match = argmax over rows.
 
 backend="numpy" is the reference's exact op order (scipy cdist, full K);
-backend="torch" computes the same match blocked over rows on a device,
-without materializing K. Distances are sqrt(dx*dx + dy*dy), as the
-reference's ``_pairwise_dist`` writes them — not ``torch.cdist``, which
-switches to a matrix-product formula with other rounding on large inputs.
+backend="torch" computes the same match without materializing K: on a card
+the two passes of csrc/argmax_match.cu (kernels/argmax_match.py), on the CPU
+their twin, the chain below blocked over rows. Distances are sqrt(dx*dx +
+dy*dy), as the reference's ``_pairwise_dist`` writes them — not
+``torch.cdist``, which switches to a matrix-product formula with other
+rounding on large inputs. The mean distance is summed in f64 whatever the
+clouds' dtype (each distance widened first, as the benchmark's plain
+reference does; the reference package sums f32 distances in f32) and rounded
+once to their dtype.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cmtci_torch.kernels import _launch
+from cmtci_torch.kernels import _launch, argmax_match
 from cmtci_torch.utils.arrays import as_xy as _xy
 from cmtci_torch.utils.device import resolve_device
 
@@ -37,12 +42,22 @@ def _pairwise_dist(a, b):
     return torch.sqrt(dx * dx + dy * dy)
 
 
-def _blocked_mean_dist(a, b, chunk: int = 2048):
-    """Mean pairwise distance accumulated per block of rows (0-dim tensor)."""
-    acc = torch.zeros((), dtype=a.dtype, device=a.device)
+def _blocked_dist_total(a, b, chunk: int = 2048):
+    """Sum of the pairwise distances (0-dim float64): each block of `chunk`
+    rows summed by torch with every distance widened to f64, the blocks added
+    in order. The twin of csrc/argmax_match.cu's mean pass, which adds the
+    same f64 values in another fixed order."""
+    acc = torch.zeros((), dtype=torch.float64, device=a.device)
     for i in range(0, a.shape[0], chunk):
-        acc = acc + torch.sum(_pairwise_dist(a[i : i + chunk], b))
-    return acc / (a.shape[0] * b.shape[0])
+        acc = acc + torch.sum(_pairwise_dist(a[i : i + chunk], b), dtype=torch.float64)
+    return acc
+
+
+def _blocked_mean_dist(a, b, chunk: int = 2048):
+    """Mean pairwise distance in a's dtype (0-dim): _blocked_dist_total's f64
+    total through argmax_match.mean_from_total, the kernel path's epilogue."""
+    return argmax_match.mean_from_total(_blocked_dist_total(a, b, chunk), a.shape[0],
+                                        b.shape[0], a.dtype)
 
 
 def _argmax_kernel_rows(a, b, mean, eps: float, chunk: int = 2048):
@@ -59,13 +74,18 @@ def _argmax_kernel_rows(a, b, mean, eps: float, chunk: int = 2048):
 
 
 def _match_fused(a, b, eps: float, chunk: int = 2048):
-    """Mean pairwise distance, then the kernel-argmax rows."""
+    """Mean pairwise distance, then the kernel-argmax rows (int64 tensor): on
+    a CUDA tensor the two launches of csrc/argmax_match.cu
+    (argmax_match.argmax_match, which raises on what it cannot take), on a CPU
+    tensor their twin, this module's chain in blocks of `chunk` rows."""
+    if a.device.type != "cpu":
+        return argmax_match.argmax_match(a, b, eps)
     mean = _blocked_mean_dist(a, b, chunk=chunk)
     return _argmax_kernel_rows(a, b, mean, eps, chunk=chunk)
 
 
 def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torch",
-                          dtype=None, device="cuda", mesh=None):
+                          dtype=None, device="cuda", mesh=None, count=None):
     """Match each x to argmax_j exp(-d/eps). Returns (y[match], x) like the
     reference.
 
@@ -75,7 +95,9 @@ def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torc
     `device`; the numpy backend ignores both. With a `mesh` the torch
     backend's rows are sharded over its ranks, on the ranks' devices
     (parallel.sharded.sharded_argmax_match, bitwise the single-device
-    match).
+    match). `count`, a callable (name, n), takes ``tracker.match_card``: one
+    for a match made by csrc/argmax_match.cu (the torch backend on a card,
+    without a mesh).
     """
     if backend not in MATCH_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {MATCH_BACKENDS}")
@@ -108,6 +130,8 @@ def entropic_argmax_match(x, y, eps: float = 0.8, rng=None, backend: str = "torc
         dt = torch.float64 if dtype is None else dtype
         match = _match_fused(torch.as_tensor(ax, dtype=dt, device=dev),
                              torch.as_tensor(by, dtype=dt, device=dev), eps).cpu().numpy()
+        if count is not None and dev.type == "cuda":
+            count("tracker.match_card", 1)
     return y[match], x
 
 

@@ -43,6 +43,7 @@ import cmtci_torch.bench
 import cmtci_torch.kernels.fma_peak
 import cmtci_torch.kernels.potential
 import cmtci_torch.kernels._launch
+import cmtci_torch.kernels.argmax_match
 import cmtci_torch.kernels.companion
 import cmtci_torch.kernels.mandelbrot
 import cmtci_torch.stats.variogram
